@@ -1,0 +1,490 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
+
+  python3 chip_smoke.py
+
+Runs on one NVIDIA card, in phases; any failing phase ends the script with a
+non-zero exit code and no result line.
+
+  1. card    the card's name and power limit (nvidia-smi).
+  2. build   nvcc the kernel library from ``src/repro_torch/csrc`` for
+             sm_90a (keyed by a hash of the sources, under ``build/``).
+  3. kernels every member at the full-width granite-3-2b main-path shapes
+             (B=8, S=2048, chunk C=512, bf16) against its plain PyTorch
+             version; each chain bitwise against its two members launched
+             separately; the two fused bundles the planner picks bitwise
+             against ``run_native`` of the same members.  Each is timed with
+             CUDA events (median of 20 launches, L2 flushed before each, the
+             queue primed so host overhead stays out of the window) beside
+             its plain version, one PyTorch library call as a yardstick
+             (never used by the port) and its bound from bytes and
+             operations at the card's data-sheet rates.
+  4. serve   the port's ServeEngine on full-width granite-3-2b (40 layers,
+             bf16, random weights from a seeded torch.Generator), batch 8,
+             max_len 2048, PrefillBudget(chunk_rows=512,
+             max_coresident_chunks=2), 12 staggered requests with prompts of
+             64..1500 tokens and 8..16 new tokens.  Every launch counter is
+             reset just before the run and must be > 0 after it, and some
+             fused launch must have carried a prefill chunk.  The first mixed
+             step's logits are held against the same step built from the
+             plain versions on the card.  The trace is then served once more
+             under torch.profiler for device time by kernel name.
+  5. report  one JSON line of kernels, then the result line.
+
+Exits with code 1 and no result when no CUDA device is visible, and with
+code 2 when the port's sources are not beside it.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# Data-sheet rates of one H100 SXM (dense): device memory bytes/s, bf16
+# tensor-core FLOP/s, fp32 FLOP/s outside the tensor cores.
+HBM_BYTES_S = 3.35e12
+BF16_FLOPS = 989e12
+FP32_FLOPS = 67e12
+
+# Full-width granite-3-2b serve shapes of the main path.
+B, S, C = 8, 2048, 512
+DECODE_LENS = (1, 17, 300, 1024, 2048, 555, 64, 1999)   # mixed per-slot
+PREFILL_OFFS = (0, 1024)
+
+# Kernel vs plain: fp32 outputs to 1e-4 absolute plus 1e-3 relative (same
+# bf16 products summed in fp32 in another order); bf16 outputs to 2**-7 of
+# the largest reference value (fp32 sums may round to a neighbouring bf16).
+F32_RTOL, F32_ATOL = 1e-3, 1e-4
+BF16_REL = 2.0 ** -7
+# First mixed step, kernels vs plain versions through all 40 layers: the
+# relative L2 distance of the logits.  Each layer rounds the residual stream
+# to bf16 (2**-8 relative) and the two sides sum in different orders, so
+# they drift by a few bf16 steps per layer; a wrong kernel gives O(1).
+LOGITS_REL_L2 = 5e-2
+
+SLEEP_CYCLES = 100_000_000     # ~50 ms of queued GPU sleep before a timing
+REPS = 20
+
+
+class PhaseError(RuntimeError):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise PhaseError(msg)
+
+
+# ---------------------------------------------------------------------------
+# Timing and error helpers
+# ---------------------------------------------------------------------------
+def cuda_ms(torch, fn, flush) -> float:
+    """Median device time of ``fn`` over REPS launches, CUDA events around
+    each; L2 flushed before each; the queue is primed with a GPU sleep so
+    every launch is enqueued before the device reaches it."""
+    fn()
+    torch.cuda.synchronize()
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(REPS)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(REPS)]
+    torch.cuda._sleep(SLEEP_CYCLES)
+    for s, e in zip(starts, ends):
+        flush.zero_()
+        s.record()
+        fn()
+        e.record()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
+
+
+def compare(torch, got, want) -> float:
+    """Hold kernel outputs against the plain outputs; returns max |diff|."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        check(a.shape == b.shape and a.dtype == b.dtype,
+              f"output {tuple(a.shape)} {a.dtype} vs {tuple(b.shape)} "
+              f"{b.dtype}")
+        check(bool(torch.isfinite(a.float()).all()), "non-finite output")
+        diff = (a.float() - b.float()).abs()
+        err = diff.max().item()
+        if a.dtype == torch.bfloat16:
+            tol = BF16_REL * b.float().abs().max().item() + 1e-6
+            check(err <= tol, f"bf16 output off by {err} > {tol}")
+        else:
+            lim = (F32_ATOL + F32_RTOL * b.abs()).sub(diff).min().item()
+            check(lim >= 0, f"fp32 output off by {err}")
+        worst = max(worst, err)
+    return worst
+
+
+def bound(nbytes: float, flops: float, peak: float) -> tuple[float, str]:
+    t_b, t_f = nbytes / HBM_BYTES_S, flops / peak
+    return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: kernels at the main-path shapes
+# ---------------------------------------------------------------------------
+def phase_kernels(torch, dev, cfg) -> list[dict]:
+    import torch.nn.functional as F
+
+    from repro_torch.core import hfuse
+    from repro_torch.core.cost_model import Schedule
+    from repro_torch.kernels import registry
+    from repro_torch.serve.engine import PrefillBudget, ServeEngine
+
+    bundle_k, row_k, dec_k, pf_k = registry()
+    d, H, Hkv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    D, f = cfg.resolved_head_dim, cfg.d_ff
+    N_qkv = (H + 2 * Hkv) * D
+    budget = PrefillBudget(chunk_rows=C, max_coresident_chunks=2)
+
+    # the main path's own OpSpecs and schedules: the stitched program with
+    # two chunks, and the unstitched graph for the standalone members
+    def ops_of(stitched: bool, n: int):
+        eng = ServeEngine(cfg, None, batch=B, max_len=S, prefill_budget=budget,
+                          stitch_epilogues=stitched, device=dev)
+        prog = eng.build_decode_program(prefill_chunks=n)
+        return prog, {op.name: op for st in prog.steps for op in st.ops}
+
+    prog, ops = ops_of(True, 2)
+    _prog0, ops0 = ops_of(False, 0)
+    att = next(o for n, o in ops.items() if n.startswith("decode_attn"))
+    pfs = sorted((o for n, o in ops.items() if n.startswith("prefill_attn")),
+                 key=lambda o: o.name)
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(1234)
+
+    def randn(shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    x = randn((B, d))
+    scale1, scale2 = (randn((1, d), torch.float32, 0.1) for _ in range(2))
+    w_qkv = randn((d, N_qkv), scale=d ** -0.5)
+    w_in = randn((d, 2 * f), scale=d ** -0.5)
+    h_ffn = hfuse.run_single(ops0["ffn_proj"], plain=True)(x, w_in)[0]
+    lens = torch.tensor(DECODE_LENS, dtype=torch.int32, device=dev)
+    q_dec = randn((B, H, D))
+    k_cache, v_cache = randn((B, S, Hkv, D)), randn((B, S, Hkv, D))
+    q_pf = randn((C, H, D))
+    dec_in = (lens.reshape(B, 1), q_dec, k_cache, v_cache)
+
+    def pf_in(off):
+        return (torch.full((1, 1), off, dtype=torch.int32, device=dev), q_pf,
+                k_cache[3], v_cache[3])
+
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
+    lib_w1 = (1.0 + scale2).reshape(d).to(torch.bfloat16)
+    kpos = torch.arange(S, device=dev)
+    dec_mask = (kpos[None, :] < lens[:, None]).reshape(B, 1, 1, S)
+
+    def sdpa_prefill(off):
+        mask = kpos[None, :] <= off + torch.arange(C, device=dev)[:, None]
+        qh = q_pf.transpose(0, 1)[None]
+        kh, vh = k_cache[3].transpose(0, 1)[None], v_cache[3].transpose(0, 1)[None]
+        return lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, attn_mask=mask, enable_gqa=True)
+
+    qd = q_dec[:, :, None, :]
+    kd, vd = k_cache.transpose(1, 2), v_cache.transpose(1, 2)
+
+    # bytes/flops each case must move/do, from this run's inputs
+    def dec_cost():
+        kv = sum(2 * L * Hkv * D * 2 for L in DECODE_LENS)
+        io = B * 4 + B * H * D * 2 + B * H * D * 4 + 2 * B * H * 4
+        return kv + io, sum(4.0 * H * D * L for L in DECODE_LENS)
+
+    def pf_cost(off):
+        kv = 2 * (off + C) * Hkv * D * 2
+        io = 4 + C * H * D * 2 + C * H * D * 4 + 2 * C * H * 4
+        return kv + io, sum(4.0 * H * D * (off + r + 1) for r in range(C))
+
+    gemm_cost = lambda K, N, out: (K * N * 2 + B * K * 2 + B * out * 2,   # noqa: E731
+                                   2.0 * B * K * N)
+    norm_cost = (2 * B * d * 2 + d * 4, 4.0 * B * d)
+    chain1 = next(o for n, o in ops.items() if n.startswith("decode_norm1"))
+    chain2 = next(o for n, o in ops.items() if n.startswith("ffn_proj"))
+    cases = [
+        # name, kernel, csrc, replaces, op, inputs, (bytes, flops), peak, lib
+        ("row_member:decode_norm2", row_k, "row_member.cuh",
+         "src/repro/kernels/rmsnorm.py:38", ops["decode_norm2"],
+         (x, scale2), norm_cost, FP32_FLOPS,
+         lambda: F.rms_norm(x, (d,), lib_w1, 1e-6)),
+        ("row_member:qkv_proj", row_k, "row_member.cuh",
+         "src/repro/kernels/matmul.py:64", ops0["qkv_proj"], (x, w_qkv),
+         gemm_cost(d, N_qkv, N_qkv), BF16_FLOPS, lambda: x @ w_qkv),
+        ("row_member:decode_norm1->qkv_proj", row_k, "row_member.cuh",
+         "src/repro/core/stitch.py:177", chain1, (x, scale1, w_qkv),
+         (gemm_cost(d, N_qkv, N_qkv)[0] + d * 4,
+          gemm_cost(d, N_qkv, N_qkv)[1] + 4.0 * B * d), BF16_FLOPS,
+         lambda: x @ w_qkv),
+        ("row_member:decode_act", row_k, "row_member.cuh",
+         "src/repro/kernels/elementwise.py:20", ops0["decode_act"], (h_ffn,),
+         (B * 2 * f * 2 + B * f * 2, 8.0 * B * 2 * f), FP32_FLOPS, None),
+        ("row_member:ffn_proj->decode_act", row_k, "row_member.cuh",
+         "src/repro/core/stitch.py:177", chain2, (x, w_in),
+         gemm_cost(d, 2 * f, f), BF16_FLOPS, lambda: x @ w_in),
+        ("decode_attention", dec_k, "decode_attention.cuh",
+         "src/repro/kernels/decode_attention.py:44", att, dec_in,
+         dec_cost(), BF16_FLOPS,
+         lambda: F.scaled_dot_product_attention(qd, kd, vd,
+                                                attn_mask=dec_mask,
+                                                enable_gqa=True)),
+    ]
+    for off in PREFILL_OFFS:
+        cases.append((f"prefill_attention:off={off}", pf_k,
+                      "prefill_attention.cuh",
+                      "src/repro/kernels/prefill_attention.py:40", pfs[0],
+                      pf_in(off), pf_cost(off), BF16_FLOPS,
+                      sdpa_prefill(off)))
+
+    rows = []
+
+    def record(name, kernel, src, replaces, err, ms, plain_ms, cost, peak,
+               lib_ms, **extra):
+        b_ms, b_by = bound(cost[0], cost[1], peak)
+        rows.append({"name": name, "kernel": kernel, "route": "cuda",
+                     "source": f"src/repro_torch/csrc/{src}",
+                     "replaces": replaces, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": lib_ms, **extra})
+        print(f"[kernels] {name}: {ms:.4f} ms (plain {plain_ms:.4f}, "
+              f"library {lib_ms if lib_ms is None else round(lib_ms, 4)}, "
+              f"bound {b_ms:.4f} by {b_by}) max|err| {err:.3g}", flush=True)
+
+    for name, kernel, src, replaces, op, ins, cost, peak, lib in cases:
+        run, run_plain = hfuse.run_single(op), hfuse.run_single(op, plain=True)
+        err = compare(torch, run(*ins), run_plain(*ins))
+        record(name, kernel, src, replaces, err,
+               cuda_ms(torch, lambda: run(*ins), flush),
+               cuda_ms(torch, lambda: run_plain(*ins), flush), cost, peak,
+               None if lib is None else cuda_ms(torch, lib, flush))
+
+    # chains: bitwise equal to the two members launched separately
+    (c1,) = hfuse.run_single(chain1)(x, scale1, w_qkv)
+    (mid,) = hfuse.run_single(ops0["decode_norm1"])(x, scale1)
+    check(torch.equal(c1, hfuse.run_single(ops0["qkv_proj"])(mid, w_qkv)[0]),
+          "decode_norm1->qkv_proj differs from its separate members")
+    (c2,) = hfuse.run_single(chain2)(x, w_in)
+    (hk,) = hfuse.run_single(ops0["ffn_proj"])(x, w_in)
+    check(torch.equal(c2, hfuse.run_single(ops0["decode_act"])(hk)[0]),
+          "ffn_proj->decode_act differs from its separate members")
+    print("[kernels] both chains bitwise equal their separate members")
+
+    # the planner's fused bundles: bitwise equal to run_native
+    operands = {att.name: dec_in, pfs[0].name: pf_in(PREFILL_OFFS[0]),
+                pfs[1].name: pf_in(PREFILL_OFFS[1]), chain2.name: (x, w_in),
+                chain1.name: (x, scale1, w_qkv)}
+    costs = {att.name: dec_cost(), pfs[0].name: pf_cost(PREFILL_OFFS[0]),
+             pfs[1].name: pf_cost(PREFILL_OFFS[1]),
+             chain2.name: gemm_cost(d, 2 * f, f)}
+    fused_steps = [st for st in prog.steps if st.fused]
+    check(len(fused_steps) == 2, f"expected 2 fused launches, got "
+          f"{[st.members for st in fused_steps]}")
+    for st in fused_steps:
+        ins = tuple(t for op in st.ops for t in operands[op.name])
+        sched = Schedule(tuple(int(r) for r in st.schedule.split(":")))
+        fused = hfuse.generate(st.ops, sched)
+        native = hfuse.run_native(st.ops)
+        plain = hfuse.generate(st.ops, sched, plain=True)
+        out_f, out_n = fused(*ins), native(*ins)
+        check(all(torch.equal(a, b) for a, b in zip(out_f, out_n)),
+              f"fused {st.members} differs from run_native")
+        err = compare(torch, out_f, plain(*ins))
+        label = "+".join(m.split("_B")[0].split("_C")[0] for m in st.members
+                         ).replace("\u2192", "->")
+        cost = tuple(sum(costs[op.name][i] for op in st.ops) for i in (0, 1))
+        record(f"bundle_launcher:{label} ({st.schedule})", bundle_k,
+               "bundle.cu", "src/repro/core/hfuse.py:87", err,
+               cuda_ms(torch, lambda: fused(*ins), flush),
+               cuda_ms(torch, lambda: plain(*ins), flush), cost, BF16_FLOPS,
+               None, native_ms=cuda_ms(torch, lambda: native(*ins), flush))
+    print("[kernels] fused bundles bitwise equal run_native")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: serve full-width granite-3-2b
+# ---------------------------------------------------------------------------
+def phase_serve(torch, dev, cfg) -> dict:
+    import numpy as np
+
+    from repro_torch.kernels import cuda, registry
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import PrefillBudget, Request, ServeEngine
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = lm.init(cfg, gen, device=dev)
+    budget = PrefillBudget(chunk_rows=C, max_coresident_chunks=2)
+    eng = ServeEngine(cfg, params, batch=B, max_len=S, prefill_budget=budget,
+                      device=dev)
+    torch.cuda.synchronize()
+    print(f"[serve] weights + plan: {time.perf_counter() - t0:.1f}s; plan "
+          f"{eng.fusion_plan.summary()}", flush=True)
+
+    def requests():
+        rng = np.random.default_rng(0)
+        lens = np.linspace(64, 1500, 12).round().astype(int)
+        return [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                                   L).astype(np.int32),
+                        max_new_tokens=8 + (3 * i) % 9, arrival=2 * i)
+                for i, L in enumerate(lens)]
+
+    reqs = requests()
+
+    # capture the first mixed step's inputs and logits (kernels path)
+    captured = {}
+    make_step = eng._cb_step
+
+    def cb_step(n):
+        step = make_step(n)
+
+        def wrapped(params_, cache, tokens, active, **kw):
+            first = n and "inputs" not in captured and bool(active.any())
+            if first:
+                captured["inputs"] = (
+                    n, {"pos": cache["pos"].clone(),
+                        **{k: {kk: vv.clone() for kk, vv in v.items()}
+                           for k, v in cache.items() if k != "pos"}},
+                    tokens.clone(), active.clone(), dict(kw))
+            out = step(params_, cache, tokens, active, **kw)
+            if first:
+                captured["out"] = (out[0].clone(), out[2].clone())
+            return out
+        return wrapped
+
+    eng._cb_step = cb_step
+    kernels = registry()
+    cuda.reset_counts(kernels)
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k.name: k.launches for k in kernels}
+    st = eng.stats
+    tokens = sum(len(r.out_tokens) for r in reqs)
+    print(f"[serve] {len(reqs)} requests, {tokens} tokens in {wall:.3f}s "
+          f"({tokens / wall:.2f} tok/s)")
+    print(f"[serve] stats {st.describe()}")
+    print(f"[serve] launches {counts}")
+    print(f"[serve] programs {eng.cb_program_info.get(2, {}).get('steps')}")
+    check(all(v > 0 for v in counts.values()),
+          f"a kernel of the main path never launched: {counts}")
+    check(st.fused_prefill_chunks > 0 and st.fused_mixed_steps > 0,
+          "no fused launch carried a prefill chunk")
+    check(all(len(r.out_tokens) == r.max_new_tokens for r in reqs),
+          "a request retired early")
+    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens),
+          "token out of the vocabulary")
+    check("out" in captured, "no mixed step ran")
+
+    # the first mixed step again, from the plain versions on the card
+    n, cache, tokens_t, active, kw = captured["inputs"]
+    logits_k, pf_k = captured["out"]
+    ref = ServeEngine(cfg, params, batch=B, max_len=S, prefill_budget=budget,
+                      device=dev, plain=True)
+    logits_p, _cache, pf_p = ref._cb_step(n)(params, cache, tokens_t, active,
+                                             **kw)
+    rel = {}
+    for name, a, b in (("decode", logits_k, logits_p),
+                       ("prefill", pf_k, pf_p)):
+        check(bool(torch.isfinite(a).all()), f"non-finite {name} logits")
+        check(a.shape == b.shape, f"{name} logits shape {a.shape} {b.shape}")
+        rel[name] = ((a - b).norm() / b.norm()).item()
+        agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+        print(f"[serve] first mixed step ({n} chunks) {name} logits "
+              f"{tuple(a.shape)}: rel L2 {rel[name]:.3e} "
+              f"(limit {LOGITS_REL_L2}), max|diff| "
+              f"{(a - b).abs().max().item():.4g}, argmax agreement {agree:.3f}")
+        check(rel[name] <= LOGITS_REL_L2,
+              f"{name} logits off the plain step: rel L2 {rel[name]}")
+
+    # the same trace again under torch.profiler: device time by kernel name
+    # and the device's busy share of the wall time (counts already read)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.run(requests())
+        torch.cuda.synchronize()
+        wall_p = time.perf_counter() - t0
+    dev_us = [(e.key, getattr(e, "self_device_time_total", 0.0))
+              for e in prof.key_averages()]
+    dev_us = sorted((kv for kv in dev_us if kv[1] > 0), key=lambda kv: -kv[1])
+    busy = sum(us for _k, us in dev_us) / 1e6
+    if busy:
+        print(f"[profile] device busy {busy:.3f}s of {wall_p:.3f}s wall "
+              f"({busy / wall_p:.1%}); by kernel:")
+        for k, us in dev_us[:12]:
+            print(f"[profile]   {us / 1e3:10.2f} ms {us / 1e6 / busy:6.1%} "
+                  f"{k[:90]}")
+    else:
+        print("[profile] no device time in the trace: not measured")
+    return {"counts": counts, "tokens": tokens, "seconds": wall,
+            "tokens_per_s": tokens / wall, "logits_rel_l2": rel}
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 1
+    if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
+        print("chip_smoke: the port's sources (src/repro_torch) are not "
+              "beside this script", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+
+    # 1. card
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    print(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+
+    # 2. build
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda, registry
+    t0 = time.perf_counter()
+    so = cuda.build()
+    cuda.library()
+    print(f"[build] {so.relative_to(ROOT)} in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+
+    cfg = get_config("granite-3-2b")
+    check(cfg.num_layers == 40 and cfg.d_model == 2048, "not full width")
+    # 3. kernels, 4. serve
+    rows = phase_kernels(torch, dev, cfg)
+    serve = phase_serve(torch, dev, cfg)
+
+    # 5. report
+    names = {k.name: k for k in registry()}
+    for r in rows:
+        r["launches"] = serve["counts"][r.pop("kernel").name]
+    check(set(serve["counts"]) == set(names), "kernel registry changed")
+    print(json.dumps({"kernels": rows}))
+    print(f"[serve] tokens/s {serve['tokens_per_s']:.3f} ({smi})")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except PhaseError as e:
+        print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+        sys.exit(1)

@@ -1,0 +1,84 @@
+// Bundle launcher: N fusible members as ONE kernel launch (the paper's
+// horizontal fusion, CTA-level partition).
+//
+// Replaces the TPU kernels src/repro/core/hfuse.py:87 (generate, with the
+// phase functions of _bundle_phase_fns, :41-72) and :161 (run_single, a
+// one-member bundle with ratio 1).
+//
+// Partition: within a super-step of `period` CTAs, member i owns the phase
+// window [off_i, off_i + r_i).  CTA t computes s = t / period and
+// ph = t % period, finds the member whose window holds ph, and runs that
+// member's local CTA s * r_i + ph - off_i, or exits at once when that is
+// past the member's CTA count.  This is _bundle_phase_fns' step formula,
+// applied to CTAs instead of TPU grid steps; the grid is
+// max_i ceil(ctas_i / r_i) * period.  Python mirrors the same table
+// (repro_torch/core/hfuse.py phase_table) so the CPU tests check it.
+//
+// Bound on the card: whatever its members are; the point of the launch is
+// that a memory-bound member (decode attention, a weight stream) and a
+// compute-bound one (chunk prefill attention) share the SMs at the same
+// time.  All members share one blockDim (HF_THREADS); the dynamic shared
+// memory is the largest any member needs.  A warp-level partition with named
+// barriers (the paper's Fig. 5) is later work.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false -shared
+// (src/repro_torch/kernels/cuda.py builds it at first use).
+#include "common.cuh"
+#include "decode_attention.cuh"
+#include "prefill_attention.cuh"
+#include "row_member.cuh"
+
+__global__ void __launch_bounds__(HF_THREADS)
+    hf_bundle(const __grid_constant__ BundleDesc b) {
+  const int t = blockIdx.x;
+  const int s = t / b.period, ph = t % b.period;
+  for (int i = 0; i < b.n; ++i) {
+    const MemberDesc& m = b.m[i];
+    if (ph < m.offset || ph >= m.offset + m.ratio) continue;
+    const int local = s * m.ratio + ph - m.offset;
+    if (local >= m.ctas) return;
+    switch (m.kind) {
+      case HF_ROW: row_member(m, local); break;
+      case HF_DECODE_ATTN: decode_attn_member(m, local); break;
+      case HF_PREFILL_ATTN: prefill_attn_member(m, local); break;
+      default: break;
+    }
+    return;
+  }
+}
+
+extern "C" {
+
+int hf_desc_sizes(int* member, int* bundle) {
+  *member = (int)sizeof(MemberDesc);
+  *bundle = (int)sizeof(BundleDesc);
+  return HF_THREADS;
+}
+
+int hf_member_smem(const MemberDesc* m) {
+  switch (m->kind) {
+    case HF_ROW: return row_smem_bytes(*m);
+    case HF_DECODE_ATTN: return decode_attn_smem_bytes(*m);
+    case HF_PREFILL_ATTN: return prefill_attn_smem_bytes(*m);
+    default: return -1;
+  }
+}
+
+// Launch on `stream`; returns the cudaError_t of the launch (0 = queued).
+int hf_launch(const BundleDesc* b, int grid, int smem, void* stream) {
+  static int smem_limit = 48 * 1024;
+  if (smem > smem_limit) {
+    cudaError_t e = cudaFuncSetAttribute(
+        hf_bundle, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    smem_limit = smem;
+  }
+  hf_bundle<<<grid, HF_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(*b);
+  return (int)cudaGetLastError();
+}
+
+const char* hf_error_string(int e) {
+  return cudaGetErrorString(static_cast<cudaError_t>(e));
+}
+
+}  // extern "C"

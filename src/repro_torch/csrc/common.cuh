@@ -1,0 +1,70 @@
+// Shared definitions of the bundle launcher and its members (sm_90a).
+//
+// A member descriptor travels by value inside the launch's parameter block
+// (BundleDesc, read through __grid_constant__, so indexing it costs no local
+// copy).  Its layout is mirrored by ctypes structures in
+// src/repro_torch/kernels/cuda.py; hf_desc_sizes() lets Python check that the
+// two agree before the first launch.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define HF_MAX_MEMBERS 8
+#define HF_THREADS 256
+#define HF_WARPS (HF_THREADS / 32)
+#define HF_NEG_INF (-1e30f)
+
+// member kinds
+enum { HF_ROW = 1, HF_DECODE_ATTN = 2, HF_PREFILL_ATTN = 3 };
+
+struct MemberDesc {
+  int kind, ctas, ratio, offset;
+  int i[12];
+  float f[2];
+  const void* in[6];
+  void* out[3];
+};
+
+struct BundleDesc {
+  int n, period;
+  MemberDesc m[HF_MAX_MEMBERS];
+};
+
+typedef __nv_bfloat16 bf16;
+
+__device__ __forceinline__ float bf2f(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ bf16 f2bf(float v) { return __float2bfloat16(v); }
+// round an fp32 value to bf16 and back: what a bf16 store then load gives
+__device__ __forceinline__ float bf_round(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// eight bf16 values packed in a 16-byte vector -> fp32
+__device__ __forceinline__ void unpack8(uint4 v, float* f) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    float2 t = __bfloat1622float2(h[j]);
+    f[2 * j] = t.x;
+    f[2 * j + 1] = t.y;
+  }
+}
+
+__host__ __device__ __forceinline__ int hf_align16(int bytes) {
+  return (bytes + 15) & ~15;
+}

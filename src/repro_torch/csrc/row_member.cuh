@@ -1,0 +1,251 @@
+// Row member family: RMSNorm, the row GEMM with an optional RMSNorm prologue
+// and an optional activation epilogue, and the activation alone.
+//
+// Replaces the TPU kernels src/repro/kernels/rmsnorm.py:38 (rmsnorm_op),
+// src/repro/kernels/matmul.py:64 (matmul_1d_op),
+// src/repro/kernels/elementwise.py:20 (activation_op) and the chain body of
+// src/repro/core/stitch.py:177 (stitch) for the two pairs the decode step
+// stitches: decode_norm1->qkv_proj and ffn_proj->decode_act.
+//
+// Bound on the card: bytes.  At decode batch (M = 8 rows) the GEMM does 2*M
+// flops per weight element it streams, far under the H100's ~295 flop/byte
+// ridge, so its time is the weight stream (12.6 MB for granite's QKV weight,
+// 67 MB for its gate+up weight).  Design: a CTA owns a 64-column tile of the
+// weight for all M rows; each thread streams 16-byte vectors (8 columns of one
+// weight row), x sits in shared memory, sums stay fp32.  The chains keep the
+// intermediate out of device memory: the prologue normalises x straight into
+// shared memory, the epilogue activates the fp32 tile before the only store.
+// A gated epilogue needs gate column j and up column j+F in one CTA, so the
+// gated tile is 32 gate columns plus their 32 up columns.
+//
+// Bitwise contract: a chain equals its two members run separately.  The
+// prologue rounds the normed row to bf16 exactly as the standalone norm
+// stores it; the epilogue rounds the product to bf16 exactly as the
+// standalone GEMM stores it; each column's K-sum runs in the same order
+// whichever tile holds it; the build uses -fmad=false so no call site fuses
+// a multiply-add the other does not.
+#pragma once
+
+#include "common.cuh"
+
+enum { ROW_NORM = 0, ROW_GEMM = 1, ROW_ACT = 2 };
+enum { ACT_NONE = -1, ACT_SILU_GATE = 0, ACT_GELU_GATE = 1, ACT_GELU = 2,
+       ACT_RELU2 = 3 };
+
+#define GEMM_TN 64          // weight columns per CTA tile
+#define GEMM_MB 8           // rows per pass (accumulators: GEMM_MB x 8 / thread)
+#define ACT_COLS 2048       // output columns per CTA of the standalone activation
+
+__device__ __forceinline__ bool act_gated(int act) {
+  return act == ACT_SILU_GATE || act == ACT_GELU_GATE;
+}
+
+// tanh-approximate GELU (jax.nn.gelu's default), fp32
+__device__ __forceinline__ float gelu_tanh(float a) {
+  float a3 = a * a * a;
+  float inner = 0.7978845608028654f * (a + 0.044715f * a3);
+  return 0.5f * a * (1.0f + tanhf(inner));
+}
+
+// act(a) * b for the gated forms, act(a) for the plain ones; fp32 inputs
+__device__ __forceinline__ float act_apply(int act, float a, float b) {
+  switch (act) {
+    case ACT_SILU_GATE: return (a * (1.0f / (1.0f + expf(-a)))) * b;
+    case ACT_GELU_GATE: return gelu_tanh(a) * b;
+    case ACT_GELU: return gelu_tanh(a);
+    default: {  // ACT_RELU2
+      float r = fmaxf(a, 0.0f);
+      return r * r;
+    }
+  }
+}
+
+// y = x * rsqrt(mean(x^2) + eps) * (1 + scale), fp32 math, bf16 store.
+// All HF_THREADS threads of the CTA call it; red holds HF_WARPS floats.
+__device__ void rms_row(const bf16* x, const float* scale, int d, float eps,
+                        bf16* y, float* red) {
+  float ss = 0.0f;
+  for (int k = threadIdx.x; k < d; k += HF_THREADS) {
+    float v = bf2f(x[k]);
+    ss = fmaf(v, v, ss);
+  }
+  ss = warp_sum(ss);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = ss;
+  __syncthreads();
+  float tot = 0.0f;
+#pragma unroll
+  for (int w = 0; w < HF_WARPS; ++w) tot += red[w];
+  float inv = rsqrtf(tot / (float)d + eps);
+  for (int k = threadIdx.x; k < d; k += HF_THREADS)
+    y[k] = f2bf(bf2f(x[k]) * inv * (1.0f + scale[k]));
+  __syncthreads();
+}
+
+__host__ __device__ inline int gemm_smem_bytes(int K) {
+  return hf_align16(GEMM_MB * K * 2) + HF_WARPS * GEMM_MB * GEMM_TN * 4 +
+         GEMM_MB * GEMM_TN * 4 + HF_WARPS * 4;
+}
+
+__device__ __forceinline__ void gemm_fma(float (&acc)[GEMM_MB][8],
+                                         const bf16* xs, int K, int k, int mb,
+                                         uint4 wv) {
+  float wf[8];
+  unpack8(wv, wf);
+#pragma unroll
+  for (int r = 0; r < GEMM_MB; ++r) {
+    if (r < mb) {
+      float xv = bf2f(xs[r * K + k]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[r][j] = fmaf(xv, wf[j], acc[r][j]);
+    }
+  }
+}
+
+// out(M, N or F) = epilogue(prologue(x)(M, K) @ w(K, N))
+__device__ void row_gemm(const MemberDesc& m, int cta) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int M = m.i[1], K = m.i[2], N = m.i[3];
+  const int prologue = m.i[4], act = m.i[5];
+  const float eps = m.f[0];
+  const bf16* x = static_cast<const bf16*>(m.in[0]);
+  const float* scale = static_cast<const float*>(m.in[1]);
+  const bf16* w = static_cast<const bf16*>(m.in[2]);
+  bf16* out = static_cast<bf16*>(m.out[0]);
+  const bool gated = act_gated(act);
+  const int F = N / 2;
+
+  bf16* xs = reinterpret_cast<bf16*>(smem);
+  float* red = reinterpret_cast<float*>(smem + hf_align16(GEMM_MB * K * 2));
+  float* tile = red + HF_WARPS * GEMM_MB * GEMM_TN;
+  float* nred = tile + GEMM_MB * GEMM_TN;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int cg = tid & 7;       // this thread's 8-column group in the tile
+  const int kr = tid >> 3;      // this thread's k residue mod 32
+  int col0;
+  if (gated)
+    col0 = (cg < 4) ? cta * (GEMM_TN / 2) + cg * 8
+                    : F + cta * (GEMM_TN / 2) + (cg - 4) * 8;
+  else
+    col0 = cta * GEMM_TN + cg * 8;
+
+  for (int m0 = 0; m0 < M; m0 += GEMM_MB) {
+    const int mb = min(GEMM_MB, M - m0);
+    if (prologue) {
+      for (int r = 0; r < mb; ++r)
+        rms_row(x + (size_t)(m0 + r) * K, scale, K, eps, xs + r * K, nred);
+    } else {
+      const int nv = mb * K / 8;
+      for (int v = tid; v < nv; v += HF_THREADS)
+        reinterpret_cast<uint4*>(xs)[v] =
+            reinterpret_cast<const uint4*>(x + (size_t)m0 * K)[v];
+    }
+    __syncthreads();
+
+    float acc[GEMM_MB][8];
+#pragma unroll
+    for (int r = 0; r < GEMM_MB; ++r)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[r][j] = 0.0f;
+
+    // four weight vectors in flight per thread; k ascends in both loops,
+    // so every column's sum runs in one fixed order
+    int k = kr;
+    for (; k + 96 < K; k += 128) {
+      uint4 w0 = *reinterpret_cast<const uint4*>(w + (size_t)k * N + col0);
+      uint4 w1 = *reinterpret_cast<const uint4*>(w + (size_t)(k + 32) * N + col0);
+      uint4 w2 = *reinterpret_cast<const uint4*>(w + (size_t)(k + 64) * N + col0);
+      uint4 w3 = *reinterpret_cast<const uint4*>(w + (size_t)(k + 96) * N + col0);
+      gemm_fma(acc, xs, K, k, mb, w0);
+      gemm_fma(acc, xs, K, k + 32, mb, w1);
+      gemm_fma(acc, xs, K, k + 64, mb, w2);
+      gemm_fma(acc, xs, K, k + 96, mb, w3);
+    }
+    for (; k < K; k += 32) {
+      uint4 w0 = *reinterpret_cast<const uint4*>(w + (size_t)k * N + col0);
+      gemm_fma(acc, xs, K, k, mb, w0);
+    }
+
+    // lanes l, l^8, l^16, l^24 share a column group: fold them, then the
+    // eight warps through shared memory in warp order
+#pragma unroll
+    for (int r = 0; r < GEMM_MB; ++r) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float v = acc[r][j];
+        v += __shfl_xor_sync(0xffffffffu, v, 8);
+        v += __shfl_xor_sync(0xffffffffu, v, 16);
+        if (lane < 8) red[(warp * GEMM_MB + r) * GEMM_TN + cg * 8 + j] = v;
+      }
+    }
+    __syncthreads();
+    for (int idx = tid; idx < mb * GEMM_TN; idx += HF_THREADS) {
+      const int r = idx / GEMM_TN, c = idx % GEMM_TN;
+      float s = 0.0f;
+#pragma unroll
+      for (int wv = 0; wv < HF_WARPS; ++wv)
+        s += red[(wv * GEMM_MB + r) * GEMM_TN + c];
+      tile[idx] = s;
+    }
+    __syncthreads();
+
+    if (gated) {
+      for (int idx = tid; idx < mb * (GEMM_TN / 2); idx += HF_THREADS) {
+        const int r = idx / (GEMM_TN / 2), c = idx % (GEMM_TN / 2);
+        const float a = bf_round(tile[r * GEMM_TN + c]);
+        const float b = bf_round(tile[r * GEMM_TN + GEMM_TN / 2 + c]);
+        out[(size_t)(m0 + r) * F + cta * (GEMM_TN / 2) + c] =
+            f2bf(act_apply(act, a, b));
+      }
+    } else {
+      for (int idx = tid; idx < mb * GEMM_TN; idx += HF_THREADS) {
+        const int r = idx / GEMM_TN, c = idx % GEMM_TN;
+        const float h = tile[idx];
+        out[(size_t)(m0 + r) * N + cta * GEMM_TN + c] =
+            f2bf(act == ACT_NONE ? h : act_apply(act, bf_round(h), 0.0f));
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// standalone activation: h (M, F_in) bf16 -> out (M, F_out) bf16
+__device__ void row_act(const MemberDesc& m, int cta) {
+  const int M = m.i[1], F_in = m.i[2], F_out = m.i[3], act = m.i[5];
+  const bf16* h = static_cast<const bf16*>(m.in[0]);
+  bf16* out = static_cast<bf16*>(m.out[0]);
+  const int nchunk = (F_out + ACT_COLS - 1) / ACT_COLS;
+  const int r = cta / nchunk, c0 = (cta % nchunk) * ACT_COLS;
+  if (r >= M) return;
+  const bool gated = act_gated(act);
+  for (int j = c0 + threadIdx.x; j < min(F_out, c0 + ACT_COLS);
+       j += HF_THREADS) {
+    const float a = bf2f(h[(size_t)r * F_in + j]);
+    const float b = gated ? bf2f(h[(size_t)r * F_in + F_out + j]) : 0.0f;
+    out[(size_t)r * F_out + j] = f2bf(act_apply(act, a, b));
+  }
+}
+
+__device__ void row_member(const MemberDesc& m, int cta) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  switch (m.i[0]) {
+    case ROW_NORM: {
+      const int d = m.i[2];
+      rms_row(static_cast<const bf16*>(m.in[0]) + (size_t)cta * d,
+              static_cast<const float*>(m.in[1]), d, m.f[0],
+              static_cast<bf16*>(m.out[0]) + (size_t)cta * d,
+              reinterpret_cast<float*>(smem));
+      break;
+    }
+    case ROW_GEMM: row_gemm(m, cta); break;
+    default: row_act(m, cta); break;
+  }
+}
+
+__host__ __device__ inline int row_smem_bytes(const MemberDesc& m) {
+  switch (m.i[0]) {
+    case ROW_NORM: return HF_WARPS * 4;
+    case ROW_GEMM: return gemm_smem_bytes(m.i[2]);
+    default: return 0;
+  }
+}

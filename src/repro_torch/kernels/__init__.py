@@ -1,0 +1,13 @@
+"""The port's CUDA kernels: the row member family, decode attention and
+prefill attention, all launched through the bundle launcher
+(``core/hfuse.py``, source ``csrc/bundle.cu``)."""
+
+
+def registry():
+    """The port's hand-written kernels, in report order: the bundle
+    launcher, then the members."""
+    from repro_torch.core.hfuse import BUNDLE
+    from repro_torch.kernels.decode_attention import DECODE
+    from repro_torch.kernels.prefill_attention import PREFILL
+    from repro_torch.kernels.row import ROW
+    return (BUNDLE, ROW, DECODE, PREFILL)

@@ -1,0 +1,211 @@
+"""Build, bind and launch the port's CUDA kernels.
+
+All members live in one compilation unit (``csrc/bundle.cu`` and its
+headers) because any member must be able to share a launch with any other.
+The library is compiled with ``nvcc`` for ``sm_90a`` at first use, into
+``build/repro_torch/<hash of the sources>/`` at the root of the checkout,
+bound with ``ctypes`` (plain C interface, no PyTorch headers: seconds to
+build), and launched on PyTorch's current stream.  Nothing here runs at
+import: the CPU tests import every module.
+
+``Kernel`` records one hand-written kernel of the port: where its source
+is, which TPU kernel it replaces, and ``launches``, its launch count.  Each
+kernel module holds its own record; ``core/hfuse.py`` bumps the counts of
+the bundle launcher and of every member a launch carried, right after the
+launch, and nowhere else.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import math
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Sequence
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+MAX_MEMBERS = 8
+
+# member kinds (csrc/common.cuh)
+ROW, DECODE_ATTN, PREFILL_ATTN = 1, 2, 3
+
+
+class Kernel:
+    """One hand-written CUDA kernel of the port and its launch count."""
+
+    def __init__(self, name: str, source: str, replaces: str):
+        self.name = name
+        self.source = source
+        self.replaces = replaces
+        self.launches = 0
+
+    def __repr__(self):
+        return f"Kernel({self.name!r}, launches={self.launches})"
+
+
+def reset_counts(kernels: Sequence[Kernel]) -> None:
+    for k in kernels:
+        k.launches = 0
+
+
+class MemberDesc(ctypes.Structure):
+    _fields_ = [("kind", ctypes.c_int), ("ctas", ctypes.c_int),
+                ("ratio", ctypes.c_int), ("offset", ctypes.c_int),
+                ("i", ctypes.c_int * 12), ("f", ctypes.c_float * 2),
+                ("inp", ctypes.c_void_p * 6), ("out", ctypes.c_void_p * 3)]
+
+
+class BundleDesc(ctypes.Structure):
+    _fields_ = [("n", ctypes.c_int), ("period", ctypes.c_int),
+                ("m", MemberDesc * MAX_MEMBERS)]
+
+
+# ---------------------------------------------------------------------------
+# Build and load
+# ---------------------------------------------------------------------------
+_lib = None
+
+
+def _sources() -> list[Path]:
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256()
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the port's CUDA kernels are built "
+                       "with the CUDA toolkit on the machine with the card")
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile ``csrc/bundle.cu`` unless the library for these exact
+    sources exists; returns its path.  The output lands atomically, so
+    concurrent first uses cannot load a half-written file."""
+    out_dir = BUILD_ROOT / source_hash()
+    so = out_dir / "libhfuse.so"
+    if so.exists():
+        return so
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
+           "-o", tmp, str(CSRC / "bundle.cu")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    if verbose:
+        print(proc.stdout + proc.stderr, end="")
+        print(f"[build] nvcc {time.perf_counter() - t0:.1f}s -> {so}")
+    os.replace(tmp, so)
+    return so
+
+
+def library():
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        lib.hf_desc_sizes.argtypes = [ctypes.POINTER(ctypes.c_int),
+                                      ctypes.POINTER(ctypes.c_int)]
+        lib.hf_desc_sizes.restype = ctypes.c_int
+        lib.hf_member_smem.argtypes = [ctypes.POINTER(MemberDesc)]
+        lib.hf_member_smem.restype = ctypes.c_int
+        lib.hf_launch.argtypes = [ctypes.POINTER(BundleDesc), ctypes.c_int,
+                                  ctypes.c_int, ctypes.c_void_p]
+        lib.hf_launch.restype = ctypes.c_int
+        lib.hf_error_string.argtypes = [ctypes.c_int]
+        lib.hf_error_string.restype = ctypes.c_char_p
+        ms, bs = ctypes.c_int(), ctypes.c_int()
+        lib.hf_desc_sizes(ctypes.byref(ms), ctypes.byref(bs))
+        if (ms.value, bs.value) != (ctypes.sizeof(MemberDesc),
+                                    ctypes.sizeof(BundleDesc)):
+            raise RuntimeError(
+                f"descriptor layout mismatch: C {ms.value}/{bs.value} bytes, "
+                f"ctypes {ctypes.sizeof(MemberDesc)}/"
+                f"{ctypes.sizeof(BundleDesc)}")
+        _lib = lib
+    return _lib
+
+
+# ---------------------------------------------------------------------------
+# Operand checks (before any pointer reaches the kernel)
+# ---------------------------------------------------------------------------
+def check(t: torch.Tensor, what: str, shape: Sequence[int],
+          dtype: torch.dtype) -> int:
+    """Validate one operand and return its device pointer."""
+    if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+        raise ValueError(f"{what}: expected a CUDA tensor")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what}: shape {tuple(t.shape)}, kernel takes "
+                         f"{tuple(shape)}")
+    if t.dtype != dtype:
+        raise ValueError(f"{what}: dtype {t.dtype}, kernel takes {dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{what}: must be 16-byte aligned")
+    return t.data_ptr()
+
+
+# ---------------------------------------------------------------------------
+# Launch
+# ---------------------------------------------------------------------------
+def grid_size(ctas: Sequence[int], ratios: Sequence[int]) -> int:
+    """CTAs of the bundle launch: max_i ceil(ctas_i / r_i) * period."""
+    return max(math.ceil(c / r) for c, r in zip(ctas, ratios)) * sum(ratios)
+
+
+def launch(members: Sequence, ins: Sequence[Sequence[torch.Tensor]],
+           outs: Sequence[Sequence[torch.Tensor]],
+           ratios: Sequence[int]) -> None:
+    """One launch of the bundle kernel carrying ``members`` with their
+    operands, CTAs partitioned by ``ratios``, on PyTorch's current stream
+    of the current device.
+    Raises if the launch is refused; faults during the run surface at the
+    next synchronisation."""
+    if not 1 <= len(members) <= MAX_MEMBERS:
+        raise ValueError(f"a bundle holds 1..{MAX_MEMBERS} members, "
+                         f"got {len(members)}")
+    lib = library()
+    desc = BundleDesc()
+    desc.n = len(members)
+    desc.period = sum(ratios)
+    offset, smem = 0, 0
+    for j, (mem, i_, o_, r) in enumerate(zip(members, ins, outs, ratios)):
+        md = desc.m[j]
+        mem.pack(md, i_, o_)
+        md.ctas, md.ratio, md.offset = mem.ctas, r, offset
+        offset += r
+        need = lib.hf_member_smem(ctypes.byref(md))
+        if need < 0:
+            raise ValueError(f"unknown member kind {md.kind}")
+        smem = max(smem, need)
+    grid = grid_size([m.ctas for m in members], ratios)
+    stream = torch.cuda.current_stream().cuda_stream
+    err = lib.hf_launch(ctypes.byref(desc), grid, smem,
+                        ctypes.c_void_p(stream))
+    if err:
+        raise RuntimeError("bundle launch failed: "
+                           + lib.hf_error_string(err).decode())

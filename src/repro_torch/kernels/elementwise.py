@@ -1,0 +1,40 @@
+"""Row-wise activation as a fusible op — the activation member of the row
+family (``kernels/row.py``, CUDA source ``csrc/row_member.cuh``), replacing
+the TPU kernel ``src/repro/kernels/elementwise.py:20`` (activation_op).
+Standalone it is a pure device-memory round trip; its point is to be
+stitched onto the matmul that produces its input (``core/stitch.py``)."""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from repro_torch.core.op_spec import Operand, OpSpec, itemsize
+from repro_torch.kernels import row
+from repro_torch.kernels.row import (gelu_gate, gelu_plain, relu2,  # noqa: F401
+                                     silu_gate)
+
+
+def activation_op(R: int, F_in: int, F_out: int, fn: Callable,
+                  dtype=torch.bfloat16, bm: int = 256,
+                  name: str | None = None) -> OpSpec:
+    """out = fn(h) row-wise; h (R, F_in) -> out (R, F_out).  ``fn`` is one
+    of ``silu_gate``, ``gelu_gate``, ``gelu_plain``, ``relu2``."""
+    act = row.act_name(fn)
+    bm = min(bm, R)
+    if R % bm:
+        raise ValueError(f"activation_op: R={R} is not a multiple of bm={bm}")
+
+    def plain(h):
+        return (fn(h).to(dtype),)
+
+    return OpSpec(
+        name=name or f"act_{R}x{F_in}", grid=R // bm,
+        member=row.RowMember("act", M=R, K=F_in, N=F_out, act=act),
+        plain=plain,
+        inputs=(Operand((R, F_in), dtype, (bm, F_in), lambda s: (s, 0)),),
+        outputs=(Operand((R, F_out), dtype, (bm, F_out), lambda s: (s, 0)),),
+        flops=8.0 * R * F_in,
+        hbm_bytes=float(R * (F_in + F_out)) * itemsize(dtype),
+        tag="framework:activation",
+        in_names=("h",), out_names=("out",))

@@ -1,0 +1,139 @@
+"""Chunked prefill attention: one prompt chunk of ONE slot (C query rows at
+absolute offset ``off``) against that slot's contiguous KV cache, causal
+(``kpos <= off + r``), GQA.  The chunk's own k/v are in the cache before
+the launch, so the kernel only reads it.
+
+CUDA source: ``csrc/prefill_attention.cuh`` (on
+``csrc/attention_core.cuh``).  It replaces the TPU kernel
+``src/repro/kernels/prefill_attention.py:40`` (prefill_attention_op,
+contiguous form).  Bound on the card: operations — a 512-row chunk does
+O(C) flops per cache byte.  Design: one CTA per (tile of query rows, KV
+head) with all rep query heads of the group, so each staged k/v tile serves
+32 query rows; the kv loop stops at the tile's last causal position.  The
+math runs on CUDA cores in fp32; tensor cores are the next step.
+
+Beside the kernel: ``PREFILL``, its launch record, and
+``plain_prefill_attention``, the plain PyTorch version.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import ClassVar
+
+import torch
+
+from repro_torch.core.op_spec import MIN_BLOCK_ROWS, Operand, OpSpec, itemsize
+from repro_torch.kernels import cuda
+
+PREFILL = cuda.Kernel("prefill_attention",
+                      "src/repro_torch/csrc/prefill_attention.cuh",
+                      "src/repro/kernels/prefill_attention.py:40")
+NEG_INF = -1e30
+ROWS_PER_CTA = 32     # query rows (x query heads of one group) per CTA
+
+
+def plain_prefill_attention(off: torch.Tensor, q: torch.Tensor,
+                            k: torch.Tensor, v: torch.Tensor):
+    """off (1,1) i32; q (C,H,D); k, v (S,Hkv,D) -> o (C,H,D) fp32
+    normalised, m, l (C,H,1) fp32; query row r admits position p iff
+    p <= off + r."""
+    C, H, D = q.shape
+    S, Hkv = k.shape[0], k.shape[1]
+    rep = H // Hkv
+    qg = (q.float() * (1.0 / math.sqrt(D))).reshape(C, Hkv, rep, D)
+    s = torch.einsum("chrd,khd->chrk", qg, k.float())
+    kpos = torch.arange(S, device=q.device).view(1, 1, 1, S)
+    qpos = (off.reshape(1).to(torch.int64)
+            + torch.arange(C, device=q.device)).view(C, 1, 1, 1)
+    s = torch.where(kpos <= qpos, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("chrk,khd->chrd", p, v.float()) / l.clamp_min(1e-30)
+    return (o.reshape(C, H, D), m.reshape(C, H, 1), l.reshape(C, H, 1))
+
+
+@dataclass(frozen=True)
+class PrefillAttentionMember:
+    C: int
+    S: int
+    H: int
+    Hkv: int
+    D: int
+    kernel: ClassVar[cuda.Kernel] = PREFILL
+
+    @property
+    def q_tile(self) -> int:
+        """Query rows per CTA: ROWS_PER_CTA rows across the rep heads."""
+        return max(1, ROWS_PER_CTA // (self.H // self.Hkv))
+
+    @property
+    def ctas(self) -> int:
+        return math.ceil(self.C / self.q_tile) * self.Hkv
+
+    def pack(self, md, ins, outs) -> None:
+        C, S, H, Hkv, D = self.C, self.S, self.H, self.Hkv, self.D
+        if H % Hkv or D % 8:
+            raise ValueError(f"prefill attention takes H % Hkv == 0 and "
+                             f"D % 8 == 0, got H={H} Hkv={Hkv} D={D}")
+        bf, f32 = torch.bfloat16, torch.float32
+        md.kind = cuda.PREFILL_ATTN
+        md.i[0], md.i[1], md.i[2], md.i[3], md.i[4] = C, S, H, Hkv, D
+        md.i[5] = self.q_tile
+        md.f[0] = 1.0 / math.sqrt(D)
+        off, q, k, v = ins
+        md.inp[0] = cuda.check(off, "prefill off", (1, 1), torch.int32)
+        md.inp[1] = cuda.check(q, "prefill q", (C, H, D), bf)
+        md.inp[2] = cuda.check(k, "prefill k", (S, Hkv, D), bf)
+        md.inp[3] = cuda.check(v, "prefill v", (S, Hkv, D), bf)
+        for j, (t, shape) in enumerate(zip(outs, ((C, H, D), (C, H, 1),
+                                                  (C, H, 1)))):
+            md.out[j] = cuda.check(t, f"prefill out{j}", shape, f32)
+
+
+def prefill_attention_op(C: int, S: int, H: int, Hkv: int, D: int,
+                         dtype=torch.bfloat16, ck: int = 1024,
+                         name: str | None = None,
+                         block_table=None) -> OpSpec:
+    """off (1,1) i32; q (C,H,D); k, v (S,Hkv,D) -> o (C,H,D), m, l (C,H,1)
+    fp32.  Grid ``S // ck`` kv-chunk steps and the explicit shrink factory
+    (smaller ``ck``) are the reference's; the member ignores ``ck``."""
+    if block_table is not None:
+        raise NotImplementedError("paged KV (block_table=) is not ported "
+                                  "yet (ROADMAP: paged KV)")
+    if S % ck or H % Hkv:
+        raise ValueError(f"prefill_attention_op: S={S} % ck={ck} and "
+                         f"H={H} % Hkv={Hkv} must be 0")
+    nk = S // ck
+    resolved = name or f"prefill_attn_C{C}_S{S}_H{H}kv{Hkv}"
+
+    def shrink(factor: int):
+        sck = ck // factor
+        if ck % factor or sck < MIN_BLOCK_ROWS:
+            return None
+        return prefill_attention_op(C, S, H, Hkv, D, dtype=dtype, ck=sck,
+                                    name=resolved)
+
+    isz = itemsize(dtype)
+    f32 = torch.float32
+    const3 = lambda s: (0, 0, 0)            # noqa: E731
+    return OpSpec(
+        name=resolved, grid=nk,
+        member=PrefillAttentionMember(C, S, H, Hkv, D),
+        plain=plain_prefill_attention,
+        inputs=(Operand((1, 1), torch.int32, (1, 1), lambda s: (0, 0)),
+                Operand((C, H, D), dtype, (C, H, D), const3),
+                Operand((S, Hkv, D), dtype, (ck, Hkv, D),
+                        lambda s: (s, 0, 0)),
+                Operand((S, Hkv, D), dtype, (ck, Hkv, D),
+                        lambda s: (s, 0, 0))),
+        outputs=(Operand((C, H, D), f32, (C, H, D), const3),
+                 Operand((C, H, 1), f32, (C, H, 1), const3),
+                 Operand((C, H, 1), f32, (C, H, 1), const3)),
+        flops=2.0 * C * H * S * D * 2,
+        hbm_bytes=2.0 * S * Hkv * D * isz + C * H * D * (isz + 4.0)
+        + 4.0 * C * H * 2,
+        shrink=shrink,
+        tag="framework:prefill_attention",
+        in_names=("off", "q", "k", "v"), out_names=("o", "m", "l"))

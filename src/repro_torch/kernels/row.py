@@ -1,0 +1,189 @@
+"""Row member family: RMSNorm, the row GEMM (with an optional RMSNorm
+prologue and an optional activation epilogue) and the activation alone.
+
+CUDA source: ``csrc/row_member.cuh``.  It replaces the TPU kernels
+``src/repro/kernels/rmsnorm.py:38`` (rmsnorm_op),
+``src/repro/kernels/matmul.py:64`` (matmul_1d_op),
+``src/repro/kernels/elementwise.py:20`` (activation_op) and the chain body
+of ``src/repro/core/stitch.py:177`` for the two pairs the decode step
+stitches.  Bound on the card: bytes — at decode batch the GEMM streams its
+weight once and does 2*M flops per weight element; a CTA owns a 64-column
+weight tile for all rows, streams it in 16-byte vectors with x in shared
+memory, and the chains keep the intermediate out of device memory (see the
+source's header for the bitwise contract).
+
+Beside the kernel: ``ROW``, its launch record, and the plain PyTorch
+versions (``plain_rmsnorm``, ``plain_gemm``, the activations), which run
+for CPU tensors and are the reference on the card.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass, replace
+from typing import ClassVar, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import cuda
+
+ROW = cuda.Kernel(
+    "row_member", "src/repro_torch/csrc/row_member.cuh",
+    "src/repro/kernels/rmsnorm.py:38, src/repro/kernels/matmul.py:64, "
+    "src/repro/kernels/elementwise.py:20, src/repro/core/stitch.py:177")
+
+GEMM_TN = 64          # weight columns per CTA (csrc/row_member.cuh)
+ACT_COLS = 2048       # output columns per CTA of the standalone activation
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+def plain_rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+                  eps: float = 1e-6) -> torch.Tensor:
+    """x * rsqrt(mean(x^2) + eps) * (1 + scale) in fp32, cast to x's
+    dtype; ``scale`` is fp32, shape (1, d) or (d,)."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * (1.0 + scale)).to(x.dtype)
+
+
+def plain_gemm(x: torch.Tensor, w: torch.Tensor,
+               dtype: torch.dtype) -> torch.Tensor:
+    """(M, K) @ (K, N) with fp32 accumulation, cast to ``dtype``."""
+    return torch.matmul(x.float(), w.float()).to(dtype)
+
+
+def silu_gate(h: torch.Tensor) -> torch.Tensor:
+    """SwiGLU: h = [a | b] -> silu(a) * b, fp32."""
+    f = h.shape[-1] // 2
+    a = h[..., :f].float()
+    return (a * torch.sigmoid(a)) * h[..., f:].float()
+
+
+def gelu_gate(h: torch.Tensor) -> torch.Tensor:
+    """GeGLU with the tanh-approximate GELU (jax.nn.gelu's default)."""
+    f = h.shape[-1] // 2
+    return (F.gelu(h[..., :f].float(), approximate="tanh")
+            * h[..., f:].float())
+
+
+def gelu_plain(h: torch.Tensor) -> torch.Tensor:
+    return F.gelu(h.float(), approximate="tanh")
+
+
+def relu2(h: torch.Tensor) -> torch.Tensor:
+    return torch.square(torch.relu(h.float()))
+
+
+# activation name -> (plain fn, id in csrc/row_member.cuh, gated)
+ACTIVATIONS = {"silu_gate": (silu_gate, 0, True),
+               "gelu_gate": (gelu_gate, 1, True),
+               "gelu_plain": (gelu_plain, 2, False),
+               "relu2": (relu2, 3, False)}
+
+
+def act_name(fn) -> str:
+    """The kernel's name for an activation function; raises for a function
+    the CUDA member does not implement."""
+    for name, (f, _id, _g) in ACTIVATIONS.items():
+        if f is fn:
+            return name
+    raise ValueError(f"activation {fn!r} has no CUDA member "
+                     f"(supported: {sorted(ACTIVATIONS)})")
+
+
+# ---------------------------------------------------------------------------
+# Member descriptor
+# ---------------------------------------------------------------------------
+_SUB = {"rmsnorm": 0, "gemm": 1, "act": 2}
+
+
+@dataclass(frozen=True)
+class RowMember:
+    """One row-family member: ``sub`` is "rmsnorm" (x (M,K) -> (M,K)),
+    "gemm" (x (M,K) @ w (K,N), optionally normalised first and activated
+    after) or "act" (h (M,K) -> (M,N)).  The dims are the whole op's, so the
+    member computes the same function whatever block shape planned it."""
+    sub: str
+    M: int
+    K: int
+    N: int
+    prologue: bool = False
+    act: Optional[str] = None
+    eps: float = 1e-6
+    kernel: ClassVar[cuda.Kernel] = ROW
+
+    @property
+    def out_cols(self) -> int:
+        if self.sub == "rmsnorm":
+            return self.K
+        if self.act is not None and ACTIVATIONS[self.act][2]:
+            return self.N // 2
+        return self.N
+
+    @property
+    def ctas(self) -> int:
+        if self.sub == "rmsnorm":
+            return self.M
+        if self.sub == "gemm":
+            return math.ceil(self.N / GEMM_TN)
+        return self.M * math.ceil(self.N / ACT_COLS)
+
+    def pack(self, md, ins, outs) -> None:
+        bf = torch.bfloat16
+        md.kind = cuda.ROW
+        md.i[0] = _SUB[self.sub]
+        md.i[1], md.i[2], md.i[3] = self.M, self.K, self.N
+        md.i[4] = int(self.prologue)
+        md.i[5] = -1 if self.act is None else ACTIVATIONS[self.act][1]
+        md.f[0] = self.eps
+        M, K, N = self.M, self.K, self.N
+        if self.sub == "rmsnorm":
+            md.inp[0] = cuda.check(ins[0], "rmsnorm x", (M, K), bf)
+            md.inp[1] = cuda.check(ins[1], "rmsnorm scale", (1, K),
+                                   torch.float32)
+            md.out[0] = cuda.check(outs[0], "rmsnorm out", (M, K), bf)
+            return
+        if self.sub == "act":
+            md.inp[0] = cuda.check(ins[0], "act h", (M, K), bf)
+            md.out[0] = cuda.check(outs[0], "act out", (M, N), bf)
+            return
+        if N % GEMM_TN or K % 8:
+            raise ValueError(f"row GEMM takes N % {GEMM_TN} == 0 and "
+                             f"K % 8 == 0, got K={K} N={N}")
+        x, *rest = ins
+        md.inp[0] = cuda.check(x, "gemm x", (M, K), bf)
+        if self.prologue:
+            md.inp[1] = cuda.check(rest.pop(0), "gemm norm scale", (1, K),
+                                   torch.float32)
+        md.inp[2] = cuda.check(rest[0], "gemm w", (K, N), bf)
+        md.out[0] = cuda.check(outs[0], "gemm out", (M, self.out_cols), bf)
+
+
+def chain_reason(producer, consumer) -> Optional[str]:
+    """None iff the row kernel implements ``producer`` -> ``consumer`` as
+    one member (rmsnorm -> gemm as a prologue, gemm -> act as an
+    epilogue); otherwise why not."""
+    p, c = producer, consumer
+    if not (isinstance(p, RowMember) and isinstance(c, RowMember)):
+        return "no fused kernel: only row-family members chain"
+    if p.sub == "rmsnorm" and c.sub == "gemm" and not c.prologue:
+        if (p.M, p.K) != (c.M, c.K):
+            return f"rmsnorm {p.M}x{p.K} does not feed gemm {c.M}x{c.K}"
+        return None
+    if p.sub == "gemm" and c.sub == "act" and p.act is None:
+        if (p.M, p.N) != (c.M, c.K):
+            return f"gemm {p.M}x{p.N} does not feed act {c.M}x{c.K}"
+        return None
+    return f"no fused kernel for {p.sub}->{c.sub}"
+
+
+def chain(producer: RowMember, consumer: RowMember) -> RowMember:
+    """The one member that computes producer then consumer."""
+    reason = chain_reason(producer, consumer)
+    if reason is not None:
+        raise ValueError(reason)
+    if producer.sub == "rmsnorm":
+        return replace(consumer, prologue=True, eps=producer.eps)
+    return replace(producer, act=consumer.act)

@@ -1,0 +1,199 @@
+"""LM assembly for the dense global-attention subset the port serves.
+
+Parameters are plain nested dicts of tensors with the JAX package's tree
+and layouts: weights stay ``(K, N)``, a run of ``count > 1`` identical
+layers stacks its leaves on a leading ``(L, ...)`` axis, and the KV cache
+is ``(B, S, Hkv, D)`` per layer.  ``params_from_numpy`` takes the JAX
+package's params as numpy arrays, so both packages compute with the same
+weights in the tests.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ATTN, ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import layers
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "float16": torch.float16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+class Run(NamedTuple):
+    kind: str
+    is_moe: bool
+    start: int
+    count: int
+
+    @property
+    def name(self) -> str:
+        return f"run{self.start:02d}_{self.kind}{'_moe' if self.is_moe else ''}"
+
+
+def layer_runs(cfg: ModelConfig) -> list[Run]:
+    runs: list[Run] = []
+    for i, kind in enumerate(cfg.pattern):
+        m = cfg.moe_layer(i)
+        if runs and runs[-1].kind == kind and runs[-1].is_moe == m:
+            runs[-1] = runs[-1]._replace(count=runs[-1].count + 1)
+        else:
+            runs.append(Run(kind, m, i, 1))
+    return runs
+
+
+def supported(cfg: ModelConfig) -> Optional[str]:
+    """None when the port can build this config; else why not."""
+    runs = layer_runs(cfg)
+    if cfg.frontend != "none":
+        return f"frontend {cfg.frontend!r} (token frontend only)"
+    if len(runs) != 1 or runs[0].kind != ATTN or runs[0].is_moe:
+        return "needs a single dense global-attention layer run"
+    if cfg.norm != "rmsnorm":
+        return f"norm {cfg.norm!r} (rmsnorm only)"
+    if cfg.d_ff <= 0:
+        return "no FFN"
+    if cfg.activation not in ("silu", "gelu", "gelu_mlp", "relu2_mlp"):
+        return f"activation {cfg.activation!r}"
+    return None
+
+
+# ---------------------------------------------------------------------------
+# Parameter layout: path -> (shape, init, dtype override)
+# ---------------------------------------------------------------------------
+def param_layout(cfg: ModelConfig) -> dict:
+    reason = supported(cfg)
+    if reason is not None:
+        raise NotImplementedError(f"{cfg.name}: {reason} (ROADMAP)")
+    d, H, Hkv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    D, f, V = cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size
+    gated = cfg.activation in ("silu", "gelu")
+    run = layer_runs(cfg)[0]
+    lead = (run.count,) if run.count > 1 else ()
+    f32 = "float32"
+    block = {
+        "norm1": {"scale": (lead + (d,), "zeros", f32)},
+        "attn": {"w_qkv": (lead + (d, (H + 2 * Hkv) * D), "normal", None),
+                 "w_o": (lead + (H * D, d), "out_proj", None)},
+        "norm2": {"scale": (lead + (d,), "zeros", f32)},
+        "mlp": {"w_in": (lead + (d, 2 * f if gated else f), "normal", None),
+                "w_out": (lead + (f, d), "out_proj", None)},
+    }
+    layout = {"embed": {"embedding": ((V, d), "embed", None)},
+              run.name: block,
+              "final_norm": {"scale": ((d,), "zeros", f32)}}
+    if not cfg.tie_embeddings:
+        layout["head"] = {"w": ((d, V), "normal", None)}
+    return layout
+
+
+def _leaves(tree, path=()):
+    """(path, leaf) pairs in sorted-key order (the reference's order)."""
+    if isinstance(tree, tuple):
+        yield path, tree
+        return
+    for k in sorted(tree):
+        yield from _leaves(tree[k], path + (k,))
+
+
+def _set(tree: dict, path, value):
+    for p in path[:-1]:
+        tree = tree.setdefault(p, {})
+    tree[path[-1]] = value
+
+
+def init(cfg: ModelConfig, generator: torch.Generator,
+         device=None) -> dict:
+    """Random parameters on ``device`` (the card unless ``device="cpu"``)
+    from ``generator``: normal(0, 1/sqrt(fan_in)) weights,
+    1/sqrt(2 fan_in) output projections, unit-scale embeddings, zero norm
+    scales — the reference's scheme, other random numbers."""
+    dev = resolve_device(device)
+    dt = torch_dtype(cfg.dtype)
+    params: dict = {}
+    for path, (shape, kind, dt_override) in _leaves(param_layout(cfg)):
+        ldt = torch_dtype(dt_override) if dt_override else dt
+        if kind == "zeros":
+            leaf = torch.zeros(shape, dtype=ldt, device=dev)
+        else:
+            fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+            scale = {"embed": 1.0,
+                     "out_proj": 1.0 / math.sqrt(2.0 * max(1, fan_in)),
+                     "normal": 1.0 / math.sqrt(max(1, fan_in))}[kind]
+            leaf = (torch.randn(shape, generator=generator, device=dev,
+                                dtype=torch.float32) * scale).to(ldt)
+        _set(params, path, leaf)
+    return params
+
+
+def _from_numpy(a: np.ndarray) -> torch.Tensor:
+    a = np.ascontiguousarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def params_from_numpy(cfg: ModelConfig, tree: dict, device=None) -> dict:
+    """The JAX package's params (nested dict of numpy arrays, stacked
+    leaves ``(L, ...)``) as the port's params on ``device``."""
+    dev = resolve_device(device)
+    params: dict = {}
+    for path, (shape, _kind, _dt) in _leaves(param_layout(cfg)):
+        node = tree
+        for p in path:
+            node = node[p]
+        t = _from_numpy(np.asarray(node))
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{'/'.join(path)}: shape {tuple(t.shape)}, "
+                             f"expected {tuple(shape)}")
+        _set(params, path, t.to(dev))
+    return params
+
+
+def layer_params(cfg: ModelConfig, params: dict) -> list[dict]:
+    """Per-layer views of the (possibly stacked) block params."""
+    run = layer_runs(cfg)[0]
+    blk = params[run.name]
+    if run.count == 1:
+        return [blk]
+
+    def index(t, l):
+        return {k: index(v, l) for k, v in t.items()} \
+            if isinstance(t, dict) else t[l]
+    return [index(blk, l) for l in range(run.count)]
+
+
+def init_cache(cfg: ModelConfig, B: int, max_len: int, device=None) -> dict:
+    """Zero KV cache: ``{"pos": () i32, run: {"k", "v": (L?, B, S, Hkv,
+    D)}}``."""
+    dev = resolve_device(device)
+    run = layer_runs(cfg)[0]
+    lead = (run.count,) if run.count > 1 else ()
+    shape = lead + (B, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    dt = torch_dtype(cfg.dtype)
+    return {"pos": torch.zeros((), dtype=torch.int32, device=dev),
+            run.name: {"k": torch.zeros(shape, dtype=dt, device=dev),
+                       "v": torch.zeros(shape, dtype=dt, device=dev)}}
+
+
+def _embed_inputs(cfg: ModelConfig, params: dict,
+                  tokens: torch.Tensor) -> torch.Tensor:
+    """tokens (B, S) -> x (B, S, d)."""
+    return layers.embed(params["embed"], tokens, cfg.d_model)
+
+
+def _head(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+    """x (B, S, d) -> fp32 logits (B, S, V)."""
+    if cfg.tie_embeddings:
+        return layers.unembed(params["embed"], x, cfg.logit_softcap)
+    logits = torch.matmul(x.float(), params["head"]["w"].float())
+    if cfg.logit_softcap:
+        logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
+    return logits

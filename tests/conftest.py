@@ -16,3 +16,9 @@ jax.config.update("jax_enable_x64", False)
 @pytest.fixture(scope="session")
 def rng():
     return jax.random.PRNGKey(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card, nvcc and the port's CUDA "
+        "kernels; skipped where torch.cuda.is_available() is false")

@@ -1,0 +1,233 @@
+"""The port's CUDA kernels on the card, each against its plain PyTorch
+version, at reduced and full granite-3-2b widths.
+
+These tests need an NVIDIA card and the CUDA toolkit; where
+``torch.cuda.is_available()`` is false they skip (the ``cuda_dev`` fixture
+decides, never the import).  This file imports no JAX, so it also runs on a
+machine without it:
+
+  PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+
+Tolerances (kernel vs plain, same bf16 inputs): fp32 outputs to 1e-4
+absolute plus 1e-3 relative — both sum the same bf16 products in fp32, in
+another order; bf16 outputs to one bf16 rounding step of the largest value
+(2**-7 relative of the row's max) — the fp32 sums can round to neighbouring
+bf16 values.  Chains and fused bundles are held BITWISE against their
+separate launches.
+"""
+from __future__ import annotations
+
+import math
+
+import pytest
+import torch
+
+from repro_torch.core import hfuse, stitch
+from repro_torch.core.cost_model import Schedule
+from repro_torch.kernels import cuda, elementwise
+from repro_torch.kernels.decode_attention import decode_attention_op
+from repro_torch.kernels.matmul import matmul_1d_op
+from repro_torch.kernels.prefill_attention import prefill_attention_op
+from repro_torch.kernels.rmsnorm import rmsnorm_op
+
+pytestmark = pytest.mark.cuda
+BF = torch.bfloat16
+
+# (B, d, H, Hkv, D, d_ff, S): reduced granite-3-2b and the full widths
+WIDTHS = {"reduced": (2, 64, 4, 4, 16, 128, 128),
+          "full": (8, 2048, 32, 8, 64, 8192, 2048)}
+
+
+@pytest.fixture(scope="module")
+def cuda_dev():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the kernels run only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cuda.library()
+    return torch.device("cuda")
+
+
+def _gen(seed):
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    return g
+
+
+def _randn(shape, g, dtype=BF, scale=1.0):
+    return (torch.randn(shape, generator=g, device="cuda") * scale).to(dtype)
+
+
+def _close_bf16(out, ref):
+    tol = 2.0 ** -7 * ref.float().abs().max().item() + 1e-6
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= tol, (err, tol)
+
+
+def _close_f32(out, ref):
+    torch.testing.assert_close(out, ref, rtol=1e-3, atol=1e-4)
+
+
+def _kernel_vs_plain(op, *ins):
+    got = hfuse.run_single(op)(*ins)
+    want = hfuse.run_single(op, plain=True)(*ins)
+    return got, want
+
+
+def test_descriptor_layout_matches(cuda_dev):
+    lib = cuda.library()
+    import ctypes
+    ms, bs = ctypes.c_int(), ctypes.c_int()
+    assert lib.hf_desc_sizes(ctypes.byref(ms), ctypes.byref(bs)) > 0
+    assert (ms.value, bs.value) == (ctypes.sizeof(cuda.MemberDesc),
+                                    ctypes.sizeof(cuda.BundleDesc))
+
+
+@pytest.mark.parametrize("width", sorted(WIDTHS))
+def test_rmsnorm_member(cuda_dev, width):
+    B, d = WIDTHS[width][:2]
+    g = _gen(0)
+    x = _randn((B, d), g)
+    scale = _randn((1, d), g, torch.float32, 0.1)
+    (got,), (want,) = _kernel_vs_plain(rmsnorm_op(B, d, bm=B), x, scale)
+    _close_bf16(got, want)
+
+
+@pytest.mark.parametrize("width", sorted(WIDTHS))
+def test_gemm_member(cuda_dev, width):
+    B, d, H, Hkv, D = WIDTHS[width][:5]
+    N = (H + 2 * Hkv) * D
+    g = _gen(1)
+    x = _randn((B, d), g)
+    w = _randn((d, N), g, scale=1 / math.sqrt(d))
+    (got,), (want,) = _kernel_vs_plain(matmul_1d_op(B, d, N, bm=B), x, w)
+    _close_bf16(got, want)
+
+
+@pytest.mark.parametrize("fn", [elementwise.silu_gate, elementwise.gelu_gate,
+                                elementwise.gelu_plain, elementwise.relu2])
+@pytest.mark.parametrize("width", sorted(WIDTHS))
+def test_activation_member(cuda_dev, width, fn):
+    B, f = WIDTHS[width][0], WIDTHS[width][5]
+    gated = fn in (elementwise.silu_gate, elementwise.gelu_gate)
+    f_in = 2 * f if gated else f
+    h = _randn((B, f_in), _gen(2))
+    op = elementwise.activation_op(B, f_in, f, fn, bm=B)
+    (got,), (want,) = _kernel_vs_plain(op, h)
+    _close_bf16(got, want)
+
+
+@pytest.mark.parametrize("fn", [elementwise.silu_gate, elementwise.gelu_plain])
+@pytest.mark.parametrize("width", sorted(WIDTHS))
+def test_chains_bitwise_equal_separate_members(cuda_dev, width, fn):
+    """rmsnorm->gemm (prologue) and gemm->activation (epilogue): the chain
+    equals its two members launched separately, bit for bit, and matches
+    the plain chain."""
+    B, d, H, Hkv, D, f = WIDTHS[width][:6]
+    g = _gen(3)
+    x = _randn((B, d), g)
+    scale = _randn((1, d), g, torch.float32, 0.1)
+    # prologue chain
+    N = (H + 2 * Hkv) * D
+    w = _randn((d, N), g, scale=1 / math.sqrt(d))
+    norm, mm = rmsnorm_op(B, d, bm=B), matmul_1d_op(B, d, N, bm=B)
+    chain = stitch.stitch(norm, mm, "x")
+    (got,) = hfuse.run_single(chain)(x, scale, w)
+    (mid,) = hfuse.run_single(norm)(x, scale)
+    (sep,) = hfuse.run_single(mm)(mid, w)
+    assert torch.equal(got, sep)
+    _close_bf16(got, hfuse.run_single(chain, plain=True)(x, scale, w)[0])
+    # epilogue chain
+    gated = fn is elementwise.silu_gate
+    f_in = 2 * f if gated else f
+    w_in = _randn((d, f_in), g, scale=1 / math.sqrt(d))
+    proj = matmul_1d_op(B, d, f_in, bm=B)
+    act = elementwise.activation_op(B, f_in, f, fn, bm=B)
+    chain = stitch.stitch(proj, act, "h")
+    (got,) = hfuse.run_single(chain)(x, w_in)
+    (h,) = hfuse.run_single(proj)(x, w_in)
+    (sep,) = hfuse.run_single(act)(h)
+    assert torch.equal(got, sep)
+    _close_bf16(got, hfuse.run_single(chain, plain=True)(x, w_in)[0])
+
+
+@pytest.mark.parametrize("width", sorted(WIDTHS))
+def test_decode_attention_member(cuda_dev, width):
+    B, _d, H, Hkv, D, _f, S = WIDTHS[width]
+    g = _gen(4)
+    lens = torch.linspace(1, S, B).round().to(torch.int32)
+    length = lens.reshape(B, 1).cuda()
+    q = _randn((B, H, D), g)
+    k = _randn((B, S, Hkv, D), g)
+    v = _randn((B, S, Hkv, D), g)
+    op = decode_attention_op(B, S, H, Hkv, D, ck=min(S, 1024),
+                             dynamic_length=True)
+    got, want = _kernel_vs_plain(op, length, q, k, v)
+    for a, b in zip(got, want):
+        _close_f32(a, b)
+
+
+@pytest.mark.parametrize("off,C", [(0, None), ("mid", None), (7, 5)])
+@pytest.mark.parametrize("width", sorted(WIDTHS))
+def test_prefill_attention_member(cuda_dev, width, off, C):
+    _B, _d, H, Hkv, D, _f, S = WIDTHS[width]
+    C = C or S // 4
+    off = S // 2 if off == "mid" else off
+    g = _gen(5)
+    q = _randn((C, H, D), g)
+    k = _randn((S, Hkv, D), g)
+    v = _randn((S, Hkv, D), g)
+    offa = torch.full((1, 1), off, dtype=torch.int32, device="cuda")
+    op = prefill_attention_op(C, S, H, Hkv, D, ck=min(S, 1024))
+    got, want = _kernel_vs_plain(op, offa, q, k, v)
+    for a, b in zip(got, want):
+        _close_f32(a, b)
+
+
+@pytest.mark.parametrize("ratios", [(1, 1), (8, 1), (1, 8), (3, 5)])
+def test_fused_bundle_bitwise_equals_native(cuda_dev, ratios):
+    """decode attention + prefill attention, and the FFN chain + prefill
+    attention, at full width: one fused launch equals the members launched
+    alone, bit for bit, under any ratio."""
+    B, d, H, Hkv, D, f, S = WIDTHS["full"]
+    C = 512
+    g = _gen(6)
+    length = torch.linspace(1, S, B).round().to(torch.int32).reshape(B, 1)
+    dec_in = (length.cuda(), _randn((B, H, D), g), _randn((B, S, Hkv, D), g),
+              _randn((B, S, Hkv, D), g))
+    pf_in = (torch.full((1, 1), 1024, dtype=torch.int32, device="cuda"),
+             _randn((C, H, D), g), _randn((S, Hkv, D), g),
+             _randn((S, Hkv, D), g))
+    ffn = stitch.stitch(matmul_1d_op(B, d, 2 * f, bm=B),
+                        elementwise.activation_op(B, 2 * f, f,
+                                                  elementwise.silu_gate,
+                                                  bm=B), "h")
+    ffn_in = (_randn((B, d), g), _randn((d, 2 * f), g, scale=d ** -0.5))
+    dec = decode_attention_op(B, S, H, Hkv, D, ck=1024, dynamic_length=True)
+    pf = prefill_attention_op(C, S, H, Hkv, D, ck=1024)
+    for ops, ins in (((dec, pf), dec_in + pf_in), ((ffn, pf), ffn_in + pf_in)):
+        fused = hfuse.generate(ops, Schedule(ratios))(*ins)
+        native = hfuse.run_native(ops)(*ins)
+        assert len(fused) == len(native)
+        for a, b in zip(fused, native):
+            assert torch.equal(a, b)
+
+
+def test_launch_counts_and_cpu_plain_route(cuda_dev):
+    """A launch bumps the bundle launcher's count and each carried member
+    kernel's once; plain=True launches nothing."""
+    B, d = 8, 256
+    op = rmsnorm_op(B, d, bm=B)
+    x = _randn((B, d), _gen(7))
+    scale = torch.zeros((1, d), device="cuda")
+    kernels = (hfuse.BUNDLE, op.member.kernel)
+    before = [k.launches for k in kernels]
+    hfuse.run_single(op)(x, scale)
+    hfuse.run_single(op, plain=True)(x, scale)
+    assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1]
+
+
+def test_wrong_dtype_raises(cuda_dev):
+    op = rmsnorm_op(8, 64, dtype=torch.float32, bm=8)
+    x = torch.zeros((8, 64), device="cuda")
+    with pytest.raises(ValueError, match="dtype"):
+        hfuse.run_single(op)(x, torch.zeros((1, 64), device="cuda"))
