@@ -9,27 +9,52 @@ non-zero exit code and no result line.
   1. card    the card's name and power limit (nvidia-smi).
   2. build   nvcc the kernel library from ``src/repro_torch/csrc`` for
              sm_90a (keyed by a hash of the sources, under ``build/``).
-  3. kernels every member at the full-width granite-3-2b main-path shapes
-             (B=8, S=2048, chunk C=512, bf16) against its plain PyTorch
-             version; each chain bitwise against its two members launched
-             separately; the two fused bundles the planner picks bitwise
-             against ``run_native`` of the same members.  Each is timed with
-             CUDA events (median of 20 launches, L2 flushed before each, the
-             queue primed so host overhead stays out of the window) beside
-             its plain version, one PyTorch library call as a yardstick
-             (never used by the port) and its bound from bytes and
+  3. kernels every serve member at the full-width granite-3-2b main-path
+             shapes (B=8, S=2048, chunk C=512, bf16) against its plain
+             PyTorch version; each chain bitwise against its two members
+             launched separately; the two fused bundles the planner picks
+             bitwise against ``run_native`` of the same members.  Each is
+             timed with CUDA events (median of 20 launches, L2 flushed before
+             each, the queue primed so host overhead stays out of the window)
+             beside its plain version, one PyTorch library call as a
+             yardstick (never used by the port) and its bound from bytes and
              operations at the card's data-sheet rates.
-  4. serve   the port's ServeEngine on full-width granite-3-2b (40 layers,
+  4. adamw   the AdamW member at granite's w_qkv leaf, (1966080, 128) bf16
+             p/g and fp32 m/v, bm 1024, in place, bitwise against its plain
+             version; an embedding-shaped leaf (a padded tail, copied and
+             written back); timed beside its plain version and
+             ``torch.optim.AdamW(fused=True)`` on the same leaf.
+  5. plan    ``plan_update_fusion`` and ``build_update_program`` at full
+             width with ``make_measure("gpu")`` through a schedule cache
+             (n_measured, cost-model-vs-measured deltas), then the same plans
+             again from the cache file: zero new searches.
+  6. bundles the full-width update program bitwise against the same plan
+             run as one launch per member (``run_native``), and
+             ``multi_tensor_adamw``'s 8-member launch bitwise against the 8
+             singles, on synthetic full-width state; the whole update timed
+             against its bound and fused ``torch.optim.AdamW`` over the same
+             leaves.
+  7. train   full-width granite-3-2b (40 layers, bf16, fp32 moments, remat,
+             random weights from a seeded torch.Generator), batch 4 x seq
+             2048 from ``TokenPipeline``, 4 steps of ``make_train_step`` with
+             the planned update program; per step the loss, ms, tokens/s, the
+             update's device time and launches, the peak memory; on the first
+             step the executed update is held bitwise against the plain
+             update on the first and last block of every leaf (the
+             embedding's padded tail included).  One more step runs under
+             torch.profiler for device time by kernel name.
+  8. serve   the port's ServeEngine on full-width granite-3-2b (40 layers,
              bf16, random weights from a seeded torch.Generator), batch 8,
              max_len 2048, PrefillBudget(chunk_rows=512,
              max_coresident_chunks=2), 12 staggered requests with prompts of
-             64..1500 tokens and 8..16 new tokens.  Every launch counter is
-             reset just before the run and must be > 0 after it, and some
-             fused launch must have carried a prefill chunk.  The first mixed
-             step's logits are held against the same step built from the
-             plain versions on the card.  The trace is then served once more
-             under torch.profiler for device time by kernel name.
-  5. report  one JSON line of kernels, then the result line.
+             64..1500 tokens and 8..16 new tokens.  The first mixed step's
+             logits are held against the same step built from the plain
+             versions on the card.  The trace is then served once more under
+             torch.profiler for device time by kernel name.
+  9. report  one JSON line of kernels, then the result line.
+
+Each main path (train, serve) runs with every launch counter reset just
+before it and read just after; each of its kernels must have launched.
 
 Exits with code 1 and no result when no CUDA device is visible, and with
 code 2 when the port's sources are not beside it.
@@ -37,6 +62,7 @@ code 2 when the port's sources are not beside it.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -69,6 +95,11 @@ LOGITS_REL_L2 = 5e-2
 
 SLEEP_CYCLES = 100_000_000     # ~50 ms of queued GPU sleep before a timing
 REPS = 20
+
+# Full-width granite-3-2b train shapes.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 4
+QKV_ROWS = 40 * 2048 * 3072 // 128    # the w_qkv leaf as (R, 128)
+ADAM_BM = 1024
 
 
 class PhaseError(RuntimeError):
@@ -126,6 +157,60 @@ def bound(nbytes: float, flops: float, peak: float) -> tuple[float, str]:
     return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
 
 
+def make_flush(torch, dev):
+    """A 256 MB buffer whose zeroing evicts the 50 MB L2."""
+    return torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
+
+
+def kernel_row(path, name, kernel, src, replaces, err, ms, plain_ms, cost,
+               peak, lib_ms, **extra) -> dict:
+    """One entry of the kernels line; ``path`` names the main path whose
+    launch count it reports."""
+    b_ms, b_by = bound(cost[0], cost[1], peak)
+    print(f"[kernels] {name}: {ms:.4f} ms (plain {plain_ms:.4f}, "
+          f"library {lib_ms if lib_ms is None else round(lib_ms, 4)}, "
+          f"bound {b_ms:.4f} by {b_by}) max|err| {err:.3g}", flush=True)
+    return {"name": name, "path": path, "kernel": kernel, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{src}", "replaces": replaces,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+            **extra}
+
+
+def ulps(torch, a, b) -> int:
+    """Largest distance in units in the last place between two tensors of
+    one float dtype (0 when bitwise equal)."""
+    view = torch.int16 if a.element_size() == 2 else torch.int32
+    return int((a.view(view).long() - b.view(view).long()).abs().max())
+
+
+def device_profile(torch, run, what: str) -> None:
+    """``run()`` under torch.profiler: the device's busy share of the wall
+    time and device time by kernel name.  Only the device's own events
+    (kernels, copies, fills) are summed: a CPU op's device time is the
+    same kernels counted again."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_p = time.perf_counter() - t0
+    dev_us = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    dev_us = sorted((kv for kv in dev_us if kv[1] > 0), key=lambda kv: -kv[1])
+    busy = sum(us for _k, us in dev_us) / 1e6
+    if busy:
+        print(f"[profile] {what}: device busy {busy:.3f}s of {wall_p:.3f}s "
+              f"wall ({busy / wall_p:.1%}); by kernel:")
+        for k, us in dev_us[:12]:
+            print(f"[profile]   {us / 1e3:10.2f} ms {us / 1e6 / busy:6.1%} "
+                  f"{k[:90]}")
+    else:
+        print(f"[profile] {what}: no device time in the trace: not measured")
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: kernels at the main-path shapes
 # ---------------------------------------------------------------------------
@@ -137,7 +222,7 @@ def phase_kernels(torch, dev, cfg) -> list[dict]:
     from repro_torch.kernels import registry
     from repro_torch.serve.engine import PrefillBudget, ServeEngine
 
-    bundle_k, row_k, dec_k, pf_k = registry()
+    bundle_k, row_k, dec_k, pf_k, _adam_k = registry()
     d, H, Hkv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
     D, f = cfg.resolved_head_dim, cfg.d_ff
     N_qkv = (H + 2 * Hkv) * D
@@ -178,7 +263,7 @@ def phase_kernels(torch, dev, cfg) -> list[dict]:
         return (torch.full((1, 1), off, dtype=torch.int32, device=dev), q_pf,
                 k_cache[3], v_cache[3])
 
-    flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
+    flush = make_flush(torch, dev)
     lib_w1 = (1.0 + scale2).reshape(d).to(torch.bfloat16)
     kpos = torch.arange(S, device=dev)
     dec_mask = (kpos[None, :] < lens[:, None]).reshape(B, 1, 1, S)
@@ -245,17 +330,8 @@ def phase_kernels(torch, dev, cfg) -> list[dict]:
 
     rows = []
 
-    def record(name, kernel, src, replaces, err, ms, plain_ms, cost, peak,
-               lib_ms, **extra):
-        b_ms, b_by = bound(cost[0], cost[1], peak)
-        rows.append({"name": name, "kernel": kernel, "route": "cuda",
-                     "source": f"src/repro_torch/csrc/{src}",
-                     "replaces": replaces, "max_abs_err": err, "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-                     "library_ms": lib_ms, **extra})
-        print(f"[kernels] {name}: {ms:.4f} ms (plain {plain_ms:.4f}, "
-              f"library {lib_ms if lib_ms is None else round(lib_ms, 4)}, "
-              f"bound {b_ms:.4f} by {b_by}) max|err| {err:.3g}", flush=True)
+    def record(*args, **extra):
+        rows.append(kernel_row("serve", *args, **extra))
 
     for name, kernel, src, replaces, op, ins, cost, peak, lib in cases:
         run, run_plain = hfuse.run_single(op), hfuse.run_single(op, plain=True)
@@ -309,7 +385,374 @@ def phase_kernels(torch, dev, cfg) -> list[dict]:
 
 
 # ---------------------------------------------------------------------------
-# Phase 4: serve full-width granite-3-2b
+# Phase 4: the AdamW member at the w_qkv leaf
+# ---------------------------------------------------------------------------
+def _adam_leaf(torch, dev, shape, seed, pdtype):
+    """(scalars, p, g, m, v) of one leaf, on the card, from a seed."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    p = torch.randn(shape, generator=g, device=dev).mul_(0.02).to(pdtype)
+    grad = torch.randn(shape, generator=g, device=dev).mul_(1e-3).to(pdtype)
+    m = torch.randn(shape, generator=g, device=dev).mul_(1e-4)
+    v = torch.rand(shape, generator=g, device=dev).mul_(1e-7)
+    sc = torch.zeros((1, 128), device=dev)
+    sc[0, :3] = torch.tensor([3e-4, 1 - 0.9, 1 - 0.95])
+    return sc, p, grad, m, v
+
+
+def phase_adamw(torch, dev) -> list[dict]:
+    from repro_torch.core import hfuse
+    from repro_torch.kernels import adam
+
+    bf = torch.bfloat16
+    flush = make_flush(torch, dev)
+    op = adam.adamw_op(QKV_ROWS, bf, ADAM_BM)
+    run, run_plain = hfuse.run_single(op), hfuse.run_single(op, plain=True)
+    ins = _adam_leaf(torch, dev, (QKV_ROWS, 128), 7, bf)
+    ref = tuple(t.clone() for t in ins)
+    out, want = run(*ins), run_plain(*ref)
+    check(all(o.data_ptr() == ins[i].data_ptr()
+              for o, i in zip(out, (1, 3, 4))),
+          "adamw outputs are not the donated p, m, v")
+    check(all(bool(torch.isfinite(o.float()).all()) for o in out),
+          "non-finite adamw output")
+    ulp = max(ulps(torch, a, b) for a, b in zip(out, want))
+    err = max((a.float() - b.float()).abs().max().item()
+              for a, b in zip(out, want))
+    print(f"[adamw] w_qkv leaf {tuple(ins[1].shape)} in place: "
+          f"{ulp} ULP from the plain version (max|diff| {err:.3g})",
+          flush=True)
+    check(ulp == 0, f"adamw member differs from its plain version by {ulp} "
+          "ULP")
+    del ref, want
+
+    # an embedding-shaped leaf: padded to whole blocks, written back
+    emb = (49155, 2048)
+    a = _adam_leaf(torch, dev, emb, 8, bf)
+    b = tuple(t.clone() for t in a)
+    sc = a[0]
+    adam.multi_tensor_adamw({"e": a[1]}, {"e": a[2]}, {"e": a[3]},
+                            {"e": a[4]}, sc, bm=ADAM_BM)
+    adam.multi_tensor_adamw({"e": b[1]}, {"e": b[2]}, {"e": b[3]},
+                            {"e": b[4]}, sc, bm=ADAM_BM, plain=True)
+    check(all(torch.equal(x, y) for x, y in zip(a[1:], b[1:])),
+          "padded embedding-shaped update differs from the plain version")
+    tail = (49155 * 2048) % (ADAM_BM * 128)
+    print(f"[adamw] embedding-shaped leaf {emb}: padded to "
+          f"{-(-49155 * 2048 // (ADAM_BM * 128)) * ADAM_BM} rows, tail block "
+          f"{tail} real elements, bitwise equal to the plain version")
+    del a, b
+
+    ms = cuda_ms(torch, lambda: run(*ins), flush)
+    plain_ms = cuda_ms(torch, lambda: run_plain(*ins), flush)
+    param = torch.nn.Parameter(ins[1].clone())
+    param.grad = ins[2].clone()
+    lib = torch.optim.AdamW([param], lr=3e-4, betas=(0.9, 0.95), eps=1e-8,
+                            weight_decay=0.1, fused=True)
+    lib.step()
+    st = lib.state[param]
+    print(f"[adamw] library: torch.optim.AdamW(fused=True) with param "
+          f"{param.dtype}, grad {param.grad.dtype}, exp_avg "
+          f"{st['exp_avg'].dtype}, exp_avg_sq {st['exp_avg_sq'].dtype}")
+    lib_ms = cuda_ms(torch, lib.step, flush)
+    n = QKV_ROWS * 128
+    row = kernel_row("train", f"adamw_member:w_qkv ({QKV_ROWS}x128, bm "
+                     f"{ADAM_BM})", adam.ADAMW, "adamw_member.cuh",
+                     "src/repro/kernels/adam.py:67", err, ms, plain_ms,
+                     (22.0 * n, 12.0 * n), FP32_FLOPS, lib_ms, ulp=ulp)
+    del ins, param, lib, st
+    torch.cuda.empty_cache()
+    return [row]
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: measured planning through a schedule cache
+# ---------------------------------------------------------------------------
+def phase_plan(torch, dev, cfg):
+    from repro_torch.core import autotuner, schedule_cache, timing
+    from repro_torch.models import lm
+    from repro_torch.train import train_loop as tl
+
+    measure = timing.make_measure("gpu")
+    path = ROOT / "build" / "repro_torch" / "chip_smoke_schedule_cache.json"
+    path.unlink(missing_ok=True)
+    abstract = lm.abstract_params(cfg)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+
+    def plans(cache):
+        fplan = tl.plan_update_fusion(abstract, tokens=tokens,
+                                      measure=measure, cache=cache)
+        prog = tl.build_update_program(abstract, measure=measure,
+                                       cache=cache)
+        return fplan, prog
+
+    n0 = autotuner.SEARCH_COUNT
+    t0 = time.perf_counter()
+    fplan, prog = plans(schedule_cache.ScheduleCache(path))
+    searches = autotuner.SEARCH_COUNT - n0
+    print(f"[plan] measured planning ({measure.backend}): {searches} "
+          f"searches in {time.perf_counter() - t0:.1f}s", flush=True)
+    for title, plan in (("plan_update_fusion", fplan),
+                        ("build_update_program", prog.plan)):
+        print(f"[plan] {title}:")
+        for r in plan.summary():
+            print(f"[plan]   {r}")
+        for d in plan.fused:
+            res = d.result
+            deltas = [round(r["cm_vs_measured_delta_pct"], 1)
+                      for r in res.table()
+                      if r["cm_vs_measured_delta_pct"] is not None]
+            print(f"[plan]   {'+'.join(d.members)}: n_measured "
+                  f"{res.n_measured}, best {res.best.sched.label()} "
+                  f"measured {res.best.measured_s} s, cost-model-vs-measured "
+                  f"deltas % {deltas}")
+        for r in plan.rejected:
+            print(f"[plan]   rejected {r}")
+    print(f"[plan] executed update program: {prog.describe()}")
+    check(searches > 0, "the first plan searched nothing")
+
+    n1 = autotuner.SEARCH_COUNT
+    fplan2, prog2 = plans(schedule_cache.ScheduleCache(path))
+    again = autotuner.SEARCH_COUNT - n1
+    print(f"[plan] replan from {path.relative_to(ROOT)}: {again} new "
+          "searches")
+    check(again == 0, f"the cached replan searched {again} bundles")
+    check(prog2.describe() == prog.describe()
+          and fplan2.summary() == fplan.summary(),
+          "the cached replan differs from the measured plan")
+    return prog2
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the full-width update bundles
+# ---------------------------------------------------------------------------
+def _state_trees(torch, dev, cfg):
+    """(params, grads, m, v) trees of the full-width model's shapes."""
+    from repro_torch import tree as tree_mod
+    from repro_torch.models import lm
+
+    abstract = lm.abstract_params(cfg)
+
+    def like(dtype=None):
+        return tree_mod.map_tree(lambda a: torch.empty(
+            a.shape, dtype=dtype or a.dtype, device=dev), abstract)
+    return like(), like(), like(torch.float32), like(torch.float32)
+
+
+def _fill(torch, dev, trees, seed):
+    from repro_torch import tree as tree_mod
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    p, grad, m, v = (tree_mod.leaves(t) for t in trees)
+    for a, b, c, d in zip(p, grad, m, v):
+        a.normal_(0, 0.02, generator=g)
+        b.normal_(0, 1e-3, generator=g)
+        c.normal_(0, 1e-4, generator=g)
+        d.uniform_(0, 1e-7, generator=g)
+
+
+def phase_update_bundles(torch, dev, cfg, program) -> dict:
+    from repro_torch import tree as tree_mod
+    from repro_torch.core import executor, planner
+    from repro_torch.kernels import adam
+    from repro_torch.train.train_loop import UpdateProgram
+
+    plan = program.plan
+    native = UpdateProgram(plan, executor.compile_plan(
+        planner.FusionPlan(fused=[], singles=[g.op.name for g in plan.graph],
+                           rejected=[], graph=plan.graph),
+        bindings=program.program.bindings), program.layout, program.hyper)
+    lr, bc1, bc2 = (torch.tensor(x, device=dev)
+                    for x in (3e-4, 1 - 0.9, 1 - 0.95))
+    scalars = torch.zeros((1, 128), device=dev)
+    scalars[0, :3] = torch.stack([lr, bc1, bc2])
+    A, B = _state_trees(torch, dev, cfg), _state_trees(torch, dev, cfg)
+
+    def same(what):
+        for i in (0, 2, 3):                   # params, m, v
+            for k, (x, y) in enumerate(zip(tree_mod.leaves(A[i]),
+                                           tree_mod.leaves(B[i]))):
+                check(torch.equal(x, y), f"{what}: leaf {k} of tree {i} "
+                      "differs")
+
+    for T in (A, B):
+        _fill(torch, dev, T, 11)
+    program(*A, lr=lr, bc1=bc1, bc2=bc2)
+    native(*B, lr=lr, bc1=bc1, bc2=bc2)
+    same("update program vs run_native")
+    print(f"[bundles] full-width update program ({program.describe()}) "
+          "bitwise equal to one launch per member", flush=True)
+
+    for T in (A, B):
+        _fill(torch, dev, T, 12)
+    before = adam.ADAMW.launches
+    adam.multi_tensor_adamw(A[0], A[1], A[2], A[3], scalars)
+    check(adam.ADAMW.launches == before + 1, "multi_tensor_adamw launched "
+          f"{adam.ADAMW.launches - before} times")
+    flat = [tree_mod.flatten_with_paths(t) for t in B]
+    for (path, p), (_, g), (_, m), (_, v) in zip(*flat):
+        adam.multi_tensor_adamw({"x": p}, {"x": g}, {"x": m}, {"x": v},
+                                scalars)
+    same("multi_tensor_adamw (one 8-member launch) vs 8 singles")
+    print(f"[bundles] multi_tensor_adamw: one {len(flat[0])}-member launch "
+          "bitwise equal to the singles")
+    del B
+    torch.cuda.empty_cache()
+
+    flush = make_flush(torch, dev)
+    n_bytes = sum(leaf.numel() * (3 * leaf.element_size() + 16)
+                  for leaf in tree_mod.leaves(A[0]))
+    ms = cuda_ms(torch, lambda: program(*A, lr=lr, bc1=bc1, bc2=bc2), flush)
+    params = [torch.nn.Parameter(leaf) for leaf in tree_mod.leaves(A[0])]
+    for prm, g in zip(params, tree_mod.leaves(A[1])):
+        prm.grad = g
+    lib = torch.optim.AdamW(params, lr=3e-4, betas=(0.9, 0.95), eps=1e-8,
+                            weight_decay=0.1, fused=True)
+    lib.step()
+    lib_ms = cuda_ms(torch, lib.step, flush)
+    bound_ms = n_bytes / HBM_BYTES_S * 1e3
+    print(f"[bundles] full update ({len(params)} leaves, {n_bytes / 1e9:.2f} "
+          f"GB): {ms:.3f} ms, bound {bound_ms:.3f} ms by bytes, "
+          f"torch.optim.AdamW(fused=True) {lib_ms:.3f} ms (state in the "
+          "param dtype)", flush=True)
+    del A, params, lib
+    torch.cuda.empty_cache()
+    return {"ms": ms, "bound_ms": bound_ms, "library_ms": lib_ms}
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: train full-width granite-3-2b
+# ---------------------------------------------------------------------------
+class UpdateProbe:
+    """Wraps the update program: CUDA events around every call and, on the
+    first call, the executed update held bitwise against the plain update
+    on the first and last block of every leaf."""
+
+    def __init__(self, torch, program):
+        self.torch = torch
+        self.program = program
+        self.hyper = program.hyper
+        self.events = []
+        self.checked = 0
+
+    def __call__(self, params, grads, m, v, *, lr, bc1, bc2):
+        from repro_torch import tree as tree_mod
+        from repro_torch.kernels.adam import plain_adamw
+        from repro_torch.train.optimizer import scalars_of
+
+        def flat(trees):
+            return [[x.reshape(-1) for x in tree_mod.leaves(t)]
+                    for t in trees]
+
+        torch = self.torch
+        snaps = []
+        if not self.events:
+            sc = scalars_of(lr, bc1, bc2)
+            before = flat((params, grads, m, v))
+            for i, (name, _path, n, R, bm) in enumerate(self.program.layout):
+                for a, b in ((0, min(bm * 128, n)), ((R - bm) * 128, n)):
+                    snaps.append((name, i, a, b,
+                                  [f[i][a:b].clone() for f in before]))
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        out = self.program(params, grads, m, v, lr=lr, bc1=bc1, bc2=bc2)
+        e.record()
+        self.events.append((s, e))
+        after = flat(out) if snaps else None
+        for name, i, a, b, ins in snaps:
+            want = plain_adamw(sc, *ins, **self.hyper)
+            got = [f[i][a:b] for f in after]
+            check(all(torch.equal(x, y) for x, y in zip(got, want)),
+                  f"executed update of {name}[{a}:{b}] differs from the "
+                  "plain update")
+            self.checked += 1
+        return out
+
+
+def phase_train(torch, dev, cfg, program) -> dict:
+    from repro_torch import tree as tree_mod
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.kernels import cuda, registry
+    from repro_torch.models import lm
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train.train_loop import TrainConfig, make_train_step
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = lm.init(cfg, gen, device=dev)
+    opt_state = opt_mod.init(params)
+    ocfg = opt_mod.AdamWConfig(lr=3e-4, warmup_steps=1,
+                               total_steps=TRAIN_STEPS)
+    probe = UpdateProbe(torch, program)
+    step_fn = make_train_step(cfg, TrainConfig(optimizer=ocfg, remat=True),
+                              update_program=probe)
+    data = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH))
+    torch.cuda.synchronize()
+    print(f"[train] weights + moments: {time.perf_counter() - t0:.1f}s, "
+          f"{sum(t.numel() for t in tree_mod.leaves(params)):,} params",
+          flush=True)
+
+    kernels = registry()
+    cuda.reset_counts(kernels)
+    torch.cuda.reset_peak_memory_stats(dev)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steps = []
+    t_run = time.perf_counter()
+    for step in range(TRAIN_STEPS):
+        before = {k.name: k.launches for k in kernels}
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in data.batch_at(step).items()}
+        t0 = time.perf_counter()
+        params, opt_state, met = step_fn(params, opt_state, batch, step)
+        loss = float(met["loss"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        s, e = probe.events[-1]
+        upd_ms = s.elapsed_time(e)
+        launched = {k.name: k.launches - before[k.name] for k in kernels}
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        steps.append({"loss": loss, "ms": dt * 1e3, "update_ms": upd_ms,
+                      "launches": launched})
+        print(f"[train] step {step}: loss {loss:.4f} gnorm "
+              f"{float(met['grad_norm']):.3f}, {dt * 1e3:.1f} ms, "
+              f"{tokens / dt:.1f} tokens/s, update {upd_ms:.3f} ms device "
+              f"in {launched['bundle_launcher']} launches, peak "
+              f"{peak:.2f} GiB", flush=True)
+        check(math.isfinite(loss), f"non-finite loss at step {step}")
+    wall = time.perf_counter() - t_run
+    counts = {k.name: k.launches for k in kernels}
+
+    def one_more_step():
+        nonlocal params, opt_state
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in data.batch_at(TRAIN_STEPS).items()}
+        params, opt_state, met = step_fn(params, opt_state, batch,
+                                         TRAIN_STEPS)
+        check(math.isfinite(float(met["loss"])), "non-finite profiled loss")
+
+    # one more step under torch.profiler (counts already read)
+    device_profile(torch, one_more_step, "train step")
+    print(f"[train] {TRAIN_STEPS} steps in {wall:.3f}s "
+          f"({TRAIN_STEPS * tokens / wall:.1f} tokens/s); first-step update "
+          f"checked on {probe.checked} blocks; launches {counts}")
+    check(probe.checked == 2 * len(program.layout),
+          "the first-step update check did not run")
+    for name in ("bundle_launcher", "adamw_member"):
+        check(counts[name] > 0, f"{name} never launched in training")
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    check(peak < 80, f"peak memory {peak:.1f} GiB")
+    del params, opt_state, step_fn, probe
+    torch.cuda.empty_cache()
+    return {"counts": counts, "steps": steps, "seconds": wall,
+            "peak_gib": peak}
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: serve full-width granite-3-2b
 # ---------------------------------------------------------------------------
 def phase_serve(torch, dev, cfg) -> dict:
     import numpy as np
@@ -375,8 +818,10 @@ def phase_serve(torch, dev, cfg) -> dict:
     print(f"[serve] stats {st.describe()}")
     print(f"[serve] launches {counts}")
     print(f"[serve] programs {eng.cb_program_info.get(2, {}).get('steps')}")
-    check(all(v > 0 for v in counts.values()),
-          f"a kernel of the main path never launched: {counts}")
+    serve_kernels = ("bundle_launcher", "row_member", "decode_attention",
+                     "prefill_attention")
+    check(all(counts[k] > 0 for k in serve_kernels),
+          f"a kernel of the serve path never launched: {counts}")
     check(st.fused_prefill_chunks > 0 and st.fused_mixed_steps > 0,
           "no fused launch carried a prefill chunk")
     check(all(len(r.out_tokens) == r.max_new_tokens for r in reqs),
@@ -408,25 +853,7 @@ def phase_serve(torch, dev, cfg) -> dict:
 
     # the same trace again under torch.profiler: device time by kernel name
     # and the device's busy share of the wall time (counts already read)
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        eng.run(requests())
-        torch.cuda.synchronize()
-        wall_p = time.perf_counter() - t0
-    dev_us = [(e.key, getattr(e, "self_device_time_total", 0.0))
-              for e in prof.key_averages()]
-    dev_us = sorted((kv for kv in dev_us if kv[1] > 0), key=lambda kv: -kv[1])
-    busy = sum(us for _k, us in dev_us) / 1e6
-    if busy:
-        print(f"[profile] device busy {busy:.3f}s of {wall_p:.3f}s wall "
-              f"({busy / wall_p:.1%}); by kernel:")
-        for k, us in dev_us[:12]:
-            print(f"[profile]   {us / 1e3:10.2f} ms {us / 1e6 / busy:6.1%} "
-                  f"{k[:90]}")
-    else:
-        print("[profile] no device time in the trace: not measured")
+    device_profile(torch, lambda: eng.run(requests()), "serve trace")
     return {"counts": counts, "tokens": tokens, "seconds": wall,
             "tokens_per_s": tokens / wall, "logits_rel_l2": rel}
 
@@ -465,16 +892,31 @@ def main() -> int:
 
     cfg = get_config("granite-3-2b")
     check(cfg.num_layers == 40 and cfg.d_model == 2048, "not full width")
-    # 3. kernels, 4. serve
+    # 3. serve kernels, 4. adamw, 5. measured plan, 6. update bundles,
+    # 7. train, 8. serve
     rows = phase_kernels(torch, dev, cfg)
+    rows += phase_adamw(torch, dev)
+    program = phase_plan(torch, dev, cfg)
+    update = phase_update_bundles(torch, dev, cfg, program)
+    train = phase_train(torch, dev, cfg, program)
     serve = phase_serve(torch, dev, cfg)
 
-    # 5. report
+    # 9. report: each row's launches come from its own main path's run
     names = {k.name: k for k in registry()}
+    runs = {"serve": serve["counts"], "train": train["counts"]}
     for r in rows:
-        r["launches"] = serve["counts"][r.pop("kernel").name]
-    check(set(serve["counts"]) == set(names), "kernel registry changed")
+        r["launches"] = runs[r.pop("path")][r.pop("kernel").name]
+    check(set(serve["counts"]) == set(names) == set(train["counts"]),
+          "kernel registry changed")
     print(json.dumps({"kernels": rows}))
+    st = train["steps"][1:] or train["steps"]
+    step_ms = statistics.median(x["ms"] for x in st)
+    upd_ms = statistics.median(x["update_ms"] for x in st)
+    print(f"[train] steps 1..{TRAIN_STEPS - 1}: median {step_ms:.1f} ms/step, "
+          f"{TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3:.1f} tokens/s, update "
+          f"{upd_ms:.3f} ms device (bound {update['bound_ms']:.3f} ms; "
+          f"{train['counts']['adamw_member'] // TRAIN_STEPS} adamw launches "
+          f"per step), peak {train['peak_gib']:.2f} GiB ({smi})")
     print(f"[serve] tokens/s {serve['tokens_per_s']:.3f} ({smi})")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,6 +23,9 @@ The bundle launcher replaces the TPU kernels ``src/repro/core/hfuse.py:87``
 each member kernel it carried.  Its plain version runs each member's plain
 function: members of a bundle are independent, so order does not matter.
 
+An op that declares ``aliases`` has those outputs written into the donated
+inputs, by the kernel and by the plain route alike.
+
 A callable built here runs the kernel for CUDA operands and the plain
 versions for CPU operands; ``plain=True`` is the explicit opt-in that runs
 the plain versions on the card too (to hold the kernels against them).
@@ -74,7 +77,10 @@ def _run_plain(ops: Sequence[OpSpec], operands) -> tuple:
     outs, off = [], 0
     for op in ops:
         n = len(op.inputs)
-        outs.extend(op.plain(*operands[off:off + n]))
+        res = list(op.plain(*operands[off:off + n]))
+        for o, i in op.aliases:
+            res[o] = operands[off + i].copy_(res[o])
+        outs.extend(res)
         off += n
     return tuple(outs)
 
@@ -85,8 +91,10 @@ def _launch(ops: Sequence[OpSpec], ratios: Sequence[int], operands) -> tuple:
     for op in ops:
         n = len(op.inputs)
         ins.append(operands[off:off + n])
-        outs.append([torch.empty(o.shape, dtype=o.dtype, device=dev)
-                     for o in op.outputs])
+        alias = dict(op.aliases)
+        outs.append([operands[off + alias[j]] if j in alias
+                     else torch.empty(o.shape, dtype=o.dtype, device=dev)
+                     for j, o in enumerate(op.outputs)])
         off += n
     with torch.cuda.device(dev):
         cuda.launch([op.member for op in ops], ins, outs, ratios)
@@ -115,6 +123,10 @@ def generate(ops: Sequence[OpSpec], sched: Schedule, *, plain: bool = False):
 
     fused.schedule = sched
     fused.ops = ops
+    # the launch's CTA count; with every member's CTAs equal to its TPU grid
+    # steps it is the reference's fused grid, period * max_i ceil(grid_i/r_i)
+    # (a block-shrunk variant keeps its member's CTAs, so there they differ)
+    fused.n_steps = cuda.grid_size([op.ctas for op in ops], sched.ratios)
     return fused
 
 

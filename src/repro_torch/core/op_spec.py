@@ -74,6 +74,10 @@ class OpSpec:
     # Stable operand signature (core/binding.py contract).
     in_names: tuple[str, ...] = ()
     out_names: tuple[str, ...] = ()
+    # In-place outputs: ``(output index, input index)`` pairs.  The caller
+    # donates that input: the launch (and the plain route) writes the output
+    # into it and returns it, so an update needs no second copy of its state.
+    aliases: tuple[tuple[int, int], ...] = ()
 
     def __post_init__(self):
         if self.in_names and len(self.in_names) != len(self.inputs):
@@ -82,6 +86,12 @@ class OpSpec:
         if self.out_names and len(self.out_names) != len(self.outputs):
             raise ValueError(f"{self.name}: {len(self.out_names)} out_names "
                              f"for {len(self.outputs)} outputs")
+        for o, i in self.aliases:
+            a, b = self.outputs[o], self.inputs[i]
+            if (a.shape, a.dtype) != (b.shape, b.dtype):
+                raise ValueError(f"{self.name}: output {o} cannot be written "
+                                 f"into input {i}: {a.shape} {a.dtype} vs "
+                                 f"{b.shape} {b.dtype}")
 
     @property
     def has_signature(self) -> bool:

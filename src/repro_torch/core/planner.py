@@ -11,18 +11,23 @@ its decisions:
   5. grow it up to ``max_ways`` members by largest marginal predicted gain,
   6. keep bundles whose tuned predicted gain clears ``min_gain_pct``.
 
-The gains are cost-model numbers under the planning profile
-(``core/profile.py``), not card times.  ``measure=`` and ``cache=`` are
-later work and raise.
+The predicted gains are cost-model numbers under the planning profile
+(``core/profile.py``), not card times.  With ``measure=`` every accepted
+bundle's final schedule is picked by measurement and admitted on its
+measured gain over the profiled native launches (``run_native``), unless
+the measure only ranks (the step-count proxy).  ``cache=`` makes a replan
+of an unchanged graph search nothing.
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
-from typing import Sequence
+from typing import Callable, Optional, Sequence
 
-from repro_torch.core import autotuner, stitch
+from repro_torch.core import autotuner, hfuse, stitch
 from repro_torch.core.cost_model import native_time
 from repro_torch.core.op_spec import OpSpec
+from repro_torch.core.schedule_cache import ScheduleCache
 
 
 @dataclass
@@ -36,6 +41,7 @@ class FusionDecision:
     members: tuple[str, ...]
     result: autotuner.SearchResult
     predicted_speedup_pct: float
+    measured_speedup_pct: Optional[float] = None   # set when plan(measure=)
 
 
 @dataclass
@@ -51,9 +57,12 @@ class FusionPlan:
             "schedule": d.result.best.sched.label(),
             "vmem_cap": d.result.best.vmem_cap,
             "predicted_speedup_pct": round(d.predicted_speedup_pct, 1),
+            "measured_speedup_pct": (None if d.measured_speedup_pct is None
+                                     else round(d.measured_speedup_pct, 1)),
         } for d in self.fused]
         rows += [{"members": s, "schedule": "-", "vmem_cap": None,
-                  "predicted_speedup_pct": 0.0} for s in self.singles]
+                  "predicted_speedup_pct": 0.0, "measured_speedup_pct": None}
+                 for s in self.singles]
         return rows
 
 
@@ -177,18 +186,38 @@ def _contract_chains(graph: Sequence[GraphOp]) -> tuple[GraphOp, ...]:
 
 
 def _bundle_search(bundle: Sequence[OpSpec],
-                   memo: dict[frozenset, autotuner.SearchResult]
-                   ) -> autotuner.SearchResult:
+                   memo: dict[frozenset, autotuner.SearchResult],
+                   cache: Optional[ScheduleCache]) -> autotuner.SearchResult:
     """Autotune a bundle, memoized per member-name set within one plan."""
     key = frozenset(op.name for op in bundle)
     if key not in memo:
-        memo[key] = autotuner.search(tuple(bundle))
+        memo[key] = autotuner.search(tuple(bundle), cache=cache)
     return memo[key]
 
 
 def _bundle_cost(bundle: Sequence[OpSpec],
-                 memo: dict[frozenset, autotuner.SearchResult]) -> float:
-    return _bundle_search(bundle, memo).best.est.t_hfused
+                 memo: dict[frozenset, autotuner.SearchResult],
+                 cache: Optional[ScheduleCache]) -> float:
+    return _bundle_search(bundle, memo, cache).best.est.t_hfused
+
+
+def _measured_speedup(res: autotuner.SearchResult, bundle: Sequence[OpSpec],
+                      measure: Callable,
+                      cache: Optional[ScheduleCache]) -> Optional[float]:
+    """The tuned fused launch against the native baseline (one launch per
+    member), both measured.  The native time rides in the bundle's cache
+    entry (``native_s``), so a replan profiles nothing."""
+    if res.best.measured_s is None:
+        return None
+    entry = (cache.entries.get(res.cache_key)
+             if cache is not None and res.cache_key else None)
+    t_native = entry.get("native_s") if entry else None
+    if t_native is None:
+        t_native = measure(hfuse.run_native(tuple(bundle)), *bundle)
+        if entry is not None:
+            entry["native_s"] = t_native
+            cache.put(res.cache_key, entry)   # respects batched() deferral
+    return 100.0 * (t_native - res.best.measured_s) / max(t_native, 1e-30)
 
 
 def _starves_unseeded(graph, ops, clo, used: set[str],
@@ -216,18 +245,23 @@ def _starves_unseeded(graph, ops, clo, used: set[str],
 
 def plan(graph: Sequence[GraphOp], *, min_gain_pct: float = 2.0,
          allow_same_bound: bool = False, max_ways: int = 2,
-         measure=None, cache=None) -> FusionPlan:
+         measure: Optional[Callable] = None,
+         cache: Optional[ScheduleCache] = None) -> FusionPlan:
     """Build <= ``max_ways``-way fusion bundles over the independent ops
-    (epilogue chains contracted first)."""
-    if measure is not None:
-        raise NotImplementedError("measured planning is not ported yet "
-                                  "(ROADMAP)")
-    if cache is not None:
-        raise NotImplementedError("the schedule cache is not ported yet "
-                                  "(ROADMAP)")
+    (epilogue chains contracted first).  ``measure``: profiling callable
+    (``core/timing.make_measure``) for the accepted bundles' schedules and
+    measured gains; ``cache``: every search consults it first."""
     graph = _contract_chains(graph)
     ops = {g.op.name: g for g in graph}
     memo: dict[frozenset, autotuner.SearchResult] = {}
+    batch = cache.batched() if cache is not None else contextlib.nullcontext()
+    with batch:
+        return _plan_inner(graph, ops, memo, min_gain_pct, allow_same_bound,
+                           max_ways, measure, cache)
+
+
+def _plan_inner(graph, ops, memo, min_gain_pct, allow_same_bound, max_ways,
+                measure, cache) -> FusionPlan:
     clo = _reachable(ops)
     mem = sorted((g.op for g in graph if g.op.bound == "memory"),
                  key=lambda o: -o.t_native)
@@ -257,7 +291,7 @@ def plan(graph: Sequence[GraphOp], *, min_gain_pct: float = 2.0,
         c = min(partners, key=lambda o: abs(o.t_native - m.t_native))
         bundle = [m, c]
 
-        t_now = _bundle_cost(bundle, memo)
+        t_now = _bundle_cost(bundle, memo, cache)
         while len(bundle) < max_ways:
             names_now = tuple(b.name for b in bundle)
             pool = [g.op for g in graph
@@ -271,7 +305,7 @@ def plan(graph: Sequence[GraphOp], *, min_gain_pct: float = 2.0,
             if not pool:
                 break
             scored = [(t_now + native_time(x)
-                       - _bundle_cost(bundle + [x], memo), x)
+                       - _bundle_cost(bundle + [x], memo, cache), x)
                       for x in pool]
             marginal, x = max(scored, key=lambda s: s[0])
             if marginal <= (min_gain_pct / 100.0) * native_time(x):
@@ -279,16 +313,31 @@ def plan(graph: Sequence[GraphOp], *, min_gain_pct: float = 2.0,
             bundle.append(x)
             t_now = t_now + native_time(x) - marginal
 
-        res = _bundle_search(bundle, memo)
+        if measure is None:
+            res = _bundle_search(bundle, memo, cache)
+        else:
+            # measured final tuning (its own cache mode: the measured
+            # schedule may differ from the cost-model one)
+            res = autotuner.search(tuple(bundle), measure=measure,
+                                   cache=cache)
         gain = res.best.est.speedup_pct()
         names = tuple(b.name for b in bundle)
-        if gain >= min_gain_pct:
-            fused.append(FusionDecision(names, res, gain))
+        measured_pct = (None if measure is None
+                        else _measured_speedup(res, bundle, measure, cache))
+        # measurement outranks the model for admission, unless the measure
+        # only ranks schedules (the step-count proxy)
+        use_measured = (measured_pct is not None
+                        and not getattr(measure, "rank_only", False))
+        accept_gain = measured_pct if use_measured else gain
+        if accept_gain >= min_gain_pct:
+            fused.append(FusionDecision(names, res, gain, measured_pct))
             used |= set(names)
             accepted.append(names)
         else:
+            kind = "measured" if use_measured else "predicted"
             rejected.append(("+".join(names[:-1]), names[-1],
-                             f"predicted gain {gain:.1f}% < {min_gain_pct}%"))
+                             f"{kind} gain {accept_gain:.1f}% "
+                             f"< {min_gain_pct}%"))
 
     singles = [g.op.name for g in graph if g.op.name not in used]
     return FusionPlan(fused=fused, singles=singles, rejected=rejected,

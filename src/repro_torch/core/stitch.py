@@ -9,10 +9,13 @@ On the card a chain's member is the producer kernel with the consumer
 fused as a prologue or an epilogue.  The row kernel implements exactly the
 two pairs the decode step declares: rmsnorm->matmul (normalise into shared
 memory, then the GEMM) and matmul->activation (the activation on the fp32
-tile before the only store).  ``can_stitch`` gives the reason for any other
-pair, so the planner leaves it unstitched, and ``stitch`` raises on it.
-A chain is bitwise equal to its two ops run separately (the row kernel's
-rounding contract, ``csrc/row_member.cuh``).
+tile before the only store).  A chain is bitwise equal to its two ops run
+separately (the row kernel's rounding contract, ``csrc/row_member.cuh``).
+The train update graph's dW->adamw pair is accepted with the reference's
+checks and planned, but it is planning-only in both packages: its member
+(``kernels/adam.DwAdamwChain``) raises if it is ever launched.
+``can_stitch`` gives the reason for any other pair, so the planner leaves
+it unstitched, and ``stitch`` raises on it.
 
 ``can_stitch``'s planning checks (equal grids, per-step block
 correspondence, collision-free merged names) are the reference's
@@ -25,7 +28,7 @@ import math
 from typing import Optional
 
 from repro_torch.core.op_spec import Operand, OpSpec, itemsize, shrink_blocks
-from repro_torch.kernels import row
+from repro_torch.kernels import adam, row
 
 CHAIN_SEP = "→"
 
@@ -103,6 +106,8 @@ def can_stitch(producer: OpSpec, consumer: OpSpec,
                                           if n != operand)
     if len(set(merged_in)) != len(merged_in):
         return f"operand name collision in merged signature: {merged_in}"
+    if isinstance(consumer.member, adam.AdamwMember):
+        return adam.dw_chain_reason(producer.member, consumer.member)
     return row.chain_reason(producer.member, consumer.member)
 
 
@@ -140,12 +145,18 @@ def stitch(producer: OpSpec, consumer: OpSpec, operand: str) -> OpSpec:
             return None
         return stitch(ps, cs, operand)
 
+    if isinstance(consumer.member, adam.AdamwMember):
+        member = adam.DwAdamwChain(producer.member, consumer.member)
+    else:
+        member = row.chain(producer.member, consumer.member)
+    # the consumer's in-place outputs, at their inputs' places in the chain
+    aliases = tuple((o, n_pi + i - (i > sidx)) for o, i in consumer.aliases)
     saved = _array_bytes(pout) + _array_bytes(cin)
     tag = "|".join(t for t in (producer.tag, consumer.tag) if t)
     return OpSpec(
         name=f"{producer.name}{CHAIN_SEP}{consumer.name}",
         grid=producer.grid,
-        member=row.chain(producer.member, consumer.member),
+        member=member,
         plain=plain,
         inputs=producer.inputs + consumer.inputs[:sidx]
         + consumer.inputs[sidx + 1:],
@@ -159,4 +170,5 @@ def stitch(producer: OpSpec, consumer: OpSpec, operand: str) -> OpSpec:
         out_names=consumer.out_names,
         chain=(producer.name, consumer.name),
         extra_vmem_bytes=pout.block_bytes(),
+        aliases=aliases,
     )

@@ -1,0 +1,105 @@
+"""Measurement harness — the profiler inside the paper's Main() loop (Fig. 6).
+
+``make_measure(backend)`` builds the ``measure(fused, *ops) -> seconds``
+callable that ``autotuner.search(measure=)`` and ``planner.plan(measure=)``
+take (the reference's ``src/repro/core/timing.py``):
+
+  gpu        — device time on the card: synthesize the operands from the
+               OpSpecs, ``warmup`` runs, then ``repeats`` runs each between
+               two CUDA events on the current stream, and a trimmed mean
+               (drop the ``trim`` fastest and slowest).  Without a card it
+               raises.
+  interpret  — the reference's deterministic step-count proxy: the fused
+               launch's CTA count (``fused.n_steps``) times the bundle's mean
+               per-step roofline work.  It ranks schedules on any machine and
+               gives the reference's measured plans on the CPU; its absolute
+               gains are only launch amortization (``rank_only``).
+"""
+from __future__ import annotations
+
+from typing import Callable, Sequence
+
+import torch
+
+from repro_torch.core.op_spec import OpSpec
+from repro_torch.core.profile import LAUNCH_S
+
+BACKENDS = ("gpu", "interpret")
+
+
+def synth_inputs(ops: Sequence[OpSpec], seed: int = 0,
+                 device=None) -> list[torch.Tensor]:
+    """One flat operand list for a bundle, from a seeded generator on
+    ``device``: small normals for floats, zeros otherwise.  Timing only —
+    numerics are the tests' job."""
+    dev = torch.device(device or "cpu")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    out: list[torch.Tensor] = []
+    for op in ops:
+        for o in op.inputs:
+            if o.dtype.is_floating_point:
+                out.append((torch.randn(o.shape, generator=gen, device=dev)
+                            * 0.1).to(o.dtype))
+            else:
+                out.append(torch.zeros(o.shape, dtype=o.dtype, device=dev))
+    return out
+
+
+def step_time_proxy(fused, ops: Sequence[OpSpec]) -> float:
+    """Fused-launch length x mean step work (the reference's proxy).
+    Callables without ``n_steps`` (``run_native``) are charged the exact
+    per-op work plus one launch per op."""
+    total_work = sum(op.t_compute + op.t_memory for op in ops)
+    total_steps = sum(op.grid for op in ops)
+    n_steps = getattr(fused, "n_steps", None)
+    if n_steps is None:
+        return total_work + len(ops) * LAUNCH_S
+    return n_steps * (total_work / max(total_steps, 1)) + LAUNCH_S
+
+
+def _trimmed_mean(ts: list[float], trim: int) -> float:
+    ts = sorted(ts)
+    k = trim if len(ts) > 2 * trim else 0
+    kept = ts[k:len(ts) - k] if k else ts
+    return sum(kept) / len(kept)
+
+
+def make_measure(backend: str, *, warmup: int = 2, repeats: int = 5,
+                 trim: int = 1, seed: int = 0) -> Callable:
+    """The ``measure(fused, *ops) -> seconds`` callable of ``backend``
+    (``"gpu"`` or ``"interpret"``)."""
+    if backend not in BACKENDS:
+        raise ValueError(f"measure backend {backend!r}: one of {BACKENDS}")
+
+    if backend == "interpret":
+        def measure(fused, *ops):
+            return step_time_proxy(fused, ops)
+        measure.backend = "interpret"
+        # the proxy RANKS schedules; its native-vs-fused difference is only
+        # launch amortization, so the planner admits on the predicted gain
+        measure.rank_only = True
+        return measure
+
+    if not torch.cuda.is_available():
+        raise RuntimeError("make_measure('gpu'): no CUDA device to time on")
+    dev = torch.device("cuda", torch.cuda.current_device())
+
+    def measure(fused, *ops):
+        args = synth_inputs(ops, seed, dev)
+        for _ in range(max(1, warmup)):
+            fused(*args)
+        starts = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(max(1, repeats))]
+        ends = [torch.cuda.Event(enable_timing=True) for _ in starts]
+        for s, e in zip(starts, ends):
+            s.record()
+            fused(*args)
+            e.record()
+        torch.cuda.synchronize()
+        del args
+        return _trimmed_mean([s.elapsed_time(e) * 1e-3
+                              for s, e in zip(starts, ends)], trim)
+
+    measure.backend = "gpu"
+    return measure

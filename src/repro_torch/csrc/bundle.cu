@@ -24,6 +24,7 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false -shared
 // (src/repro_torch/kernels/cuda.py builds it at first use).
 #include "common.cuh"
+#include "adamw_member.cuh"
 #include "decode_attention.cuh"
 #include "prefill_attention.cuh"
 #include "row_member.cuh"
@@ -41,6 +42,7 @@ __global__ void __launch_bounds__(HF_THREADS)
       case HF_ROW: row_member(m, local); break;
       case HF_DECODE_ATTN: decode_attn_member(m, local); break;
       case HF_PREFILL_ATTN: prefill_attn_member(m, local); break;
+      case HF_ADAMW: adamw_member(m, local); break;
       default: break;
     }
     return;
@@ -60,6 +62,7 @@ int hf_member_smem(const MemberDesc* m) {
     case HF_ROW: return row_smem_bytes(*m);
     case HF_DECODE_ATTN: return decode_attn_smem_bytes(*m);
     case HF_PREFILL_ATTN: return prefill_attn_smem_bytes(*m);
+    case HF_ADAMW: return adamw_smem_bytes(*m);
     default: return -1;
   }
 }

@@ -17,12 +17,12 @@
 #define HF_NEG_INF (-1e30f)
 
 // member kinds
-enum { HF_ROW = 1, HF_DECODE_ATTN = 2, HF_PREFILL_ATTN = 3 };
+enum { HF_ROW = 1, HF_DECODE_ATTN = 2, HF_PREFILL_ATTN = 3, HF_ADAMW = 4 };
 
 struct MemberDesc {
   int kind, ctas, ratio, offset;
   int i[12];
-  float f[2];
+  float f[6];   // baked float parameters (AdamW: b1, 1-b1, b2, 1-b2, eps, wd)
   const void* in[6];
   void* out[3];
 };

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels: the row member family, decode attention and
-prefill attention, all launched through the bundle launcher
+"""The port's CUDA kernels: the row member family, decode attention,
+prefill attention and the AdamW update, all launched through the bundle
+launcher
 (``core/hfuse.py``, source ``csrc/bundle.cu``)."""
 
 
@@ -7,7 +8,8 @@ def registry():
     """The port's hand-written kernels, in report order: the bundle
     launcher, then the members."""
     from repro_torch.core.hfuse import BUNDLE
+    from repro_torch.kernels.adam import ADAMW
     from repro_torch.kernels.decode_attention import DECODE
     from repro_torch.kernels.prefill_attention import PREFILL
     from repro_torch.kernels.row import ROW
-    return (BUNDLE, ROW, DECODE, PREFILL)
+    return (BUNDLE, ROW, DECODE, PREFILL, ADAMW)

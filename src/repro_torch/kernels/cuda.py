@@ -36,7 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 MAX_MEMBERS = 8
 
 # member kinds (csrc/common.cuh)
-ROW, DECODE_ATTN, PREFILL_ATTN = 1, 2, 3
+ROW, DECODE_ATTN, PREFILL_ATTN, ADAMW = 1, 2, 3, 4
 
 
 class Kernel:
@@ -60,7 +60,7 @@ def reset_counts(kernels: Sequence[Kernel]) -> None:
 class MemberDesc(ctypes.Structure):
     _fields_ = [("kind", ctypes.c_int), ("ctas", ctypes.c_int),
                 ("ratio", ctypes.c_int), ("offset", ctypes.c_int),
-                ("i", ctypes.c_int * 12), ("f", ctypes.c_float * 2),
+                ("i", ctypes.c_int * 12), ("f", ctypes.c_float * 6),
                 ("inp", ctypes.c_void_p * 6), ("out", ctypes.c_void_p * 3)]
 
 

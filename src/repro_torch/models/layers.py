@@ -1,16 +1,23 @@
-"""Transformer layers the served step needs, in PyTorch.
+"""Transformer layers the served and trained steps need, in PyTorch.
 
 Mirrors the JAX package's ``models/layers.py`` op for op (same rounding
 points, same layouts): RMSNorm with ``(1 + scale)``, RoPE in fp32 with a
 cast back, the embedding row lookup times sqrt(d) (the scale rounded to the
-table's dtype first, as JAX's weakly typed scalar is), and the tied
-unembedding with fp32 accumulation.
+table's dtype first, as JAX's weakly typed scalar is), the tied
+unembedding with fp32 accumulation, the fused-QKV projection, the gated
+MLP, flash-style blockwise attention (the reference computes it in plain
+``jnp``, not in a kernel) and the fp32 cross entropy with z-loss.  A JAX
+product with ``preferred_element_type=float32`` becomes a product of the
+operands upcast to fp32: the same bf16 values, summed in fp32.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+import torch.nn.functional as F
+
+NEG_INF = -1e30
 
 
 def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -65,3 +72,95 @@ def unembed(p, x: torch.Tensor, softcap: float = 0.0) -> torch.Tensor:
     if softcap:
         logits = torch.tanh(logits / softcap) * softcap
     return logits
+
+
+# ---------------------------------------------------------------------------
+# Train / full-sequence path
+# ---------------------------------------------------------------------------
+def qkv_project(cfg, p, x: torch.Tensor):
+    """x (B, S, d) @ the fused w_qkv -> q (B,S,H,D), k, v (B,S,Hkv,D)."""
+    B, S, _ = x.shape
+    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    qkv = x @ p["w_qkv"]
+    q = qkv[..., :H * D].reshape(B, S, H, D)
+    k = qkv[..., H * D:(H + Hkv) * D].reshape(B, S, Hkv, D)
+    v = qkv[..., (H + Hkv) * D:].reshape(B, S, Hkv, D)
+    return q, k, v
+
+
+def mlp(cfg, p, x: torch.Tensor) -> torch.Tensor:
+    act = cfg.activation
+    h = x @ p["w_in"]
+    if act in ("silu", "gelu"):
+        gate, up = torch.chunk(h, 2, dim=-1)
+        g = F.silu(gate) if act == "silu" else F.gelu(gate,
+                                                       approximate="tanh")
+        h = g * up
+    elif act == "gelu_mlp":
+        h = F.gelu(h, approximate="tanh")
+    elif act == "relu2_mlp":
+        h = torch.square(torch.relu(h))
+    else:
+        raise ValueError(act)
+    return h @ p["w_out"]
+
+
+def blockwise_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
+                        chunk_q: int = 1024, chunk_k: int = 1024):
+    """Flash-style attention: a loop over KV chunks with a running (max,
+    sum, acc), never materialising (Sq, Sk).  q (B,Sq,H,D); k, v
+    (B,Sk,Hkv,D) -> (B,Sq,H,Dv) in q's dtype."""
+    B, Sq, H, D = q.shape
+    Sk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    rep = H // Hkv
+    cq, ck = min(chunk_q, Sq), min(chunk_k, Sk)
+    if Sq % cq or Sk % ck:
+        raise ValueError(f"blockwise_attention: Sq={Sq} % {cq} and "
+                         f"Sk={Sk} % {ck} must be 0")
+    nq, nk = Sq // cq, Sk // ck
+    dev = q.device
+    qg = q.reshape(B, nq, cq, Hkv, rep, D).float()
+    kc = k.reshape(B, nk, ck, Hkv, D)
+    vc = v.reshape(B, nk, ck, Hkv, Dv)
+    qpos = q_offset + torch.arange(Sq, device=dev).reshape(nq, cq)
+    m = torch.full((B, Hkv, rep, nq, cq), NEG_INF, dtype=torch.float32,
+                   device=dev)
+    l = torch.zeros((B, Hkv, rep, nq, cq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, Hkv, rep, nq, cq, Dv), dtype=torch.float32,
+                      device=dev)
+    for ik in range(nk):
+        kb, vb = kc[:, ik], vc[:, ik]
+        s = torch.einsum("bnqhrd,bkhd->bhrnqk", qg, kb.float()) / math.sqrt(D)
+        if causal:
+            kpos = ik * ck + torch.arange(ck, device=dev)
+            mask = qpos[:, :, None] >= kpos[None, None, :]      # (nq,cq,ck)
+            s = torch.where(mask, s, torch.full((), NEG_INF, device=dev))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        scale = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * scale + p.sum(dim=-1)
+        pv = torch.einsum("bhrnqk,bkhd->bhrnqd", p.to(vb.dtype), vb)
+        acc = acc * scale[..., None] + pv.float()
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    out = out.permute(0, 3, 4, 1, 2, 5).reshape(B, Sq, H, Dv)
+    return out.to(q.dtype)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask=None,
+                  z_loss: float = 1e-4) -> torch.Tensor:
+    """Mean token cross entropy in fp32 with z-loss; labels < 0 are
+    ignored."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1,
+                      labels.clamp(min=0).long()[..., None])[..., 0]
+    nll = lse - ll
+    if z_loss:
+        nll = nll + z_loss * torch.square(lse)
+    valid = labels >= 0
+    if mask is not None:
+        valid = valid & mask
+    denom = torch.clamp(valid.sum(), min=1)
+    return torch.where(valid, nll, torch.zeros((), device=nll.device)
+                       ).sum() / denom

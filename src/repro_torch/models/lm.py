@@ -1,4 +1,5 @@
-"""LM assembly for the dense global-attention subset the port serves.
+"""LM assembly for the dense global-attention subset the port serves and
+trains.
 
 Parameters are plain nested dicts of tensors with the JAX package's tree
 and layouts: weights stay ``(K, N)``, a run of ``count > 1`` identical
@@ -14,6 +15,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ATTN, ModelConfig
 from repro_torch.device import resolve_device
@@ -133,6 +135,18 @@ def init(cfg: ModelConfig, generator: torch.Generator,
     return params
 
 
+def abstract_params(cfg: ModelConfig) -> dict:
+    """The params' shapes and dtypes as ``device="meta"`` tensors (the
+    reference plans from ``jax.eval_shape(lm.init)``)."""
+    dt = torch_dtype(cfg.dtype)
+    params: dict = {}
+    for path, (shape, _kind, dt_override) in _leaves(param_layout(cfg)):
+        _set(params, path, torch.empty(
+            shape, dtype=torch_dtype(dt_override) if dt_override else dt,
+            device="meta"))
+    return params
+
+
 def _from_numpy(a: np.ndarray) -> torch.Tensor:
     a = np.ascontiguousarray(a)
     if a.dtype.name == "bfloat16":
@@ -153,7 +167,7 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device=None) -> dict:
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{'/'.join(path)}: shape {tuple(t.shape)}, "
                              f"expected {tuple(shape)}")
-        _set(params, path, t.to(dev))
+        _set(params, path, t.to(dev, copy=True))   # never the caller's
     return params
 
 
@@ -197,3 +211,50 @@ def _head(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     if cfg.logit_softcap:
         logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
     return logits
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence (train) path
+# ---------------------------------------------------------------------------
+def block_apply_seq(cfg: ModelConfig, p: dict, x: torch.Tensor):
+    """One dense global-attention block over a whole sequence:
+    (B, S, d) -> (B, S, d), and its auxiliary loss (0 for a dense FFN)."""
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)[None, :]
+    h = layers.apply_norm(cfg, p["norm1"], x)
+    q, k, v = layers.qkv_project(cfg, p["attn"], h)
+    q = layers.rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
+    k = layers.rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
+    o = layers.blockwise_attention(q, k, v, causal=True)
+    x = x + o.reshape(B, S, -1) @ p["attn"]["w_o"]
+    x = x + layers.mlp(cfg, p["mlp"], layers.apply_norm(cfg, p["norm2"], x))
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def forward(cfg: ModelConfig, params: dict, batch: dict, *,
+            remat: bool = False):
+    """Full-sequence forward -> (logits (B, S, V) fp32, aux loss, loss
+    mask or None).  ``remat`` recomputes each layer in the backward pass
+    (``torch.utils.checkpoint``): only the per-layer block inputs are kept,
+    as the reference's ``jax.checkpoint`` over the layer scan keeps its
+    carry."""
+    x = _embed_inputs(cfg, params, batch["tokens"])
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp in layer_params(cfg, params):
+        if remat:
+            x, a = checkpoint(block_apply_seq, cfg, lp, x,
+                              use_reentrant=False)
+        else:
+            x, a = block_apply_seq(cfg, lp, x)
+        aux = aux + a
+    x = layers.apply_norm(cfg, params["final_norm"], x)
+    return _head(cfg, params, x), aux, None
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *,
+            remat: bool = True):
+    """Mean token cross entropy (z-loss 1e-4) plus 0.01 x the auxiliary
+    loss -> (total, {"ce", "aux"})."""
+    logits, aux, mask = forward(cfg, params, batch, remat=remat)
+    loss = layers.cross_entropy(logits, batch["labels"], mask=mask)
+    return loss + 0.01 * aux, {"ce": loss, "aux": aux}

@@ -212,11 +212,13 @@ class ServeEngine:
     with the same device); planning alone (``build_decode_program``) needs
     no params.  ``plain=True`` is the explicit opt-in that runs every
     planned member's plain PyTorch version instead of its CUDA kernel, to
-    hold the kernels against them on the card."""
+    hold the kernels against them on the card.  ``measure`` and
+    ``schedule_cache`` reach every decode plan (``planner.plan``)."""
 
     def __init__(self, cfg: ModelConfig, params, *, batch: int = 8,
                  max_len: int = 512, rng_seed: int = 0,
-                 plan_fusion: bool = True, scheduling: str = "continuous",
+                 plan_fusion: bool = True, measure=None,
+                 schedule_cache=None, scheduling: str = "continuous",
                  prefill_budget: Optional[PrefillBudget] = None,
                  stitch_epilogues: bool = True, paged_kv: bool = False,
                  mesh=None, device=None, plain: bool = False):
@@ -248,7 +250,10 @@ class ServeEngine:
         self._cb_fused_chunks: dict[int, frozenset] = {}
         self.cb_program_info: dict[int, dict] = {}   # n chunks -> launch table
         self.stats = ServeStats(batch=batch)
-        self.fusion_plan = self.plan_decode_fusion()
+        self._measure = measure
+        self._schedule_cache = schedule_cache
+        self.fusion_plan = self.plan_decode_fusion(measure=measure,
+                                                   cache=schedule_cache)
 
     # ------------------------------------------------------------------
     @property
@@ -315,15 +320,18 @@ class ServeEngine:
         return graph
 
     def plan_decode_fusion(self, *, max_ways: Optional[int] = None,
-                           budget: Optional[PrefillBudget] = None):
+                           budget: Optional[PrefillBudget] = None,
+                           measure=None, cache=None):
         """Plan the steady mixed iteration (the budget's full chunk
-        complement) — the plan shown at engine start."""
+        complement) — the plan shown at engine start.  With ``measure`` the
+        schedules are profiled; ``cache`` makes a later start search
+        nothing."""
         budget = budget or self.prefill_budget
         n = budget.max_coresident_chunks
         if max_ways is None:
             max_ways = 2 + n
         return planner.plan(self.decode_graph(budget=budget, prefill_chunks=n),
-                            max_ways=max_ways)
+                            max_ways=max_ways, measure=measure, cache=cache)
 
     # ------------------------------------------------------------------
     # Executed decode step: plan -> program -> live slot state
@@ -346,7 +354,8 @@ class ServeEngine:
 
         graph = self.decode_graph(prefill_chunks=prefill_chunks)
         plan = planner.plan(graph, max_ways=max(3, 2 + prefill_chunks),
-                            allow_same_bound=True)
+                            allow_same_bound=True, measure=self._measure,
+                            cache=self._schedule_cache)
 
         def qkv_put(state, qkv):
             qkv = qkv.to(dt)[:, None, :]                        # (B, 1, N)

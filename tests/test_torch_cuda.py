@@ -231,3 +231,94 @@ def test_wrong_dtype_raises(cuda_dev):
     x = torch.zeros((8, 64), device="cuda")
     with pytest.raises(ValueError, match="dtype"):
         hfuse.run_single(op)(x, torch.zeros((1, 64), device="cuda"))
+
+
+# ---------------------------------------------------------------------------
+# AdamW member (csrc/adamw_member.cuh): bitwise against its plain version
+# ---------------------------------------------------------------------------
+def _adam_state(R, dtype, g):
+    p = _randn((R, 128), g, dtype)
+    grad = _randn((R, 128), g, dtype, 0.1)
+    m = _randn((R, 128), g, torch.float32, 1e-2)
+    v = torch.rand((R, 128), generator=g, device="cuda") * 1e-3
+    sc = torch.zeros((1, 128), device="cuda")
+    sc[0, :3] = torch.tensor([3e-3, 1 - 0.9 ** 3, 1 - 0.95 ** 3])
+    return sc, p, grad, m, v
+
+
+@pytest.mark.parametrize("dtype", [BF, torch.float32])
+@pytest.mark.parametrize("R,bm", [(1, 1), (37, 37), (3 * 1024, 1024),
+                                  (5 * 48, 48)])
+def test_adamw_member_bitwise_in_place(cuda_dev, R, bm, dtype):
+    """Odd row counts and block sizes; p, m, v written in place; equal to
+    the plain version bit for bit (same operation order, RN intrinsics)."""
+    from repro_torch.kernels import adam
+    ins = _adam_state(R, dtype, _gen(8))
+    op = adam.adamw_op(R, dtype, bm)
+    plain_ins = [t.clone() for t in ins]
+    got = hfuse.run_single(op)(*ins)
+    want = hfuse.run_single(op, plain=True)(*plain_ins)
+    assert got[0].data_ptr() == ins[1].data_ptr()
+    assert got[1].data_ptr() == ins[3].data_ptr()
+    assert got[2].data_ptr() == ins[4].data_ptr()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_multi_tensor_adamw_padded_leaves_bitwise(cuda_dev):
+    """An 8-leaf tree with ragged tails (padded copies written back) and
+    exact leaves (views): the one 8-member launch equals the 8 singles."""
+    from repro_torch.kernels import adam
+    g = _gen(9)
+    shapes = [(3, 1000), (7,), (4, 256), (2, 3, 129), (1024, 128), (5,),
+              (300, 7), (64, 64)]
+    params = {f"l{i}": _randn(s, g, BF if i % 2 else torch.float32)
+              for i, s in enumerate(shapes)}
+    grads = {k: _randn(p.shape, g, p.dtype, 0.1) for k, p in params.items()}
+    m = {k: _randn(p.shape, g, torch.float32, 1e-2)
+         for k, p in params.items()}
+    v = {k: torch.rand(p.shape, generator=g, device="cuda") * 1e-3
+         for k, p in params.items()}
+    sc = _adam_state(1, BF, g)[0]
+    copies = [{k: t.clone() for k, t in tr.items()} for tr in (params, m, v)]
+    singles = [{k: t.clone() for k, t in tr.items()} for tr in copies]
+    before = hfuse.BUNDLE.launches
+    adam.multi_tensor_adamw(params, grads, m, v, sc, bm=256)
+    assert hfuse.BUNDLE.launches == before + 1
+    adam.multi_tensor_adamw(*copies[:1], grads, *copies[1:], sc, bm=256,
+                            plain=True)
+    for got, want in zip((params, m, v), copies):
+        for k in got:
+            assert torch.equal(got[k], want[k]), k
+    # the 8 singles, launched one by one, give the same bits
+    for k in params:
+        adam.multi_tensor_adamw({k: singles[0][k]}, {k: grads[k]},
+                                {k: singles[1][k]}, {k: singles[2][k]}, sc,
+                                bm=256)
+    for got, want in zip(copies, singles):
+        assert all(torch.equal(got[k], want[k]) for k in got)
+
+
+def test_dw_adamw_chain_launch_raises(cuda_dev):
+    from repro_torch.kernels import adam
+    from repro_torch.kernels.matmul import matmul_1d_op
+    dw = matmul_1d_op(256, 64, 128, bm=256)
+    upd = adam.adamw_op(256, bm=256)
+    chain = stitch.stitch(dw, upd, "g")
+    g = _gen(10)
+    ins = (_randn((256, 64), g), _randn((64, 128), g),
+           *(_adam_state(256, BF, g)[i] for i in (0, 1, 3, 4)))
+    with pytest.raises(NotImplementedError, match="planning-only"):
+        hfuse.run_single(chain)(*ins)
+
+
+def test_make_measure_gpu_times_are_positive_and_repeatable(cuda_dev):
+    from repro_torch.core import timing
+    from repro_torch.kernels import adam
+    ops = [adam.adamw_op(4096, bm=1024, name="a"),
+           adam.adamw_op(2048, bm=1024, name="b")]
+    measure = timing.make_measure("gpu", repeats=9)
+    fused = hfuse.generate(ops, Schedule((1, 1)))
+    ts = [measure(fused, *ops) for _ in range(3)]
+    assert all(t > 0 for t in ts)
+    assert max(ts) <= 3 * min(ts), ts

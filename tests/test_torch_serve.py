@@ -125,9 +125,7 @@ def test_reduced_launch_table_matches_reference(n, stitched):
                           stitch_epilogues=stitched)
     assert (te.build_decode_program(prefill_chunks=n).describe()
             == je.build_decode_program(prefill_chunks=n).describe())
-    assert te.fusion_plan.summary() == [
-        {k: v for k, v in row.items() if k != "measured_speedup_pct"}
-        for row in je.fusion_plan.summary()]
+    assert te.fusion_plan.summary() == je.fusion_plan.summary()
 
 
 # ---------------------------------------------------------------------------
