@@ -9,6 +9,21 @@ non-zero exit code and no result line.
   1. card    the card's name and power limit (nvidia-smi).
   2. build   nvcc the kernel library from ``src/repro_torch/csrc`` for
              sm_90a (keyed by a hash of the sources, under ``build/``).
+  2b. paper  the paper suite (``kernels/paper_suite.py``) at the
+             reference's default sizes: each of the 9 atoms at its defaults
+             and at ``SMALL_KW`` (and the bf16 forms of maxpool, upsample,
+             im2col, bnstats) against its plain version, bitwise or within
+             ``paper_suite.TOLERANCE``, timed beside its plain version, its
+             bound and, for maxpool and upsample, one PyTorch call.  Then,
+             with every launch counter reset, the path itself:
+             ``launch/paper.py``'s main over the 16 pairs and 4 triples with
+             ``--measure gpu`` (plan, cost-model and measured search; native,
+             vertical fusion, naive 1:1, planned and measured launches
+             bitwise equal; their times, gains over native, the launch's
+             shared memory and resident CTAs per SM); every paper kernel
+             must have launched.  Last, the quickstart pair's
+             ``generate_vfused`` and planned launches timed beside their
+             plain versions for the report.
   3. kernels every serve member at the full-width granite-3-2b main-path
              shapes (B=8, S=2048, chunk C=512, bf16) against its plain
              PyTorch version; each chain bitwise against its two members
@@ -53,8 +68,8 @@ non-zero exit code and no result line.
              torch.profiler for device time by kernel name.
   9. report  one JSON line of kernels, then the result line.
 
-Each main path (train, serve) runs with every launch counter reset just
-before it and read just after; each of its kernels must have launched.
+Each main path (paper, train, serve) runs with every launch counter reset
+just before it and read just after; each of its kernels must have launched.
 
 Exits with code 1 and no result when no CUDA device is visible, and with
 code 2 when the port's sources are not beside it.
@@ -93,9 +108,6 @@ BF16_REL = 2.0 ** -7
 # they drift by a few bf16 steps per layer; a wrong kernel gives O(1).
 LOGITS_REL_L2 = 5e-2
 
-SLEEP_CYCLES = 100_000_000     # ~50 ms of queued GPU sleep before a timing
-REPS = 20
-
 # Full-width granite-3-2b train shapes.
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 4
 QKV_ROWS = 40 * 2048 * 3072 // 128    # the w_qkv leaf as (R, 128)
@@ -114,24 +126,6 @@ def check(cond: bool, msg: str) -> None:
 # ---------------------------------------------------------------------------
 # Timing and error helpers
 # ---------------------------------------------------------------------------
-def cuda_ms(torch, fn, flush) -> float:
-    """Median device time of ``fn`` over REPS launches, CUDA events around
-    each; L2 flushed before each; the queue is primed with a GPU sleep so
-    every launch is enqueued before the device reaches it."""
-    fn()
-    torch.cuda.synchronize()
-    starts = [torch.cuda.Event(enable_timing=True) for _ in range(REPS)]
-    ends = [torch.cuda.Event(enable_timing=True) for _ in range(REPS)]
-    torch.cuda._sleep(SLEEP_CYCLES)
-    for s, e in zip(starts, ends):
-        flush.zero_()
-        s.record()
-        fn()
-        e.record()
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
-
-
 def compare(torch, got, want) -> float:
     """Hold kernel outputs against the plain outputs; returns max |diff|."""
     worst = 0.0
@@ -155,11 +149,6 @@ def compare(torch, got, want) -> float:
 def bound(nbytes: float, flops: float, peak: float) -> tuple[float, str]:
     t_b, t_f = nbytes / HBM_BYTES_S, flops / peak
     return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
-
-
-def make_flush(torch, dev):
-    """A 256 MB buffer whose zeroing evicts the 50 MB L2."""
-    return torch.empty(64 * 2 ** 20, dtype=torch.float32, device=dev)
 
 
 def kernel_row(path, name, kernel, src, replaces, err, ms, plain_ms, cost,
@@ -212,6 +201,125 @@ def device_profile(torch, run, what: str) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 2b: the paper suite
+# ---------------------------------------------------------------------------
+def paper_error(ps, got, want, body) -> float:
+    """``paper_suite.max_error`` as a phase check."""
+    try:
+        return ps.max_error(got, want, body)
+    except AssertionError as e:
+        raise PhaseError(str(e)) from e
+
+
+def phase_paper(torch, dev) -> tuple[list[dict], dict]:
+    from repro_torch.core import autotuner, hfuse
+    from repro_torch.kernels import cuda, registry
+    from repro_torch.core.timing import flush_buffer, median_ms
+    from repro_torch.kernels import paper_suite as ps
+    from repro_torch.launch import paper
+
+    flush = flush_buffer(dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(1313)
+    rows = []
+
+    def record(*args, **extra):
+        rows.append(kernel_row("paper", *args, **extra))
+
+    # 1. the atoms against their plain versions, then timed at the defaults
+    # (all checks first: they also bring the card to its clocks)
+    timed = []
+    for name, make in ps.ALL_KERNELS.items():
+        dtypes = [torch.float32] + ([torch.bfloat16] if name in (
+            "maxpool", "upsample", "im2col", "bnstats") else [])
+        for kw in ({}, ps.SMALL_KW[name]):
+            for dtype in dtypes:
+                op, mk, plain = make(**kw, dtype=dtype)
+                ins = mk(g, dev)
+                (got,) = hfuse.run_single(op)(*ins)
+                err = paper_error(ps, got, plain(*ins), op.member.body)
+                check(torch.equal(got, hfuse.run_single(op)(*ins)[0]),
+                      f"{name} differs between two launches")
+                if not kw and dtype == torch.float32:
+                    timed.append((name, op, ins, plain, err))
+    for name, op, ins, plain, err in timed:
+        run = hfuse.run_single(op)
+        x = ins[0]
+        lib = {"maxpool": lambda: torch.amax(
+                   x.view(x.shape[0] // 2, 2, x.shape[1]), dim=1),
+               "upsample": lambda: torch.repeat_interleave(x, 2, dim=0)
+               }.get(name)
+        record(f"{op.member.body}:{name} ({op.ctas} CTAs)", op.member.kernel,
+               "paper_member.cuh", op.member.kernel.replaces, err,
+               median_ms(lambda: run(*ins), flush),
+               median_ms(lambda: plain(*ins), flush),
+               (op.hbm_bytes, op.member.ops), FP32_FLOPS,
+               None if lib is None else median_ms(lib, flush))
+    first = timed[0]
+    del timed
+    print("[paper] 9 atoms at the defaults and SMALL_KW (fp32; bf16 where "
+          "the kernel takes it) within tolerance of their plain versions",
+          flush=True)
+
+    # 2, 3. the path: pairs and triples, counted
+    kernels = registry()
+    cuda.reset_counts(kernels)
+    t0 = time.perf_counter()
+    try:
+        recs = paper.main(["--pairs", "--triples", "--measure", "gpu"])
+    except AssertionError as e:
+        raise PhaseError(str(e)) from e
+    counts = {k.name: k.launches for k in kernels}
+    print(f"[paper] path: {len(recs)} bundles in "
+          f"{time.perf_counter() - t0:.1f}s; launches {counts}", flush=True)
+    check(len(recs) == 20 and all(r["bitwise"] for r in recs),
+          "a fused paper launch differs from run_native")
+    for k in ("bundle_launcher", *ps.KERNELS):
+        check(counts[k] > 0, f"{k} never launched on the paper path")
+    print("[paper] gains over native (card), v5e planning prediction:")
+    for r in recs:
+        gain = r["gain_pct"]
+        print(f"[paper]   {r['bundle']}: vfused {gain['vfused']:+.2f}% "
+              f"naive {gain['naive']:+.2f}% planned {r['schedule']} "
+              f"{gain['planned']:+.2f}% measured {r['measured_schedule']} "
+              f"{gain['measured']:+.2f}%; predicted "
+              f"{r['predicted_gain_pct']:.2f}%; smem {r['smem']} B, "
+              f"{r['ctas_per_sm']} CTAs/SM")
+
+    # the quickstart pair's vertical and planned launches for the report
+    ops, mks, _ = ps.make_bundle(("ethash_like", "blake_like"))
+    ins = [t for mk in mks for t in mk(g, dev)]
+    vf, native = hfuse.generate_vfused(ops), hfuse.run_native(ops)
+    planned = autotuner.search(tuple(ops)).build()
+    plain = hfuse.run_native(ops, plain=True)
+    want, out_n = plain(*ins), native(*ins)
+    cost = (sum(op.hbm_bytes for op in ops), sum(op.member.ops for op in ops))
+    for what, fused, replaces in (
+            ("generate_vfused", vf, "src/repro/core/hfuse.py:152"),
+            (f"generate {planned.schedule.label()}", planned,
+             "src/repro/core/hfuse.py:87")):
+        out = fused(*ins)
+        check(all(torch.equal(a, b) for a, b in zip(out, out_n)),
+              f"{what} differs from run_native")
+        err = max(paper_error(ps, a, b, op.member.body)
+                  for op, a, b in zip(ops, out, want))
+        record(f"bundle_launcher:{what} ethash_like+blake_like",
+               hfuse.BUNDLE, "bundle.cu", replaces, err,
+               median_ms(lambda: fused(*ins), flush),
+               median_ms(lambda: plain(*ins), flush), cost, FP32_FLOPS,
+               None, native_ms=median_ms(lambda: native(*ins), flush))
+    # the first atom timed once more, at the phase's end: a spread between
+    # the two is the card's state, not the kernel's
+    name, op, ins, _plain, _err = first
+    again = median_ms(lambda: hfuse.run_single(op)(*ins), flush)
+    print(f"[paper] {name} timed again at the end of the phase: "
+          f"{again:.4f} ms (first {rows[0]['ms']:.4f} ms)", flush=True)
+    del flush, first
+    torch.cuda.empty_cache()
+    return rows, {"counts": counts, "bundles": recs}
+
+
+# ---------------------------------------------------------------------------
 # Phase 3: kernels at the main-path shapes
 # ---------------------------------------------------------------------------
 def phase_kernels(torch, dev, cfg) -> list[dict]:
@@ -219,10 +327,11 @@ def phase_kernels(torch, dev, cfg) -> list[dict]:
 
     from repro_torch.core import hfuse
     from repro_torch.core.cost_model import Schedule
+    from repro_torch.core.timing import flush_buffer, median_ms
     from repro_torch.kernels import registry
     from repro_torch.serve.engine import PrefillBudget, ServeEngine
 
-    bundle_k, row_k, dec_k, pf_k, _adam_k = registry()
+    bundle_k, row_k, dec_k, pf_k, _adam_k = registry()[:5]
     d, H, Hkv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
     D, f = cfg.resolved_head_dim, cfg.d_ff
     N_qkv = (H + 2 * Hkv) * D
@@ -263,7 +372,7 @@ def phase_kernels(torch, dev, cfg) -> list[dict]:
         return (torch.full((1, 1), off, dtype=torch.int32, device=dev), q_pf,
                 k_cache[3], v_cache[3])
 
-    flush = make_flush(torch, dev)
+    flush = flush_buffer(dev)
     lib_w1 = (1.0 + scale2).reshape(d).to(torch.bfloat16)
     kpos = torch.arange(S, device=dev)
     dec_mask = (kpos[None, :] < lens[:, None]).reshape(B, 1, 1, S)
@@ -337,9 +446,9 @@ def phase_kernels(torch, dev, cfg) -> list[dict]:
         run, run_plain = hfuse.run_single(op), hfuse.run_single(op, plain=True)
         err = compare(torch, run(*ins), run_plain(*ins))
         record(name, kernel, src, replaces, err,
-               cuda_ms(torch, lambda: run(*ins), flush),
-               cuda_ms(torch, lambda: run_plain(*ins), flush), cost, peak,
-               None if lib is None else cuda_ms(torch, lib, flush))
+               median_ms(lambda: run(*ins), flush),
+               median_ms(lambda: run_plain(*ins), flush), cost, peak,
+               None if lib is None else median_ms(lib, flush))
 
     # chains: bitwise equal to the two members launched separately
     (c1,) = hfuse.run_single(chain1)(x, scale1, w_qkv)
@@ -377,9 +486,9 @@ def phase_kernels(torch, dev, cfg) -> list[dict]:
         cost = tuple(sum(costs[op.name][i] for op in st.ops) for i in (0, 1))
         record(f"bundle_launcher:{label} ({st.schedule})", bundle_k,
                "bundle.cu", "src/repro/core/hfuse.py:87", err,
-               cuda_ms(torch, lambda: fused(*ins), flush),
-               cuda_ms(torch, lambda: plain(*ins), flush), cost, BF16_FLOPS,
-               None, native_ms=cuda_ms(torch, lambda: native(*ins), flush))
+               median_ms(lambda: fused(*ins), flush),
+               median_ms(lambda: plain(*ins), flush), cost, BF16_FLOPS,
+               None, native_ms=median_ms(lambda: native(*ins), flush))
     print("[kernels] fused bundles bitwise equal run_native")
     return rows
 
@@ -402,10 +511,11 @@ def _adam_leaf(torch, dev, shape, seed, pdtype):
 
 def phase_adamw(torch, dev) -> list[dict]:
     from repro_torch.core import hfuse
+    from repro_torch.core.timing import flush_buffer, median_ms
     from repro_torch.kernels import adam
 
     bf = torch.bfloat16
-    flush = make_flush(torch, dev)
+    flush = flush_buffer(dev)
     op = adam.adamw_op(QKV_ROWS, bf, ADAM_BM)
     run, run_plain = hfuse.run_single(op), hfuse.run_single(op, plain=True)
     ins = _adam_leaf(torch, dev, (QKV_ROWS, 128), 7, bf)
@@ -443,8 +553,8 @@ def phase_adamw(torch, dev) -> list[dict]:
           f"{tail} real elements, bitwise equal to the plain version")
     del a, b
 
-    ms = cuda_ms(torch, lambda: run(*ins), flush)
-    plain_ms = cuda_ms(torch, lambda: run_plain(*ins), flush)
+    ms = median_ms(lambda: run(*ins), flush)
+    plain_ms = median_ms(lambda: run_plain(*ins), flush)
     param = torch.nn.Parameter(ins[1].clone())
     param.grad = ins[2].clone()
     lib = torch.optim.AdamW([param], lr=3e-4, betas=(0.9, 0.95), eps=1e-8,
@@ -454,7 +564,7 @@ def phase_adamw(torch, dev) -> list[dict]:
     print(f"[adamw] library: torch.optim.AdamW(fused=True) with param "
           f"{param.dtype}, grad {param.grad.dtype}, exp_avg "
           f"{st['exp_avg'].dtype}, exp_avg_sq {st['exp_avg_sq'].dtype}")
-    lib_ms = cuda_ms(torch, lib.step, flush)
+    lib_ms = median_ms(lib.step, flush)
     n = QKV_ROWS * 128
     row = kernel_row("train", f"adamw_member:w_qkv ({QKV_ROWS}x128, bm "
                      f"{ADAM_BM})", adam.ADAMW, "adamw_member.cuh",
@@ -555,6 +665,7 @@ def _fill(torch, dev, trees, seed):
 def phase_update_bundles(torch, dev, cfg, program) -> dict:
     from repro_torch import tree as tree_mod
     from repro_torch.core import executor, planner
+    from repro_torch.core.timing import flush_buffer, median_ms
     from repro_torch.kernels import adam
     from repro_torch.train.train_loop import UpdateProgram
 
@@ -600,17 +711,17 @@ def phase_update_bundles(torch, dev, cfg, program) -> dict:
     del B
     torch.cuda.empty_cache()
 
-    flush = make_flush(torch, dev)
+    flush = flush_buffer(dev)
     n_bytes = sum(leaf.numel() * (3 * leaf.element_size() + 16)
                   for leaf in tree_mod.leaves(A[0]))
-    ms = cuda_ms(torch, lambda: program(*A, lr=lr, bc1=bc1, bc2=bc2), flush)
+    ms = median_ms(lambda: program(*A, lr=lr, bc1=bc1, bc2=bc2), flush)
     params = [torch.nn.Parameter(leaf) for leaf in tree_mod.leaves(A[0])]
     for prm, g in zip(params, tree_mod.leaves(A[1])):
         prm.grad = g
     lib = torch.optim.AdamW(params, lr=3e-4, betas=(0.9, 0.95), eps=1e-8,
                             weight_decay=0.1, fused=True)
     lib.step()
-    lib_ms = cuda_ms(torch, lib.step, flush)
+    lib_ms = median_ms(lib.step, flush)
     bound_ms = n_bytes / HBM_BYTES_S * 1e3
     print(f"[bundles] full update ({len(params)} leaves, {n_bytes / 1e9:.2f} "
           f"GB): {ms:.3f} ms, bound {bound_ms:.3f} ms by bytes, "
@@ -892,9 +1003,10 @@ def main() -> int:
 
     cfg = get_config("granite-3-2b")
     check(cfg.num_layers == 40 and cfg.d_model == 2048, "not full width")
-    # 3. serve kernels, 4. adamw, 5. measured plan, 6. update bundles,
-    # 7. train, 8. serve
-    rows = phase_kernels(torch, dev, cfg)
+    # 2b. paper suite, 3. serve kernels, 4. adamw, 5. measured plan,
+    # 6. update bundles, 7. train, 8. serve
+    rows, paper_run = phase_paper(torch, dev)
+    rows += phase_kernels(torch, dev, cfg)
     rows += phase_adamw(torch, dev)
     program = phase_plan(torch, dev, cfg)
     update = phase_update_bundles(torch, dev, cfg, program)
@@ -903,10 +1015,11 @@ def main() -> int:
 
     # 9. report: each row's launches come from its own main path's run
     names = {k.name: k for k in registry()}
-    runs = {"serve": serve["counts"], "train": train["counts"]}
+    runs = {"serve": serve["counts"], "train": train["counts"],
+            "paper": paper_run["counts"]}
     for r in rows:
         r["launches"] = runs[r.pop("path")][r.pop("kernel").name]
-    check(set(serve["counts"]) == set(names) == set(train["counts"]),
+    check(all(set(c) == set(names) for c in runs.values()),
           "kernel registry changed")
     print(json.dumps({"kernels": rows}))
     st = train["steps"][1:] or train["steps"]

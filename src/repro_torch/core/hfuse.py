@@ -18,7 +18,8 @@ of TPU grid steps.  ``phase_table`` is that map in Python, for the tests;
 ``csrc/bundle.cu`` is the kernel.
 
 The bundle launcher replaces the TPU kernels ``src/repro/core/hfuse.py:87``
-(generate) and ``:161`` (run_single, a one-member bundle with ratio 1).
+(generate), ``:152`` (generate_vfused, every member's CTAs in one
+contiguous run) and ``:161`` (run_single, a one-member bundle with ratio 1).
 ``BUNDLE`` is its launch record; every launch also bumps the record of
 each member kernel it carried.  Its plain version runs each member's plain
 function: members of a bundle are independent, so order does not matter.
@@ -41,7 +42,8 @@ from repro_torch.core.op_spec import OpSpec
 from repro_torch.kernels import cuda
 
 BUNDLE = cuda.Kernel("bundle_launcher", "src/repro_torch/csrc/bundle.cu",
-                     "src/repro/core/hfuse.py:87, src/repro/core/hfuse.py:161")
+                     "src/repro/core/hfuse.py:87, src/repro/core/hfuse.py"
+                     ":152, src/repro/core/hfuse.py:161")
 
 
 def phase_table(ctas: Sequence[int],
@@ -104,13 +106,10 @@ def _launch(ops: Sequence[OpSpec], ratios: Sequence[int], operands) -> tuple:
     return tuple(t for o in outs for t in o)
 
 
-def generate(ops: Sequence[OpSpec], sched: Schedule, *, plain: bool = False):
-    """Returns fused(*op0_inputs, ..., *opN_inputs) ->
-    (*op0_outputs, ..., *opN_outputs) — one launch for the bundle."""
-    ops = tuple(ops)
-    if sched.n_ops != len(ops):
-        raise ValueError(
-            f"schedule has {sched.n_ops} ratios for {len(ops)} ops")
+def _bundle(ops: tuple[OpSpec, ...], sched: Schedule,
+            ratios: tuple[int, ...], plain: bool):
+    """One launch of ``ops`` whose CTAs are partitioned by ``ratios``;
+    ``schedule`` is the planning schedule it stands for."""
     n_in = sum(len(op.inputs) for op in ops)
 
     def fused(*operands):
@@ -119,15 +118,40 @@ def generate(ops: Sequence[OpSpec], sched: Schedule, *, plain: bool = False):
                              f"got {len(operands)}")
         if plain or _device_type(operands) == "cpu":
             return _run_plain(ops, operands)
-        return _launch(ops, sched.ratios, operands)
+        return _launch(ops, ratios, operands)
 
     fused.schedule = sched
     fused.ops = ops
+    fused.launch_ratios = ratios
     # the launch's CTA count; with every member's CTAs equal to its TPU grid
     # steps it is the reference's fused grid, period * max_i ceil(grid_i/r_i)
     # (a block-shrunk variant keeps its member's CTAs, so there they differ)
-    fused.n_steps = cuda.grid_size([op.ctas for op in ops], sched.ratios)
+    fused.n_steps = cuda.grid_size([op.ctas for op in ops], ratios)
     return fused
+
+
+def generate(ops: Sequence[OpSpec], sched: Schedule, *, plain: bool = False):
+    """Returns fused(*op0_inputs, ..., *opN_inputs) ->
+    (*op0_outputs, ..., *opN_outputs) — one launch for the bundle."""
+    ops = tuple(ops)
+    if sched.n_ops != len(ops):
+        raise ValueError(
+            f"schedule has {sched.n_ops} ratios for {len(ops)} ops")
+    return _bundle(ops, sched, sched.ratios, plain)
+
+
+def generate_vfused(*ops, plain: bool = False):
+    """The concatenated (vertical-style) baseline, the port of
+    ``src/repro/core/hfuse.py:152``: one launch running all of op 0's CTAs,
+    then all of op 1's, and so on, no interleaving.  Accepts OpSpecs
+    positionally or one sequence.  ``schedule`` is the reference's
+    (``Schedule`` of the grids), so plans compare with it; the launch
+    partitions by each member's CTA count instead, which on CTAs is that
+    same degenerate schedule."""
+    if len(ops) == 1 and not isinstance(ops[0], OpSpec):
+        ops = tuple(ops[0])
+    return _bundle(tuple(ops), Schedule(tuple(op.grid for op in ops)),
+                   tuple(op.ctas for op in ops), plain)
 
 
 def run_single(op: OpSpec, *, plain: bool = False):

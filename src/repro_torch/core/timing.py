@@ -6,9 +6,10 @@ take (the reference's ``src/repro/core/timing.py``):
 
   gpu        — device time on the card: synthesize the operands from the
                OpSpecs, ``warmup`` runs, then ``repeats`` runs each between
-               two CUDA events on the current stream, and a trimmed mean
-               (drop the ``trim`` fastest and slowest).  Without a card it
-               raises.
+               two CUDA events on the current stream (``device_times``:
+               the queue primed, the L2 flushed before each), and a
+               trimmed mean (drop the ``trim`` fastest and slowest).
+               Without a card it raises.
   interpret  — the reference's deterministic step-count proxy: the fused
                launch's CTA count (``fused.n_steps``) times the bundle's mean
                per-step roofline work.  It ranks schedules on any machine and
@@ -17,6 +18,7 @@ take (the reference's ``src/repro/core/timing.py``):
 """
 from __future__ import annotations
 
+import statistics
 from typing import Callable, Sequence
 
 import torch
@@ -25,6 +27,15 @@ from repro_torch.core.op_spec import OpSpec
 from repro_torch.core.profile import LAUNCH_S
 
 BACKENDS = ("gpu", "interpret")
+# Device timing (``device_times``): a queued GPU sleep (~50 ms) before the
+# timed runs, so the host has enqueued them all before the device reaches
+# them and the events bracket device time only, not the host's launch
+# overhead; and a buffer larger than the H100's 50 MB L2, zeroed before each
+# run, so every run starts with its operands out of the cache, as a kernel
+# of a real step does.  REPS: runs per reported kernel time (a median).
+FLUSH_FLOATS = 64 * 2 ** 20
+SLEEP_CYCLES = 100_000_000
+REPS = 20
 
 
 def synth_inputs(ops: Sequence[OpSpec], seed: int = 0,
@@ -58,6 +69,38 @@ def step_time_proxy(fused, ops: Sequence[OpSpec]) -> float:
     return n_steps * (total_work / max(total_steps, 1)) + LAUNCH_S
 
 
+def flush_buffer(device) -> torch.Tensor:
+    """The L2-evicting buffer ``device_times`` zeroes before each run."""
+    return torch.empty(FLUSH_FLOATS, dtype=torch.float32, device=device)
+
+
+def device_times(fn, reps: int, flush: torch.Tensor, *,
+                 warmup: int = 1) -> list[float]:
+    """Device seconds of each of ``reps`` calls of ``fn`` on the current
+    stream, CUDA events around each, ``flush`` zeroed before each, after
+    ``warmup`` untimed calls.  ``torch.cuda._sleep`` (private PyTorch API,
+    a spin of the given GPU clock cycles) primes the queue."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    torch.cuda._sleep(SLEEP_CYCLES)
+    for s, e in zip(starts, ends):
+        flush.zero_()
+        s.record()
+        fn()
+        e.record()
+    torch.cuda.synchronize()
+    return [s.elapsed_time(e) * 1e-3 for s, e in zip(starts, ends)]
+
+
+def median_ms(fn, flush: torch.Tensor, reps: int = REPS) -> float:
+    """Median of ``device_times`` in milliseconds: one kernel's reported
+    time on the card."""
+    return statistics.median(device_times(fn, reps, flush)) * 1e3
+
+
 def _trimmed_mean(ts: list[float], trim: int) -> float:
     ts = sorted(ts)
     k = trim if len(ts) > 2 * trim else 0
@@ -84,22 +127,13 @@ def make_measure(backend: str, *, warmup: int = 2, repeats: int = 5,
     if not torch.cuda.is_available():
         raise RuntimeError("make_measure('gpu'): no CUDA device to time on")
     dev = torch.device("cuda", torch.cuda.current_device())
+    flush = flush_buffer(dev)
 
     def measure(fused, *ops):
         args = synth_inputs(ops, seed, dev)
-        for _ in range(max(1, warmup)):
-            fused(*args)
-        starts = [torch.cuda.Event(enable_timing=True)
-                  for _ in range(max(1, repeats))]
-        ends = [torch.cuda.Event(enable_timing=True) for _ in starts]
-        for s, e in zip(starts, ends):
-            s.record()
-            fused(*args)
-            e.record()
-        torch.cuda.synchronize()
-        del args
-        return _trimmed_mean([s.elapsed_time(e) * 1e-3
-                              for s, e in zip(starts, ends)], trim)
+        return _trimmed_mean(device_times(lambda: fused(*args),
+                                          max(1, repeats), flush,
+                                          warmup=max(1, warmup)), trim)
 
     measure.backend = "gpu"
     return measure

@@ -26,6 +26,7 @@
 #include "common.cuh"
 #include "adamw_member.cuh"
 #include "decode_attention.cuh"
+#include "paper_member.cuh"
 #include "prefill_attention.cuh"
 #include "row_member.cuh"
 
@@ -43,6 +44,13 @@ __global__ void __launch_bounds__(HF_THREADS)
       case HF_DECODE_ATTN: decode_attn_member(m, local); break;
       case HF_PREFILL_ATTN: prefill_attn_member(m, local); break;
       case HF_ADAMW: adamw_member(m, local); break;
+      case HF_MAXPOOL: maxpool_member(m, local); break;
+      case HF_UPSAMPLE: upsample_member(m, local); break;
+      case HF_BNSTATS: bnstats_member(m, local); break;
+      case HF_IM2COL: im2col_member(m, local); break;
+      case HF_HIST: hist_member(m, local); break;
+      case HF_ETHASH: ethash_member(m, local); break;
+      case HF_HASH: hash_member(m, local); break;
       default: break;
     }
     return;
@@ -63,12 +71,19 @@ int hf_member_smem(const MemberDesc* m) {
     case HF_DECODE_ATTN: return decode_attn_smem_bytes(*m);
     case HF_PREFILL_ATTN: return prefill_attn_smem_bytes(*m);
     case HF_ADAMW: return adamw_smem_bytes(*m);
+    case HF_MAXPOOL:
+    case HF_UPSAMPLE:
+    case HF_BNSTATS:
+    case HF_IM2COL:
+    case HF_HIST:
+    case HF_ETHASH:
+    case HF_HASH: return paper_smem_bytes(*m);
     default: return -1;
   }
 }
 
-// Launch on `stream`; returns the cudaError_t of the launch (0 = queued).
-int hf_launch(const BundleDesc* b, int grid, int smem, void* stream) {
+// Allow `smem` bytes of dynamic shared memory per CTA (0 = allowed).
+static int hf_allow_smem(int smem) {
   static int smem_limit = 48 * 1024;
   if (smem > smem_limit) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -76,8 +91,25 @@ int hf_launch(const BundleDesc* b, int grid, int smem, void* stream) {
     if (e != cudaSuccess) return (int)e;
     smem_limit = smem;
   }
+  return 0;
+}
+
+// Launch on `stream`; returns the cudaError_t of the launch (0 = queued).
+int hf_launch(const BundleDesc* b, int grid, int smem, void* stream) {
+  int e = hf_allow_smem(smem);
+  if (e) return e;
   hf_bundle<<<grid, HF_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(*b);
   return (int)cudaGetLastError();
+}
+
+// CTAs of a launch with `smem` bytes of dynamic shared memory that fit on
+// one SM at once (registers, shared memory and threads counted); returns
+// the cudaError_t.
+int hf_occupancy(int smem, int* ctas_per_sm) {
+  int e = hf_allow_smem(smem);
+  if (e) return e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas_per_sm, hf_bundle, HF_THREADS, smem);
 }
 
 const char* hf_error_string(int e) {

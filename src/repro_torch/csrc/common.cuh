@@ -17,12 +17,15 @@
 #define HF_NEG_INF (-1e30f)
 
 // member kinds
-enum { HF_ROW = 1, HF_DECODE_ATTN = 2, HF_PREFILL_ATTN = 3, HF_ADAMW = 4 };
+enum { HF_ROW = 1, HF_DECODE_ATTN = 2, HF_PREFILL_ATTN = 3, HF_ADAMW = 4,
+       HF_MAXPOOL = 5, HF_UPSAMPLE = 6, HF_BNSTATS = 7, HF_IM2COL = 8,
+       HF_HIST = 9, HF_ETHASH = 10, HF_HASH = 11 };
 
 struct MemberDesc {
   int kind, ctas, ratio, offset;
   int i[12];
-  float f[6];   // baked float parameters (AdamW: b1, 1-b1, b2, 1-b2, eps, wd)
+  float f[6];   // baked float parameters (AdamW: b1, 1-b1, b2, 1-b2, eps, wd;
+                //   hist: bins / 8)
   const void* in[6];
   void* out[3];
 };

@@ -37,6 +37,7 @@ MAX_MEMBERS = 8
 
 # member kinds (csrc/common.cuh)
 ROW, DECODE_ATTN, PREFILL_ATTN, ADAMW = 1, 2, 3, 4
+MAXPOOL, UPSAMPLE, BNSTATS, IM2COL, HIST, ETHASH, HASH = 5, 6, 7, 8, 9, 10, 11
 
 
 class Kernel:
@@ -135,6 +136,9 @@ def library():
         lib.hf_launch.argtypes = [ctypes.POINTER(BundleDesc), ctypes.c_int,
                                   ctypes.c_int, ctypes.c_void_p]
         lib.hf_launch.restype = ctypes.c_int
+        lib.hf_occupancy.argtypes = [ctypes.c_int,
+                                     ctypes.POINTER(ctypes.c_int)]
+        lib.hf_occupancy.restype = ctypes.c_int
         lib.hf_error_string.argtypes = [ctypes.c_int]
         lib.hf_error_string.restype = ctypes.c_char_p
         ms, bs = ctypes.c_int(), ctypes.c_int()
@@ -193,9 +197,10 @@ def launch(members: Sequence, ins: Sequence[Sequence[torch.Tensor]],
     desc.n = len(members)
     desc.period = sum(ratios)
     offset, smem = 0, 0
+    held = []      # a member's per-launch workspace, alive until queued
     for j, (mem, i_, o_, r) in enumerate(zip(members, ins, outs, ratios)):
         md = desc.m[j]
-        mem.pack(md, i_, o_)
+        held.append(mem.pack(md, i_, o_))
         md.ctas, md.ratio, md.offset = mem.ctas, r, offset
         offset += r
         need = lib.hf_member_smem(ctypes.byref(md))
@@ -209,3 +214,25 @@ def launch(members: Sequence, ins: Sequence[Sequence[torch.Tensor]],
     if err:
         raise RuntimeError("bundle launch failed: "
                            + lib.hf_error_string(err).decode())
+
+
+def member_smem(member) -> int:
+    """Dynamic shared memory one member needs per CTA, from the kernel
+    library (members with a ``describe`` method: the paper members)."""
+    md = MemberDesc()
+    member.describe(md)
+    need = library().hf_member_smem(ctypes.byref(md))
+    if need < 0:
+        raise ValueError(f"unknown member kind {md.kind}")
+    return need
+
+
+def occupancy(smem: int) -> int:
+    """CTAs of a bundle launch with ``smem`` bytes of dynamic shared memory
+    per CTA that are resident on one SM at once."""
+    n = ctypes.c_int()
+    err = library().hf_occupancy(smem, ctypes.byref(n))
+    if err:
+        raise RuntimeError("occupancy query failed: "
+                           + library().hf_error_string(err).decode())
+    return n.value

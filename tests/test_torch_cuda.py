@@ -322,3 +322,93 @@ def test_make_measure_gpu_times_are_positive_and_repeatable(cuda_dev):
     ts = [measure(fused, *ops) for _ in range(3)]
     assert all(t > 0 for t in ts)
     assert max(ts) <= 3 * min(ts), ts
+
+
+# ---------------------------------------------------------------------------
+# The paper suite (tolerances: paper_suite.TOLERANCE; fused launches bitwise)
+# ---------------------------------------------------------------------------
+def _paper_inputs(ops, mks, seed):
+    g = _gen(seed)
+    return [t for mk in mks for t in mk(g, "cuda")]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF])
+@pytest.mark.parametrize("size", ["small", "default"])
+@pytest.mark.parametrize("name", ["maxpool", "upsample", "bnstats", "im2col",
+                                  "hist", "ethash_like", "sha_like",
+                                  "blake_like", "blake2b_like"])
+def test_paper_member(cuda_dev, name, size, dtype):
+    from repro_torch.kernels import paper_suite as ps
+    kw = dict(ps.SMALL_KW[name]) if size == "small" else {}
+    op, mk, plain = ps.ALL_KERNELS[name](**kw, dtype=dtype)
+    ins = _paper_inputs([op], [mk], 20)
+    if dtype == BF and name not in ("maxpool", "upsample", "bnstats",
+                                    "im2col"):
+        with pytest.raises(ValueError, match="takes"):
+            hfuse.run_single(op)(*ins)
+        return
+    got = hfuse.run_single(op)(*ins)
+    torch.cuda.synchronize()
+    ps.max_error(got[0], plain(*ins), op.member.body)
+    # the carry is reproducible launch to launch (fixed-order combine)
+    assert torch.equal(got[0], hfuse.run_single(op)(*ins)[0])
+    if name == "hist":
+        assert float(got[0].sum()) == op.inputs[0].shape[0] * \
+            op.inputs[0].shape[1]
+
+
+def _paper_bundle(names):
+    from repro_torch.kernels import paper_suite as ps
+    ops, mks, _ = ps.make_bundle(names)
+    return tuple(ops), _paper_inputs(ops, mks, 21)
+
+
+def _same(a, b):
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("planned", [False, True])
+@pytest.mark.parametrize("names", [
+    ("maxpool", "bnstats"), ("maxpool", "upsample"), ("maxpool", "im2col"),
+    ("maxpool", "hist"), ("bnstats", "upsample"), ("bnstats", "im2col"),
+    ("bnstats", "hist"), ("upsample", "im2col"), ("upsample", "hist"),
+    ("im2col", "hist"), ("ethash_like", "sha_like"),
+    ("ethash_like", "blake_like"), ("ethash_like", "blake2b_like"),
+    ("sha_like", "blake_like"), ("sha_like", "blake2b_like"),
+    ("blake_like", "blake2b_like")], ids="+".join)
+def test_paper_pairs_bitwise_equal_native(cuda_dev, names, planned):
+    from repro_torch.core import autotuner
+    ops, ins = _paper_bundle(names)
+    native = hfuse.run_native(ops)(*ins)
+    if planned:
+        res = autotuner.search(ops)
+        fused = res.build()(*ins)
+    else:
+        fused = hfuse.generate(ops, Schedule((1, 1)))(*ins)
+    assert _same(fused, native)
+
+
+@pytest.mark.parametrize("names", [("ethash_like", "hist", "blake_like"),
+                                   ("maxpool", "upsample", "sha_like"),
+                                   ("bnstats", "im2col", "blake2b_like")],
+                         ids="+".join)
+def test_paper_vfused_bitwise_equal_native(cuda_dev, names):
+    ops, ins = _paper_bundle(names)
+    vf = hfuse.generate_vfused(ops)
+    assert vf.n_steps == sum(op.ctas for op in ops)
+    assert _same(vf(*ins), hfuse.run_native(ops)(*ins))
+
+
+def test_paper_launch_beyond_resident_capacity_finishes(cuda_dev):
+    """ethash_like + blake_like at 16:1: 2176 CTAs, far more than fit on the
+    card at once (80 KB of shared memory each); no carry waits on a CTA that
+    is not yet scheduled, so the launch finishes and matches native."""
+    ops, ins = _paper_bundle(("ethash_like", "blake_like"))
+    fused = hfuse.generate(ops, Schedule((16, 1)))
+    smem = max(cuda.member_smem(op.member) for op in ops)
+    resident = cuda.occupancy(smem) * torch.cuda.get_device_properties(
+        0).multi_processor_count
+    assert fused.n_steps > resident
+    out = fused(*ins)
+    torch.cuda.synchronize()
+    assert _same(out, hfuse.run_native(ops)(*ins))
