@@ -66,10 +66,32 @@ non-zero exit code and no result line.
              logits are held against the same step built from the plain
              versions on the card.  The trace is then served once more under
              torch.profiler for device time by kernel name.
+  8b. paged  granite-3-2b at full width cut to 1 layer (the reference's
+             paged arena is single-layer), paged KV with 16-row pages and
+             the default arena (8 x 128 + 8 blocks): the paged decode and
+             prefill members on an arena holding the contiguous cache's
+             content in shuffled blocks, each BITWISE equal to the
+             contiguous member and within tolerance of its paged plain
+             version, timed beside the contiguous member (the lookup's
+             cost); the planner's fused paged launch bitwise against
+             run_native; then 12 staggered requests sharing one
+             1024-token prefix, served with the launch counters reset:
+             prefix hits, fewer prefill chunks than the contiguous engine
+             and its tokens, token for token.
+  8c. moe    phi3.5-moe-rms at full width cut from 32 to 8 layers (all 32
+             need 83 GB): the fp32 router GEMM and the grouped expert FFN
+             at the decode shape (E 16, C 8) and at a chunk's capacity (C
+             80) against their plain versions, timed beside them, their
+             bounds and a torch.bmm yardstick; moe_gmm and a prefill chunk
+             in one launch at the search's schedule, bitwise against
+             run_native; then 12 staggered requests under the eload
+             policy with the counters reset, and the first mixed step's
+             logits through the 8 layers against the plain step.
   9. report  one JSON line of kernels, then the result line.
 
-Each main path (paper, train, serve) runs with every launch counter reset
-just before it and read just after; each of its kernels must have launched.
+Each main path (paper, train, serve, paged, moe) runs with every launch
+counter reset just before it and read just after; each of its kernels must
+have launched.
 
 Exits with code 1 and no result when no CUDA device is visible, and with
 code 2 when the port's sources are not beside it.
@@ -107,6 +129,12 @@ BF16_REL = 2.0 ** -7
 # to bf16 (2**-8 relative) and the two sides sum in different orders, so
 # they drift by a few bf16 steps per layer; a wrong kernel gives O(1).
 LOGITS_REL_L2 = 5e-2
+
+# Paged KV (phase 8b): granite-3-2b cut to 1 layer (the reference's paged
+# arena is single-layer), 16-row pages, a shared 1024-token prefix.
+PAGED_LAYERS, KV_BS, SHARED_PREFIX = 1, 16, 1024
+# MoE (phase 8c): phi3.5-moe-rms cut from 32 to 8 layers (32 need 83 GB).
+MOE_LAYERS = 8
 
 # Full-width granite-3-2b train shapes.
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 4
@@ -331,7 +359,9 @@ def phase_kernels(torch, dev, cfg) -> list[dict]:
     from repro_torch.kernels import registry
     from repro_torch.serve.engine import PrefillBudget, ServeEngine
 
-    bundle_k, row_k, dec_k, pf_k, _adam_k = registry()[:5]
+    by_name = {k.name: k for k in registry()}
+    bundle_k, row_k = by_name["bundle_launcher"], by_name["row_member"]
+    dec_k, pf_k = by_name["decode_attention"], by_name["prefill_attention"]
     d, H, Hkv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
     D, f = cfg.resolved_head_dim, cfg.d_ff
     N_qkv = (H + 2 * Hkv) * D
@@ -865,6 +895,59 @@ def phase_train(torch, dev, cfg, program) -> dict:
 # ---------------------------------------------------------------------------
 # Phase 8: serve full-width granite-3-2b
 # ---------------------------------------------------------------------------
+def capture_first_mixed(eng) -> dict:
+    """Wrap ``eng``'s step factory so the first step that decodes and
+    carries a chunk keeps a copy of its inputs and its logits (kernels
+    path): ``captured["inputs"]``, ``captured["out"]``."""
+    captured = {}
+    make_step = eng._cb_step
+
+    def cb_step(n):
+        step = make_step(n)
+
+        def wrapped(params_, cache, tokens, active, **kw):
+            first = n and "inputs" not in captured and bool(active.any())
+            if first:
+                captured["inputs"] = (
+                    n, {"pos": cache["pos"].clone(),
+                        **{k: {kk: vv.clone() for kk, vv in v.items()}
+                           for k, v in cache.items() if k != "pos"}},
+                    tokens.clone(), active.clone(), dict(kw))
+            out = step(params_, cache, tokens, active, **kw)
+            if first:
+                captured["out"] = (out[0].clone(), out[2].clone())
+            return out
+        return wrapped
+
+    eng._cb_step = cb_step
+    return captured
+
+
+def first_mixed_vs_plain(torch, captured, ref, what: str) -> dict:
+    """The captured first mixed step again, from ``ref``'s plain versions
+    on the card: relative L2 of the decode and prefill logits, within
+    ``LOGITS_REL_L2``."""
+    check("out" in captured, "no mixed step ran")
+    n, cache, tokens_t, active, kw = captured["inputs"]
+    logits_k, pf_k = captured["out"]
+    out = ref._cb_step(n)(ref.params, cache, tokens_t, active, **kw)
+    rel = {}
+    for name, a, b in (("decode", logits_k, out[0]),
+                       ("prefill", pf_k, out[2])):
+        check(bool(torch.isfinite(a).all()), f"non-finite {name} logits")
+        check(a.shape == b.shape, f"{name} logits shape {a.shape} {b.shape}")
+        rel[name] = ((a - b).norm() / b.norm()).item()
+        agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+        print(f"[{what}] first mixed step ({n} chunks) {name} logits "
+              f"{tuple(a.shape)}: rel L2 {rel[name]:.3e} "
+              f"(limit {LOGITS_REL_L2}), max|diff| "
+              f"{(a - b).abs().max().item():.4g}, argmax agreement {agree:.3f}")
+        check(rel[name] <= LOGITS_REL_L2,
+              f"{what}: {name} logits off the plain step: rel L2 "
+              f"{rel[name]}")
+    return rel
+
+
 def phase_serve(torch, dev, cfg) -> dict:
     import numpy as np
 
@@ -892,29 +975,7 @@ def phase_serve(torch, dev, cfg) -> dict:
                 for i, L in enumerate(lens)]
 
     reqs = requests()
-
-    # capture the first mixed step's inputs and logits (kernels path)
-    captured = {}
-    make_step = eng._cb_step
-
-    def cb_step(n):
-        step = make_step(n)
-
-        def wrapped(params_, cache, tokens, active, **kw):
-            first = n and "inputs" not in captured and bool(active.any())
-            if first:
-                captured["inputs"] = (
-                    n, {"pos": cache["pos"].clone(),
-                        **{k: {kk: vv.clone() for kk, vv in v.items()}
-                           for k, v in cache.items() if k != "pos"}},
-                    tokens.clone(), active.clone(), dict(kw))
-            out = step(params_, cache, tokens, active, **kw)
-            if first:
-                captured["out"] = (out[0].clone(), out[2].clone())
-            return out
-        return wrapped
-
-    eng._cb_step = cb_step
+    captured = capture_first_mixed(eng)
     kernels = registry()
     cuda.reset_counts(kernels)
     t0 = time.perf_counter()
@@ -939,34 +1000,400 @@ def phase_serve(torch, dev, cfg) -> dict:
           "a request retired early")
     check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens),
           "token out of the vocabulary")
-    check("out" in captured, "no mixed step ran")
 
     # the first mixed step again, from the plain versions on the card
-    n, cache, tokens_t, active, kw = captured["inputs"]
-    logits_k, pf_k = captured["out"]
     ref = ServeEngine(cfg, params, batch=B, max_len=S, prefill_budget=budget,
                       device=dev, plain=True)
-    logits_p, _cache, pf_p = ref._cb_step(n)(params, cache, tokens_t, active,
-                                             **kw)
-    rel = {}
-    for name, a, b in (("decode", logits_k, logits_p),
-                       ("prefill", pf_k, pf_p)):
-        check(bool(torch.isfinite(a).all()), f"non-finite {name} logits")
-        check(a.shape == b.shape, f"{name} logits shape {a.shape} {b.shape}")
-        rel[name] = ((a - b).norm() / b.norm()).item()
-        agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
-        print(f"[serve] first mixed step ({n} chunks) {name} logits "
-              f"{tuple(a.shape)}: rel L2 {rel[name]:.3e} "
-              f"(limit {LOGITS_REL_L2}), max|diff| "
-              f"{(a - b).abs().max().item():.4g}, argmax agreement {agree:.3f}")
-        check(rel[name] <= LOGITS_REL_L2,
-              f"{name} logits off the plain step: rel L2 {rel[name]}")
+    rel = first_mixed_vs_plain(torch, captured, ref, "serve")
 
     # the same trace again under torch.profiler: device time by kernel name
     # and the device's busy share of the wall time (counts already read)
     device_profile(torch, lambda: eng.run(requests()), "serve trace")
     return {"counts": counts, "tokens": tokens, "seconds": wall,
             "tokens_per_s": tokens / wall, "logits_rel_l2": rel}
+
+
+def free_card(torch) -> None:
+    """Return the last phase's weights and caches to the card."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Phase 8b: paged KV with the prefix cache, 1-layer full-width granite-3-2b
+# ---------------------------------------------------------------------------
+def phase_paged(torch, dev, cfg) -> tuple[list[dict], dict]:
+    import dataclasses
+
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.core import hfuse
+    from repro_torch.core.cost_model import Schedule
+    from repro_torch.core.timing import flush_buffer, median_ms
+    from repro_torch.kernels import cuda, registry
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import PrefillBudget, Request, ServeEngine
+
+    cfg = dataclasses.replace(cfg, num_layers=PAGED_LAYERS)
+    d, H, Hkv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    D, f = cfg.resolved_head_dim, cfg.d_ff
+    budget = PrefillBudget(chunk_rows=C, max_coresident_chunks=2)
+    pg = dict(paged_kv=True, kv_block_size=KV_BS)
+
+    def program(**kw):
+        eng = ServeEngine(cfg, None, batch=B, max_len=S, prefill_budget=budget,
+                          device=dev, **kw)
+        prog = eng.build_decode_program(prefill_chunks=2)
+        return eng, prog, {op.name: op for st in prog.steps for op in st.ops}
+
+    eng, prog, ops = program(**pg)
+    _e, _p, cops = program()
+    nblk = eng.kv_blocks
+    check(nblk == B * (S // KV_BS) + B, f"arena of {nblk} blocks")
+    att = next(o for n, o in ops.items() if n.startswith("decode_attn"))
+    pfs = sorted((o for n, o in ops.items() if n.startswith("prefill_attn")),
+                 key=lambda o: o.name)
+    catt = next(o for n, o in cops.items() if n.startswith("decode_attn"))
+    cpf = next(o for n, o in cops.items() if n.startswith("prefill_attn"))
+
+    # the contiguous cache's content scattered into shuffled arena blocks;
+    # blocks 0..B-1 stay the slots' sentinels
+    g = torch.Generator(device=dev)
+    g.manual_seed(1414)
+
+    def randn(shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    npg = S // KV_BS
+    k_cache, v_cache = randn((B, S, Hkv, D)), randn((B, S, Hkv, D))
+    perm = torch.randperm(nblk - B, generator=torch.Generator().manual_seed(
+        14)).to(dev) + B
+    bt = perm[:B * npg].reshape(B, npg).to(torch.int32)
+    k_ar, v_ar = randn((nblk, KV_BS, Hkv, D)), randn((nblk, KV_BS, Hkv, D))
+    k_ar[bt.reshape(-1).long()] = k_cache.reshape(B * npg, KV_BS, Hkv, D)
+    v_ar[bt.reshape(-1).long()] = v_cache.reshape(B * npg, KV_BS, Hkv, D)
+    lens = torch.tensor(DECODE_LENS, dtype=torch.int32, device=dev)
+    q_dec, q_pf = randn((B, H, D)), randn((C, H, D))
+    dec_in = (bt, lens.reshape(B, 1), q_dec, k_ar, v_ar)
+    cdec_in = (lens.reshape(B, 1), q_dec, k_cache, v_cache)
+
+    def pf_in(off):
+        o = torch.full((1, 1), off, dtype=torch.int32, device=dev)
+        return (o, bt[3:4], q_pf, k_ar, v_ar), (o, q_pf, k_cache[3],
+                                                v_cache[3])
+
+    def dec_cost():
+        kv = sum(2 * L * Hkv * D * 2 + -(-L // KV_BS) * 4
+                 for L in DECODE_LENS)
+        io = B * 4 + B * H * D * 2 + B * H * D * 4 + 2 * B * H * 4
+        return kv + io, sum(4.0 * H * D * L for L in DECODE_LENS)
+
+    def pf_cost(off):
+        kv = 2 * (off + C) * Hkv * D * 2 + -(-(off + C) // KV_BS) * 4
+        io = 4 + C * H * D * 2 + C * H * D * 4 + 2 * C * H * 4
+        return kv + io, sum(4.0 * H * D * (off + r + 1) for r in range(C))
+
+    flush = flush_buffer(dev)
+    kpos = torch.arange(S, device=dev)
+    dec_mask = (kpos[None, :] < lens[:, None]).reshape(B, 1, 1, S)
+    rows = []
+    by_name = {k.name: k for k in registry()}
+    cases = [("decode_attention:paged bs16", by_name["decode_attention"],
+              "decode_attention.cuh",
+              "src/repro/kernels/decode_attention.py:35, :44 (block_table=)",
+              att, dec_in, catt, cdec_in, dec_cost(),
+              lambda: F.scaled_dot_product_attention(
+                  q_dec[:, :, None, :], k_cache.transpose(1, 2),
+                  v_cache.transpose(1, 2), attn_mask=dec_mask,
+                  enable_gqa=True))]
+    for off in PREFILL_OFFS:
+        p_in, c_in = pf_in(off)
+        mask = kpos[None, :] <= off + torch.arange(C, device=dev)[:, None]
+        cases.append((
+            f"prefill_attention:paged bs16 off={off}",
+            by_name["prefill_attention"], "prefill_attention.cuh",
+            "src/repro/kernels/prefill_attention.py:40 (block_table=)",
+            pfs[0], p_in, cpf, c_in, pf_cost(off),
+            lambda mask=mask: F.scaled_dot_product_attention(
+                q_pf.transpose(0, 1)[None], k_cache[3].transpose(0, 1)[None],
+                v_cache[3].transpose(0, 1)[None], attn_mask=mask,
+                enable_gqa=True)))
+    for name, kernel, src, replaces, op, ins, cop, cins, cost, lib in cases:
+        run, run_plain = hfuse.run_single(op), hfuse.run_single(op, plain=True)
+        crun = hfuse.run_single(cop)
+        got = run(*ins)
+        check(all(torch.equal(a, b) for a, b in zip(got, crun(*cins))),
+              f"{name} differs from the contiguous member")
+        err = compare(torch, got, run_plain(*ins))
+        rows.append(kernel_row(
+            "paged", name, kernel, src, replaces, err,
+            median_ms(lambda: run(*ins), flush),
+            median_ms(lambda: run_plain(*ins), flush), cost, BF16_FLOPS,
+            median_ms(lib, flush),
+            contiguous_ms=median_ms(lambda: crun(*cins), flush)))
+    print("[paged] paged members bitwise equal the contiguous members",
+          flush=True)
+
+    # the planner's fused paged launches: bitwise equal to run_native
+    operands = {att.name: dec_in, pfs[0].name: pf_in(PREFILL_OFFS[0])[0],
+                pfs[1].name: pf_in(PREFILL_OFFS[1])[0]}
+    for st in (st for st in prog.steps if st.fused):
+        ops_in = [operands.get(op.name) for op in st.ops]
+        if any(x is None for x in ops_in):
+            continue
+        ins = tuple(t for x in ops_in for t in x)
+        sched = Schedule(tuple(int(r) for r in st.schedule.split(":")))
+        out_f = hfuse.generate(st.ops, sched)(*ins)
+        check(all(torch.equal(a, b) for a, b in
+                  zip(out_f, hfuse.run_native(st.ops)(*ins))),
+              f"fused {st.members} differs from run_native")
+        print(f"[paged] fused {'+'.join(st.members)} ({st.schedule}) "
+              "bitwise equal run_native")
+    del k_cache, v_cache, k_ar, v_ar, dec_in, cdec_in, operands, cases
+    free_card(torch)
+
+    # the path: 12 requests sharing one 1024-token prefix
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = lm.init(cfg, gen, device=dev)
+
+    def requests():
+        rng = np.random.default_rng(0)
+        shared = rng.integers(0, cfg.vocab_size, SHARED_PREFIX).astype(
+            np.int32)
+        tails = np.linspace(64, 476, 12).round().astype(int)
+        return [Request(rid=i, prompt=np.concatenate(
+                    [shared, rng.integers(0, cfg.vocab_size,
+                                          L).astype(np.int32)]),
+                        max_new_tokens=8 + (3 * i) % 9, arrival=2 * i)
+                for i, L in enumerate(tails)]
+
+    eng = ServeEngine(cfg, params, batch=B, max_len=S, prefill_budget=budget,
+                      device=dev, **pg)
+    reqs = requests()
+    kernels = registry()
+    cuda.reset_counts(kernels)
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k.name: k.launches for k in kernels}
+    st = eng.stats
+    tokens = sum(len(r.out_tokens) for r in reqs)
+    print(f"[paged] {len(reqs)} requests, {tokens} tokens in {wall:.3f}s "
+          f"({tokens / wall:.2f} tok/s)")
+    print(f"[paged] stats {st.describe()}")
+    print(f"[paged] launches {counts}")
+    check(all(counts[k] > 0 for k in ("bundle_launcher", "row_member",
+                                      "decode_attention",
+                                      "prefill_attention")),
+          f"a kernel of the paged path never launched: {counts}")
+    check(st.prefix_hits > 0, "no prefix-cache hit")
+    check(all(len(r.out_tokens) == r.max_new_tokens for r in reqs),
+          "a paged request retired early")
+
+    contig = ServeEngine(cfg, params, batch=B, max_len=S,
+                         prefill_budget=budget, device=dev)
+    creqs = requests()
+    contig.run(creqs)
+    same = [r.out_tokens == c.out_tokens for r, c in zip(reqs, creqs)]
+    print(f"[paged] tokens equal the contiguous engine's for "
+          f"{sum(same)}/{len(same)} requests; prefill chunks "
+          f"{st.prefill_chunks} paged vs {contig.stats.prefill_chunks} "
+          "contiguous")
+    check(all(same), "paged tokens differ from the contiguous engine's")
+    check(st.prefill_chunks < contig.stats.prefill_chunks,
+          "the prefix cache skipped no chunk")
+    # the trace again under torch.profiler (counts already read; the pool,
+    # and so the prefix cache, persists into this run)
+    device_profile(torch, lambda: eng.run(requests()), "paged trace")
+    out = {"counts": counts, "tokens": tokens, "seconds": wall,
+           "tokens_per_s": tokens / wall, "prefix_hits": st.prefix_hits,
+           "prefix_hit_rate": st.prefix_hit_rate,
+           "prefill_chunks": (st.prefill_chunks,
+                              contig.stats.prefill_chunks)}
+    del params, eng, contig
+    free_card(torch)
+    return rows, out
+
+
+# ---------------------------------------------------------------------------
+# Phase 8c: MoE decode, phi3.5-moe-rms at full width, 8 of 32 layers
+# ---------------------------------------------------------------------------
+def phase_moe(torch, dev) -> tuple[list[dict], dict]:
+    import dataclasses
+
+    import numpy as np
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import autotuner, hfuse
+    from repro_torch.core.timing import flush_buffer, median_ms
+    from repro_torch.kernels import cuda, registry
+    from repro_torch.kernels.moe_gmm import moe_gmm_op
+    from repro_torch.models import lm, moe
+    from repro_torch.serve.engine import PrefillBudget, Request, ServeEngine
+
+    cfg = dataclasses.replace(get_config("phi3.5-moe-rms"),
+                              num_layers=MOE_LAYERS)
+    check(cfg.d_model == 4096 and cfg.moe.num_experts == 16
+          and cfg.moe.d_ff_expert == 6400, "phi3.5-moe-rms not at full width")
+    d, E, f = cfg.d_model, cfg.moe.num_experts, cfg.moe.d_ff_expert
+    budget = PrefillBudget(chunk_rows=C, max_coresident_chunks=2,
+                           policy="eload")
+    eng = ServeEngine(cfg, None, batch=B, max_len=S, prefill_budget=budget,
+                      device=dev)
+    prog = eng.build_decode_program(prefill_chunks=2)
+    ops = {op.name: op for st in prog.steps for op in st.ops}
+    router, gmm = ops["moe_router"], ops[f"moe_gmm_E{E}_C8"]
+    pf = next(o for n, o in ops.items() if n.startswith("prefill_attn"))
+    cap = moe.capacity(cfg, C)
+    check(moe.capacity(cfg, B) == 8 and cap == 80,
+          f"capacities {moe.capacity(cfg, B)}, {cap}")
+    gmm_chunk = moe_gmm_op(E, cap, d, f)
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(1515)
+
+    def randn(shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    flush = flush_buffer(dev)
+    by_name = {k.name: k for k in registry()}
+    rows = []
+    x_r = randn((B, d), torch.float32)
+    w_r = randn((d, E), torch.float32, d ** -0.5)
+    w_in = randn((E, d, 2 * f), scale=d ** -0.5)
+    w_out = randn((E, f, d), scale=f ** -0.5)
+
+    def gmm_lib(xe):
+        def run():
+            h = torch.bmm(xe, w_in)
+            return torch.bmm(F.silu(h[..., :f]) * h[..., f:], w_out)
+        return run
+
+    def gmm_cost(op):
+        return op.hbm_bytes, op.flops
+
+    cases = [("row_member:moe_router fp32", by_name["row_member"],
+              "row_member.cuh", "src/repro/kernels/matmul.py:64 (float32)",
+              router, (x_r, w_r),
+              ((B * d + d * E + B * E) * 4, 2.0 * B * d * E), FP32_FLOPS,
+              lambda: x_r @ w_r)]
+    for op in (gmm, gmm_chunk):
+        xe = randn((E, op.inputs[0].shape[1], d))
+        cases.append((f"moe_gmm:E{E} C{op.inputs[0].shape[1]}",
+                      by_name["moe_gmm"], "moe_gmm_member.cuh",
+                      "src/repro/kernels/moe_gmm.py:54, :34", op,
+                      (xe, w_in, w_out), gmm_cost(op), BF16_FLOPS,
+                      gmm_lib(xe)))
+    for name, kernel, src, replaces, op, ins, cost, peak, lib in cases:
+        run, run_plain = hfuse.run_single(op), hfuse.run_single(op, plain=True)
+        got = run(*ins)
+        err = compare(torch, got, run_plain(*ins))
+        check(all(torch.equal(a, b) for a, b in zip(got, run(*ins))),
+              f"{name} differs between two launches")
+        rows.append(kernel_row(
+            "moe", name, kernel, src, replaces, err,
+            median_ms(lambda: run(*ins), flush),
+            median_ms(lambda: run_plain(*ins), flush), cost, peak,
+            median_ms(lib, flush)))
+
+    # the grouped FFN beside a prefill chunk in one launch, at the
+    # schedule the search picks for the pair, bitwise equal to run_native
+    pair = (gmm, pf)
+    res = autotuner.search(pair)
+    pf_ins = (torch.full((1, 1), 1024, dtype=torch.int32, device=dev),
+              randn((C, cfg.num_heads, cfg.resolved_head_dim)),
+              randn((S, cfg.num_kv_heads, cfg.resolved_head_dim)),
+              randn((S, cfg.num_kv_heads, cfg.resolved_head_dim)))
+    ins = (cases[1][5][0], w_in, w_out) + pf_ins
+    fused, native = res.build(), hfuse.run_native(pair)
+    out_f = fused(*ins)
+    check(all(torch.equal(a, b) for a, b in zip(out_f, native(*ins))),
+          "the fused moe_gmm + prefill launch differs from run_native")
+    plain = hfuse.run_native(pair, plain=True)
+    err = compare(torch, out_f, plain(*ins))
+    off = 1024
+    pf_c = (2 * (off + C) * cfg.num_kv_heads * cfg.resolved_head_dim * 2
+            + C * cfg.num_heads * cfg.resolved_head_dim * 10,
+            sum(4.0 * cfg.num_heads * cfg.resolved_head_dim * (off + r + 1)
+                for r in range(C)))
+    rows.append(kernel_row(
+        "moe", f"bundle_launcher:moe_gmm+prefill_attn "
+        f"({res.best.sched.label()})", by_name["bundle_launcher"],
+        "bundle.cu", "src/repro/core/hfuse.py:87", err,
+        median_ms(lambda: fused(*ins), flush),
+        median_ms(lambda: plain(*ins), flush),
+        (gmm.hbm_bytes + pf_c[0], gmm.flops + pf_c[1]), BF16_FLOPS, None,
+        native_ms=median_ms(lambda: native(*ins), flush)))
+    print(f"[moe] moe_gmm + prefill chunk fused at "
+          f"{res.best.sched.label()} bitwise equal run_native (the planner "
+          "keeps moe_gmm single at this width, as the reference's does)",
+          flush=True)
+    del cases, ins, w_in, w_out, pf_ins, fused, native, plain
+    free_card(torch)
+
+    # the path: 12 staggered requests, the eload policy
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = lm.init(cfg, gen, device=dev)
+    eng = ServeEngine(cfg, params, batch=B, max_len=S, prefill_budget=budget,
+                      device=dev)
+    torch.cuda.synchronize()
+    print(f"[moe] weights ({MOE_LAYERS} layers) + plan: "
+          f"{time.perf_counter() - t0:.1f}s, "
+          f"{torch.cuda.memory_allocated(dev) / 2 ** 30:.2f} GiB", flush=True)
+    def requests():
+        rng = np.random.default_rng(0)
+        lens = np.linspace(64, 1500, 12).round().astype(int)
+        return [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                                   L).astype(np.int32),
+                        max_new_tokens=8 + (3 * i) % 9, arrival=2 * i)
+                for i, L in enumerate(lens)]
+
+    reqs = requests()
+    captured = capture_first_mixed(eng)
+    kernels = registry()
+    cuda.reset_counts(kernels)
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k.name: k.launches for k in kernels}
+    st = eng.stats
+    tokens = sum(len(r.out_tokens) for r in reqs)
+    print(f"[moe] {len(reqs)} requests, {tokens} tokens in {wall:.3f}s "
+          f"({tokens / wall:.2f} tok/s); expert_skew {st.expert_skew:.3f}, "
+          f"load_shed_steps {st.load_shed_steps}, fused_prefill_fraction "
+          f"{st.fused_prefill_fraction:.3f}")
+    print(f"[moe] stats {st.describe()}")
+    print(f"[moe] launches {counts}")
+    print(f"[moe] programs {eng.cb_program_info.get(2, {}).get('steps')}")
+    check(all(counts[k] > 0 for k in ("bundle_launcher", "row_member",
+                                      "decode_attention", "prefill_attention",
+                                      "moe_gmm")),
+          f"a kernel of the MoE path never launched: {counts}")
+    check(all(len(r.out_tokens) == r.max_new_tokens for r in reqs),
+          "an MoE request retired early")
+    check(sum(st.expert_hits) == cfg.moe.top_k * st.slot_steps * MOE_LAYERS,
+          "routed decode tokens do not add up")
+
+    ref = ServeEngine(cfg, params, batch=B, max_len=S, prefill_budget=budget,
+                      device=dev, plain=True)
+    rel = first_mixed_vs_plain(torch, captured, ref, "moe")
+    del ref
+    device_profile(torch, lambda: eng.run(requests()), "moe trace")
+    out = {"counts": counts, "tokens": tokens, "seconds": wall,
+           "tokens_per_s": tokens / wall, "logits_rel_l2": rel,
+           "expert_skew": st.expert_skew,
+           "load_shed_steps": st.load_shed_steps}
+    del params, eng, captured
+    free_card(torch)
+    return rows, out
 
 
 def main() -> int:
@@ -1004,7 +1431,7 @@ def main() -> int:
     cfg = get_config("granite-3-2b")
     check(cfg.num_layers == 40 and cfg.d_model == 2048, "not full width")
     # 2b. paper suite, 3. serve kernels, 4. adamw, 5. measured plan,
-    # 6. update bundles, 7. train, 8. serve
+    # 6. update bundles, 7. train, 8. serve, 8b. paged, 8c. moe
     rows, paper_run = phase_paper(torch, dev)
     rows += phase_kernels(torch, dev, cfg)
     rows += phase_adamw(torch, dev)
@@ -1012,11 +1439,17 @@ def main() -> int:
     update = phase_update_bundles(torch, dev, cfg, program)
     train = phase_train(torch, dev, cfg, program)
     serve = phase_serve(torch, dev, cfg)
+    free_card(torch)
+    # 8b. paged KV, 8c. MoE
+    paged_rows, paged = phase_paged(torch, dev, cfg)
+    moe_rows, moe_run = phase_moe(torch, dev)
+    rows += paged_rows + moe_rows
 
     # 9. report: each row's launches come from its own main path's run
     names = {k.name: k for k in registry()}
     runs = {"serve": serve["counts"], "train": train["counts"],
-            "paper": paper_run["counts"]}
+            "paper": paper_run["counts"], "paged": paged["counts"],
+            "moe": moe_run["counts"]}
     for r in rows:
         r["launches"] = runs[r.pop("path")][r.pop("kernel").name]
     check(all(set(c) == set(names) for c in runs.values()),
@@ -1031,6 +1464,12 @@ def main() -> int:
           f"{train['counts']['adamw_member'] // TRAIN_STEPS} adamw launches "
           f"per step), peak {train['peak_gib']:.2f} GiB ({smi})")
     print(f"[serve] tokens/s {serve['tokens_per_s']:.3f} ({smi})")
+    print(f"[paged] tokens/s {paged['tokens_per_s']:.3f}, prefix hit rate "
+          f"{paged['prefix_hit_rate']:.3f}, prefill chunks paged/contiguous "
+          f"{paged['prefill_chunks']} ({smi})")
+    print(f"[moe] tokens/s {moe_run['tokens_per_s']:.3f}, expert_skew "
+          f"{moe_run['expert_skew']:.3f}, load_shed_steps "
+          f"{moe_run['load_shed_steps']} ({smi})")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -182,4 +182,4 @@ def list_archs() -> list[str]:
 
 def _load_all():
     # the port registers the architectures it serves so far
-    from repro_torch.configs import granite_3_2b  # noqa: F401
+    from repro_torch.configs import granite_3_2b, phi35_moe  # noqa: F401

@@ -48,12 +48,18 @@ __device__ __forceinline__ AttnSmem attn_smem(unsigned char* base, int R,
 }
 
 // Visit kv positions [0, n_kv).  Row r admits position p iff p < lim[r].
-// kbase/vbase point at position 0 of this head; positions are kv_stride
-// elements apart.  On entry q holds the scaled queries, m = -1e30, l = 0,
-// o = 0; on exit o holds the unnormalised sum.
+// kbase/vbase point at cache row 0 of this head; rows are kv_stride elements
+// apart.  Contiguous cache (bt null): position p is row p.  Paged cache: the
+// arena's rows are its blocks' rows back to back, and position p is row
+// bt[p / bs] * bs + p % bs, the page-table lookup of the reference's
+// gather_pages (src/repro/kernels/decode_attention.py:35), one per staged kv
+// row; a 64-position tile spans 64 / bs pages.  Only the load address
+// differs, so on equal logical content both forms compute bitwise the same.
+// On entry q holds the scaled queries, m = -1e30, l = 0, o = 0; on exit o
+// holds the unnormalised sum.
 __device__ void attn_loop(const AttnSmem& sm, int R, int D, int n_kv,
                           const bf16* kbase, const bf16* vbase,
-                          int kv_stride) {
+                          int kv_stride, const int* bt, int bs) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int KS = D + 2;
   const int vpr = D / 8;                    // 16-byte vectors per row
@@ -63,7 +69,9 @@ __device__ void attn_loop(const AttnSmem& sm, int R, int D, int n_kv,
       const int j = idx / vpr, c = (idx % vpr) * 8;
       uint4 kv4 = make_uint4(0, 0, 0, 0), vv4 = make_uint4(0, 0, 0, 0);
       if (j < nt) {
-        const size_t g = (size_t)(p0 + j) * kv_stride + c;
+        const int p = p0 + j;
+        const int row = bt ? bt[p / bs] * bs + p % bs : p;
+        const size_t g = (size_t)row * kv_stride + c;
         kv4 = *reinterpret_cast<const uint4*>(kbase + g);
         vv4 = *reinterpret_cast<const uint4*>(vbase + g);
       }

@@ -2,8 +2,8 @@
 // horizontal fusion, CTA-level partition).
 //
 // Replaces the TPU kernels src/repro/core/hfuse.py:87 (generate, with the
-// phase functions of _bundle_phase_fns, :41-72) and :161 (run_single, a
-// one-member bundle with ratio 1).
+// phase functions of _bundle_phase_fns, :41-72), :152 (generate_vfused) and
+// :161 (run_single, a one-member bundle with ratio 1).
 //
 // Partition: within a super-step of `period` CTAs, member i owns the phase
 // window [off_i, off_i + r_i).  CTA t computes s = t / period and
@@ -26,11 +26,14 @@
 #include "common.cuh"
 #include "adamw_member.cuh"
 #include "decode_attention.cuh"
+#include "moe_gmm_member.cuh"
 #include "paper_member.cuh"
 #include "prefill_attention.cuh"
 #include "row_member.cuh"
 
-__global__ void __launch_bounds__(HF_THREADS)
+// At least two CTAs per SM: ptxas keeps every member within 128 registers a
+// thread, so no member's register appetite halves the others' occupancy.
+__global__ void __launch_bounds__(HF_THREADS, 2)
     hf_bundle(const __grid_constant__ BundleDesc b) {
   const int t = blockIdx.x;
   const int s = t / b.period, ph = t % b.period;
@@ -51,6 +54,7 @@ __global__ void __launch_bounds__(HF_THREADS)
       case HF_HIST: hist_member(m, local); break;
       case HF_ETHASH: ethash_member(m, local); break;
       case HF_HASH: hash_member(m, local); break;
+      case HF_MOE_GMM: moe_gmm_member(m, local); break;
       default: break;
     }
     return;
@@ -78,6 +82,7 @@ int hf_member_smem(const MemberDesc* m) {
     case HF_HIST:
     case HF_ETHASH:
     case HF_HASH: return paper_smem_bytes(*m);
+    case HF_MOE_GMM: return gmm_smem_bytes(*m);
     default: return -1;
   }
 }

@@ -19,7 +19,7 @@
 // member kinds
 enum { HF_ROW = 1, HF_DECODE_ATTN = 2, HF_PREFILL_ATTN = 3, HF_ADAMW = 4,
        HF_MAXPOOL = 5, HF_UPSAMPLE = 6, HF_BNSTATS = 7, HF_IM2COL = 8,
-       HF_HIST = 9, HF_ETHASH = 10, HF_HASH = 11 };
+       HF_HIST = 9, HF_ETHASH = 10, HF_HASH = 11, HF_MOE_GMM = 12 };
 
 struct MemberDesc {
   int kind, ctas, ratio, offset;
@@ -70,4 +70,21 @@ __device__ __forceinline__ void unpack8(uint4 v, float* f) {
 
 __host__ __device__ __forceinline__ int hf_align16(int bytes) {
   return (bytes + 15) & ~15;
+}
+
+// The last-CTA combine of a member whose CTAs each write a partial into a
+// per-launch workspace: after this CTA's partial is in device memory, take a
+// ticket of `group`; true in every thread of the CTA that drew the last.
+// No CTA waits for another, so a launch with more CTAs than fit on the card
+// cannot deadlock.
+__device__ __forceinline__ bool hf_last_of_group(int* tickets, int group,
+                                                 int members) {
+  __shared__ int last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last = atomicAdd(tickets + group, 1) == members - 1;
+  __syncthreads();
+  if (last) __threadfence();
+  return last;
 }

@@ -1,8 +1,10 @@
 // Decode attention member: one new query token per slot against that slot's
-// contiguous KV cache, GQA, per-slot valid length.
+// KV cache, GQA, per-slot valid length; the cache contiguous per slot or
+// paged in a block arena the slots share.
 //
 // Replaces the TPU kernel src/repro/kernels/decode_attention.py:44
-// (decode_attention_op, contiguous form, dynamic_length=True).
+// (decode_attention_op, dynamic_length=True, contiguous and block_table=
+// forms; :35 gather_pages becomes the row lookup in attn_loop).
 //
 // Bound on the card: bytes.  It streams each slot's valid cache prefix
 // (2 * len * Hkv * D * 2 bytes per slot) and does O(D) flops per byte.
@@ -14,7 +16,10 @@
 // next tile's load with this tile's math.
 //
 // Operands: len (B,1) i32; q (B,H,D) bf16; k, v (B,S,Hkv,D) bf16 ->
-// o (B,H,D) f32 normalised, m, l (B,H,1) f32.
+// o (B,H,D) f32 normalised, m, l (B,H,1) f32.  Paged (i[5] = bs > 0): k, v
+// are the arena (num_blocks, bs, Hkv, D) and in[4] is bt (B, i[6]) i32, slot
+// b's page -> arena block.  Blocks 0..B-1 are the slots' sentinels: an idle
+// or masked slot's table row points at its own, never at another slot's.
 #pragma once
 
 #include "attention_core.cuh"
@@ -51,8 +56,11 @@ __device__ void decode_attn_member(const MemberDesc& md, int cta) {
   }
   __syncthreads();
 
-  const size_t base = ((size_t)b * S * Hkv + g) * D;
-  attn_loop(sm, R, D, n_kv, k + base, v + base, Hkv * D);
+  const int bs = md.i[5];
+  const int* bt = bs ? static_cast<const int*>(md.in[4]) + (size_t)b * md.i[6]
+                     : nullptr;
+  const size_t base = ((bs ? 0 : (size_t)b * S * Hkv) + g) * D;
+  attn_loop(sm, R, D, n_kv, k + base, v + base, Hkv * D, bt, bs);
 
   for (int idx = threadIdx.x; idx < R * D; idx += HF_THREADS) {
     const int r = idx / D;

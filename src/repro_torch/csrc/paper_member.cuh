@@ -55,22 +55,6 @@
 #define PS_UNROLL 4        // streaming bodies: 16-byte loads in flight per thread
 
 // ---------------------------------------------------------------------------
-// The last-CTA combine: after this CTA's partial is in device memory, take a
-// ticket of `group`; true in every thread of the CTA that drew the last.
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ bool ps_last_of_group(int* tickets, int group,
-                                                 int members) {
-  __shared__ int last;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0)
-    last = atomicAdd(tickets + group, 1) == members - 1;
-  __syncthreads();
-  if (last) __threadfence();
-  return last;
-}
-
-// ---------------------------------------------------------------------------
 // maxpool: (R, C) -> (R/2, C), the max of each row pair
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ float4 ps_max4(float4 a, float4 b) {
@@ -230,7 +214,7 @@ __device__ void bnstats_cta(const MemberDesc& m, int cta) {
   for (int w = 0; w < HF_WARPS; ++w) acc += red[(w * 2 + st) * PS_SLICE_C + col];
   float* part = static_cast<float*>(m.out[1]);   // [cta][2][128]
   part[(size_t)cta * 2 * PS_SLICE_C + threadIdx.x] = acc;
-  if (!ps_last_of_group(static_cast<int*>(m.out[2]), slice, chunks)) return;
+  if (!hf_last_of_group(static_cast<int*>(m.out[2]), slice, chunks)) return;
   float tot = 0.f;
 #pragma unroll 8
   for (int k = 0; k < chunks; ++k)
@@ -270,7 +254,7 @@ __device__ void hist_member(const MemberDesc& m, int cta) {
   int* tot = static_cast<int*>(m.out[1]);
   for (int b = threadIdx.x; b < bins; b += HF_THREADS)
     if (cnt[b]) atomicAdd(tot + b, cnt[b]);
-  if (!ps_last_of_group(static_cast<int*>(m.out[2]), 0, m.ctas)) return;
+  if (!hf_last_of_group(static_cast<int*>(m.out[2]), 0, m.ctas)) return;
   float* out = static_cast<float*>(m.out[0]);
   for (int b = threadIdx.x; b < bins; b += HF_THREADS) {
     out[b] = (float)__ldcg(tot + b);
@@ -408,7 +392,7 @@ __device__ void ethash_member(const MemberDesc& m, int cta) {
   for (int i = 0; i < 4; ++i)
     *reinterpret_cast<float4*>(part + (r0 + i) * PS_TILE_C + c0) =
         make_float4(tot[i][0], tot[i][1], tot[i][2], tot[i][3]);
-  if (!ps_last_of_group(static_cast<int*>(m.out[2]), slice, runs)) return;
+  if (!hf_last_of_group(static_cast<int*>(m.out[2]), slice, runs)) return;
   const float* parts = static_cast<const float*>(m.out[1]);
   float* out = static_cast<float*>(m.out[0]) + (size_t)slice * PS_TILE_R * PS_TILE_C;
   for (int e = threadIdx.x; e < PS_TILE_R * PS_TILE_C; e += HF_THREADS) {

@@ -1,8 +1,9 @@
 // Prefill attention member: one prompt chunk (C query rows of one slot, at
-// absolute offset off) against that slot's contiguous KV cache, causal, GQA.
+// absolute offset off) against that slot's KV cache, causal, GQA; the cache
+// contiguous or paged in the shared block arena.
 //
 // Replaces the TPU kernel src/repro/kernels/prefill_attention.py:40
-// (prefill_attention_op, contiguous form).
+// (prefill_attention_op, contiguous and block_table= forms).
 //
 // Bound on the card: operations.  A 512-row chunk does O(C) flops per cache
 // byte (about 8.6 GFLOP against 2 MB of a 2048-row cache per layer before
@@ -14,7 +15,10 @@
 // next step for this member.
 //
 // Operands: off (1,1) i32; q (C,H,D) bf16; k, v (S,Hkv,D) bf16 ->
-// o (C,H,D) f32 normalised, m, l (C,H,1) f32.
+// o (C,H,D) f32 normalised, m, l (C,H,1) f32.  Paged (i[6] = bs > 0): k, v
+// are the arena (num_blocks, bs, Hkv, D) and in[4] is the slot's table row
+// bt (1, i[7]) i32.  At head dim 128 and rep 4 a CTA holds 32 rows in ~74 KB
+// of shared memory, above the 48 KB default: the launcher opts in.
 #pragma once
 
 #include "attention_core.cuh"
@@ -52,7 +56,9 @@ __device__ void prefill_attn_member(const MemberDesc& md, int cta) {
   __syncthreads();
 
   const int n_kv = max(0, min(S, off + c0 + nq));
-  attn_loop(sm, R, D, n_kv, k + (size_t)g * D, v + (size_t)g * D, Hkv * D);
+  const int bs = md.i[6];
+  attn_loop(sm, R, D, n_kv, k + (size_t)g * D, v + (size_t)g * D, Hkv * D,
+            bs ? static_cast<const int*>(md.in[4]) : nullptr, bs);
 
   for (int idx = threadIdx.x; idx < R * D; idx += HF_THREADS) {
     const int rr = idx / D, d = idx % D;

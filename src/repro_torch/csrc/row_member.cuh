@@ -18,6 +18,17 @@
 // A gated epilogue needs gate column j and up column j+F in one CTA, so the
 // gated tile is 32 gate columns plus their 32 up columns.
 //
+// fp32 form (i[6] = 1, the MoE router: 8 x 4096 @ 4096 x 16 at phi3.5-moe):
+// x, w and out fp32, no prologue or epilogue.  A CTA owns 64 columns and one
+// of i[7] slices of K (the router's N = 16 is a quarter of one tile, so a
+// single CTA walking all of K is bound by load latency: 0.19 ms on the H100).
+// A thread streams 16-byte vectors of 4 columns, reads x through the cache (a
+// half-warp shares one x value), and columns past N are masked, so N needs
+// only N % 4 == 0.  Each CTA writes its slice's (M, 64) partial into a
+// per-launch workspace (out[1]) and takes a ticket of its column tile
+// (out[2], zeroed); the tile's last CTA sums the slices in slice order, as
+// the paper members' carries do, so the result is the same every launch.
+//
 // Bitwise contract: a chain equals its two members run separately.  The
 // prologue rounds the normed row to bf16 exactly as the standalone norm
 // stores it; the epilogue rounds the product to bf16 exactly as the
@@ -36,7 +47,7 @@ enum { ACT_NONE = -1, ACT_SILU_GATE = 0, ACT_GELU_GATE = 1, ACT_GELU = 2,
 #define GEMM_MB 8           // rows per pass (accumulators: GEMM_MB x 8 / thread)
 #define ACT_COLS 2048       // output columns per CTA of the standalone activation
 
-__device__ __forceinline__ bool act_gated(int act) {
+__host__ __device__ __forceinline__ bool act_gated(int act) {
   return act == ACT_SILU_GATE || act == ACT_GELU_GATE;
 }
 
@@ -209,6 +220,98 @@ __device__ void row_gemm(const MemberDesc& m, int cta) {
   }
 }
 
+// fp32 GEMM: out(M, N) = x(M, K) @ w(K, N), every operand fp32, split over
+// i[7] slices of K
+#define GEMM_F32_KR 16      // k residues (threads per column group)
+
+__host__ __device__ inline int gemm_f32_smem_bytes() {
+  return HF_WARPS * GEMM_MB * GEMM_TN * 4;
+}
+
+// Not inlined: inlined, its split-K bookkeeping made ptxas spill inside the
+// 128-register bundle kernel; as a call it spills nothing itself and the
+// other members keep their allocation.
+__device__ __noinline__ void row_gemm_f32(const MemberDesc& m, int cta) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int M = m.i[1], K = m.i[2], N = m.i[3], KS = m.i[7];
+  const float* x = static_cast<const float*>(m.in[0]);
+  const float* w = static_cast<const float*>(m.in[2]);
+  float* out = static_cast<float*>(m.out[0]);
+  float* ws = static_cast<float*>(m.out[1]);
+  float* red = reinterpret_cast<float*>(smem);
+
+  const int ntile = (N + GEMM_TN - 1) / GEMM_TN;
+  const int tile = cta % ntile, ks = cta / ntile;
+  const int kchunk = (K + KS - 1) / KS;
+  const int k0 = ks * kchunk, k1 = min(K, k0 + kchunk);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int cg = tid % (GEMM_TN / 4);     // this thread's 4-column group
+  const int kr = tid / (GEMM_TN / 4);     // this thread's k residue
+  const int col0 = tile * GEMM_TN + cg * 4;
+  const bool live = col0 < N;
+
+  for (int m0 = 0; m0 < M; m0 += GEMM_MB) {
+    const int mb = min(GEMM_MB, M - m0);
+    float acc[GEMM_MB][4];
+#pragma unroll
+    for (int r = 0; r < GEMM_MB; ++r)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[r][j] = 0.0f;
+    if (live) {
+      // k ascends: every column's sum runs in one fixed order
+#pragma unroll 2
+      for (int k = k0 + kr; k < k1; k += GEMM_F32_KR) {
+        const float4 wv =
+            *reinterpret_cast<const float4*>(w + (size_t)k * N + col0);
+#pragma unroll
+        for (int r = 0; r < GEMM_MB; ++r) {
+          if (r < mb) {
+            const float xv = x[(size_t)(m0 + r) * K + k];
+            acc[r][0] = fmaf(xv, wv.x, acc[r][0]);
+            acc[r][1] = fmaf(xv, wv.y, acc[r][1]);
+            acc[r][2] = fmaf(xv, wv.z, acc[r][2]);
+            acc[r][3] = fmaf(xv, wv.w, acc[r][3]);
+          }
+        }
+      }
+    }
+    // lanes l and l^16 share a column group: fold them, then the eight
+    // warps through shared memory in warp order, into this slice's partial
+#pragma unroll
+    for (int r = 0; r < GEMM_MB; ++r) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float v = acc[r][j] + __shfl_xor_sync(0xffffffffu, acc[r][j], 16);
+        if (lane < 16) red[(warp * GEMM_MB + r) * GEMM_TN + cg * 4 + j] = v;
+      }
+    }
+    __syncthreads();
+    for (int idx = tid; idx < mb * GEMM_TN; idx += HF_THREADS) {
+      const int r = idx / GEMM_TN, c = idx % GEMM_TN;
+      const int col = tile * GEMM_TN + c;
+      if (col < N) {
+        float s = 0.0f;
+#pragma unroll
+        for (int wv = 0; wv < HF_WARPS; ++wv)
+          s += red[(wv * GEMM_MB + r) * GEMM_TN + c];
+        ws[((size_t)ks * M + m0 + r) * N + col] = s;
+      }
+    }
+    __syncthreads();
+  }
+
+  // the tile's last CTA sums the K slices in slice order
+  if (!hf_last_of_group(static_cast<int*>(m.out[2]), tile, KS)) return;
+  for (int idx = tid; idx < M * GEMM_TN; idx += HF_THREADS) {
+    const int r = idx / GEMM_TN, col = tile * GEMM_TN + idx % GEMM_TN;
+    if (col < N) {
+      float s = ws[(size_t)r * N + col];
+      for (int q = 1; q < KS; ++q) s += ws[((size_t)q * M + r) * N + col];
+      out[(size_t)r * N + col] = s;
+    }
+  }
+}
+
 // standalone activation: h (M, F_in) bf16 -> out (M, F_out) bf16
 __device__ void row_act(const MemberDesc& m, int cta) {
   const int M = m.i[1], F_in = m.i[2], F_out = m.i[3], act = m.i[5];
@@ -237,7 +340,12 @@ __device__ void row_member(const MemberDesc& m, int cta) {
               reinterpret_cast<float*>(smem));
       break;
     }
-    case ROW_GEMM: row_gemm(m, cta); break;
+    case ROW_GEMM:
+      if (m.i[6])
+        row_gemm_f32(m, cta);
+      else
+        row_gemm(m, cta);
+      break;
     default: row_act(m, cta); break;
   }
 }
@@ -245,7 +353,8 @@ __device__ void row_member(const MemberDesc& m, int cta) {
 __host__ __device__ inline int row_smem_bytes(const MemberDesc& m) {
   switch (m.i[0]) {
     case ROW_NORM: return HF_WARPS * 4;
-    case ROW_GEMM: return gemm_smem_bytes(m.i[2]);
+    case ROW_GEMM: return m.i[6] ? gemm_f32_smem_bytes()
+                                 : gemm_smem_bytes(m.i[2]);
     default: return 0;
   }
 }

@@ -1,7 +1,7 @@
 """The port's CUDA kernels: the row member family, decode attention,
-prefill attention, the AdamW update and the seven paper-suite bodies, all
-launched through the bundle launcher (``core/hfuse.py``, source
-``csrc/bundle.cu``)."""
+prefill attention (both contiguous and paged), the grouped expert FFN, the
+AdamW update and the seven paper-suite bodies, all launched through the
+bundle launcher (``core/hfuse.py``, source ``csrc/bundle.cu``)."""
 
 
 def registry():
@@ -10,7 +10,8 @@ def registry():
     from repro_torch.core.hfuse import BUNDLE
     from repro_torch.kernels.adam import ADAMW
     from repro_torch.kernels.decode_attention import DECODE
+    from repro_torch.kernels.moe_gmm import MOE_GMM
     from repro_torch.kernels.paper_suite import KERNELS
     from repro_torch.kernels.prefill_attention import PREFILL
     from repro_torch.kernels.row import ROW
-    return (BUNDLE, ROW, DECODE, PREFILL, ADAMW, *KERNELS.values())
+    return (BUNDLE, ROW, DECODE, PREFILL, ADAMW, *KERNELS.values(), MOE_GMM)

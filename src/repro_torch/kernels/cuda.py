@@ -38,6 +38,7 @@ MAX_MEMBERS = 8
 # member kinds (csrc/common.cuh)
 ROW, DECODE_ATTN, PREFILL_ATTN, ADAMW = 1, 2, 3, 4
 MAXPOOL, UPSAMPLE, BNSTATS, IM2COL, HIST, ETHASH, HASH = 5, 6, 7, 8, 9, 10, 11
+MOE_GMM = 12
 
 
 class Kernel:

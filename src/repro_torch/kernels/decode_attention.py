@@ -1,17 +1,23 @@
-"""Decode attention: one new query token per slot against that slot's
-contiguous KV cache, GQA, per-slot valid length.
+"""Decode attention: one new query token per slot against that slot's KV
+cache, GQA, per-slot valid length; the cache either contiguous per slot or
+paged in a block arena shared by the slots.
 
 CUDA source: ``csrc/decode_attention.cuh`` (on ``csrc/attention_core.cuh``).
 It replaces the TPU kernel ``src/repro/kernels/decode_attention.py:44``
-(decode_attention_op, contiguous form, ``dynamic_length=True``).  Bound on
-the card: bytes — it streams each slot's valid cache prefix and does O(D)
-flops per byte.  Design: one CTA per (slot, KV head) carries all rep = H/Hkv
-query heads of the group, so each cached row is read once; the kv loop (the
-reference's grid-order carry, made a loop inside the CTA) stops at the
-slot's own length.  Split-KV across CTAs is later work.
+(decode_attention_op with ``dynamic_length=True``, contiguous and
+``block_table=`` forms; the paged form's page gather, ``:35``
+``gather_pages``, becomes a table lookup per kv row inside the tile load).
+Bound on the card: bytes — it streams each slot's valid cache prefix and
+does O(D) flops per byte.  Design: one CTA per (slot, KV head) carries all
+rep = H/Hkv query heads of the group, so each cached row is read once; the
+kv loop (the reference's grid-order carry, made a loop inside the CTA)
+stops at the slot's own length.  The paged form reads position p from
+arena row ``bt[b, p // bs] * bs + p % bs`` and does the contiguous form's
+math on it, so the two are bitwise equal on equal logical content.
+Split-KV across CTAs is later work.
 
-Beside the kernel: ``DECODE``, its launch record, and
-``plain_decode_attention``, the plain PyTorch version.
+Beside the kernel: ``DECODE``, its launch record, ``plain_decode_attention``
+and ``plain_paged_decode_attention``, the plain PyTorch versions.
 """
 from __future__ import annotations
 
@@ -21,12 +27,13 @@ from typing import ClassVar
 
 import torch
 
-from repro_torch.core.op_spec import Operand, OpSpec, itemsize
+from repro_torch.core.op_spec import MIN_BLOCK_ROWS, Operand, OpSpec, itemsize
 from repro_torch.kernels import cuda
 
 DECODE = cuda.Kernel("decode_attention",
                      "src/repro_torch/csrc/decode_attention.cuh",
-                     "src/repro/kernels/decode_attention.py:44")
+                     "src/repro/kernels/decode_attention.py:44, "
+                     "src/repro/kernels/decode_attention.py:35")
 NEG_INF = -1e30
 
 
@@ -50,6 +57,23 @@ def plain_decode_attention(length: torch.Tensor, q: torch.Tensor,
     return (o.reshape(B, H, D), m.reshape(B, H, 1), l.reshape(B, H, 1))
 
 
+def gather_pages(arena: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
+    """The logical caches (R, max_blocks * bs, Hkv, D) that block-table rows
+    bt (R, max_blocks) map into the arena (num_blocks, bs, Hkv, D)."""
+    R, nb = bt.shape
+    return arena[bt.long()].reshape(R, nb * arena.shape[1], *arena.shape[2:])
+
+
+def plain_paged_decode_attention(bt: torch.Tensor, length: torch.Tensor,
+                                 q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor):
+    """bt (B, max_blocks) i32; length (B,1); q (B,H,D); k, v the arena
+    (num_blocks, bs, Hkv, D): gather the pages, then the contiguous plain
+    version."""
+    return plain_decode_attention(length, q, gather_pages(k, bt),
+                                  gather_pages(v, bt))
+
+
 @dataclass(frozen=True)
 class DecodeAttentionMember:
     B: int
@@ -57,6 +81,8 @@ class DecodeAttentionMember:
     H: int
     Hkv: int
     D: int
+    bs: int = 0                 # page rows (0: contiguous cache)
+    num_blocks: int = 0         # arena blocks (paged)
     kernel: ClassVar[cuda.Kernel] = DECODE
 
     @property
@@ -72,11 +98,18 @@ class DecodeAttentionMember:
         md.kind = cuda.DECODE_ATTN
         md.i[0], md.i[1], md.i[2], md.i[3], md.i[4] = B, S, H, Hkv, D
         md.f[0] = 1.0 / math.sqrt(D)
+        kv_shape = (B, S, Hkv, D)
+        if self.bs:
+            bt, *ins = ins
+            md.i[5], md.i[6] = self.bs, S // self.bs
+            md.inp[4] = cuda.check(bt, "decode bt", (B, S // self.bs),
+                                   torch.int32)
+            kv_shape = (self.num_blocks, self.bs, Hkv, D)
         length, q, k, v = ins
         md.inp[0] = cuda.check(length, "decode len", (B, 1), torch.int32)
         md.inp[1] = cuda.check(q, "decode q", (B, H, D), bf)
-        md.inp[2] = cuda.check(k, "decode k", (B, S, Hkv, D), bf)
-        md.inp[3] = cuda.check(v, "decode v", (B, S, Hkv, D), bf)
+        md.inp[2] = cuda.check(k, "decode k", kv_shape, bf)
+        md.inp[3] = cuda.check(v, "decode v", kv_shape, bf)
         for j, (t, shape) in enumerate(zip(outs, ((B, H, D), (B, H, 1),
                                                   (B, H, 1)))):
             md.out[j] = cuda.check(t, f"decode out{j}", shape, f32)
@@ -87,12 +120,14 @@ def decode_attention_op(B: int, S: int, H: int, Hkv: int, D: int,
                         length=None, dynamic_length: bool = False,
                         block_table=None) -> OpSpec:
     """q (B,H,D); cache k, v (B,S,Hkv,D); len (B,1) i32 -> o (B,H,D) fp32,
-    m, l (B,H,1) fp32.  Grid, blocks, names and costs are the reference's
-    (``B * S // ck`` batch-major steps).  The port's member takes the
-    per-slot length operand only."""
-    if block_table is not None:
-        raise NotImplementedError("paged KV (block_table=) is not ported "
-                                  "yet (ROADMAP: paged KV)")
+    m, l (B,H,1) fp32.  Grid, blocks, names, costs and operand order are
+    the reference's (``B * S // ck`` batch-major steps).  The port's member
+    takes the per-slot length operand only.
+
+    ``block_table=(num_blocks, block_size)``: the paged form.  k, v are the
+    shared arena (num_blocks, block_size, Hkv, D), ``S`` is a slot's
+    logical capacity, and a (B, S // block_size) int32 operand "bt" (first)
+    maps each slot's pages to arena blocks; ``ck % block_size == 0``."""
     if not dynamic_length or length is not None:
         raise NotImplementedError("the decode attention member takes the "
                                   "per-slot (B, 1) length operand: pass "
@@ -103,23 +138,49 @@ def decode_attention_op(B: int, S: int, H: int, Hkv: int, D: int,
     nk = S // ck
     isz = itemsize(dtype)
     f32 = torch.float32
+    if block_table is not None:
+        num_blocks, bs = block_table
+        if ck % bs or S % bs:
+            raise ValueError(f"decode_attention_op: ck={ck} and S={S} must "
+                             f"be multiples of the block size {bs}")
+        bt_in = (Operand((B, S // bs), torch.int32, (1, S // bs),
+                         lambda s: (s // nk, 0)),)
+        kv = tuple(Operand((num_blocks, bs, Hkv, D), dtype,
+                           (num_blocks, bs, Hkv, D), lambda s: (0, 0, 0, 0))
+                   for _ in range(2))
+        suffix, bt_name, plain = f"_pg{bs}", ("bt",), \
+            plain_paged_decode_attention
+        member = DecodeAttentionMember(B, S, H, Hkv, D, bs, num_blocks)
+
+        def shrink(factor: int):
+            sck = ck // factor
+            if ck % factor or sck % bs or sck < MIN_BLOCK_ROWS:
+                return None
+            return decode_attention_op(B, S, H, Hkv, D, dtype=dtype, ck=sck,
+                                       dynamic_length=True,
+                                       block_table=block_table)
+    else:
+        bt_in, suffix, bt_name, shrink = (), "", (), None
+        kv = tuple(Operand((B, S, Hkv, D), dtype, (1, ck, Hkv, D),
+                           lambda s: (s // nk, s % nk, 0, 0))
+                   for _ in range(2))
+        plain, member = plain_decode_attention, \
+            DecodeAttentionMember(B, S, H, Hkv, D)
     return OpSpec(
-        name=f"decode_attn_B{B}_S{S}_H{H}kv{Hkv}",
+        name=f"decode_attn_B{B}_S{S}_H{H}kv{Hkv}{suffix}",
         grid=B * nk,
-        member=DecodeAttentionMember(B, S, H, Hkv, D),
-        plain=plain_decode_attention,
-        inputs=(Operand((B, 1), torch.int32, (1, 1), lambda s: (s // nk, 0)),
-                Operand((B, H, D), dtype, (1, H, D),
-                        lambda s: (s // nk, 0, 0)),
-                Operand((B, S, Hkv, D), dtype, (1, ck, Hkv, D),
-                        lambda s: (s // nk, s % nk, 0, 0)),
-                Operand((B, S, Hkv, D), dtype, (1, ck, Hkv, D),
-                        lambda s: (s // nk, s % nk, 0, 0))),
+        member=member,
+        plain=plain,
+        inputs=bt_in
+        + (Operand((B, 1), torch.int32, (1, 1), lambda s: (s // nk, 0)),
+           Operand((B, H, D), dtype, (1, H, D), lambda s: (s // nk, 0, 0)))
+        + kv,
         outputs=(Operand((B, H, D), f32, (1, H, D), lambda s: (s // nk, 0, 0)),
                  Operand((B, H, 1), f32, (1, H, 1), lambda s: (s // nk, 0, 0)),
                  Operand((B, H, 1), f32, (1, H, 1),
                          lambda s: (s // nk, 0, 0))),
         flops=2.0 * B * H * S * D * 2,
         hbm_bytes=2.0 * B * S * Hkv * D * isz + 2.0 * B * H * D * isz,
+        shrink=shrink,
         tag="framework:decode_attention",
-        in_names=("len", "q", "k", "v"), out_names=("o", "m", "l"))
+        in_names=bt_name + ("len", "q", "k", "v"), out_names=("o", "m", "l"))

@@ -13,7 +13,8 @@ def matmul_1d_op(M: int, K: int, N: int, dtype=torch.bfloat16,
                  bm: int = 256) -> OpSpec:
     """(M, K) @ (K, N) -> (M, N), fp32 accumulation, cast to ``dtype``.
     Grid over M row blocks with the weight resident, as the reference plans
-    it; the CUDA member tiles the weight's columns instead."""
+    it; the CUDA member tiles the weight's columns instead, in bf16 or, for
+    ``dtype=float32`` (the MoE router), in fp32."""
     if M % bm:
         raise ValueError(f"matmul_1d_op: M={M} is not a multiple of bm={bm}")
 
@@ -22,7 +23,8 @@ def matmul_1d_op(M: int, K: int, N: int, dtype=torch.bfloat16,
 
     return OpSpec(
         name=f"matmul_{M}x{K}x{N}", grid=M // bm,
-        member=row.RowMember("gemm", M=M, K=K, N=N),
+        member=row.RowMember("gemm", M=M, K=K, N=N,
+                             fp32=dtype == torch.float32),
         plain=plain,
         inputs=(Operand((M, K), dtype, (bm, K), lambda s: (s, 0)),
                 Operand((K, N), dtype, (K, N), lambda s: (0, 0))),

@@ -10,7 +10,10 @@ stitches.  Bound on the card: bytes — at decode batch the GEMM streams its
 weight once and does 2*M flops per weight element; a CTA owns a 64-column
 weight tile for all rows, streams it in 16-byte vectors with x in shared
 memory, and the chains keep the intermediate out of device memory (see the
-source's header for the bitwise contract).
+source's header for the bitwise contract).  The GEMM also has an fp32 form
+(x, w, out fp32, no prologue or epilogue, partial column tiles masked, K
+split over CTAs with a fixed-order last-CTA combine): the MoE router's
+``matmul_1d_op(dtype=float32)``.
 
 Beside the kernel: ``ROW``, its launch record, and the plain PyTorch
 versions (``plain_rmsnorm``, ``plain_gemm``, the activations), which run
@@ -33,6 +36,7 @@ ROW = cuda.Kernel(
     "src/repro/kernels/elementwise.py:20, src/repro/core/stitch.py:177")
 
 GEMM_TN = 64          # weight columns per CTA (csrc/row_member.cuh)
+F32_K_SLICE = 64      # K rows per CTA of the fp32 GEMM
 ACT_COLS = 2048       # output columns per CTA of the standalone activation
 
 
@@ -112,6 +116,7 @@ class RowMember:
     prologue: bool = False
     act: Optional[str] = None
     eps: float = 1e-6
+    fp32: bool = False          # gemm: the fp32 form (x, w, out fp32)
     kernel: ClassVar[cuda.Kernel] = ROW
 
     @property
@@ -123,14 +128,21 @@ class RowMember:
         return self.N
 
     @property
+    def k_slices(self) -> int:
+        """CTAs along K: the fp32 GEMM splits K in slices of F32_K_SLICE."""
+        return math.ceil(self.K / F32_K_SLICE) if self.fp32 else 1
+
+    @property
     def ctas(self) -> int:
         if self.sub == "rmsnorm":
             return self.M
         if self.sub == "gemm":
-            return math.ceil(self.N / GEMM_TN)
+            return math.ceil(self.N / GEMM_TN) * self.k_slices
         return self.M * math.ceil(self.N / ACT_COLS)
 
-    def pack(self, md, ins, outs) -> None:
+    def pack(self, md, ins, outs):
+        """Describe, check and bind one launch; returns the fp32 GEMM's
+        workspace (alive until the launch is queued), else None."""
         bf = torch.bfloat16
         md.kind = cuda.ROW
         md.i[0] = _SUB[self.sub]
@@ -149,6 +161,22 @@ class RowMember:
             md.inp[0] = cuda.check(ins[0], "act h", (M, K), bf)
             md.out[0] = cuda.check(outs[0], "act out", (M, N), bf)
             return
+        if self.fp32:
+            if self.prologue or self.act is not None or N % 4:
+                raise ValueError("the fp32 row GEMM takes no prologue or "
+                                 f"activation and N % 4 == 0, got N={N}")
+            f32 = torch.float32
+            md.i[6], md.i[7] = 1, self.k_slices
+            md.inp[0] = cuda.check(ins[0], "gemm x", (M, K), f32)
+            md.inp[2] = cuda.check(ins[1], "gemm w", (K, N), f32)
+            md.out[0] = cuda.check(outs[0], "gemm out", (M, N), f32)
+            # per-launch workspace: the K slices' partials, zeroed tickets
+            dev = outs[0].device
+            ws = (torch.empty(self.k_slices * M * N, dtype=f32, device=dev),
+                  torch.zeros(math.ceil(N / GEMM_TN), dtype=torch.int32,
+                              device=dev))
+            md.out[1], md.out[2] = ws[0].data_ptr(), ws[1].data_ptr()
+            return ws
         if N % GEMM_TN or K % 8:
             raise ValueError(f"row GEMM takes N % {GEMM_TN} == 0 and "
                              f"K % 8 == 0, got K={K} N={N}")

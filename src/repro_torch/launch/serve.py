@@ -8,10 +8,17 @@ Continuous batching over the executed, planned decode step with chunked
 prefill (``serve/engine.py``).  Weights are random, drawn on the device
 from a ``torch.Generator`` seeded with ``--seed``; ``--device cpu`` runs
 the plain PyTorch versions of the kernels instead of the CUDA ones.
+``--kv-block-size 16 --shared-prefix 1024`` serves from the paged arena
+with the prefix cache (one-layer configs: ``--layers 1``);
+``--arch phi3.5-moe-rms --layers 8 --prefill-policy eload`` serves the MoE
+path with its depth cut to 8 layers.  The flags keep the reference
+launcher's names and checks.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
 import time
 
 import numpy as np
@@ -28,13 +35,20 @@ def build_requests(cfg, args) -> list[Request]:
     (+i %% N) and token budgets (-i %% N) so slots retire and refill
     mid-batch."""
     rng = np.random.default_rng(args.seed)
+    shared = None
+    if args.shared_prefix > 0:
+        # one prefix drawn once, common to every request: the paged prefix
+        # cache serves it from shared blocks after the first prompt
+        shared = rng.integers(0, cfg.vocab_size,
+                              args.shared_prefix).astype(np.int32)
     reqs = []
     for i in range(args.requests):
         spread = i % max(1, args.stagger)
         plen = args.prompt_len + spread
+        tail = rng.integers(0, cfg.vocab_size, plen).astype(np.int32)
         reqs.append(Request(
             rid=i,
-            prompt=rng.integers(0, cfg.vocab_size, plen).astype(np.int32),
+            prompt=tail if shared is None else np.concatenate([shared, tail]),
             max_new_tokens=max(1, args.max_new - spread)))
     return reqs
 
@@ -54,17 +68,48 @@ def main(argv=None):
                     help="prompt rows one slot prefills per iteration")
     ap.add_argument("--coresident-chunks", type=int, default=2,
                     help="prefill chunks that may ride one decode step")
-    ap.add_argument("--prefill-policy", choices=["fifo", "srpf"],
-                    default="fifo")
+    ap.add_argument("--prefill-policy", choices=["fifo", "srpf", "eload"],
+                    default="fifo",
+                    help="eload: srpf, shedding one coresident chunk while "
+                         "the per-expert hit skew exceeds the budget's "
+                         "threshold (MoE)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the config's depth to N layers (0: as is)")
+    ap.add_argument("--expect-moe-fused", action="store_true",
+                    help="fail unless the decode program puts the grouped "
+                         "expert FFN in a fused launch with a partner")
+    ap.add_argument("--kv-block-size", type=int, default=0,
+                    help="paged KV: arena block size in tokens (0 = "
+                         "contiguous per-slot cache)")
+    ap.add_argument("--kv-blocks", type=int, default=None,
+                    help="paged KV: total arena blocks, per-slot sentinels "
+                         "included")
+    ap.add_argument("--kv-slot-blocks", type=int, default=None,
+                    help="paged KV: table columns per slot (logical "
+                         "capacity kv_slot_blocks * kv_block_size)")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="prepend one shared N-token prefix to every prompt")
+    ap.add_argument("--expect-prefix-hits", action="store_true",
+                    help="fail unless the prefix cache served >=1 request")
+    ap.add_argument("--kv-snapshot", default=None, metavar="PATH",
+                    help="write the final KVPool snapshot as JSON")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="cuda (default when a card is present) or cpu")
     args = ap.parse_args(argv)
+    if args.kv_block_size <= 0 and (
+            args.kv_blocks is not None or args.kv_slot_blocks is not None
+            or args.expect_prefix_hits or args.kv_snapshot):
+        ap.error("--kv-blocks/--kv-slot-blocks/--expect-prefix-hits/"
+                 "--kv-snapshot require --kv-block-size > 0")
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.scale == "smoke":
         cfg = cfg.reduced()
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers,
+                                  block_pattern=None)
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     params = lm.init(cfg, gen, device=dev)
@@ -72,12 +117,30 @@ def main(argv=None):
                            max_coresident_chunks=args.coresident_chunks,
                            policy=args.prefill_policy)
     engine = ServeEngine(cfg, params, batch=args.batch,
-                         max_len=args.prompt_len + args.stagger
-                         + args.max_new + 8,
-                         prefill_budget=budget, device=dev)
+                         max_len=args.prompt_len + args.shared_prefix
+                         + args.stagger + args.max_new + 8,
+                         prefill_budget=budget, device=dev,
+                         paged_kv=args.kv_block_size > 0,
+                         kv_block_size=args.kv_block_size or 16,
+                         kv_blocks=args.kv_blocks,
+                         kv_slot_blocks=args.kv_slot_blocks)
     print("[plan-fusion] decode-step bundles:")
     for row in engine.fusion_plan.summary():
         print(f"  {row}")
+    if args.expect_moe_fused:
+        if cfg.moe is None:
+            raise SystemExit("[moe] FAIL: --expect-moe-fused on a dense "
+                             f"config ({cfg.name})")
+        prog = engine.build_decode_program(
+            prefill_chunks=args.coresident_chunks)
+        bundles = [sorted(ms) for ms in prog.fused_members
+                   if any(m.startswith("moe_gmm") for m in ms)]
+        if not bundles:
+            raise SystemExit("[moe] FAIL: the grouped expert GMM is not "
+                             "co-resident in any fused launch of the "
+                             "decode program")
+        print("[moe] expert GMM co-resident in fused launch: "
+              + "; ".join("+".join(ms) for ms in bundles))
     reqs = build_requests(cfg, args)
     t0 = time.perf_counter()
     engine.run(reqs)
@@ -89,6 +152,25 @@ def main(argv=None):
           f"({total_new / dt:.1f} tok/s) on {dev}")
     st = engine.stats
     print(f"[slots] {st.describe()}")
+    if cfg.moe is not None and st.expert_hits:
+        print(f"[moe] expert hits {st.expert_hits} "
+              f"(skew {st.expert_skew:.2f}), "
+              f"{st.load_shed_steps} load-shed steps")
+    if args.kv_block_size > 0:
+        print(f"[paged-kv] block_size {engine.kv_block_size}, peak "
+              f"{st.blocks_in_use} blocks in use, "
+              f"prefix_hit_rate {st.prefix_hit_rate:.0%} "
+              f"({st.prefix_hits} hits, {st.prefix_tokens_reused} "
+              f"tokens reused), {st.evictions} evictions")
+    if args.kv_snapshot:
+        with open(args.kv_snapshot, "w") as fh:
+            json.dump(engine.kv_pool.snapshot(), fh, indent=2)
+        print(f"[paged-kv] pool snapshot -> {args.kv_snapshot}")
+    if args.expect_prefix_hits:
+        if st.prefix_hit_rate <= 0:
+            raise SystemExit("[paged-kv] FAIL: no request was served from "
+                             "shared prefix blocks (prefix_hit_rate == 0)")
+        print(f"[paged-kv] prefix cache hit {st.prefix_hits} request(s)")
     for r in reqs[:3]:
         print(f"  req {r.rid}: {r.out_tokens}")
 

@@ -1,5 +1,5 @@
-"""LM assembly for the dense global-attention subset the port serves and
-trains.
+"""LM assembly for the global-attention subset the port serves and trains:
+one run of layers, each with a dense FFN or an MoE FFN (``models/moe.py``).
 
 Parameters are plain nested dicts of tensors with the JAX package's tree
 and layouts: weights stay ``(K, N)``, a run of ``count > 1`` identical
@@ -19,7 +19,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ATTN, ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import layers
+from repro_torch.models import layers, moe as moe_mod
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -56,11 +56,11 @@ def supported(cfg: ModelConfig) -> Optional[str]:
     runs = layer_runs(cfg)
     if cfg.frontend != "none":
         return f"frontend {cfg.frontend!r} (token frontend only)"
-    if len(runs) != 1 or runs[0].kind != ATTN or runs[0].is_moe:
-        return "needs a single dense global-attention layer run"
+    if len(runs) != 1 or runs[0].kind != ATTN:
+        return "needs a single global-attention layer run"
     if cfg.norm != "rmsnorm":
         return f"norm {cfg.norm!r} (rmsnorm only)"
-    if cfg.d_ff <= 0:
+    if not cfg.is_moe and cfg.d_ff <= 0:
         return "no FFN"
     if cfg.activation not in ("silu", "gelu", "gelu_mlp", "relu2_mlp"):
         return f"activation {cfg.activation!r}"
@@ -85,9 +85,14 @@ def param_layout(cfg: ModelConfig) -> dict:
         "attn": {"w_qkv": (lead + (d, (H + 2 * Hkv) * D), "normal", None),
                  "w_o": (lead + (H * D, d), "out_proj", None)},
         "norm2": {"scale": (lead + (d,), "zeros", f32)},
-        "mlp": {"w_in": (lead + (d, 2 * f if gated else f), "normal", None),
-                "w_out": (lead + (f, d), "out_proj", None)},
     }
+    if run.is_moe:
+        block["moe"] = {k: (lead + shape, kind, dt)
+                        for k, (shape, kind, dt) in moe_mod.spec(cfg).items()}
+    else:
+        block["mlp"] = {
+            "w_in": (lead + (d, 2 * f if gated else f), "normal", None),
+            "w_out": (lead + (f, d), "out_proj", None)}
     layout = {"embed": {"embedding": ((V, d), "embed", None)},
               run.name: block,
               "final_norm": {"scale": ((d,), "zeros", f32)}}
@@ -216,9 +221,18 @@ def _head(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Full-sequence (train) path
 # ---------------------------------------------------------------------------
+def _apply_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor):
+    """The block's FFN on (B, S, d): the MoE FFN when the block routes
+    (with its load-balancing loss), else the dense MLP (loss 0)."""
+    if "moe" in p:
+        return moe_mod.apply(cfg, p["moe"], x)
+    return (layers.mlp(cfg, p["mlp"], x),
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
 def block_apply_seq(cfg: ModelConfig, p: dict, x: torch.Tensor):
-    """One dense global-attention block over a whole sequence:
-    (B, S, d) -> (B, S, d), and its auxiliary loss (0 for a dense FFN)."""
+    """One global-attention block over a whole sequence: (B, S, d) ->
+    (B, S, d), and its auxiliary loss (0 for a dense FFN)."""
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :]
     h = layers.apply_norm(cfg, p["norm1"], x)
@@ -227,8 +241,8 @@ def block_apply_seq(cfg: ModelConfig, p: dict, x: torch.Tensor):
     k = layers.rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
     o = layers.blockwise_attention(q, k, v, causal=True)
     x = x + o.reshape(B, S, -1) @ p["attn"]["w_o"]
-    x = x + layers.mlp(cfg, p["mlp"], layers.apply_norm(cfg, p["norm2"], x))
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    ff, aux = _apply_ffn(cfg, p, layers.apply_norm(cfg, p["norm2"], x))
+    return x + ff, aux
 
 
 def forward(cfg: ModelConfig, params: dict, batch: dict, *,

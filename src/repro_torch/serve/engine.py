@@ -1,6 +1,6 @@
 """Batched serving engine: executed continuous batching with chunked prefill.
 
-The port of the JAX package's ``serve/engine.py`` executed, contiguous path
+The port of the JAX package's ``serve/engine.py`` executed continuous path
 (``ServeEngine(plan_fusion=True, scheduling="continuous")`` ->
 ``_run_continuous_chunked``).  Every slot keeps its own cache position
 ``(B,)`` and advances, finishes (EOS / token budget / cache-full) and is
@@ -15,21 +15,31 @@ The decode step is planned (``core/planner.py``) over the six-op graph of
 ``decode_graph`` and executed by the plan->program executor
 (``core/executor.py``); the model glue (per-slot RoPE, the act-masked cache
 scatter, W_o and W_out with their residuals) lives in the binding slots.
-A stacked run (``count > 1``, 40 layers at full width) runs the program
-once per layer in a Python loop.
+A stacked run (``count > 1``) runs the program once per layer in a Python
+loop.  Two forms of the same path:
+
+  * **paged KV** (``paged_kv=True``): k/v live in one block arena shared by
+    the slots, each slot maps its pages through a block-table row
+    (``serve/kv_pool.py``: refcounts, the radix prefix cache, LRU eviction,
+    per-slot sentinel blocks), and both attention ops take the table as an
+    operand.  A prompt that shares a cached prefix skips those chunks.
+    Single-layer configs only, as in the reference;
+  * **MoE** (a config with ``moe``): the FFN side of the graph is the fp32
+    router product and the grouped expert FFN (``kernels/moe_gmm.py``), with
+    the softmax / top-k / dispatch / combine glue in the binding slots and
+    per-expert hit counts for the ``eload`` admission policy.
 
 Differences from the reference, by design:
-  * the KV cache is updated IN PLACE (the reference rebuilds it
-    functionally each step); ``_init_slot_cache`` owns the buffers;
+  * the KV cache (contiguous or arena) is updated IN PLACE (the reference
+    rebuilds it functionally each step); ``_init_slot_cache`` owns it;
   * nothing is jitted: PyTorch runs eagerly (a CUDA graph of the step is
     later work);
   * sampling with ``temperature > 0`` draws from a ``torch.Generator``
     seeded by ``rng_seed``, so only greedy decoding matches the reference
     token for token.
 
-Paged KV, tensor parallelism, MoE, wavefront scheduling and the vmapped
-fallback decode are not ported yet: asking for any of them raises with the
-reason.
+Tensor parallelism, wavefront scheduling and the vmapped fallback decode
+are not ported yet: asking for any of them raises with the reason.
 """
 from __future__ import annotations
 
@@ -48,9 +58,11 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import elementwise
 from repro_torch.kernels.decode_attention import decode_attention_op
 from repro_torch.kernels.matmul import matmul_1d_op
+from repro_torch.kernels.moe_gmm import moe_gmm_op
 from repro_torch.kernels.prefill_attention import prefill_attention_op
 from repro_torch.kernels.rmsnorm import rmsnorm_op
-from repro_torch.models import layers, lm
+from repro_torch.models import layers, lm, moe as moe_mod
+from repro_torch.serve.kv_pool import KVPool
 
 
 @dataclass
@@ -74,39 +86,48 @@ class PrefillBudget:
     prefill-attention chunk).  ``max_coresident_chunks``: how many chunks
     from different slots may ride one fused launch.  ``policy``: which
     prefilling slots chunk first when more are ready than that —
-    ``"fifo"`` (lowest slot index) or ``"srpf"``
-    (shortest-remaining-prefill-first, ties by slot index).  The
-    reference's ``"eload"`` policy is MoE-only and not ported yet."""
+    ``"fifo"`` (lowest slot index), ``"srpf"``
+    (shortest-remaining-prefill-first, ties by slot index) or ``"eload"``
+    (srpf ordering, but while the running per-expert hit skew
+    ``ServeStats.expert_skew`` is at least ``skew_threshold`` the step sheds
+    one coresident chunk; MoE only — without expert hits the skew stays 0
+    and eload is srpf)."""
     chunk_rows: int = 2048
     max_coresident_chunks: int = 2
     policy: str = "fifo"
+    skew_threshold: float = 1.5
 
     def __post_init__(self):
         for f_ in ("chunk_rows", "max_coresident_chunks"):
             if getattr(self, f_) < 1:
                 raise ValueError(f"PrefillBudget.{f_} must be >= 1")
-        if self.policy == "eload":
-            raise NotImplementedError("PrefillBudget.policy 'eload' is the "
-                                      "MoE load policy; MoE is not ported "
-                                      "yet (ROADMAP)")
-        if self.policy not in ("fifo", "srpf"):
+        if self.policy not in ("fifo", "srpf", "eload"):
             raise ValueError(f"PrefillBudget.policy {self.policy!r} "
-                             "(fifo or srpf)")
+                             "(fifo, srpf or eload)")
+        if self.skew_threshold < 1.0:
+            raise ValueError("PrefillBudget.skew_threshold must be >= 1.0 "
+                             "(1.0 means perfectly balanced experts)")
 
-    def effective_chunk(self, cache_len: int) -> int:
+    def effective_chunk(self, cache_len: int, multiple: int = 1) -> int:
         """Chunk rows used against a ``cache_len`` cache: the largest
-        divisor of cache_len that is <= min(chunk_rows, cache_len), so chunk
-        offsets stay multiples of the chunk and a full-chunk scatter never
-        crosses the cache end."""
-        cap = max(min(self.chunk_rows, cache_len), 1)
+        divisor of cache_len that is <= min(chunk_rows, cache_len) and a
+        multiple of ``multiple`` (the paged path's block size, so a chunk is
+        whole pages; ``multiple`` itself when it exceeds chunk_rows), so
+        chunk offsets stay multiples of the chunk and a full-chunk scatter
+        never crosses the cache end."""
+        if cache_len % multiple:
+            raise ValueError(f"cache_len {cache_len} is not a multiple of "
+                             f"the required alignment {multiple}")
+        n = cache_len // multiple
+        cap = max(min(self.chunk_rows, cache_len) // multiple, 1)
         best, i = 1, 1
-        while i * i <= cache_len:
-            if cache_len % i == 0:
-                for d in (i, cache_len // i):
+        while i * i <= n:
+            if n % i == 0:
+                for d in (i, n // i):
                     if best < d <= cap:
                         best = d
             i += 1
-        return best
+        return best * multiple
 
 
 @dataclass
@@ -129,6 +150,16 @@ class ServeStats:
     retirements: list = field(default_factory=list)  # (step, rid, reason)
     admission_latencies: list = field(default_factory=list)  # steps from
     #                                  arrival to first token, per admission
+    # paged-KV trajectory (serve/kv_pool.py; zero on the contiguous path)
+    prompt_tokens: int = 0        # prompt tokens across admitted requests
+    prefix_hits: int = 0          # admissions that matched a cached prefix
+    prefix_tokens_reused: int = 0  # prompt tokens whose prefill was skipped
+    blocks_in_use: int = 0        # peak arena blocks mapped or cached
+    evictions: int = 0            # prefix-cache blocks evicted under pressure
+    # MoE trajectory (empty / zero for dense configs)
+    expert_hits: list = field(default_factory=list)  # per-expert routed
+    #                               decode-token count, layer-summed
+    load_shed_steps: int = 0      # steps where eload shed a coresident chunk
 
     @property
     def occupancy(self) -> float:
@@ -152,6 +183,30 @@ class ServeStats:
         lat = self.admission_latencies
         return sum(lat) / len(lat) if lat else 0.0
 
+    @property
+    def prefix_hit_rate(self) -> float:
+        """Fraction of prompt tokens whose prefill the prefix cache
+        skipped (paged KV only)."""
+        return self.prefix_tokens_reused / max(self.prompt_tokens, 1)
+
+    def add_expert_hits(self, counts) -> None:
+        """Accumulate one step's per-expert decode-token counts (an (E,)
+        sequence, summed over layers)."""
+        counts = [int(c) for c in counts]
+        if not self.expert_hits:
+            self.expert_hits = [0] * len(counts)
+        for i, c in enumerate(counts):
+            self.expert_hits[i] += c
+
+    @property
+    def expert_skew(self) -> float:
+        """Hottest expert's load relative to a balanced one:
+        max(hits) * E / sum(hits); 0.0 until any hit lands."""
+        total = sum(self.expert_hits)
+        if not total:
+            return 0.0
+        return max(self.expert_hits) * len(self.expert_hits) / total
+
     def describe(self) -> dict:
         return {
             "steps": self.steps, "decode_steps": self.decode_steps,
@@ -165,13 +220,20 @@ class ServeStats:
             "mixed_fraction": round(self.mixed_fraction, 3),
             "fused_prefill_fraction": round(self.fused_prefill_fraction, 3),
             "mean_admission_latency": round(self.mean_admission_latency, 3),
+            "prefix_hits": self.prefix_hits,
+            "prefix_hit_rate": round(self.prefix_hit_rate, 3),
+            "blocks_in_use": self.blocks_in_use,
+            "evictions": self.evictions,
+            "expert_hits": list(self.expert_hits),
+            "expert_skew": round(self.expert_skew, 3),
+            "load_shed_steps": self.load_shed_steps,
         }
 
 
 def executable_decode_supported(cfg: ModelConfig) -> Optional[str]:
     """None when the planned decode program serves this config; otherwise
-    the reason it cannot (the reference's fallback paths, MoE among them,
-    are not ported, so the port raises with it)."""
+    the reason it cannot (the reference's fallback paths are not ported, so
+    the port raises with it)."""
     return lm.supported(cfg)
 
 
@@ -213,7 +275,13 @@ class ServeEngine:
     no params.  ``plain=True`` is the explicit opt-in that runs every
     planned member's plain PyTorch version instead of its CUDA kernel, to
     hold the kernels against them on the card.  ``measure`` and
-    ``schedule_cache`` reach every decode plan (``planner.plan``)."""
+    ``schedule_cache`` reach every decode plan (``planner.plan``).
+
+    ``paged_kv=True`` serves from a block arena of ``kv_blocks`` blocks of
+    ``kv_block_size`` rows (default: every slot's full capacity plus one
+    sentinel block per slot), each slot mapping up to ``kv_slot_blocks``
+    pages (default: ``max_len`` rounded up to 128); the pool and its prefix
+    cache persist across ``run()`` calls."""
 
     def __init__(self, cfg: ModelConfig, params, *, batch: int = 8,
                  max_len: int = 512, rng_seed: int = 0,
@@ -221,25 +289,60 @@ class ServeEngine:
                  schedule_cache=None, scheduling: str = "continuous",
                  prefill_budget: Optional[PrefillBudget] = None,
                  stitch_epilogues: bool = True, paged_kv: bool = False,
+                 kv_block_size: int = 16,
+                 kv_slot_blocks: Optional[int] = None,
+                 kv_blocks: Optional[int] = None,
                  mesh=None, device=None, plain: bool = False):
         if scheduling != "continuous":
             raise _not_ported(f"scheduling {scheduling!r} (the port serves "
                               "continuous batching)")
         if not plan_fusion:
             raise _not_ported("the hand-wired (vmapped) fallback decode")
-        if paged_kv:
-            raise _not_ported("paged KV (paged_kv=True)")
         if mesh is not None:
             raise _not_ported("tensor-parallel serve (mesh=)")
+        self.cfg = cfg
+        self.batch = batch
+        self.max_len = max_len
+        self.paged_kv = paged_kv
+        self.kv_pool = None
+        if paged_kv:
+            # the reference's refusals, with its texts
+            reason = executable_decode_supported(cfg)
+            if reason is None and lm.layer_runs(cfg)[0].count > 1:
+                reason = ("the paged arena is single-layer — stacked runs "
+                          "serve from the contiguous cache")
+            if reason is None and cfg.is_moe:
+                reason = ("MoE decode serves from the contiguous cache "
+                          "(the paged+MoE combination is untested)")
+            if reason is not None:
+                raise ValueError(f"paged_kv: config not executor-supported "
+                                 f"({reason}) — the vmapped fallback has no "
+                                 "paged cache")
+            if kv_block_size < 1 or 128 % kv_block_size:
+                raise ValueError(f"kv_block_size {kv_block_size} must divide "
+                                 "128 (cache lengths and kv chunks are "
+                                 "128-aligned)")
+            self.kv_block_size = kv_block_size
+            if kv_slot_blocks is None:
+                kv_slot_blocks = self._aligned_len() // kv_block_size
+            if (kv_slot_blocks * kv_block_size) % 128:
+                raise ValueError("kv_slot_blocks * kv_block_size = "
+                                 f"{kv_slot_blocks * kv_block_size} must be "
+                                 "a multiple of 128")
+            self.kv_slot_blocks = kv_slot_blocks
+            if kv_blocks is None:
+                kv_blocks = batch * kv_slot_blocks + batch
+            self.kv_blocks = kv_blocks
+            self.kv_pool = KVPool(num_blocks=kv_blocks,
+                                  block_size=kv_block_size, slots=batch,
+                                  max_blocks_per_slot=kv_slot_blocks)
+        self._arena = None          # paged k/v, kept as long as the pool
         reason = executable_decode_supported(cfg)
         if reason is not None:
             raise NotImplementedError(f"{cfg.name}: the executed decode step "
                                       f"does not serve it: {reason}")
         self.device = resolve_device(device)
-        self.cfg = cfg
         self.params = params
-        self.batch = batch
-        self.max_len = max_len
         self.stitch_epilogues = stitch_epilogues
         self.prefill_budget = prefill_budget or PrefillBudget()
         self.plain = plain
@@ -256,67 +359,104 @@ class ServeEngine:
                                                    cache=schedule_cache)
 
     # ------------------------------------------------------------------
-    @property
-    def cache_len(self) -> int:
-        """Rows of cache a slot holds: ``max_len`` rounded up to 128."""
+    def _aligned_len(self) -> int:
         return max(128, -(-self.max_len // 128) * 128)
 
     @property
+    def cache_len(self) -> int:
+        """Rows of cache a slot can hold, the admission and retirement
+        limit: ``max_len`` rounded up to 128, or with paged KV the slot's
+        table span ``kv_slot_blocks * kv_block_size`` (which may exceed
+        ``max_len``)."""
+        if self.paged_kv:
+            return self.kv_slot_blocks * self.kv_block_size
+        return self._aligned_len()
+
+    def _chunk(self, budget: PrefillBudget) -> int:
+        """Rows of one prefill chunk (paged: a whole number of pages)."""
+        return budget.effective_chunk(
+            self.cache_len,
+            multiple=self.kv_block_size if self.paged_kv else 1)
+
+    @property
     def chunk_rows(self) -> int:
-        return self.prefill_budget.effective_chunk(self.cache_len)
+        return self._chunk(self.prefill_budget)
 
     def decode_graph(self, *, budget: Optional[PrefillBudget] = None,
                      prefill_chunks: int = 0):
         """The serving step as a planner graph with stable operand
         signatures: decode_norm1 -> qkv_proj -> decode attention (per-slot
-        valid prefixes in a (B, 1) int32 operand) -> decode_norm2 ->
-        ffn_proj -> decode_act, with the two epilogue declarations
-        (norm1 -> qkv, proj -> act) unless ``stitch_epilogues=False``;
-        plus ``prefill_chunks`` independent prefill-attention ops."""
+        valid prefixes in a (B, 1) int32 operand) -> decode_norm2 -> the FFN
+        side, with the epilogue declaration norm1 -> qkv unless
+        ``stitch_epilogues=False``; plus ``prefill_chunks`` independent
+        prefill-attention ops.  Dense FFN side: ffn_proj -> decode_act
+        (stitched likewise).  MoE: moe_router (fp32, B x d @ d x E) ->
+        moe_gmm at capacity(cfg, B).  Paged: both attention ops take the
+        block table and the arena, and a chunk is whole pages."""
         budget = budget or self.prefill_budget
         cfg = self.cfg
         d, H, Hkv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
         D = cfg.resolved_head_dim
         dt = self.dtype
         S, B = self.cache_len, self.batch
-        ffn_in, ffn_out = _ffn_in_width(cfg), cfg.d_ff
+        bt = (self.kv_blocks, self.kv_block_size) if self.paged_kv else None
 
         norm1 = dataclasses.replace(rmsnorm_op(R=B, d=d, dtype=dt, bm=B),
                                     name="decode_norm1")
         norm2 = dataclasses.replace(rmsnorm_op(R=B, d=d, dtype=dt, bm=B),
                                     name="decode_norm2")
         # largest 128-multiple kv chunk <= 1024 dividing S (planning only:
-        # the CUDA members compute the same function for any chunk)
+        # the CUDA members compute the same function for any chunk; a
+        # block size divides 128, so a paged chunk is whole pages)
         ck = next(c for c in range(min(1024, S), 0, -128) if S % c == 0)
         att = decode_attention_op(B=B, S=S, H=H, Hkv=Hkv, D=D, dtype=dt,
-                                  ck=ck, dynamic_length=True)
-        proj = dataclasses.replace(
-            matmul_1d_op(M=B, K=d, N=ffn_in, dtype=dt, bm=B), name="ffn_proj")
+                                  ck=ck, dynamic_length=True, block_table=bt)
         qkv = dataclasses.replace(
             matmul_1d_op(M=B, K=d, N=(H + 2 * Hkv) * D, dtype=dt, bm=B),
             name="qkv_proj")
-        act_fn = {"silu": elementwise.silu_gate,
-                  "gelu": elementwise.gelu_gate,
-                  "gelu_mlp": elementwise.gelu_plain,
-                  "relu2_mlp": elementwise.relu2}[cfg.activation]
-        act = elementwise.activation_op(R=B, F_in=ffn_in, F_out=ffn_out,
-                                        fn=act_fn, dtype=dt, bm=B,
-                                        name="decode_act")
         if self.stitch_epilogues:
             norm1 = dataclasses.replace(norm1, epilogue=(qkv.name, "x"))
-            proj = dataclasses.replace(proj, epilogue=(act.name, "h"))
+        if cfg.moe is not None:
+            # the router's logits stay fp32 (its own matmul op) so softmax
+            # and top-k see what the reference computes; capacity is static
+            # per program
+            m = cfg.moe
+            proj = dataclasses.replace(
+                matmul_1d_op(M=B, K=d, N=m.num_experts, dtype=torch.float32,
+                             bm=B),
+                name="moe_router")
+            gated = cfg.activation in ("silu", "gelu")
+            tail = moe_gmm_op(E=m.num_experts, C=moe_mod.capacity(cfg, B),
+                              d=d, f=m.d_ff_expert, dtype=dt,
+                              act=cfg.activation if gated else "gelu",
+                              gated=gated)
+        else:
+            ffn_in, ffn_out = _ffn_in_width(cfg), cfg.d_ff
+            proj = dataclasses.replace(
+                matmul_1d_op(M=B, K=d, N=ffn_in, dtype=dt, bm=B),
+                name="ffn_proj")
+            act_fn = {"silu": elementwise.silu_gate,
+                      "gelu": elementwise.gelu_gate,
+                      "gelu_mlp": elementwise.gelu_plain,
+                      "relu2_mlp": elementwise.relu2}[cfg.activation]
+            tail = elementwise.activation_op(R=B, F_in=ffn_in, F_out=ffn_out,
+                                             fn=act_fn, dtype=dt, bm=B,
+                                             name="decode_act")
+            if self.stitch_epilogues:
+                proj = dataclasses.replace(proj, epilogue=(tail.name, "h"))
         graph = [planner.GraphOp(norm1),
                  planner.GraphOp(qkv, deps=frozenset({norm1.name})),
                  planner.GraphOp(att, deps=frozenset({qkv.name})),
                  planner.GraphOp(norm2, deps=frozenset({att.name})),
                  planner.GraphOp(proj, deps=frozenset({norm2.name})),
-                 planner.GraphOp(act, deps=frozenset({proj.name}))]
+                 planner.GraphOp(tail, deps=frozenset({proj.name}))]
         if prefill_chunks:
-            C = budget.effective_chunk(S)
+            C = self._chunk(budget)
+            sfx = f"_pg{self.kv_block_size}" if self.paged_kv else ""
             for i in range(prefill_chunks):
                 graph.append(planner.GraphOp(prefill_attention_op(
-                    C, S, H, Hkv, D, dtype=dt, ck=ck,
-                    name=f"prefill_attn{i}_C{C}_S{S}_H{H}kv{Hkv}")))
+                    C, S, H, Hkv, D, dtype=dt, ck=ck, block_table=bt,
+                    name=f"prefill_attn{i}_C{C}_S{S}_H{H}kv{Hkv}{sfx}")))
         return graph
 
     def plan_decode_fusion(self, *, max_ways: Optional[int] = None,
@@ -340,17 +480,21 @@ class ServeEngine:
         """Compile the planned decode step into an executor Program bound
         to one layer's slot state.  The norm's output slot projects QKV,
         applies RoPE at each slot's own position and scatters k/v into
-        each decoding slot's cache row, in place; the attention output slot
-        applies W_o and the residual; the activation output slot applies
-        W_out and the second residual.  Each prefill chunk ``i`` reads its
-        own slot's cache rows at its own offset (``pf{i}_slot``,
-        ``pf{i}_off``); the step scatters the chunk's k/v before the
-        program runs."""
+        each decoding slot's cache row, in place (paged: at arena block
+        ``bt[b, pos // bs]``, row ``pos % bs``); the attention output slot
+        applies W_o and the residual; the FFN side's output slot applies
+        W_out (MoE: the combine and the shared experts) and the second
+        residual.  Each prefill chunk ``i`` reads its own slot's cache rows
+        (paged: the arena through its table row) at its own offset
+        (``pf{i}_slot``, ``pf{i}_off``); the step scatters the chunk's k/v
+        before the program runs."""
         cfg = self.cfg
         H, Hkv = cfg.num_heads, cfg.num_kv_heads
         D = cfg.resolved_head_dim
         dt = self.dtype
         B = self.batch
+        paged = self.paged_kv
+        bs = self.kv_block_size if paged else 0
 
         graph = self.decode_graph(prefill_chunks=prefill_chunks)
         plan = planner.plan(graph, max_ways=max(3, 2 + prefill_chunks),
@@ -370,11 +514,19 @@ class ServeEngine:
             state = dict(state)
             state["q"] = q[:, 0].contiguous()
             # act-masked in-place scatter: only decoding slots land k/v (a
-            # prefilling slot's row at `pos` is live chunk data this step);
-            # an idle slot's position may sit at the cache end, so its
-            # (discarded) read is clamped into range
+            # prefilling slot's row at `pos` is live chunk data this step).
+            # An idle slot's position may sit at the cache end, so its
+            # (discarded) read is clamped into range, as the reference's
+            # gather clamps.  Paged: an idle slot's table row holds its own
+            # sentinel block, and a decoding slot's block is private, so no
+            # two slots write different values to one row.
             rows = torch.arange(B, device=pos.device)
-            cols = pos.long().clamp(max=state["k_cache"].shape[1] - 1)
+            p_ = pos.long()
+            if paged:
+                page = (p_ // bs).clamp(max=state["bt"].shape[1] - 1)
+                rows, cols = state["bt"][rows, page].long(), p_ % bs
+            else:
+                cols = p_.clamp(max=state["k_cache"].shape[1] - 1)
             act = state["act"][:, None, None]
             kc, vc = state["k_cache"], state["v_cache"]
             kc[rows, cols] = torch.where(act, k[:, 0], kc[rows, cols])
@@ -391,6 +543,29 @@ class ServeEngine:
             ff = h_act.to(dt) @ state["w_out"]
             state = dict(state)
             state["x_out"] = state["h_mid"] + ff                 # residual 2
+            return state
+
+        def router_put(state, logits):
+            # logits (B, E) fp32 straight off the planned product: the
+            # capacity dispatch and the per-expert hit counts of decoding
+            # slots only (idle, prefilling and empty rows count 0)
+            r = moe_mod.route_from_logits(cfg, logits)
+            state = dict(state)
+            state["moe_route"] = r
+            state["moe_xe"] = moe_mod.dispatch(r, state["h2"])   # (E, C, d)
+            act_pad = torch.cat([state["act"].to(torch.int32),
+                                 state["act"].new_zeros(1, dtype=torch.int32)])
+            state["expert_counts"] = act_pad[r.dispatch_idx.long()].sum(dim=1)
+            return state
+
+        def gmm_put(state, ye):
+            # combine (a gather, in expert-major order), the shared experts
+            # on the same normed hidden, residual 2
+            out = moe_mod.combine(state["moe_route"], ye)
+            if cfg.moe.num_shared_experts:
+                out = out + moe_mod.shared_ffn(cfg, state, state["h2"])
+            state = dict(state)
+            state["x_out"] = state["h_mid"] + out.to(dt)
             return state
 
         # bindings follow the CONTRACTED graph: a stitched chain binds once
@@ -410,56 +585,104 @@ class ServeEngine:
         att_name = next(g.op.name for g in graph
                         if g.op.name.startswith("decode_attn"))
         reg.bind(att_name, q="q", k="k_cache", v="v_cache",
-                 inputs={"len": "len"},
+                 inputs={"len": "len", **({"bt": "bt"} if paged else {})},
                  outputs={"o": Slot(put=att_put), "m": "attn_m",
                           "l": "attn_l"})
         reg.bind("decode_norm2", x="h_mid", scale="norm2_scale",
                  outputs={"out": "h2"})
-        chain2 = stitch.chain_label("ffn_proj", "decode_act")
-        if chain2 in plan_names:
-            reg.bind(chain2, x="h2", w="w_in",
-                     outputs={"out": Slot(put=act_put)})
+        gmm_name = next((g.op.name for g in graph
+                         if g.op.name.startswith("moe_gmm")), None)
+        if gmm_name is not None:
+            # the router reads h2 widened to fp32, as the reference does
+            reg.bind("moe_router",
+                     inputs={"x": Slot(get=lambda s: s["h2"].float()),
+                             "w": "w_router"},
+                     outputs={"out": Slot(put=router_put)})
+            reg.bind(gmm_name, xe="moe_xe", w_in="w_in", w_out="w_out",
+                     outputs={"ye": Slot(put=gmm_put)})
         else:
-            reg.bind("ffn_proj", x="h2", w="w_in", outputs={"out": "h_ffn"})
-            reg.bind("decode_act", h="h_ffn",
-                     outputs={"out": Slot(put=act_put)})
+            chain2 = stitch.chain_label("ffn_proj", "decode_act")
+            if chain2 in plan_names:
+                reg.bind(chain2, x="h2", w="w_in",
+                         outputs={"out": Slot(put=act_put)})
+            else:
+                reg.bind("ffn_proj", x="h2", w="w_in",
+                         outputs={"out": "h_ffn"})
+                reg.bind("decode_act", h="h_ffn",
+                         outputs={"out": Slot(put=act_put)})
         for g in graph:
             if not g.op.name.startswith("prefill_attn"):
                 continue
             i = int(g.op.name.split("_")[1][4:])      # prefill_attn{i}_...
-            reg.bind(g.op.name,
-                     inputs={"off": f"pf{i}_off", "q": f"pf{i}_q",
-                             "k": Slot(get=lambda s, i=i:
-                                       s["k_cache"][s[f"pf{i}_slot"]]),
-                             "v": Slot(get=lambda s, i=i:
-                                       s["v_cache"][s[f"pf{i}_slot"]])},
+            if paged:
+                # the whole arena, and the chunk's slot's table row (a
+                # copy: the kernel takes 16-byte aligned operands)
+                pf_in = {"off": f"pf{i}_off", "q": f"pf{i}_q",
+                         "k": "k_cache", "v": "v_cache",
+                         "bt": Slot(get=lambda s, i=i:
+                                    s["bt"][s[f"pf{i}_slot"]][None].clone())}
+            else:
+                pf_in = {"off": f"pf{i}_off", "q": f"pf{i}_q",
+                         "k": Slot(get=lambda s, i=i:
+                                   s["k_cache"][s[f"pf{i}_slot"]]),
+                         "v": Slot(get=lambda s, i=i:
+                                   s["v_cache"][s[f"pf{i}_slot"]])}
+            reg.bind(g.op.name, inputs=pf_in,
                      outputs={"o": f"pf{i}_o", "m": f"pf{i}_m",
                               "l": f"pf{i}_l"})
         return executor.compile_plan(plan, bindings=reg, plain=self.plain)
 
     def _layer_state(self, p, kv, x, pos, act) -> dict:
         """State of ONE layer of the executed program: ``p`` the layer's
-        block params, ``kv`` its ``{"k", "v"}`` cache views, ``pos`` the
-        per-slot position vector (B,), ``act`` the per-slot decoding mask
-        (B,) bool gating the decode k/v scatter."""
-        return {
+        block params, ``kv`` its ``{"k", "v"}`` cache views (or the arena),
+        ``pos`` the per-slot position vector (B,), ``act`` the per-slot
+        decoding mask (B,) bool gating the decode k/v scatter."""
+        state = {
             "x": x, "pos": pos, "act": act,
             "len": (pos + 1).reshape(-1, 1).to(torch.int32),
             "norm1_scale": p["norm1"]["scale"].reshape(1, -1),
             "norm2_scale": p["norm2"]["scale"].reshape(1, -1),
             "w_qkv": p["attn"]["w_qkv"], "w_o": p["attn"]["w_o"],
             "k_cache": kv["k"], "v_cache": kv["v"],
-            "w_in": p["mlp"]["w_in"], "w_out": p["mlp"]["w_out"],
         }
+        if "moe" in p:
+            # expert-major leaves: the router and the grouped FFN's (E, d,
+            # fin) / (E, f, d) stacks, plus the shared experts
+            mp = p["moe"]
+            state["w_router"] = mp["router"]
+            state["w_in"], state["w_out"] = mp["w_in"], mp["w_out"]
+            if self.cfg.moe.num_shared_experts:
+                state["shared_w_in"] = mp["shared_w_in"]
+                state["shared_w_out"] = mp["shared_w_out"]
+        else:
+            state["w_in"] = p["mlp"]["w_in"]
+            state["w_out"] = p["mlp"]["w_out"]
+        return state
 
     # ------------------------------------------------------------------
     # Continuous batching
     # ------------------------------------------------------------------
     def _init_slot_cache(self) -> dict:
         """``lm.init_cache`` with the scalar position replaced by the
-        per-slot position vector (B,).  The step updates it in place."""
-        cache = lm.init_cache(self.cfg, self.batch, self.cache_len,
-                              device=self.device)
+        per-slot position vector (B,).  Paged: the k/v leaves are the flat
+        ``(kv_blocks, kv_block_size, Hkv, D)`` arena the tables index, made
+        once and kept across ``run()`` calls, because the pool's prefix
+        cache, which persists, indexes its blocks.  (The reference makes a
+        zero arena every run, so a prefix hit from an earlier run reads
+        zeros there: ROADMAP §3.)  The step updates it in place."""
+        if self.paged_kv:
+            if self._arena is None:
+                run = lm.layer_runs(self.cfg)[0]
+                shape = (self.kv_blocks, self.kv_block_size,
+                         self.cfg.num_kv_heads, self.cfg.resolved_head_dim)
+                self._arena = {run.name: {
+                    k: torch.zeros(shape, dtype=self.dtype,
+                                   device=self.device)
+                    for k in ("k", "v")}}
+            cache = dict(self._arena)
+        else:
+            cache = lm.init_cache(self.cfg, self.batch, self.cache_len,
+                                  device=self.device)
         cache["pos"] = torch.zeros(self.batch, dtype=torch.int32,
                                    device=self.device)
         return cache
@@ -468,15 +691,20 @@ class ServeEngine:
         """The executed continuous step: decode every slot at its own cache
         position while ``n_chunks`` prompt chunks from prefilling slots
         ride along.  Per layer: each chunk's norm/QKV/RoPE and its k/v
-        scatter into its slot's cache rows, then the planned program (the
+        scatter into its slot's cache rows (paged: page by page into the
+        arena blocks of its table row), then the planned program (the
         chunks' prefill attention shares the decode launches), then each
-        chunk's W_o, MLP and residuals.  The final chunk row's hidden
-        yields the request's first-token logits.
+        chunk's W_o, FFN (MoE: ``moe.apply`` over the chunk's rows) and
+        residuals.  The final chunk row's hidden yields the request's
+        first-token logits.
 
-        ``step(params, cache, tokens, active, ch_slots, ch_offs, ch_valid,
-        ch_tokens)``: ``cache`` is updated in place and returned;
+        ``step(params, cache, tokens, active, bt=None, ch_slots, ch_offs,
+        ch_valid, ch_tokens)`` -> ``(logits, cache[, pf_logits][,
+        expert_counts])``: ``cache`` is updated in place; ``bt`` is the
+        (B, kv_slot_blocks) int32 table on the device (paged);
         ``ch_slots``/``ch_offs``/``ch_valid`` are host ints, ``ch_tokens``
-        an (n, C) int tensor."""
+        an (n, C) int tensor; MoE returns the layer-summed (E,) counts of
+        decoding slots' routed tokens last."""
         cfg = self.cfg
         d = cfg.d_model
         run = lm.layer_runs(cfg)[0]
@@ -485,9 +713,12 @@ class ServeEngine:
         H, Hkv = cfg.num_heads, cfg.num_kv_heads
         D = cfg.resolved_head_dim
         C = self.chunk_rows
+        paged = self.paged_kv
+        bs = self.kv_block_size if paged else 0
+        is_moe = cfg.moe is not None
         program = self.build_decode_program(prefill_chunks=n)
         # a chunk counts as fused when it shares a launch with any
-        # decode-side member (decode attention or the stitched FFN chain)
+        # decode-side member (decode attention or the FFN side)
         self._cb_fused_chunks[n] = frozenset(
             i for i in range(n)
             if any(any(m.startswith(f"prefill_attn{i}_") for m in ms)
@@ -500,8 +731,10 @@ class ServeEngine:
             "steps": program.describe(),
         }
 
-        def layer_step(p, kv, x, pos, act, chs, ch_slots, ch_offs):
+        def layer_step(p, kv, x, pos, act, bt, chs, ch_slots, ch_offs):
             state = self._layer_state(p, kv, x, pos, act)
+            if paged:
+                state["bt"] = bt
             kc, vc = kv["k"], kv["v"]
             for i in range(n):
                 hp = layers.apply_norm(cfg, p["norm1"], chs[i][None])
@@ -516,8 +749,16 @@ class ServeEngine:
                 kp = layers.rope(kp, positions, cfg.rope_theta,
                                  cfg.rope_fraction)
                 b, off = ch_slots[i], ch_offs[i]
-                kc[b, off:off + C] = kp[0].to(kc.dtype)
-                vc[b, off:off + C] = vp[0].to(vc.dtype)
+                if paged:
+                    # chunk offsets are chunk-aligned (admission floors
+                    # prefix reuse to whole chunks), so the chunk covers
+                    # C // bs whole pages of the slot's own blocks
+                    blks = bt[b, off // bs:off // bs + C // bs].long()
+                    kc[blks] = kp[0].reshape(-1, bs, Hkv, D).to(kc.dtype)
+                    vc[blks] = vp[0].reshape(-1, bs, Hkv, D).to(vc.dtype)
+                else:
+                    kc[b, off:off + C] = kp[0].to(kc.dtype)
+                    vc[b, off:off + C] = vp[0].to(vc.dtype)
                 state[f"pf{i}_q"] = qp[0].to(dt).contiguous()
                 state[f"pf{i}_slot"] = b
                 state[f"pf{i}_off"] = torch.full((1, 1), off,
@@ -528,23 +769,32 @@ class ServeEngine:
             for i in range(n):
                 o = state[f"pf{i}_o"].to(dt)                 # (C, H, D)
                 xm = chs[i] + o.reshape(C, -1) @ p["attn"]["w_o"]
-                h2 = layers.apply_norm(cfg, p["norm2"], xm[None])[0]
-                new_chs.append(xm + _mlp_from_h(cfg, h2 @ p["mlp"]["w_in"],
-                                                p["mlp"]["w_out"]))
-            return state["x_out"], new_chs
+                h2 = layers.apply_norm(cfg, p["norm2"], xm[None])
+                if is_moe:
+                    # the chunk's rows route jointly (T = C), as the
+                    # reference's lm._apply_ffn does
+                    ff = lm._apply_ffn(cfg, p, h2)[0][0]
+                else:
+                    ff = _mlp_from_h(cfg, h2[0] @ p["mlp"]["w_in"],
+                                     p["mlp"]["w_out"])
+                new_chs.append(xm + ff)
+            return state["x_out"], new_chs, state.get("expert_counts")
 
-        def step(params, cache, tokens, active, ch_slots=(), ch_offs=(),
-                 ch_valid=(), ch_tokens=None):
+        def step(params, cache, tokens, active, bt=None, ch_slots=(),
+                 ch_offs=(), ch_valid=(), ch_tokens=None):
             x = layers.embed_onehot(params["embed"], tokens, d)   # (B, d)
             chs = [lm._embed_inputs(cfg, params, ch_tokens[i][None])[0]
                    for i in range(n)]
             pos = cache["pos"]
             kv = cache[run.name]
+            counts = None
             for li, p_l in enumerate(lm.layer_params(cfg, params)):
                 kv_l = ({"k": kv["k"][li], "v": kv["v"][li]}
                         if run.count > 1 else kv)
-                x, chs = layer_step(p_l, kv_l, x, pos, active, chs,
-                                    ch_slots, ch_offs)
+                x, chs, c_l = layer_step(p_l, kv_l, x, pos, active, bt, chs,
+                                         ch_slots, ch_offs)
+                if is_moe:
+                    counts = c_l if counts is None else counts + c_l
             xf = layers.apply_norm(cfg, params["final_norm"],
                                    x[:, None, :].to(dt))
             logits = lm._head(cfg, params, xf)[:, 0]
@@ -552,15 +802,16 @@ class ServeEngine:
             for i in range(n):
                 new_pos[ch_slots[i]] = ch_offs[i] + ch_valid[i]
             cache["pos"] = new_pos
+            moe_tail = (counts,) if is_moe else ()
             if not n:
-                return logits, cache
+                return (logits, cache) + moe_tail
             pf_logits = []
             for i in range(n):
                 xlast = chs[i][ch_valid[i] - 1:ch_valid[i]]         # (1, d)
                 xfp = layers.apply_norm(cfg, params["final_norm"],
                                         xlast[None])
                 pf_logits.append(lm._head(cfg, params, xfp)[0, 0])
-            return logits, cache, torch.stack(pf_logits)
+            return (logits, cache, torch.stack(pf_logits)) + moe_tail
 
         return step
 
@@ -584,7 +835,9 @@ class ServeEngine:
                 raise ValueError(
                     f"request {r.rid}: prompt length {len(r.prompt)} exceeds "
                     f"max_seq_len {self.cache_len} — continuous batching "
-                    "cannot admit it (raise max_len or truncate the prompt)")
+                    "cannot admit it (raise max_len"
+                    + (" or kv_slot_blocks" if self.paged_kv else "")
+                    + " or truncate the prompt)")
         self.stats = ServeStats(batch=self.batch)
         # FIFO by arrival step, submission order breaking ties
         waiting = sorted(requests, key=lambda r: r.arrival)
@@ -638,12 +891,24 @@ class ServeEngine:
         each consume one prompt chunk inside the same fused launches.  A
         freshly emptied slot's first chunk rides the step it is claimed; a
         slot whose occupant retires deterministically this step is reserved
-        and starts chunking the next step."""
+        and starts chunking the next step.  Paged: admission maps pages
+        through the pool, a prefix-cache hit skips whole chunks, a chunk
+        the arena cannot back stalls, a decoding slot it cannot extend
+        retires ``pool_full``, and a completed prompt registers its blocks
+        for later prompts."""
         B = self.batch
         dev = self.device
         stats = self.stats
         budget = self.prefill_budget
+        pool = self.kv_pool
+        paged = pool is not None
+        is_moe = self.cfg.moe is not None
         C = self.chunk_rows
+        if paged:
+            # the pool persists across runs (the prefix cache survives);
+            # this run's stats report the deltas
+            pool_base = (pool.evictions, pool.prefix_hits,
+                         pool.prefix_tokens_reused)
         slots: list[Optional[Request]] = [None] * B   # decoding occupants
         pref: dict[int, dict] = {}                    # slot -> prefilling
         pos_h = [0] * B                               # host mirror of pos
@@ -651,7 +916,11 @@ class ServeEngine:
         cache = self._init_slot_cache()
 
         def claim(b, req, now):
-            pref[b] = {"req": req, "done": 0, "ready": now}
+            ent = {"req": req, "done": 0, "ready": now}
+            if paged:
+                ent["done"] = pool.admit(b, req.prompt, C, now)
+                stats.prompt_tokens += len(req.prompt)
+            pref[b] = ent
 
         while waiting or any(s is not None for s in slots) or pref:
             step_i = stats.steps
@@ -673,17 +942,59 @@ class ServeEngine:
                     waiting.remove(req)
                     reserved.append((b, req))
             sel = [b for b in sorted(pref) if pref[b]["ready"] <= step_i]
-            if budget.policy == "srpf":
+            if budget.policy in ("srpf", "eload"):
                 sel.sort(key=lambda b: (len(pref[b]["req"].prompt)
                                         - pref[b]["done"], b))
             sel = sel[:budget.max_coresident_chunks]
+            # eload: while a few hot experts dominate the decode side's
+            # weight stream, shed one coresident chunk
+            if (budget.policy == "eload" and len(sel) > 1
+                    and stats.expert_skew >= budget.skew_threshold):
+                sel = sel[:-1]
+                stats.load_shed_steps += 1
+            if paged:
+                # map each chunk's pages before its scatter; a chunk the
+                # arena cannot back this step (even after eviction) stalls
+                sel = [b for b in sel
+                       if pool.ensure_rows(b, pref[b]["done"],
+                                           pref[b]["done"] + C, step_i)]
+                # each decoding slot writes one row this step; a slot the
+                # pool cannot extend retires truncated
+                for b in range(B):
+                    if slots[b] is None:
+                        continue
+                    if not pool.ensure_rows(b, pos_h[b], pos_h[b] + 1,
+                                            step_i):
+                        req = slots[b]
+                        req.done = True
+                        slots[b] = None
+                        pool.release(b)
+                        stats.retirements.append((step_i, req.rid,
+                                                  "pool_full"))
             active = np.array([s is not None for s in slots])
             n_active = int(active.sum())
             n = len(sel)
 
             if n == 0 and n_active == 0:
+                ready = [b for b in pref if pref[b]["ready"] <= step_i]
+                if paged and ready:
+                    # arena deadlock: every schedulable chunk stalled with
+                    # no decoder left to free blocks — fail the prompt with
+                    # the most work left so its blocks free the others
+                    b = max(ready, key=lambda b: (len(pref[b]["req"].prompt)
+                                                  - pref[b]["done"], b))
+                    req = pref.pop(b)["req"]
+                    req.done = True
+                    pool.release(b)
+                    stats.retirements.append((step_i, req.rid, "pool_full"))
                 stats.steps += 1                 # idle: future arrivals
                 continue
+            kw = {}
+            if paged:
+                kw["bt"] = torch.tensor(pool.table, dtype=torch.int32,
+                                        device=dev)
+                stats.blocks_in_use = max(stats.blocks_in_use,
+                                          pool.blocks_in_use)
 
             tokens = torch.from_numpy(last.copy()).to(dev)
             active_t = torch.from_numpy(active).to(dev)
@@ -697,13 +1008,17 @@ class ServeEngine:
                     ch_tok[j, :ch_valid[j]] = np.asarray(
                         pref[b]["req"].prompt[off:off + ch_valid[j]],
                         np.int32)
-                logits, cache, pf_logits = self._cb_step(n)(
+                ret = self._cb_step(n)(
                     self.params, cache, tokens, active_t, ch_slots=sel,
                     ch_offs=ch_offs, ch_valid=ch_valid,
-                    ch_tokens=torch.from_numpy(ch_tok).to(dev))
+                    ch_tokens=torch.from_numpy(ch_tok).to(dev), **kw)
+                logits, cache, pf_logits = ret[:3]
             else:
-                logits, cache = self._cb_step(0)(
-                    self.params, cache, tokens, active_t)
+                ret = self._cb_step(0)(self.params, cache, tokens, active_t,
+                                       **kw)
+                logits, cache = ret[:2]
+            if is_moe:
+                stats.add_expert_hits(ret[-1].tolist())
 
             stats.steps += 1
             if n_active:
@@ -734,6 +1049,8 @@ class ServeEngine:
                 if reason:
                     req.done = True
                     slots[b] = None
+                    if paged:
+                        pool.release(b)
                     stats.retirements.append((stats.steps - 1, req.rid,
                                               reason))
             if n:
@@ -744,10 +1061,21 @@ class ServeEngine:
                     pos_h[b] = ent["done"]
                     if ent["done"] >= len(ent["req"].prompt):
                         del pref[b]                    # prefill complete
+                        if paged:
+                            # the prompt is in cache: index its full blocks
+                            # so later prompts sharing the prefix skip them
+                            pool.register(b, ent["req"].prompt, step_i)
                         self._admit(ent["req"], b, pf_logits[j],
                                     pf_greedy[j], slots, pos_h, last)
+                        if paged and slots[b] is None:
+                            pool.release(b)       # admitted and retired
             for b, req in reserved:
-                # the retiree's final decode ran this step: claim now,
-                # chunk next step
+                # the retiree's final decode ran this step (paged: its
+                # blocks were just released): claim now, chunk next step
                 claim(b, req, stats.steps)
+        if paged:
+            stats.evictions = pool.evictions - pool_base[0]
+            stats.prefix_hits = pool.prefix_hits - pool_base[1]
+            stats.prefix_tokens_reused = (pool.prefix_tokens_reused
+                                          - pool_base[2])
         return requests

@@ -1,6 +1,11 @@
 """The port's CUDA kernels on the card, each against its plain PyTorch
 version, at reduced and full granite-3-2b widths.
 
+Paged attention members are held BITWISE against the contiguous members on
+the same logical cache.  The grouped expert FFN differs from its plain
+version only in the order of its fp32 sums (bf16 tolerance); the fp32 router
+GEMM is held to the fp32 tolerance.
+
 These tests need an NVIDIA card and the CUDA toolkit; where
 ``torch.cuda.is_available()`` is false they skip (the ``cuda_dev`` fixture
 decides, never the import).  This file imports no JAX, so it also runs on a
@@ -27,15 +32,18 @@ from repro_torch.core.cost_model import Schedule
 from repro_torch.kernels import cuda, elementwise
 from repro_torch.kernels.decode_attention import decode_attention_op
 from repro_torch.kernels.matmul import matmul_1d_op
+from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_op, plain_moe_gmm
 from repro_torch.kernels.prefill_attention import prefill_attention_op
 from repro_torch.kernels.rmsnorm import rmsnorm_op
 
 pytestmark = pytest.mark.cuda
 BF = torch.bfloat16
 
-# (B, d, H, Hkv, D, d_ff, S): reduced granite-3-2b and the full widths
+# (B, d, H, Hkv, D, d_ff, S): reduced granite-3-2b, the full widths, and
+# phi3.5-moe's attention and expert widths (head dim 128)
 WIDTHS = {"reduced": (2, 64, 4, 4, 16, 128, 128),
-          "full": (8, 2048, 32, 8, 64, 8192, 2048)}
+          "full": (8, 2048, 32, 8, 64, 8192, 2048),
+          "phi": (8, 4096, 32, 8, 128, 6400, 2048)}
 
 
 @pytest.fixture(scope="module")
@@ -412,3 +420,132 @@ def test_paper_launch_beyond_resident_capacity_finishes(cuda_dev):
     out = fused(*ins)
     torch.cuda.synchronize()
     assert _same(out, hfuse.run_native(ops)(*ins))
+
+
+# ---------------------------------------------------------------------------
+# Paged attention: bitwise against the contiguous members
+# ---------------------------------------------------------------------------
+def _paged(k, v, lens, bs, g):
+    """An arena holding the contiguous caches k, v (B, S, Hkv, D): blocks
+    0..B-1 are the slots' sentinels (random rows, as masked writes leave
+    them), each slot's pages below its length sit at shuffled arena blocks
+    and its pages past the length point at its own sentinel.  Returns the
+    arena k, v, the table (B, S/bs) and the caches the table maps (equal to
+    k, v below each length)."""
+    B, S, Hkv, D = k.shape
+    nper = S // bs
+    used = [-(-int(L) // bs) for L in lens]
+    nblk = B + sum(used) + 3
+    perm = (torch.randperm(nblk - B, generator=torch.Generator().manual_seed(
+        bs)) + B).tolist()
+    table = torch.arange(B).repeat_interleave(nper).reshape(B, nper).clone()
+    ka = _randn((nblk, bs, Hkv, D), g)
+    va = _randn((nblk, bs, Hkv, D), g)
+    for b in range(B):
+        for p in range(used[b]):
+            blk = perm.pop()
+            table[b, p] = blk
+            ka[blk] = k[b, p * bs:(p + 1) * bs]
+            va[blk] = v[b, p * bs:(p + 1) * bs]
+    bt = table.to(torch.int32).cuda()
+    kl = ka[bt.long()].reshape(B, S, Hkv, D)
+    vl = va[bt.long()].reshape(B, S, Hkv, D)
+    return ka, va, bt, kl, vl
+
+
+@pytest.mark.parametrize("bs", [4, 16, 64])
+@pytest.mark.parametrize("width", sorted(WIDTHS))
+def test_paged_decode_bitwise_equals_contiguous(cuda_dev, width, bs):
+    B, _d, H, Hkv, D, _f, S = WIDTHS[width]
+    g = _gen(11)
+    lens = torch.linspace(1, S, B).round().to(torch.int32)
+    lens[0] = 1                               # an idle slot's length
+    q = _randn((B, H, D), g)
+    k, v = _randn((B, S, Hkv, D), g), _randn((B, S, Hkv, D), g)
+    ka, va, bt, kl, vl = _paged(k, v, lens.tolist(), bs, g)
+    ck = min(S, 1024)
+    length = lens.reshape(B, 1).cuda()
+    op = decode_attention_op(B, S, H, Hkv, D, ck=ck, dynamic_length=True,
+                             block_table=(ka.shape[0], bs))
+    base = decode_attention_op(B, S, H, Hkv, D, ck=ck, dynamic_length=True)
+    got, want = _kernel_vs_plain(op, bt, length, q, ka, va)
+    for a, b in zip(got, want):
+        _close_f32(a, b)
+    assert _same(got, hfuse.run_single(base)(length, q, kl, vl))
+
+
+@pytest.mark.parametrize("off", [0, "mid"])
+@pytest.mark.parametrize("bs", [4, 16, 64])
+@pytest.mark.parametrize("width", sorted(WIDTHS))
+def test_paged_prefill_bitwise_equals_contiguous(cuda_dev, width, bs, off):
+    _B, _d, H, Hkv, D, _f, S = WIDTHS[width]
+    C = S // 4
+    off = S // 2 if off == "mid" else off
+    g = _gen(12)
+    q = _randn((C, H, D), g)
+    k, v = _randn((1, S, Hkv, D), g), _randn((1, S, Hkv, D), g)
+    ka, va, bt, kl, vl = _paged(k, v, [off + C], bs, g)
+    offa = torch.full((1, 1), off, dtype=torch.int32, device="cuda")
+    ck = min(S, 1024)
+    op = prefill_attention_op(C, S, H, Hkv, D, ck=ck,
+                              block_table=(ka.shape[0], bs))
+    base = prefill_attention_op(C, S, H, Hkv, D, ck=ck)
+    got, want = _kernel_vs_plain(op, offa, bt, q, ka, va)
+    for a, b in zip(got, want):
+        _close_f32(a, b)
+    assert _same(got, hfuse.run_single(base)(offa, q, kl[0], vl[0]))
+
+
+# ---------------------------------------------------------------------------
+# MoE: the grouped expert FFN and the fp32 router GEMM
+# ---------------------------------------------------------------------------
+def _gmm_operands(E, C, d, f, g, gated=True):
+    fin = 2 * f if gated else f
+    return (_randn((E, C, d), g), _randn((E, d, fin), g, scale=d ** -0.5),
+            _randn((E, f, d), g, scale=f ** -0.5))
+
+
+@pytest.mark.parametrize("E,C,d,f,act,gated", [
+    (4, 8, 512, 1024, "silu", True), (4, 8, 256, 96, "gelu", True),
+    (4, 16, 256, 512, "gelu", False), (16, 8, 4096, 6400, "silu", True),
+    (16, 80, 4096, 6400, "silu", True)])
+def test_moe_gmm_member(cuda_dev, E, C, d, f, act, gated):
+    ins = _gmm_operands(E, C, d, f, _gen(13), gated)
+    op = moe_gmm_op(E, C, d, f, act=act, gated=gated)
+    (got,), (want,) = _kernel_vs_plain(op, *ins)
+    _close_bf16(got, want)
+    # the fixed-order combine gives the same bits launch to launch, and the
+    # one-member entry point is the same launch
+    assert torch.equal(got, hfuse.run_single(op)(*ins)[0])
+    if gated:
+        assert torch.equal(got, moe_gmm(*ins, act=act))
+    _close_bf16(got, plain_moe_gmm(*ins, act=act, gated=gated))
+
+
+@pytest.mark.parametrize("N", [16, 72])
+@pytest.mark.parametrize("M,K", [(8, 4096), (3, 200)])
+def test_fp32_router_gemm(cuda_dev, M, K, N):
+    g = _gen(14)
+    x = _randn((M, K), g, torch.float32)
+    w = _randn((K, N), g, torch.float32, K ** -0.5)
+    (got,), (want,) = _kernel_vs_plain(
+        matmul_1d_op(M, K, N, torch.float32, bm=M), x, w)
+    _close_f32(got, want)
+
+
+@pytest.mark.parametrize("ratios", [(1, 1), (1, 8), (8, 1), (2, 3)])
+def test_moe_gmm_bundle_with_prefill_bitwise_equals_native(cuda_dev, ratios):
+    """The grouped expert FFN (decode capacity, phi3.5-moe widths) and a
+    512-row prefill chunk at head dim 128 in one launch: bit for bit the
+    members launched alone."""
+    B, d, H, Hkv, D, f, S = WIDTHS["phi"]
+    C = 512
+    g = _gen(15)
+    gmm = moe_gmm_op(16, 8, d, f)
+    pf = prefill_attention_op(C, S, H, Hkv, D, ck=1024)
+    ins = (*_gmm_operands(16, 8, d, f, g),
+           torch.full((1, 1), 1024, dtype=torch.int32, device="cuda"),
+           _randn((C, H, D), g), _randn((S, Hkv, D), g),
+           _randn((S, Hkv, D), g))
+    fused = hfuse.generate((gmm, pf), Schedule(ratios))(*ins)
+    assert _same(fused, hfuse.run_native((gmm, pf))(*ins))

@@ -76,7 +76,7 @@ def test_entry_points_need_a_device_without_cuda(monkeypatch):
                               device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("kw", [dict(paged_kv=True), dict(mesh=object()),
+@pytest.mark.parametrize("kw", [dict(mesh=object()),
                                 dict(scheduling="wavefront"),
                                 dict(plan_fusion=False)])
 def test_unported_paths_raise(kw):
