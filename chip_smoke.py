@@ -87,9 +87,24 @@ non-zero exit code and no result line.
              run_native; then 12 staggered requests under the eload
              policy with the counters reset, and the first mixed step's
              logits through the 8 layers against the plain step.
+  8d. ops    the public kernel entry points (``kernels/ops.py``) at
+             full-width granite-3-2b train shapes (8192 rows, d_model 2048,
+             32/8 heads, head dim 64, d_ff 8192): the tiled matmul (QKV,
+             gate+up, down in bf16; QKV in fp32), flash attention (causal
+             and not, bf16 and fp32; head dim 128 at phi3.5-moe's 32/8
+             heads), the standalone rmsnorm and the residual add (bf16 and
+             fp32), each against its plain version and timed beside it, its
+             bound and one PyTorch call; the matmul->residual_add chain at
+             decode (W_o, 8 rows) bitwise against its two members, bf16 and
+             fp32.  Then, with the counters reset, the path: a granite-3-2b
+             layer built from the ops (rmsnorm -> QKV -> flash attention ->
+             W_o -> residual add -> rmsnorm -> gate+up -> SwiGLU -> down ->
+             residual add) held against the same layer of plain versions
+             within LOGITS_REL_L2, ``ops.moe_gmm`` at phi3.5-moe's decode
+             shape and ``ops.hfused_adamw`` over the layer's six leaves.
   9. report  one JSON line of kernels, then the result line.
 
-Each main path (paper, train, serve, paged, moe) runs with every launch
+Each main path (paper, train, serve, paged, moe, ops) runs with every launch
 counter reset just before it and read just after; each of its kernels must
 have launched.
 
@@ -129,12 +144,25 @@ BF16_REL = 2.0 ** -7
 # to bf16 (2**-8 relative) and the two sides sum in different orders, so
 # they drift by a few bf16 steps per layer; a wrong kernel gives O(1).
 LOGITS_REL_L2 = 5e-2
+# Flash attention (phase 8d) is also held by relative L2 (whole output,
+# worst query row): compare()'s limit scales with the causal output's
+# largest value (row 0, which is v[0] itself) and is as large as a late
+# row's typical value.  The limits are about 10x a sound kernel's reading
+# on an H100 at phase 8d's shapes (bf16: whole 2.6e-5..4.1e-5, worst row
+# 1.8e-3..2.3e-3; fp32: 2.6e-7..4.5e-7 and 8.7e-7); the bf16 row limit is
+# also twice one bf16 step (2**-7) on every element of the row.
+FLASH_REL_BF16, FLASH_REL_F32 = (5e-4, 2.0 ** -6), (5e-6, 1e-5)
 
 # Paged KV (phase 8b): granite-3-2b cut to 1 layer (the reference's paged
 # arena is single-layer), 16-row pages, a shared 1024-token prefix.
 PAGED_LAYERS, KV_BS, SHARED_PREFIX = 1, 16, 1024
 # MoE (phase 8c): phi3.5-moe-rms cut from 32 to 8 layers (32 need 83 GB).
 MOE_LAYERS = 8
+
+# Phase 8d: phi3.5-moe's attention heads (32/8, head dim 128) and decode
+# expert shape (16 experts, capacity 8, d 4096, d_ff_expert 6400).
+PHI_HEADS, PHI_HEAD_DIM = (32, 8), 128
+PHI_GMM = (16, 8, 4096, 6400)
 
 # Full-width granite-3-2b train shapes.
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 4
@@ -172,6 +200,15 @@ def compare(torch, got, want) -> float:
             check(lim >= 0, f"fp32 output off by {err}")
         worst = max(worst, err)
     return worst
+
+
+def rel_l2_rows(torch, got, want) -> tuple[float, float]:
+    """Relative L2 of ``got`` against ``want`` over the whole output, and
+    the worst of it over the rows of the last dim."""
+    diff, ref = got.float() - want.float(), want.float()
+    whole = (diff.norm() / ref.norm()).item()
+    rows = (diff.norm(dim=-1) / ref.norm(dim=-1).clamp_min(1e-30)).max()
+    return whole, rows.item()
 
 
 def bound(nbytes: float, flops: float, peak: float) -> tuple[float, str]:
@@ -1396,6 +1433,225 @@ def phase_moe(torch, dev) -> tuple[list[dict], dict]:
     return rows, out
 
 
+# ---------------------------------------------------------------------------
+# Phase 8d: the public kernel entry points at full width
+# ---------------------------------------------------------------------------
+def ops_layer(mm, norm, attn, resadd, x, p, dims):
+    """One granite-3-2b layer from the ops: rmsnorm -> QKV -> flash
+    attention -> W_o -> residual add -> rmsnorm -> gate+up -> SwiGLU ->
+    down -> residual add; the four ops are the kernels' or their plain
+    versions'.  The QKV split and SwiGLU are glue."""
+    from repro_torch.kernels.row import silu_gate
+    Bt, St, H, Hkv, D = dims
+    R = x.shape[0]
+    qkv = mm(norm(x, p["s1"]), p["w_qkv"])
+    q = qkv[:, :H * D].reshape(Bt, St, H, D)
+    k = qkv[:, H * D:(H + Hkv) * D].reshape(Bt, St, Hkv, D)
+    v = qkv[:, (H + Hkv) * D:].reshape(Bt, St, Hkv, D)
+    a = attn(q.contiguous(), k.contiguous(), v.contiguous())
+    x2 = resadd(mm(a.reshape(R, H * D), p["w_o"]), x)
+    h = silu_gate(mm(norm(x2, p["s2"]), p["w_in"])).to(x.dtype)
+    return resadd(mm(h, p["w_out"]), x2)
+
+
+def phase_ops(torch, dev, cfg) -> tuple[list[dict], dict]:
+    import torch.nn.functional as F
+
+    from repro_torch.core import hfuse, stitch
+    from repro_torch.core.timing import flush_buffer, median_ms
+    from repro_torch.kernels import adam, cuda, elementwise, ops, registry
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import row
+    from repro_torch.kernels.matmul import matmul_1d_op
+    from repro_torch.kernels.moe_gmm import plain_moe_gmm
+
+    d, H, Hkv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    D, f = cfg.resolved_head_dim, cfg.d_ff
+    Bt, St = TRAIN_BATCH, TRAIN_SEQ
+    R, N_qkv = Bt * St, (H + 2 * Hkv) * D
+    bf, f32 = torch.bfloat16, torch.float32
+    g = torch.Generator(device=dev)
+    g.manual_seed(1616)
+
+    def randn(shape, dtype=bf, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    flush = flush_buffer(dev)
+    by_name = {k.name: k for k in registry()}
+    peak = {bf: BF16_FLOPS, f32: FP32_FLOPS}
+    rows = []
+
+    def case(name, kernel, src, replaces, run, run_plain, cost, flops_peak,
+             lib, rows_rel=None):
+        """``rows_rel``: also hold the output by relative L2 within
+        (whole output, worst row of its last dim)."""
+        got, want = run(), run_plain()
+        err = compare(torch, (got,), (want,))
+        if rows_rel is not None:
+            whole, row = rel_l2_rows(torch, got, want)
+            print(f"[ops] {name}: rel L2 {whole:.3g}, worst row {row:.3g} "
+                  f"(limits {rows_rel[0]:g}, {rows_rel[1]:g})", flush=True)
+            check(whole <= rows_rel[0] and row <= rows_rel[1],
+                  f"{name}: rel L2 {whole}, worst row {row} over {rows_rel}")
+        rows.append(kernel_row(
+            "ops", name, by_name[kernel], src, replaces, err,
+            median_ms(run, flush), median_ms(run_plain, flush), cost,
+            flops_peak, None if lib is None else median_ms(lib, flush)))
+
+    # f: the tiled matmul, granite's four projections at train rows
+    for label, M, K, N, dt in (("QKV", R, d, N_qkv, bf),
+                               ("W_o", R, H * D, d, bf),
+                               ("gate+up", R, d, 2 * f, bf),
+                               ("down", R, f, d, bf),
+                               ("QKV fp32", R, d, N_qkv, f32)):
+        x, w = randn((M, K), dt), randn((K, N), dt, K ** -0.5)
+        isz = x.element_size()
+        case(f"tiled_matmul:{label} {M}x{K}@{K}x{N}", "tiled_matmul",
+             "tiled_matmul.cuh", "src/repro/kernels/matmul.py:38",
+             lambda: ops.matmul(x, w), lambda: row.plain_gemm(x, w, dt),
+             ((M * K + K * N + M * N) * isz, 2.0 * M * K * N), peak[dt],
+             lambda: torch.matmul(x, w))
+        del x, w
+
+    # o: flash attention (B,S,H,D) with GQA; SDPA takes its layout's
+    # copies made outside the timed window
+    for (h, hkv, dh), dt, causal in (((H, Hkv, D), bf, True),
+                                     ((H, Hkv, D), bf, False),
+                                     ((H, Hkv, D), f32, True),
+                                     ((H, Hkv, D), f32, False),
+                                     ((*PHI_HEADS, PHI_HEAD_DIM), bf, True)):
+        q = randn((Bt, St, h, dh), dt)
+        k, v = randn((Bt, St, hkv, dh), dt), randn((Bt, St, hkv, dh), dt)
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        isz = q.element_size()
+        pairs = St * (St + 1) // 2 if causal else St * St
+        case(f"flash_attention:{'causal' if causal else 'full'} "
+             f"{Bt}x{St} H{h}/{hkv} D{dh} {str(dt)[6:]}", "flash_attention",
+             "flash_attention.cuh", "src/repro/kernels/flash_attention.py:54",
+             lambda: ops.flash_attention(q, k, v, causal=causal),
+             lambda: fa.plain_flash_attention_bshd(q, k, v, causal=causal),
+             ((2 * q.numel() + 2 * k.numel()) * isz,
+              4.0 * Bt * h * dh * pairs), peak[dt],
+             lambda: F.scaled_dot_product_attention(
+                 qh, kh, vh, is_causal=causal, enable_gqa=True),
+             rows_rel=FLASH_REL_BF16 if dt == bf else FLASH_REL_F32)
+        del q, k, v, qh, kh, vh
+
+    # d: the standalone rmsnorm; h: the residual add (one-member launches)
+    for dt in (bf, f32):
+        x, scale = randn((R, d), dt), randn((d,), f32, 0.1)
+        w_lib = (1.0 + scale).to(dt)
+        isz = x.element_size()
+        case(f"row_member:rmsnorm {R}x{d} {str(dt)[6:]}", "row_member",
+             "row_member.cuh", "src/repro/kernels/rmsnorm.py:20",
+             lambda: ops.rmsnorm(x, scale),
+             lambda: row.plain_rmsnorm(x, scale),
+             (2 * R * d * isz + d * 4, 4.0 * R * d), FP32_FLOPS,
+             lambda: F.rms_norm(x, (d,), w_lib, 1e-6))
+        res = randn((R, d), dt)
+        add = elementwise.residual_add_op(R, d, dt)
+        run_add = hfuse.run_single(add)
+        plain_add = hfuse.run_single(add, plain=True)
+        case(f"row_member:residual_add {R}x{d} {str(dt)[6:]}", "row_member",
+             "row_member.cuh", "src/repro/kernels/elementwise.py:69",
+             lambda: run_add(x, res)[0], lambda: plain_add(x, res)[0],
+             (3 * R * d * isz, 1.0 * R * d), FP32_FLOPS,
+             lambda: torch.add(x, res))
+        del x, res
+
+    # i: matmul -> residual_add at decode (W_o, 8 rows): bitwise against
+    # the GEMM and residual-add members launched separately
+    for dt in (bf, f32):
+        mm = matmul_1d_op(B, d, d, dt, bm=B)
+        add = elementwise.residual_add_op(B, d, dt, bm=B)
+        chain = stitch.stitch(mm, add, "h")
+        x, res, w = randn((B, d), dt), randn((B, d), dt), \
+            randn((d, d), dt, d ** -0.5)
+        run = hfuse.run_single(chain)
+        (got,) = run(x, w, res)
+        (h,) = hfuse.run_single(mm)(x, w)
+        check(torch.equal(got, hfuse.run_single(add)(h, res)[0]),
+              f"matmul->residual_add ({dt}) differs from its separate "
+              "members")
+        if dt == bf:
+            isz = x.element_size()
+            case(f"row_member:W_o->residual_add {B}x{d}@{d}x{d}",
+                 "row_member", "row_member.cuh",
+                 "src/repro/core/stitch.py:177 (matmul->residual_add)",
+                 lambda: run(x, w, res)[0],
+                 lambda: hfuse.run_single(chain, plain=True)(x, w, res)[0],
+                 ((3 * B * d + d * d) * isz, 2.0 * B * d * d + B * d),
+                 BF16_FLOPS, lambda: torch.addmm(res, x, w))
+    print("[ops] matmul->residual_add bitwise equal its separate members "
+          "(bf16, fp32)", flush=True)
+    free_card(torch)
+
+    # the path: a full-width granite layer from the ops, moe_gmm at
+    # phi3.5-moe's decode shape, the fused AdamW over the layer's leaves
+    p = {"s1": randn((d,), f32, 0.1), "s2": randn((d,), f32, 0.1),
+         "w_qkv": randn((d, N_qkv), scale=d ** -0.5),
+         "w_o": randn((H * D, d), scale=(H * D) ** -0.5),
+         "w_in": randn((d, 2 * f), scale=d ** -0.5),
+         "w_out": randn((f, d), scale=f ** -0.5)}
+    x = randn((R, d))
+    E, Cg, dg, fg = PHI_GMM
+    xe = randn((E, Cg, dg))
+    w_in_e = randn((E, dg, 2 * fg), scale=dg ** -0.5)
+    w_out_e = randn((E, fg, dg), scale=fg ** -0.5)
+    grads = {k: randn(t.shape, t.dtype, 1e-2) for k, t in p.items()}
+    moments = [{k: torch.zeros(t.shape, device=dev) for k, t in p.items()}
+               for _ in range(2)]
+    upd = dict(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, wd=0.1, bc1=0.1,
+               bc2=0.05)
+    copies = [{k: t.clone() for k, t in tr.items()} for tr in (p, *moments)]
+    dims = (Bt, St, H, Hkv, D)
+
+    def kernel_resadd(h, res):
+        return hfuse.run_single(elementwise.residual_add_op(R, d))(h, res)[0]
+
+    kernels = registry()
+    torch.cuda.synchronize()
+    cuda.reset_counts(kernels)
+    t0 = time.perf_counter()
+    out = ops_layer(ops.matmul, ops.rmsnorm,
+                    lambda q, k, v: ops.flash_attention(q, k, v),
+                    kernel_resadd, x, p, dims)
+    torch.cuda.synchronize()
+    layer_s = time.perf_counter() - t0
+    ye = ops.moe_gmm(xe, w_in_e, w_out_e)
+    ops.hfused_adamw(p, grads, *moments, **upd)
+    torch.cuda.synchronize()
+    counts = {k.name: k.launches for k in kernels}
+    print(f"[ops] launches {counts}")
+    check(all(counts[k] > 0 for k in ("bundle_launcher", "row_member",
+                                      "tiled_matmul", "flash_attention",
+                                      "moe_gmm", "adamw_member")),
+          f"a kernel of the ops path never launched: {counts}")
+
+    ref = ops_layer(lambda a, b: row.plain_gemm(a, b, a.dtype),
+                    row.plain_rmsnorm, fa.plain_flash_attention_bshd,
+                    lambda a, b: row.plain_residual_add(a, b, a.dtype),
+                    x, copies[0], dims)
+    check(bool(torch.isfinite(out.float()).all()), "non-finite layer output")
+    rel = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+    check(rel <= LOGITS_REL_L2, f"ops layer vs plain: rel L2 {rel}")
+    compare(torch, (ye,), (plain_moe_gmm(xe, w_in_e, w_out_e),))
+    sc = torch.zeros((1, adam.LANES), device=dev)
+    sc[0, :3] = torch.tensor([upd["lr"], upd["bc1"], upd["bc2"]])
+    adam.multi_tensor_adamw(*copies[:1], grads, *copies[1:], sc,
+                            b1=upd["b1"], b2=upd["b2"], eps=upd["eps"],
+                            wd=upd["wd"], plain=True)
+    check(all(torch.equal(a[k], b[k]) for a, b in zip((p, *moments), copies)
+              for k in a), "ops.hfused_adamw differs from its plain route")
+    print(f"[ops] granite layer from the ops at {Bt}x{St}: {layer_s * 1e3:.1f}"
+          f" ms host clock (synchronised), rel L2 vs the plain layer {rel:.3g};"
+          f" moe_gmm and hfused_adamw checked", flush=True)
+    del p, copies, grads, moments, x, out, ref, xe, w_in_e, w_out_e, ye
+    free_card(torch)
+    return rows, {"counts": counts, "layer_ms": layer_s * 1e3,
+                  "layer_rel_l2": rel}
+
+
 def main() -> int:
     import torch
 
@@ -1431,25 +1687,36 @@ def main() -> int:
     cfg = get_config("granite-3-2b")
     check(cfg.num_layers == 40 and cfg.d_model == 2048, "not full width")
     # 2b. paper suite, 3. serve kernels, 4. adamw, 5. measured plan,
-    # 6. update bundles, 7. train, 8. serve, 8b. paged, 8c. moe
-    rows, paper_run = phase_paper(torch, dev)
-    rows += phase_kernels(torch, dev, cfg)
-    rows += phase_adamw(torch, dev)
-    program = phase_plan(torch, dev, cfg)
-    update = phase_update_bundles(torch, dev, cfg, program)
-    train = phase_train(torch, dev, cfg, program)
-    serve = phase_serve(torch, dev, cfg)
+    # 6. update bundles, 7. train, 8. serve, 8b. paged, 8c. moe, 8d. ops;
+    # each phase's wall time is printed before the report
+    walls = {}
+
+    def timed(name, phase, *args):
+        t = time.perf_counter()
+        out = phase(*args)
+        walls[name] = time.perf_counter() - t
+        return out
+
+    rows, paper_run = timed("paper", phase_paper, torch, dev)
+    rows += timed("kernels", phase_kernels, torch, dev, cfg)
+    rows += timed("adamw", phase_adamw, torch, dev)
+    program = timed("plan", phase_plan, torch, dev, cfg)
+    update = timed("bundles", phase_update_bundles, torch, dev, cfg, program)
+    train = timed("train", phase_train, torch, dev, cfg, program)
+    serve = timed("serve", phase_serve, torch, dev, cfg)
     free_card(torch)
-    # 8b. paged KV, 8c. MoE
-    paged_rows, paged = phase_paged(torch, dev, cfg)
-    moe_rows, moe_run = phase_moe(torch, dev)
-    rows += paged_rows + moe_rows
+    paged_rows, paged = timed("paged", phase_paged, torch, dev, cfg)
+    moe_rows, moe_run = timed("moe", phase_moe, torch, dev)
+    ops_rows, ops_run = timed("ops", phase_ops, torch, dev, cfg)
+    rows += paged_rows + moe_rows + ops_rows
+    print("[phases] wall s: " + ", ".join(f"{k} {v:.1f}"
+                                         for k, v in walls.items()))
 
     # 9. report: each row's launches come from its own main path's run
     names = {k.name: k for k in registry()}
     runs = {"serve": serve["counts"], "train": train["counts"],
             "paper": paper_run["counts"], "paged": paged["counts"],
-            "moe": moe_run["counts"]}
+            "moe": moe_run["counts"], "ops": ops_run["counts"]}
     for r in rows:
         r["launches"] = runs[r.pop("path")][r.pop("kernel").name]
     check(all(set(c) == set(names) for c in runs.values()),
@@ -1470,6 +1737,8 @@ def main() -> int:
     print(f"[moe] tokens/s {moe_run['tokens_per_s']:.3f}, expert_skew "
           f"{moe_run['expert_skew']:.3f}, load_shed_steps "
           f"{moe_run['load_shed_steps']} ({smi})")
+    print(f"[ops] granite layer {ops_run['layer_ms']:.1f} ms, rel L2 "
+          f"{ops_run['layer_rel_l2']:.3g} ({smi})")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

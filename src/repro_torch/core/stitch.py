@@ -6,10 +6,12 @@ so it becomes one *member* of a horizontal bundle (one ratio coordinate
 for the autotuner, one node for the planner).
 
 On the card a chain's member is the producer kernel with the consumer
-fused as a prologue or an epilogue.  The row kernel implements exactly the
-two pairs the decode step declares: rmsnorm->matmul (normalise into shared
-memory, then the GEMM) and matmul->activation (the activation on the fp32
-tile before the only store).  A chain is bitwise equal to its two ops run
+fused as a prologue or an epilogue.  The row kernel implements three
+pairs: rmsnorm->matmul (normalise into shared memory, then the GEMM) and
+matmul->activation (the activation on the fp32 tile before the only
+store), which the decode step declares, and matmul->residual_add (the
+residual added to the rounded product before the only store; in fp32, in
+the K slices' combine).  A chain is bitwise equal to its two ops run
 separately (the row kernel's rounding contract, ``csrc/row_member.cuh``).
 The train update graph's dW->adamw pair is accepted with the reference's
 checks and planned, but it is planning-only in both packages: its member

@@ -1,5 +1,6 @@
 // Online-softmax attention of R query rows (one KV head) against one
-// sequence's cache, used by the decode and the prefill attention members.
+// sequence's cache, used by the decode and the prefill attention members
+// (bf16) and by the standalone flash attention kernel (bf16 and fp32).
 //
 // The TPU kernels carry m, l and o across sequential grid steps in outputs
 // with constant index maps (src/repro/kernels/decode_attention.py:91-120,
@@ -15,24 +16,35 @@
 
 #define ATT_TK 64           // kv positions per shared-memory tile
 
-// shared-memory layout for R rows of head dim D (all offsets 16-aligned):
-//   q_s, o_s [R*D] f32 | s_s [R*TK] f32 | m_s, l_s, a_s [R] f32 | lim_s [R] int
-//   | k_s [TK*(D+2)] bf16 (odd word stride: conflict-free row reads)
-//   | v_s [TK*D] bf16
-__host__ __device__ inline int attn_smem_bytes(int R, int D) {
-  return hf_align16(4 * (2 * R * D + R * ATT_TK + 4 * R)) +
-         hf_align16(2 * ATT_TK * (D + 2)) + 2 * ATT_TK * D;
+// k rows in shared memory are an odd number of 32-bit words apart
+// (conflict-free row reads): D + 2 bf16 or D + 1 fp32 elements.
+__host__ __device__ inline int attn_kstride(int D, int esize) {
+  return D + 4 / esize;
 }
 
-struct AttnSmem {
+// shared-memory layout for R rows of head dim D and k/v elements of `esize`
+// bytes (all offsets 16-aligned):
+//   q_s, o_s [R*D] f32 | s_s [R*TK] f32 | m_s, l_s, a_s [R] f32 | lim_s [R] int
+//   | k_s [TK*kstride] | v_s [TK*D]
+__host__ __device__ inline int attn_smem_bytes(int R, int D, int esize = 2) {
+  return hf_align16(4 * (2 * R * D + R * ATT_TK + 4 * R)) +
+         hf_align16(esize * ATT_TK * attn_kstride(D, esize)) +
+         esize * ATT_TK * D;
+}
+
+template <typename T>
+struct AttnSmemT {
   float *q, *o, *s, *m, *l, *a;
   int* lim;
-  bf16 *k, *v;
+  T *k, *v;
 };
+typedef AttnSmemT<bf16> AttnSmem;
 
-__device__ __forceinline__ AttnSmem attn_smem(unsigned char* base, int R,
-                                              int D) {
-  AttnSmem p;
+template <typename T = bf16>
+__device__ __forceinline__ AttnSmemT<T> attn_smem(unsigned char* base, int R,
+                                                  int D) {
+  constexpr int es = (int)sizeof(T);
+  AttnSmemT<T> p;
   float* f = reinterpret_cast<float*>(base);
   p.q = f;
   p.o = p.q + R * D;
@@ -42,9 +54,18 @@ __device__ __forceinline__ AttnSmem attn_smem(unsigned char* base, int R,
   p.a = p.l + R;
   p.lim = reinterpret_cast<int*>(p.a + R);
   unsigned char* b = base + hf_align16(4 * (2 * R * D + R * ATT_TK + 4 * R));
-  p.k = reinterpret_cast<bf16*>(b);
-  p.v = reinterpret_cast<bf16*>(b + hf_align16(2 * ATT_TK * (D + 2)));
+  p.k = reinterpret_cast<T*>(b);
+  p.v = reinterpret_cast<T*>(b +
+                             hf_align16(es * ATT_TK * attn_kstride(D, es)));
   return p;
+}
+
+// two neighbouring elements of a staged k row, as fp32
+__device__ __forceinline__ float2 attn_pair(const bf16* row, int d2) {
+  return __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(row)[d2]);
+}
+__device__ __forceinline__ float2 attn_pair(const float* row, int d2) {
+  return make_float2(row[2 * d2], row[2 * d2 + 1]);
 }
 
 // Visit kv positions [0, n_kv).  Row r admits position p iff p < lim[r].
@@ -57,16 +78,18 @@ __device__ __forceinline__ AttnSmem attn_smem(unsigned char* base, int R,
 // differs, so on equal logical content both forms compute bitwise the same.
 // On entry q holds the scaled queries, m = -1e30, l = 0, o = 0; on exit o
 // holds the unnormalised sum.
-__device__ void attn_loop(const AttnSmem& sm, int R, int D, int n_kv,
-                          const bf16* kbase, const bf16* vbase,
-                          int kv_stride, const int* bt, int bs) {
+template <typename T>
+__device__ void attn_loop(const AttnSmemT<T>& sm, int R, int D, int n_kv,
+                          const T* kbase, const T* vbase, int kv_stride,
+                          const int* bt, int bs) {
+  constexpr int VEC = 16 / (int)sizeof(T);  // elements per 16-byte vector
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int KS = D + 2;
-  const int vpr = D / 8;                    // 16-byte vectors per row
+  const int KS = attn_kstride(D, (int)sizeof(T));
+  const int vpr = D / VEC;                  // 16-byte vectors per row
   for (int p0 = 0; p0 < n_kv; p0 += ATT_TK) {
     const int nt = min(ATT_TK, n_kv - p0);
     for (int idx = tid; idx < ATT_TK * vpr; idx += HF_THREADS) {
-      const int j = idx / vpr, c = (idx % vpr) * 8;
+      const int j = idx / vpr, c = (idx % vpr) * VEC;
       uint4 kv4 = make_uint4(0, 0, 0, 0), vv4 = make_uint4(0, 0, 0, 0);
       if (j < nt) {
         const int p = p0 + j;
@@ -86,11 +109,10 @@ __device__ void attn_loop(const AttnSmem& sm, int R, int D, int n_kv,
       float s = HF_NEG_INF;
       if (j < nt && p0 + j < sm.lim[r]) {
         const float* qr = sm.q + r * D;
-        const __nv_bfloat162* kr =
-            reinterpret_cast<const __nv_bfloat162*>(sm.k + j * KS);
+        const T* kr = sm.k + j * KS;
         float acc = 0.0f;
         for (int d2 = 0; d2 < D / 2; ++d2) {
-          const float2 kk = __bfloat1622float2(kr[d2]);
+          const float2 kk = attn_pair(kr, d2);
           acc = fmaf(qr[2 * d2], kk.x, acc);
           acc = fmaf(qr[2 * d2 + 1], kk.y, acc);
         }
@@ -127,7 +149,8 @@ __device__ void attn_loop(const AttnSmem& sm, int R, int D, int n_kv,
       const int r = idx / D, d = idx % D;
       const float* pr = sm.s + r * ATT_TK;
       float acc = 0.0f;
-      for (int j = 0; j < nt; ++j) acc = fmaf(pr[j], bf2f(sm.v[j * D + d]), acc);
+      for (int j = 0; j < nt; ++j)
+        acc = fmaf(pr[j], to_f32(sm.v[j * D + d]), acc);
       sm.o[idx] = sm.o[idx] * sm.a[r] + acc;
     }
     __syncthreads();

@@ -21,15 +21,23 @@
 // memory is the largest any member needs.  A warp-level partition with named
 // barriers (the paper's Fig. 5) is later work.
 //
+// The library also holds the two standalone kernels the reference never
+// fuses (they are not OpSpecs): the tiled matmul (tiled_matmul.cuh) and flash
+// attention (flash_attention.cuh), each its own __global__ kernel with its
+// own launch bounds and launcher, so neither weighs on this kernel's
+// registers.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false -shared
 // (src/repro_torch/kernels/cuda.py builds it at first use).
 #include "common.cuh"
 #include "adamw_member.cuh"
 #include "decode_attention.cuh"
+#include "flash_attention.cuh"
 #include "moe_gmm_member.cuh"
 #include "paper_member.cuh"
 #include "prefill_attention.cuh"
 #include "row_member.cuh"
+#include "tiled_matmul.cuh"
 
 // At least two CTAs per SM: ptxas keeps every member within 128 registers a
 // thread, so no member's register appetite halves the others' occupancy.
@@ -89,14 +97,8 @@ int hf_member_smem(const MemberDesc* m) {
 
 // Allow `smem` bytes of dynamic shared memory per CTA (0 = allowed).
 static int hf_allow_smem(int smem) {
-  static int smem_limit = 48 * 1024;
-  if (smem > smem_limit) {
-    cudaError_t e = cudaFuncSetAttribute(
-        hf_bundle, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-    smem_limit = smem;
-  }
-  return 0;
+  static int granted = 48 * 1024;
+  return hf_allow_kernel_smem(hf_bundle, smem, &granted);
 }
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = queued).

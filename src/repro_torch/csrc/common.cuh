@@ -44,6 +44,18 @@ __device__ __forceinline__ float bf_round(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
+// one element of a kernel templated on its I/O type (bf16 or fp32) to fp32
+// and back; the bf16 forms are bf2f and f2bf
+__device__ __forceinline__ float to_f32(bf16 v) { return bf2f(v); }
+__device__ __forceinline__ float to_f32(float v) { return v; }
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ bf16 from_f32<bf16>(float v) {
+  return f2bf(v);
+}
+template <> __device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -70,6 +82,19 @@ __device__ __forceinline__ void unpack8(uint4 v, float* f) {
 
 __host__ __device__ __forceinline__ int hf_align16(int bytes) {
   return (bytes + 15) & ~15;
+}
+
+// Allow `kernel` `smem` bytes of dynamic shared memory per CTA (above 48 KB
+// only after this opt-in); `granted` caches the largest size allowed so far.
+// Returns the cudaError_t (0 = allowed).
+template <typename Kernel>
+static int hf_allow_kernel_smem(Kernel* kernel, int smem, int* granted) {
+  if (smem <= *granted) return 0;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  *granted = smem;
+  return 0;
 }
 
 // The last-CTA combine of a member whose CTAs each write a partial into a

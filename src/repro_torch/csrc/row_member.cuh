@@ -1,11 +1,13 @@
 // Row member family: RMSNorm, the row GEMM with an optional RMSNorm prologue
-// and an optional activation epilogue, and the activation alone.
+// and an optional activation or residual-add epilogue, the activation alone
+// and the residual add alone.
 //
-// Replaces the TPU kernels src/repro/kernels/rmsnorm.py:38 (rmsnorm_op),
-// src/repro/kernels/matmul.py:64 (matmul_1d_op),
-// src/repro/kernels/elementwise.py:20 (activation_op) and the chain body of
-// src/repro/core/stitch.py:177 (stitch) for the two pairs the decode step
-// stitches: decode_norm1->qkv_proj and ffn_proj->decode_act.
+// Replaces the TPU kernels src/repro/kernels/rmsnorm.py:38 (rmsnorm_op) and
+// :20 (rmsnorm, the same body launched alone), src/repro/kernels/matmul.py:64
+// (matmul_1d_op), src/repro/kernels/elementwise.py:20 (activation_op) and :69
+// (residual_add_op), and the chain body of src/repro/core/stitch.py:177
+// (stitch) for three pairs: rmsnorm->matmul (decode_norm1->qkv_proj),
+// matmul->activation (ffn_proj->decode_act) and matmul->residual_add.
 //
 // Bound on the card: bytes.  At decode batch (M = 8 rows) the GEMM does 2*M
 // flops per weight element it streams, far under the H100's ~295 flop/byte
@@ -18,8 +20,14 @@
 // A gated epilogue needs gate column j and up column j+F in one CTA, so the
 // gated tile is 32 gate columns plus their 32 up columns.
 //
-// fp32 form (i[6] = 1, the MoE router: 8 x 4096 @ 4096 x 16 at phi3.5-moe):
-// x, w and out fp32, no prologue or epilogue.  A CTA owns 64 columns and one
+// RMSNorm and the residual add take bf16 or, with i[6] = 1, fp32 rows (the
+// reference's tests run the standalone norm in fp32).  Both are bound by
+// bytes.  The residual add streams its (M, F) operands in 16-byte vectors,
+// 16 KB of each operand per CTA, every load of a thread issued before its
+// first add.
+//
+// fp32 GEMM (i[6] = 1, the MoE router: 8 x 4096 @ 4096 x 16 at phi3.5-moe):
+// x, w and out fp32, no prologue or activation.  A CTA owns 64 columns and one
 // of i[7] slices of K (the router's N = 16 is a quarter of one tile, so a
 // single CTA walking all of K is bound by load latency: 0.19 ms on the H100).
 // A thread streams 16-byte vectors of 4 columns, reads x through the cache (a
@@ -28,24 +36,31 @@
 // per-launch workspace (out[1]) and takes a ticket of its column tile
 // (out[2], zeroed); the tile's last CTA sums the slices in slice order, as
 // the paper members' carries do, so the result is the same every launch.
+// With the residual epilogue (i[8] = 1, in[3] = res (M, N)) that CTA adds
+// res to each column's sum before the store.
 //
 // Bitwise contract: a chain equals its two members run separately.  The
 // prologue rounds the normed row to bf16 exactly as the standalone norm
-// stores it; the epilogue rounds the product to bf16 exactly as the
-// standalone GEMM stores it; each column's K-sum runs in the same order
+// stores it; the activation epilogue rounds the product to bf16 exactly as
+// the standalone GEMM stores it; the residual epilogue does the same (fp32:
+// the product is the stored value), adds res in fp32 and rounds, as the
+// standalone residual add does; each column's K-sum runs in the same order
 // whichever tile holds it; the build uses -fmad=false so no call site fuses
 // a multiply-add the other does not.
 #pragma once
 
 #include "common.cuh"
 
-enum { ROW_NORM = 0, ROW_GEMM = 1, ROW_ACT = 2 };
+enum { ROW_NORM = 0, ROW_GEMM = 1, ROW_ACT = 2, ROW_RESADD = 3 };
 enum { ACT_NONE = -1, ACT_SILU_GATE = 0, ACT_GELU_GATE = 1, ACT_GELU = 2,
        ACT_RELU2 = 3 };
 
 #define GEMM_TN 64          // weight columns per CTA tile
 #define GEMM_MB 8           // rows per pass (accumulators: GEMM_MB x 8 / thread)
 #define ACT_COLS 2048       // output columns per CTA of the standalone activation
+#define RESADD_VECS 4       // 16-byte vectors per thread per operand of the
+                            // standalone residual add (all loads in flight
+                            // before the first add)
 
 __host__ __device__ __forceinline__ bool act_gated(int act) {
   return act == ACT_SILU_GATE || act == ACT_GELU_GATE;
@@ -71,13 +86,15 @@ __device__ __forceinline__ float act_apply(int act, float a, float b) {
   }
 }
 
-// y = x * rsqrt(mean(x^2) + eps) * (1 + scale), fp32 math, bf16 store.
-// All HF_THREADS threads of the CTA call it; red holds HF_WARPS floats.
-__device__ void rms_row(const bf16* x, const float* scale, int d, float eps,
-                        bf16* y, float* red) {
+// y = x * rsqrt(mean(x^2) + eps) * (1 + scale), fp32 math, stored as T
+// (bf16 or fp32).  All HF_THREADS threads of the CTA call it; red holds
+// HF_WARPS floats.
+template <typename T>
+__device__ void rms_row(const T* x, const float* scale, int d, float eps,
+                        T* y, float* red) {
   float ss = 0.0f;
   for (int k = threadIdx.x; k < d; k += HF_THREADS) {
-    float v = bf2f(x[k]);
+    float v = to_f32(x[k]);
     ss = fmaf(v, v, ss);
   }
   ss = warp_sum(ss);
@@ -88,7 +105,7 @@ __device__ void rms_row(const bf16* x, const float* scale, int d, float eps,
   for (int w = 0; w < HF_WARPS; ++w) tot += red[w];
   float inv = rsqrtf(tot / (float)d + eps);
   for (int k = threadIdx.x; k < d; k += HF_THREADS)
-    y[k] = f2bf(bf2f(x[k]) * inv * (1.0f + scale[k]));
+    y[k] = from_f32<T>(to_f32(x[k]) * inv * (1.0f + scale[k]));
   __syncthreads();
 }
 
@@ -209,11 +226,15 @@ __device__ void row_gemm(const MemberDesc& m, int cta) {
             f2bf(act_apply(act, a, b));
       }
     } else {
+      // read here, not live across the K loop
+      const bf16* res = m.i[8] ? static_cast<const bf16*>(m.in[3]) : nullptr;
       for (int idx = tid; idx < mb * GEMM_TN; idx += HF_THREADS) {
         const int r = idx / GEMM_TN, c = idx % GEMM_TN;
+        const size_t o = (size_t)(m0 + r) * N + cta * GEMM_TN + c;
         const float h = tile[idx];
-        out[(size_t)(m0 + r) * N + cta * GEMM_TN + c] =
-            f2bf(act == ACT_NONE ? h : act_apply(act, bf_round(h), 0.0f));
+        out[o] = f2bf(res ? bf_round(h) + bf2f(res[o])
+                      : act == ACT_NONE ? h
+                                        : act_apply(act, bf_round(h), 0.0f));
       }
     }
     __syncthreads();
@@ -236,6 +257,7 @@ __device__ __noinline__ void row_gemm_f32(const MemberDesc& m, int cta) {
   const int M = m.i[1], K = m.i[2], N = m.i[3], KS = m.i[7];
   const float* x = static_cast<const float*>(m.in[0]);
   const float* w = static_cast<const float*>(m.in[2]);
+  const float* res = m.i[8] ? static_cast<const float*>(m.in[3]) : nullptr;
   float* out = static_cast<float*>(m.out[0]);
   float* ws = static_cast<float*>(m.out[1]);
   float* red = reinterpret_cast<float*>(smem);
@@ -307,6 +329,7 @@ __device__ __noinline__ void row_gemm_f32(const MemberDesc& m, int cta) {
     if (col < N) {
       float s = ws[(size_t)r * N + col];
       for (int q = 1; q < KS; ++q) s += ws[((size_t)q * M + r) * N + col];
+      if (res) s += res[(size_t)r * N + col];
       out[(size_t)r * N + col] = s;
     }
   }
@@ -329,22 +352,97 @@ __device__ void row_act(const MemberDesc& m, int cta) {
   }
 }
 
-__device__ void row_member(const MemberDesc& m, int cta) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  switch (m.i[0]) {
-    case ROW_NORM: {
-      const int d = m.i[2];
-      rms_row(static_cast<const bf16*>(m.in[0]) + (size_t)cta * d,
-              static_cast<const float*>(m.in[1]), d, m.f[0],
-              static_cast<bf16*>(m.out[0]) + (size_t)cta * d,
-              reinterpret_cast<float*>(smem));
-      break;
+// one 16-byte vector of T (8 bf16 or 4 fp32) <-> fp32
+template <typename T>
+__device__ __forceinline__ void unpack16(const uint4& u, float* f) {
+  const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+  for (int j = 0; j < 16 / (int)sizeof(T); ++j) f[j] = to_f32(e[j]);
+}
+template <typename T>
+__device__ __forceinline__ void store16(T* p, const float* f) {
+  uint4 u;
+  T* e = reinterpret_cast<T*>(&u);
+#pragma unroll
+  for (int j = 0; j < 16 / (int)sizeof(T); ++j) e[j] = from_f32<T>(f[j]);
+  *reinterpret_cast<uint4*>(p) = u;
+}
+
+// standalone residual add: out = h + res over (M, F), in fp32, stored as T;
+// CTA c owns elements [c * CH, (c + 1) * CH), CH = HF_THREADS * RESADD_VECS
+// 16-byte vectors.  Not inlined, like row_norm_f32 below: inlined, these
+// two paths moved ptxas's allocation of the whole bundle kernel and slowed
+// the grouped expert FFN member by 5% on the H100; as calls the kernel keeps
+// the allocation (and the 24 bytes of spills) it had without them.
+template <typename T>
+__device__ __noinline__ void row_resadd(const MemberDesc& m, int cta) {
+  constexpr int VEC = 16 / (int)sizeof(T);
+  constexpr int CH = HF_THREADS * RESADD_VECS * VEC;
+  const long long n = (long long)m.i[1] * m.i[2];
+  const long long e0 = (long long)cta * CH;
+  const long long e1 = min(n, e0 + CH);
+  const T* h = static_cast<const T*>(m.in[0]);
+  const T* r = static_cast<const T*>(m.in[1]);
+  T* out = static_cast<T*>(m.out[0]);
+  const long long ev = e0 + (e1 - e0) / VEC * VEC;   // end of whole vectors
+  uint4 hv[RESADD_VECS], rv[RESADD_VECS];
+#pragma unroll
+  for (int i = 0; i < RESADD_VECS; ++i) {
+    const long long e = e0 + ((long long)i * HF_THREADS + threadIdx.x) * VEC;
+    if (e < ev) {
+      hv[i] = *reinterpret_cast<const uint4*>(h + e);
+      rv[i] = *reinterpret_cast<const uint4*>(r + e);
     }
+  }
+#pragma unroll
+  for (int i = 0; i < RESADD_VECS; ++i) {
+    const long long e = e0 + ((long long)i * HF_THREADS + threadIdx.x) * VEC;
+    if (e < ev) {
+      float a[VEC], b[VEC];
+      unpack16<T>(hv[i], a);
+      unpack16<T>(rv[i], b);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) a[j] += b[j];
+      store16(out + e, a);
+    }
+  }
+  for (long long e = ev + threadIdx.x; e < e1; e += HF_THREADS)
+    out[e] = from_f32<T>(to_f32(h[e]) + to_f32(r[e]));
+}
+
+template <typename T>
+__device__ void row_norm(const MemberDesc& m, int cta) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int d = m.i[2];
+  rms_row(static_cast<const T*>(m.in[0]) + (size_t)cta * d,
+          static_cast<const float*>(m.in[1]), d, m.f[0],
+          static_cast<T*>(m.out[0]) + (size_t)cta * d,
+          reinterpret_cast<float*>(smem));
+}
+
+__device__ __noinline__ void row_norm_f32(const MemberDesc& m, int cta) {
+  row_norm<float>(m, cta);
+}
+
+__device__ void row_member(const MemberDesc& m, int cta) {
+  switch (m.i[0]) {
+    case ROW_NORM:
+      if (m.i[6])
+        row_norm_f32(m, cta);
+      else
+        row_norm<bf16>(m, cta);
+      break;
     case ROW_GEMM:
       if (m.i[6])
         row_gemm_f32(m, cta);
       else
         row_gemm(m, cta);
+      break;
+    case ROW_RESADD:
+      if (m.i[6])
+        row_resadd<float>(m, cta);
+      else
+        row_resadd<bf16>(m, cta);
       break;
     default: row_act(m, cta); break;
   }
@@ -355,6 +453,6 @@ __host__ __device__ inline int row_smem_bytes(const MemberDesc& m) {
     case ROW_NORM: return HF_WARPS * 4;
     case ROW_GEMM: return m.i[6] ? gemm_f32_smem_bytes()
                                  : gemm_smem_bytes(m.i[2]);
-    default: return 0;
+    default: return 0;   // activation, residual add
   }
 }

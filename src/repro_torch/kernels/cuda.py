@@ -1,7 +1,10 @@
 """Build, bind and launch the port's CUDA kernels.
 
 All members live in one compilation unit (``csrc/bundle.cu`` and its
-headers) because any member must be able to share a launch with any other.
+headers) because any member must be able to share a launch with any other;
+the two standalone kernels the reference never fuses, the tiled matmul and
+flash attention, are their own ``__global__`` kernels in the same library,
+each with its own C launcher (``matmul``, ``flash_attention`` below).
 The library is compiled with ``nvcc`` for ``sm_90a`` at first use, into
 ``build/repro_torch/<hash of the sources>/`` at the root of the checkout,
 bound with ``ctypes`` (plain C interface, no PyTorch headers: seconds to
@@ -10,9 +13,11 @@ import: the CPU tests import every module.
 
 ``Kernel`` records one hand-written kernel of the port: where its source
 is, which TPU kernel it replaces, and ``launches``, its launch count.  Each
-kernel module holds its own record; ``core/hfuse.py`` bumps the counts of
-the bundle launcher and of every member a launch carried, right after the
-launch, and nowhere else.
+kernel module holds its own record.  A count is bumped right after its
+kernel's launch and nowhere else: ``core/hfuse.py`` bumps the bundle
+launcher's and that of every member a launch carried; a standalone
+kernel's wrapper (``kernels/matmul.matmul``,
+``kernels/flash_attention``) bumps its own.
 """
 from __future__ import annotations
 
@@ -142,6 +147,12 @@ def library():
         lib.hf_occupancy.restype = ctypes.c_int
         lib.hf_error_string.argtypes = [ctypes.c_int]
         lib.hf_error_string.restype = ctypes.c_char_p
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.hf_matmul.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
+        lib.hf_matmul.restype = i32
+        lib.hf_flash_attention.argtypes = [ptr, ptr, ptr, ptr, *(i32,) * 7,
+                                           ctypes.c_float, ptr]
+        lib.hf_flash_attention.restype = i32
         ms, bs = ctypes.c_int(), ctypes.c_int()
         lib.hf_desc_sizes(ctypes.byref(ms), ctypes.byref(bs))
         if (ms.value, bs.value) != (ctypes.sizeof(MemberDesc),
@@ -215,6 +226,38 @@ def launch(members: Sequence, ins: Sequence[Sequence[torch.Tensor]],
     if err:
         raise RuntimeError("bundle launch failed: "
                            + lib.hf_error_string(err).decode())
+
+
+def _raise_if(err: int, what: str) -> None:
+    if err:
+        raise RuntimeError(f"{what} launch failed: "
+                           + library().hf_error_string(err).decode())
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor, out: torch.Tensor) -> None:
+    """One launch of the tiled matmul (``csrc/tiled_matmul.cuh``): out =
+    x @ w, all three bf16 or all fp32, checked by the caller."""
+    (M, K), N = x.shape, w.shape[1]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _raise_if(library().hf_matmul(
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), M, N, K,
+            int(x.dtype == torch.float32), ctypes.c_void_p(stream)),
+            "tiled matmul")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    o: torch.Tensor, causal: bool, scale: float) -> None:
+    """One launch of flash attention (``csrc/flash_attention.cuh``): q, o
+    (B,S,H,D), k, v (B,S,Hkv,D), all bf16 or all fp32, checked by the
+    caller."""
+    B, S, H, D = q.shape
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _raise_if(library().hf_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, S, H,
+            k.shape[2], D, int(q.dtype == torch.float32), int(causal),
+            scale, ctypes.c_void_p(stream)), "flash attention")
 
 
 def member_smem(member) -> int:

@@ -140,10 +140,14 @@ def moe_gmm(xe: torch.Tensor, w_in: torch.Tensor, w_out: torch.Tensor, *,
             act: str = "silu", bc: int = 128) -> torch.Tensor:
     """xe (E,C,d); w_in (E,d,2f|f); w_out (E,f,d) -> (E,C,d): one launch of
     the member (the plain version for CPU tensors).  Gated iff w_in is
-    twice w_out's hidden width, as the reference decides."""
+    twice w_out's hidden width, as the reference decides; refuses a C that
+    min(bc, C) does not divide, as the reference does."""
     from repro_torch.core import hfuse
     E, C, d = xe.shape
     f = w_out.shape[1]
+    if C % min(bc, C):
+        raise ValueError(f"moe_gmm: C={C} is not a multiple of "
+                         f"bc={min(bc, C)}")
     gated = w_in.shape[-1] == 2 * f
     op = moe_gmm_op(E, C, d, f, dtype=xe.dtype, bc=bc,
                     act=act if gated else "gelu", gated=gated)

@@ -1,23 +1,28 @@
 """Row member family: RMSNorm, the row GEMM (with an optional RMSNorm
-prologue and an optional activation epilogue) and the activation alone.
+prologue and an optional activation or residual-add epilogue), the
+activation alone and the residual add alone.
 
 CUDA source: ``csrc/row_member.cuh``.  It replaces the TPU kernels
-``src/repro/kernels/rmsnorm.py:38`` (rmsnorm_op),
-``src/repro/kernels/matmul.py:64`` (matmul_1d_op),
-``src/repro/kernels/elementwise.py:20`` (activation_op) and the chain body
-of ``src/repro/core/stitch.py:177`` for the two pairs the decode step
-stitches.  Bound on the card: bytes — at decode batch the GEMM streams its
-weight once and does 2*M flops per weight element; a CTA owns a 64-column
-weight tile for all rows, streams it in 16-byte vectors with x in shared
-memory, and the chains keep the intermediate out of device memory (see the
-source's header for the bitwise contract).  The GEMM also has an fp32 form
-(x, w, out fp32, no prologue or epilogue, partial column tiles masked, K
-split over CTAs with a fixed-order last-CTA combine): the MoE router's
-``matmul_1d_op(dtype=float32)``.
+``src/repro/kernels/rmsnorm.py:38`` (rmsnorm_op) and ``:20`` (rmsnorm, the
+same body launched alone), ``src/repro/kernels/matmul.py:64``
+(matmul_1d_op), ``src/repro/kernels/elementwise.py:20`` (activation_op) and
+``:69`` (residual_add_op), and the chain body of
+``src/repro/core/stitch.py:177`` for the pairs rmsnorm->matmul,
+matmul->activation and matmul->residual_add.  Bound on the card: bytes —
+at decode batch the GEMM streams its weight once and does 2*M flops per
+weight element; a CTA owns a 64-column weight tile for all rows, streams it
+in 16-byte vectors with x in shared memory, and the chains keep the
+intermediate out of device memory (see the source's header for the bitwise
+contract).  The GEMM also has an fp32 form
+(x, w, out fp32, no prologue or activation, partial column tiles masked, K
+split over CTAs with a fixed-order last-CTA combine, the residual added in
+that combine): the MoE router's ``matmul_1d_op(dtype=float32)``.  RMSNorm
+and the residual add take bf16 or fp32 rows; the activation bf16 only.
 
 Beside the kernel: ``ROW``, its launch record, and the plain PyTorch
-versions (``plain_rmsnorm``, ``plain_gemm``, the activations), which run
-for CPU tensors and are the reference on the card.
+versions (``plain_rmsnorm``, ``plain_gemm``, ``plain_residual_add``, the
+activations), which run for CPU tensors and are the reference on the
+card.
 """
 from __future__ import annotations
 
@@ -32,12 +37,14 @@ from repro_torch.kernels import cuda
 
 ROW = cuda.Kernel(
     "row_member", "src/repro_torch/csrc/row_member.cuh",
-    "src/repro/kernels/rmsnorm.py:38, src/repro/kernels/matmul.py:64, "
-    "src/repro/kernels/elementwise.py:20, src/repro/core/stitch.py:177")
+    "src/repro/kernels/rmsnorm.py:38, :20, src/repro/kernels/matmul.py:64, "
+    "src/repro/kernels/elementwise.py:20, :69, src/repro/core/stitch.py:177")
 
 GEMM_TN = 64          # weight columns per CTA (csrc/row_member.cuh)
 F32_K_SLICE = 64      # K rows per CTA of the fp32 GEMM
 ACT_COLS = 2048       # output columns per CTA of the standalone activation
+RESADD_BYTES = 16384  # bytes of each operand per CTA of the residual add
+#                       (csrc/row_member.cuh: HF_THREADS x RESADD_VECS x 16)
 
 
 # ---------------------------------------------------------------------------
@@ -56,6 +63,12 @@ def plain_gemm(x: torch.Tensor, w: torch.Tensor,
                dtype: torch.dtype) -> torch.Tensor:
     """(M, K) @ (K, N) with fp32 accumulation, cast to ``dtype``."""
     return torch.matmul(x.float(), w.float()).to(dtype)
+
+
+def plain_residual_add(h: torch.Tensor, res: torch.Tensor,
+                       dtype: torch.dtype) -> torch.Tensor:
+    """h + res in fp32, cast to ``dtype``."""
+    return (h.float() + res.float()).to(dtype)
 
 
 def silu_gate(h: torch.Tensor) -> torch.Tensor:
@@ -100,14 +113,15 @@ def act_name(fn) -> str:
 # ---------------------------------------------------------------------------
 # Member descriptor
 # ---------------------------------------------------------------------------
-_SUB = {"rmsnorm": 0, "gemm": 1, "act": 2}
+_SUB = {"rmsnorm": 0, "gemm": 1, "act": 2, "resadd": 3}
 
 
 @dataclass(frozen=True)
 class RowMember:
     """One row-family member: ``sub`` is "rmsnorm" (x (M,K) -> (M,K)),
-    "gemm" (x (M,K) @ w (K,N), optionally normalised first and activated
-    after) or "act" (h (M,K) -> (M,N)).  The dims are the whole op's, so the
+    "gemm" (x (M,K) @ w (K,N), optionally normalised first, and activated
+    or added to a residual (M,N) after), "act" (h (M,K) -> (M,N)) or
+    "resadd" (h + res, both (M,K)).  The dims are the whole op's, so the
     member computes the same function whatever block shape planned it."""
     sub: str
     M: int
@@ -115,13 +129,14 @@ class RowMember:
     N: int
     prologue: bool = False
     act: Optional[str] = None
+    residual: bool = False      # gemm: the residual-add epilogue
     eps: float = 1e-6
-    fp32: bool = False          # gemm: the fp32 form (x, w, out fp32)
+    fp32: bool = False          # rmsnorm, gemm, resadd: fp32 operands
     kernel: ClassVar[cuda.Kernel] = ROW
 
     @property
     def out_cols(self) -> int:
-        if self.sub == "rmsnorm":
+        if self.sub in ("rmsnorm", "resadd"):
             return self.K
         if self.act is not None and ACTIVATIONS[self.act][2]:
             return self.N // 2
@@ -138,35 +153,46 @@ class RowMember:
             return self.M
         if self.sub == "gemm":
             return math.ceil(self.N / GEMM_TN) * self.k_slices
+        if self.sub == "resadd":
+            return math.ceil(self.M * self.K * (4 if self.fp32 else 2)
+                             / RESADD_BYTES)
         return self.M * math.ceil(self.N / ACT_COLS)
 
     def pack(self, md, ins, outs):
         """Describe, check and bind one launch; returns the fp32 GEMM's
         workspace (alive until the launch is queued), else None."""
-        bf = torch.bfloat16
+        bf, f32 = torch.bfloat16, torch.float32
+        dt = f32 if self.fp32 else bf
         md.kind = cuda.ROW
         md.i[0] = _SUB[self.sub]
         md.i[1], md.i[2], md.i[3] = self.M, self.K, self.N
         md.i[4] = int(self.prologue)
         md.i[5] = -1 if self.act is None else ACTIVATIONS[self.act][1]
+        md.i[6] = int(self.fp32)
+        md.i[8] = int(self.residual)
         md.f[0] = self.eps
         M, K, N = self.M, self.K, self.N
         if self.sub == "rmsnorm":
-            md.inp[0] = cuda.check(ins[0], "rmsnorm x", (M, K), bf)
-            md.inp[1] = cuda.check(ins[1], "rmsnorm scale", (1, K),
-                                   torch.float32)
-            md.out[0] = cuda.check(outs[0], "rmsnorm out", (M, K), bf)
+            md.inp[0] = cuda.check(ins[0], "rmsnorm x", (M, K), dt)
+            md.inp[1] = cuda.check(ins[1], "rmsnorm scale", (1, K), f32)
+            md.out[0] = cuda.check(outs[0], "rmsnorm out", (M, K), dt)
+            return
+        if self.sub == "resadd":
+            md.inp[0] = cuda.check(ins[0], "resadd h", (M, K), dt)
+            md.inp[1] = cuda.check(ins[1], "resadd res", (M, K), dt)
+            md.out[0] = cuda.check(outs[0], "resadd out", (M, K), dt)
             return
         if self.sub == "act":
             md.inp[0] = cuda.check(ins[0], "act h", (M, K), bf)
             md.out[0] = cuda.check(outs[0], "act out", (M, N), bf)
             return
+        if self.residual:
+            md.inp[3] = cuda.check(ins[-1], "gemm res", (M, N), dt)
         if self.fp32:
             if self.prologue or self.act is not None or N % 4:
                 raise ValueError("the fp32 row GEMM takes no prologue or "
                                  f"activation and N % 4 == 0, got N={N}")
-            f32 = torch.float32
-            md.i[6], md.i[7] = 1, self.k_slices
+            md.i[7] = self.k_slices
             md.inp[0] = cuda.check(ins[0], "gemm x", (M, K), f32)
             md.inp[2] = cuda.check(ins[1], "gemm w", (K, N), f32)
             md.out[0] = cuda.check(outs[0], "gemm out", (M, N), f32)
@@ -191,8 +217,8 @@ class RowMember:
 
 def chain_reason(producer, consumer) -> Optional[str]:
     """None iff the row kernel implements ``producer`` -> ``consumer`` as
-    one member (rmsnorm -> gemm as a prologue, gemm -> act as an
-    epilogue); otherwise why not."""
+    one member (rmsnorm -> gemm as a prologue, gemm -> act and gemm ->
+    resadd as epilogues); otherwise why not."""
     p, c = producer, consumer
     if not (isinstance(p, RowMember) and isinstance(c, RowMember)):
         return "no fused kernel: only row-family members chain"
@@ -200,9 +226,10 @@ def chain_reason(producer, consumer) -> Optional[str]:
         if (p.M, p.K) != (c.M, c.K):
             return f"rmsnorm {p.M}x{p.K} does not feed gemm {c.M}x{c.K}"
         return None
-    if p.sub == "gemm" and c.sub == "act" and p.act is None:
+    if (p.sub == "gemm" and c.sub in ("act", "resadd") and p.act is None
+            and not p.residual):
         if (p.M, p.N) != (c.M, c.K):
-            return f"gemm {p.M}x{p.N} does not feed act {c.M}x{c.K}"
+            return f"gemm {p.M}x{p.N} does not feed {c.sub} {c.M}x{c.K}"
         return None
     return f"no fused kernel for {p.sub}->{c.sub}"
 
@@ -214,4 +241,6 @@ def chain(producer: RowMember, consumer: RowMember) -> RowMember:
         raise ValueError(reason)
     if producer.sub == "rmsnorm":
         return replace(consumer, prologue=True, eps=producer.eps)
+    if consumer.sub == "resadd":
+        return replace(producer, residual=True)
     return replace(producer, act=consumer.act)

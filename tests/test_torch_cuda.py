@@ -2,7 +2,8 @@
 version, at reduced and full granite-3-2b widths.
 
 Paged attention members are held BITWISE against the contiguous members on
-the same logical cache.  The grouped expert FFN differs from its plain
+the same logical cache, the residual add and the matmul->residual_add
+chain against their plain versions and the chain's separate members.  The grouped expert FFN differs from its plain
 version only in the order of its fp32 sums (bf16 tolerance); the fp32 router
 GEMM is held to the fp32 tolerance.
 
@@ -235,8 +236,8 @@ def test_launch_counts_and_cpu_plain_route(cuda_dev):
 
 
 def test_wrong_dtype_raises(cuda_dev):
-    op = rmsnorm_op(8, 64, dtype=torch.float32, bm=8)
-    x = torch.zeros((8, 64), device="cuda")
+    op = rmsnorm_op(8, 64, dtype=torch.float16, bm=8)
+    x = torch.zeros((8, 64), dtype=torch.float16, device="cuda")
     with pytest.raises(ValueError, match="dtype"):
         hfuse.run_single(op)(x, torch.zeros((1, 64), device="cuda"))
 
@@ -549,3 +550,161 @@ def test_moe_gmm_bundle_with_prefill_bitwise_equals_native(cuda_dev, ratios):
            _randn((S, Hkv, D), g))
     fused = hfuse.generate((gmm, pf), Schedule(ratios))(*ins)
     assert _same(fused, hfuse.run_native((gmm, pf))(*ins))
+
+
+# ---------------------------------------------------------------------------
+# kernels/ops.py's surface: the tiled matmul, the standalone rmsnorm (bf16
+# and fp32), the residual add and its GEMM epilogue, flash attention
+# ---------------------------------------------------------------------------
+F32 = torch.float32
+
+
+def _close(out, ref):
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    (_close_bf16 if out.dtype == BF else _close_f32)(out, ref)
+
+
+@pytest.mark.parametrize("dtype", [BF, F32])
+@pytest.mark.parametrize("M,K,N", [(256, 128, 128), (512, 256, 384),
+                                   (128, 512, 256), (300, 200, 136),
+                                   (8192, 2048, 3072)])
+def test_tiled_matmul(cuda_dev, M, K, N, dtype):
+    """The reference's shapes, one ragged in every dim (masked edges and a
+    part k slab) and granite's QKV at train rows; a launch bumps the
+    count."""
+    from repro_torch.kernels import matmul as mm
+    g = _gen(30)
+    x = _randn((M, K), g, dtype)
+    w = _randn((K, N), g, dtype, K ** -0.5)
+    before = mm.TILED_MATMUL.launches
+    got = mm.matmul(x, w)
+    assert mm.TILED_MATMUL.launches == before + 1
+    _close(got, mm.row.plain_gemm(x, w, dtype))
+    assert torch.equal(got, mm.matmul(x, w))      # fixed summation order
+
+
+@pytest.mark.parametrize("dtype,K,N", [(torch.float16, 64, 64),
+                                       (BF, 100, 64), (F32, 64, 66)])
+def test_tiled_matmul_raises_on_what_it_cannot_take(cuda_dev, dtype, K, N):
+    from repro_torch.kernels import matmul as mm
+    x = torch.zeros((64, K), dtype=dtype, device="cuda")
+    w = torch.zeros((K, N), dtype=dtype, device="cuda")
+    with pytest.raises(ValueError, match="kernel takes"):
+        mm.matmul(x, w)
+
+
+@pytest.mark.parametrize("dtype", [BF, F32])
+@pytest.mark.parametrize("R,d", [(256, 128), (512, 512), (128, 384),
+                                 (8192, 2048)])
+def test_rmsnorm_standalone(cuda_dev, R, d, dtype):
+    from repro_torch.kernels import row
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    g = _gen(31)
+    x = _randn((R, d), g, dtype)
+    scale = _randn((d,), g, F32, 0.1)
+    before = row.ROW.launches
+    got = rmsnorm(x, scale)
+    assert row.ROW.launches == before + 1
+    _close(got, row.plain_rmsnorm(x, scale))
+
+
+@pytest.mark.parametrize("dtype", [BF, F32])
+@pytest.mark.parametrize("R,F", [(8, 64), (37, 100), (8192, 2048)])
+def test_residual_add_member(cuda_dev, R, F, dtype):
+    """Both rounded operands summed in fp32 and rounded once, as the plain
+    version does: bitwise; (37, 100) ends in a part vector."""
+    g = _gen(32)
+    h, res = _randn((R, F), g, dtype), _randn((R, F), g, dtype)
+    op = elementwise.residual_add_op(R, F, dtype)
+    (got,), (want,) = _kernel_vs_plain(op, h, res)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [BF, F32])
+@pytest.mark.parametrize("width", sorted(WIDTHS))
+def test_gemm_resadd_chain_bitwise(cuda_dev, width, dtype):
+    """matmul->residual_add (W_o at decode): the chain equals its GEMM and
+    residual-add members launched separately, bit for bit, and matches
+    the plain chain."""
+    B, d = WIDTHS[width][:2]
+    g = _gen(33)
+    x, res = _randn((B, d), g, dtype), _randn((B, d), g, dtype)
+    w = _randn((d, d), g, dtype, d ** -0.5)
+    mm = matmul_1d_op(B, d, d, dtype, bm=B)
+    add = elementwise.residual_add_op(B, d, dtype, bm=B)
+    chain = stitch.stitch(mm, add, "h")
+    (got,) = hfuse.run_single(chain)(x, w, res)
+    (h,) = hfuse.run_single(mm)(x, w)
+    assert torch.equal(got, hfuse.run_single(add)(h, res)[0])
+    _close(got, hfuse.run_single(chain, plain=True)(x, w, res)[0])
+
+
+@pytest.mark.parametrize("dtype", [BF, F32])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("B,S,H,Hkv", [(2, 256, 4, 4), (2, 256, 8, 2),
+                                       (1, 203, 6, 2), (1, 512, 8, 1)])
+def test_flash_attention_kernel(cuda_dev, B, S, H, Hkv, D, causal, dtype):
+    """No GQA, GQA at rep 4 and 8, a part last query tile at rep 3: the
+    (B,S,H,D) kernel against the reference's route on the plain version
+    (KV heads repeated, heads flattened); the (BH,S,D) form is the same
+    kernel at one head."""
+    from repro_torch.kernels import flash_attention as fa
+    g = _gen(34)
+    q = _randn((B, S, H, D), g, dtype)
+    k, v = _randn((B, S, Hkv, D), g, dtype), _randn((B, S, Hkv, D), g, dtype)
+    before = fa.FLASH.launches
+    got = fa.flash_attention_bshd(q, k, v, causal=causal)
+    assert fa.FLASH.launches == before + 1
+    want = fa.flash_attention_bshd(q.cpu(), k.cpu(), v.cpu(), causal=causal)
+    _close(got, want.to("cuda"))
+    qf = q.transpose(1, 2).reshape(B * H, S, D).contiguous()
+    kf = k.repeat_interleave(H // Hkv, dim=2).transpose(1, 2).reshape(
+        B * H, S, D).contiguous()
+    vf = v.repeat_interleave(H // Hkv, dim=2).transpose(1, 2).reshape(
+        B * H, S, D).contiguous()
+    flat = fa.flash_attention(qf, kf, vf, causal=causal)
+    _close(flat, fa.plain_flash_attention(qf, kf, vf, causal=causal))
+
+
+def test_flash_attention_full_width(cuda_dev):
+    """granite-3-2b's train attention: B 4, S 2048, 32/8 heads, D 64."""
+    from repro_torch.kernels import flash_attention as fa
+    g = _gen(35)
+    q = _randn((4, 2048, 32, 64), g)
+    k, v = _randn((4, 2048, 8, 64), g), _randn((4, 2048, 8, 64), g)
+    got = fa.flash_attention_bshd(q, k, v)
+    _close(got, fa.plain_flash_attention_bshd(q, k, v))
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.float16, 64), (BF, 136),
+                                     (F32, 20)])
+def test_flash_attention_raises_on_what_it_cannot_take(cuda_dev, dtype, D):
+    from repro_torch.kernels import flash_attention as fa
+    q = torch.zeros((1, 64, 2, D), dtype=dtype, device="cuda")
+    with pytest.raises(ValueError, match="kernel takes"):
+        fa.flash_attention_bshd(q, q, q)
+
+
+def test_ops_hfused_adamw_ten_leaves(cuda_dev):
+    """Ten leaves: two bundle launches of the AdamW member (at most 8
+    members each), equal to the plain route bit for bit."""
+    from repro_torch.kernels import adam, ops
+    g = _gen(36)
+    shapes = [(3 + i, 129) for i in range(10)]
+    trees = [{f"l{i}": _randn(s, g, F32, 0.1) for i, s in enumerate(shapes)}
+             for _ in range(4)]
+    trees[3] = {k: t.abs() for k, t in trees[3].items()}      # v >= 0
+    kw = dict(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8, wd=0.1, bc1=0.1, bc2=0.05)
+    plain = [{k: t.clone() for k, t in tr.items()} for tr in trees]
+    before = adam.ADAMW.launches
+    ops.hfused_adamw(*trees, **kw)
+    assert adam.ADAMW.launches == before + 2
+    sc = torch.zeros((1, adam.LANES), device="cuda")
+    sc[0, :3] = torch.tensor([kw["lr"], kw["bc1"], kw["bc2"]])
+    adam.multi_tensor_adamw(*plain, sc, b1=kw["b1"], b2=kw["b2"],
+                            eps=kw["eps"], wd=kw["wd"], plain=True)
+    for got, want in zip((trees[0], trees[2], trees[3]),
+                         (plain[0], plain[2], plain[3])):
+        for k in got:
+            assert torch.equal(got[k], want[k]), k
