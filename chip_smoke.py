@@ -49,6 +49,26 @@ non-zero exit code and no result line.
              singles, on synthetic full-width state; the whole update timed
              against its bound and fused ``torch.optim.AdamW`` over the same
              leaves.
+  6b. update_dw  ``plan_update_fusion``'s plan (phase 5, both stacked norm
+             scales' fp32 dW->AdamW chains) compiled by ``executor.compile_plan``
+             with seeded x^T (d_in, 8192) and dy (8192, d_out) for the dW
+             operands, run with the counters reset, together with the chain
+             sweep and the bf16 dW->AdamW chain at a layer's W_o (2048 x 8192
+             @ 8192 x 2048, bm 256), each once; the program held BITWISE
+             against the same plan run as separate launches (each dW GEMM
+             alone, its gradient stored, then the update) and timed beside
+             them and its byte bound.  The chain sweep: every producer -> consumer pair
+             of rmsnorm, the two activations, the residual add, the W_o /
+             gate+up / down GEMMs and the AdamW update at granite decode width
+             (M 8, d 2048, d_ff 8192) that the stitching contract accepts, bf16
+             and fp32, each BITWISE against its two members launched
+             separately and timed beside them, its plain version, its bound
+             and, for the GEMM -> residual add, ``torch.addmm``.  Then
+             ``BUNDLE_CHAINS`` (the chains of the bundle kernel's chain
+             instance: dW -> AdamW, GEMM -> rmsnorm through the workspace, a
+             row-wise pair, the fp32 GEMM's epilogues and staged producer)
+             and the AdamW member in ONE ``hfuse.generate`` launch, BITWISE
+             against ``run_native`` of the same members, and timed beside it.
   7. train   full-width granite-3-2b (40 layers, bf16, fp32 moments, remat,
              random weights from a seeded torch.Generator), batch 4 x seq
              2048 from ``TokenPipeline``, 4 steps of ``make_train_step`` with
@@ -104,9 +124,9 @@ non-zero exit code and no result line.
              shape and ``ops.hfused_adamw`` over the layer's six leaves.
   9. report  one JSON line of kernels, then the result line.
 
-Each main path (paper, train, serve, paged, moe, ops) runs with every launch
-counter reset just before it and read just after; each of its kernels must
-have launched.
+Each main path (paper, update_dw, train, serve, paged, moe, ops) runs with
+every launch counter reset just before it and read just after; each of
+its kernels must have launched.
 
 Exits with code 1 and no result when no CUDA device is visible, and with
 code 2 when the port's sources are not beside it.
@@ -144,6 +164,12 @@ BF16_REL = 2.0 ** -7
 # to bf16 (2**-8 relative) and the two sides sum in different orders, so
 # they drift by a few bf16 steps per layer; a wrong kernel gives O(1).
 LOGITS_REL_L2 = 5e-2
+# A bf16 chain against its plain route (phase 6b): the two round the
+# intermediate to bf16 after sums in other orders, so it may differ by one
+# bf16 step (up to 2**-7 relative); an fp32 output behind it moves by the
+# consumer's response: AdamW's v by (1 - b2) * 2|g| * dg, up to 2**-6 of its
+# largest value.  Twice that.
+CHAIN_BF16_REL = 2.0 ** -5
 # Flash attention (phase 8d) is also held by relative L2 (whole output,
 # worst query row): compare()'s limit scales with the causal output's
 # largest value (row 0, which is v[0] itself) and is as large as a late
@@ -697,7 +723,7 @@ def phase_plan(torch, dev, cfg):
     check(prog2.describe() == prog.describe()
           and fplan2.summary() == fplan.summary(),
           "the cached replan differs from the measured plan")
-    return prog2
+    return prog2, fplan2
 
 
 # ---------------------------------------------------------------------------
@@ -797,6 +823,336 @@ def phase_update_bundles(torch, dev, cfg, program) -> dict:
     del A, params, lib
     torch.cuda.empty_cache()
     return {"ms": ms, "bound_ms": bound_ms, "library_ms": lib_ms}
+
+
+# ---------------------------------------------------------------------------
+# Phase 6b: the update+dW program and the chain sweep
+# ---------------------------------------------------------------------------
+def _chain_inputs(torch, op, g, dev="cuda"):
+    """Seeded operands of an OpSpec by name: AdamW's scalars, v >= 0, a
+    weight at 1/sqrt(fan-in), small norm scales, normals otherwise."""
+    ins = []
+    for name, o in zip(op.in_names, op.inputs):
+        if name == "scalars":
+            t = torch.zeros(o.shape, device=dev)
+            t[0, :3] = torch.tensor([3e-4, 1 - 0.9, 1 - 0.95])
+        elif name == "v":
+            t = torch.rand(o.shape, generator=g, device=dev).mul_(1e-6)
+        else:
+            scale = {"w": o.shape[0] ** -0.5, "scale": 0.1, "p": 0.02,
+                     "m": 1e-4}.get(name, 1.0)
+            t = (torch.randn(o.shape, generator=g, device=dev)
+                 * scale).to(o.dtype)
+        ins.append(t)
+    return ins
+
+
+def _io_bytes(ins, outs) -> float:
+    """Each input read once, each output written once."""
+    return float(sum(t.numel() * t.element_size() for t in (*ins, *outs)))
+
+
+def _sweep_ops(torch, cfg, dt):
+    """The chain sweep's ops at granite-3-2b decode width (M = B rows):
+    producers and consumers of one dtype, each a whole op at grid 1."""
+    import dataclasses
+
+    from repro_torch.kernels import adam, elementwise as el
+    from repro_torch.kernels.matmul import matmul_1d_op
+    from repro_torch.kernels.rmsnorm import rmsnorm_op
+    d, f = cfg.d_model, cfg.d_ff
+    ops = {"rmsnorm": rmsnorm_op(B, d, dt, bm=B),
+           "resadd": el.residual_add_op(B, d, dt, bm=B),
+           "act_gelu": el.activation_op(B, d, d, el.gelu_plain, dt, bm=B),
+           "act_silu": el.activation_op(B, 2 * f, f, el.silu_gate, dt, bm=B),
+           "W_o": matmul_1d_op(B, d, d, dt, bm=B),
+           "gate_up": matmul_1d_op(B, d, 2 * f, dt, bm=B),
+           "down": matmul_1d_op(B, f, d, dt, bm=B),
+           "adamw": adam.adamw_op(B * d // 128, dt, bm=B * d // 128)}
+    return {k: dataclasses.replace(o, name=k) for k, o in ops.items()}
+
+
+def _chain_cases(torch, cfg):
+    """(dtype, producer, consumer, operand) of every pair of the sweep ops
+    that the stitching contract accepts; ``down`` only consumes."""
+    import dataclasses
+
+    from repro_torch.core import stitch
+    cases = []
+    for dt in (torch.bfloat16, torch.float32):
+        ops = _sweep_ops(torch, cfg, dt)
+        for p, pop in ops.items():
+            if p in ("down", "adamw"):
+                continue
+            for c, cop in ops.items():
+                if c == p:
+                    cop = dataclasses.replace(cop, name=f"{c}_2")
+                for name in cop.in_names:
+                    if stitch.can_stitch(pop, cop, name) is None:
+                        cases.append((dt, pop, cop, name))
+    return cases
+
+
+def _separate(hfuse, pop, cop, name):
+    """The chain's two members launched one after the other."""
+    n_pi, sidx = len(pop.inputs), cop.in_names.index(name)
+    shape = cop.inputs[sidx].shape
+    run_p, run_c = hfuse.run_single(pop), hfuse.run_single(cop)
+
+    def run(*ins):
+        (mid,) = run_p(*ins[:n_pi])
+        rest = ins[n_pi:]
+        return run_c(*rest[:sidx], mid.reshape(shape), *rest[sidx:])
+    return run
+
+
+def _chain_label(pop, cop, name, dt):
+    return (f"{pop.name}->{cop.name.removesuffix('_2')}.{name} "
+            f"{str(dt)[6:]}")
+
+
+def _update_dw_state(torch, dev, plan, graph, layout, seed):
+    """The default-binding state of ``plan``'s program at full width, from
+    a seed: each update's (R, 128) p, g (param dtype), m, v (fp32), and
+    each dW chain's x^T (d_in, tokens) and dy (tokens, d_out)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    sc = torch.zeros((1, 128), device=dev)
+    sc[0, :3] = torch.tensor([3e-4, 1 - 0.9, 1 - 0.95])
+    by_name = {gop.op.name: gop.op for gop in graph}
+    bufs = {}
+    for name, _path, _n, R, _bm in layout:
+        dt = by_name[name].inputs[1].dtype
+        p, gr = (torch.empty((R, 128), dtype=dt, device=dev)
+                 for _ in range(2))
+        m, v = (torch.empty((R, 128), device=dev) for _ in range(2))
+        p.normal_(0, 0.02, generator=g)
+        gr.normal_(0, 1e-3, generator=g)
+        m.normal_(0, 1e-4, generator=g)
+        v.uniform_(0, 1e-7, generator=g)
+        bufs[name] = (p, gr, m, v)
+    state = {}
+    for gop in plan.graph:
+        op = gop.op
+        p, gr, m, v = bufs[op.chain[1] if op.chain else op.name]
+        state.update({f"{op.name}.scalars": sc, f"{op.name}.p": p,
+                      f"{op.name}.m": m, f"{op.name}.v": v})
+        if op.chain:
+            dw = by_name[op.chain[0]]
+            (M, K), N = dw.inputs[0].shape, dw.inputs[1].shape[1]
+            dt = dw.inputs[0].dtype
+            state[f"{op.name}.x"] = torch.randn(
+                (M, K), generator=g, device=dev).to(dt)
+            state[f"{op.name}.w"] = (torch.randn(
+                (K, N), generator=g, device=dev) * K ** -0.5).to(dt)
+        else:
+            state[f"{op.name}.g"] = gr
+    return state
+
+
+def compare_chain(torch, got, want, bf16_chain: bool) -> float:
+    """A chain against its plain route: ``compare``, except that an fp32
+    output of a chain whose intermediate is bf16 (AdamW's m and v behind a
+    bf16 gradient) is held to CHAIN_BF16_REL of its largest value."""
+    if not bf16_chain:
+        return compare(torch, got, want)
+    worst = 0.0
+    for a, b in zip(got, want):
+        if a.dtype == torch.bfloat16:
+            worst = max(worst, compare(torch, (a,), (b,)))
+            continue
+        check(bool(torch.isfinite(a).all()), "non-finite output")
+        err = (a - b).abs().max().item()
+        tol = CHAIN_BF16_REL * b.abs().max().item() + 1e-12
+        check(err <= tol, f"chain output off by {err} > {tol}")
+        worst = max(worst, err)
+    return worst
+
+
+# the chain bundle: one chain of each kind that runs only in the bundle
+# kernel's chain instance, beside a GEMM prologue chain and the AdamW member
+BUNDLE_CHAINS = ("dW_w_o->adamw_w_o.g bfloat16", "W_o->rmsnorm.x bfloat16",
+                 "resadd->rmsnorm.x bfloat16", "rmsnorm->gate_up.x bfloat16",
+                 "W_o->adamw.g float32", "W_o->rmsnorm.x float32",
+                 "rmsnorm->W_o.x float32")
+
+
+def chain_bundle(torch, dev, cfg, runs, flush) -> None:
+    """BUNDLE_CHAINS and the bf16 AdamW update in one fused launch
+    (ratios 1), bitwise against run_native of the same members, and timed
+    beside it."""
+    from repro_torch.core import hfuse
+    from repro_torch.core.cost_model import Schedule
+    from repro_torch.core.timing import median_ms
+
+    by_label = {_chain_label(pop, cop, name, dt): (chain, ins)
+                for dt, pop, cop, name, chain, ins in runs}
+    g = torch.Generator(device=dev)
+    g.manual_seed(1607)
+    upd = _sweep_ops(torch, cfg, torch.bfloat16)["adamw"]
+    members = [by_label[k] for k in BUNDLE_CHAINS]
+    members.append((upd, _chain_inputs(torch, upd, g, dev)))
+    ops = [op for op, _ in members]
+    ins = [t for _, i in members for t in i]
+    fused = hfuse.generate(ops, Schedule((1,) * len(ops)))
+    got = fused(*[t.clone() for t in ins])
+    want = hfuse.run_native(ops)(*[t.clone() for t in ins])
+    check(len(got) == len(want) and all(
+        torch.equal(a, b) for a, b in zip(got, want)),
+        "the chain bundle differs from run_native of its members")
+    fused_ms = median_ms(lambda: fused(*ins), flush)
+    native_ms = median_ms(lambda: hfuse.run_native(ops)(*ins), flush)
+    print(f"[update_dw] chain bundle of {len(ops)} members ({fused.n_steps} "
+          f"CTAs) bitwise equal to run_native: {fused_ms:.4f} ms fused, "
+          f"{native_ms:.4f} ms native", flush=True)
+
+
+def phase_update_dw(torch, dev, cfg, fplan) -> tuple[list[dict], dict]:
+    import dataclasses
+
+    from repro_torch.core import executor, hfuse, stitch
+    from repro_torch.core.timing import flush_buffer, median_ms
+    from repro_torch.kernels import adam, cuda, registry, row
+    from repro_torch.kernels.matmul import matmul_1d_op
+    from repro_torch.train import train_loop as tl
+    from repro_torch.models import lm
+
+    flush = flush_buffer(dev)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    graph, layout = tl.update_graph(lm.abstract_params(cfg), tokens=tokens,
+                                    max_tensors=8, include_dW=True)
+    ops = {gop.op.name: gop.op for gop in graph}
+    chains = [gop.op for gop in fplan.graph if gop.op.chain]
+    check(len(chains) == 2 and all(
+        ops[c.chain[0]].member.fp32 for c in chains),
+        f"expected the two fp32 dW->adamw chains, got "
+        f"{[c.name for c in chains]}")
+    program = executor.compile_plan(fplan)
+    print(f"[update_dw] program: {program.describe()}", flush=True)
+
+    # the separated launches: each dW GEMM alone, its gradient stored, then
+    # the update alone; the updates without a dW as they are
+    def separated(state):
+        for st in program.steps:
+            for op in st.ops:
+                args = [state[f"{op.name}.{n}"] for n in op.in_names]
+                if not op.chain:
+                    hfuse.run_single(op)(*args)
+                    continue
+                dw, upd = ops[op.chain[0]], ops[op.chain[1]]
+                (grad,) = hfuse.run_single(dw)(*args[:2])
+                sc, p, m, v = args[2:]
+                hfuse.run_single(upd)(sc, p, grad.reshape(p.shape), m, v)
+
+    # the sweep's chains and the bf16 dW->adamw at a layer's W_o shape
+    cases = _chain_cases(torch, cfg)
+    d = cfg.d_model
+    bm = min(256, d)
+    wo_dw = matmul_1d_op(d, tokens, d, torch.bfloat16, bm=bm)
+    wo_upd = adam.adamw_op(d * d // 128, torch.bfloat16, bm=bm * d // 128)
+    cases.append((torch.bfloat16, dataclasses.replace(wo_dw, name="dW_w_o"),
+                  dataclasses.replace(wo_upd, name="adamw_w_o"), "g"))
+    g = torch.Generator(device=dev)
+    g.manual_seed(1606)
+    runs = []
+    for dt, pop, cop, name in cases:
+        chain = stitch.stitch(pop, cop, name)
+        runs.append((dt, pop, cop, name, chain,
+                     _chain_inputs(torch, chain, g, dev)))
+
+    # the path, counters reset: the full-width program once, each chain once
+    st_a = _update_dw_state(torch, dev, fplan, graph, layout, 21)
+    st_b = _update_dw_state(torch, dev, fplan, graph, layout, 21)
+    kernels = registry()
+    torch.cuda.synchronize()
+    cuda.reset_counts(kernels)
+    program(st_a)
+    outs = []
+    for dt, pop, cop, name, chain, ins in runs:
+        outs.append(hfuse.run_single(chain)(*[t.clone() for t in ins]))
+    torch.cuda.synchronize()
+    counts = {k.name: k.launches for k in kernels}
+    print(f"[update_dw] launches {counts}", flush=True)
+    for k in ("bundle_launcher", "row_member", "adamw_member"):
+        check(counts[k] > 0, f"{k} never launched on the update+dW path")
+    check(counts["row_member"] == len(chains) + len(runs),
+          f"row_member launched {counts['row_member']} times, expected "
+          f"{len(chains) + len(runs)}")
+
+    # the program bitwise against its separated launches
+    separated(st_b)
+    for gop in fplan.graph:
+        for n in gop.op.out_names:
+            key = f"{gop.op.name}.{n}"
+            check(torch.equal(st_a[key], st_b[key]), f"update+dW program: "
+                  f"{key} differs from the separated launches")
+    print(f"[update_dw] program with {len(chains)} dW->adamw chains bitwise "
+          f"equal to the separated launches; {program.n_fused} fused "
+          "launches", flush=True)
+    prog_bytes = sum(_io_bytes([st_a[f"{op.name}.{n}"] for n in op.in_names],
+                               [st_a[f"{op.name}.{n}"] for n in op.out_names])
+                     for st in program.steps for op in st.ops)
+    prog_ms = median_ms(lambda: program(st_a), flush)
+    sep_ms = median_ms(lambda: separated(st_b), flush)
+    prog_bound = prog_bytes / HBM_BYTES_S * 1e3
+    print(f"[update_dw] executed program {prog_ms:.4f} ms, separated "
+          f"launches {sep_ms:.4f} ms, bound {prog_bound:.4f} ms by bytes "
+          f"({prog_bytes / 1e9:.2f} GB)", flush=True)
+    rows = []
+    for chain in chains:
+        dw, upd = ops[chain.chain[0]], ops[chain.chain[1]]
+        ins = [st_a[f"{chain.name}.{n}"] for n in chain.in_names]
+        run, plain = hfuse.run_single(chain), hfuse.run_single(chain,
+                                                               plain=True)
+        err = compare_chain(torch, run(*[t.clone() for t in ins]),
+                            plain(*[t.clone() for t in ins]), False)
+        rows.append(kernel_row(
+            "update_dw", f"row_member:{dw.name}->adamw {str(dw.inputs[0].dtype)[6:]} "
+            f"{dw.member.M}x{dw.member.K}@{dw.member.K}x{dw.member.N}",
+            row.ROW, "row_member.cuh",
+            "src/repro/core/stitch.py:177 (dW matmul->adamw)", err,
+            median_ms(lambda: run(*ins), flush),
+            median_ms(lambda: plain(*ins), flush),
+            (_io_bytes(ins, ins[3:]), dw.flops + upd.flops), FP32_FLOPS,
+            None, separate_ms=median_ms(
+                lambda: _separate(hfuse, dw, upd, "g")(*ins), flush)))
+    del st_a, st_b
+    free_card(torch)
+
+    # each chain of the sweep bitwise against its two members, then timed
+    for (dt, pop, cop, name, chain, ins), got in zip(runs, outs):
+        label = _chain_label(pop, cop, name, dt)
+        sep = _separate(hfuse, pop, cop, name)
+        want = sep(*[t.clone() for t in ins])
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"chain {label} differs from its separate members")
+        run, plain = hfuse.run_single(chain), hfuse.run_single(chain,
+                                                               plain=True)
+        err = compare_chain(torch, got, plain(*[t.clone() for t in ins]),
+                            dt == torch.bfloat16)
+        gemm = any(getattr(o.member, "sub", "") == "gemm"
+                   for o in (pop, cop))
+        peak = BF16_FLOPS if gemm and dt == torch.bfloat16 else FP32_FLOPS
+        outs_ = [ins[len(pop.inputs) + i] for i in (1, 2, 3)] \
+            if cop.aliases else got
+        lib = None
+        if gemm and getattr(cop.member, "sub", "") == "resadd":
+            x, w, res = ins
+            lib = median_ms(lambda: torch.addmm(res, x, w), flush)
+        rows.append(kernel_row(
+            "update_dw", f"row_member:{label}", row.ROW, "row_member.cuh",
+            f"src/repro/core/stitch.py:177 ({pop.name}->{cop.name})", err,
+            median_ms(lambda: run(*ins), flush),
+            median_ms(lambda: plain(*ins), flush),
+            (_io_bytes(ins, outs_), chain.flops), peak, lib,
+            separate_ms=median_ms(lambda: sep(*ins), flush)))
+    print(f"[update_dw] {len(runs)} chains bitwise equal their separate "
+          "members", flush=True)
+    chain_bundle(torch, dev, cfg, runs, flush)
+    del runs, outs
+    free_card(torch)
+    return rows, {"counts": counts, "program_ms": prog_ms,
+                  "separated_ms": sep_ms, "bound_ms": prog_bound}
 
 
 # ---------------------------------------------------------------------------
@@ -1687,7 +2043,8 @@ def main() -> int:
     cfg = get_config("granite-3-2b")
     check(cfg.num_layers == 40 and cfg.d_model == 2048, "not full width")
     # 2b. paper suite, 3. serve kernels, 4. adamw, 5. measured plan,
-    # 6. update bundles, 7. train, 8. serve, 8b. paged, 8c. moe, 8d. ops;
+    # 6. update bundles, 6b. update+dW, 7. train, 8. serve, 8b. paged,
+    # 8c. moe, 8d. ops;
     # each phase's wall time is printed before the report
     walls = {}
 
@@ -1700,8 +2057,11 @@ def main() -> int:
     rows, paper_run = timed("paper", phase_paper, torch, dev)
     rows += timed("kernels", phase_kernels, torch, dev, cfg)
     rows += timed("adamw", phase_adamw, torch, dev)
-    program = timed("plan", phase_plan, torch, dev, cfg)
+    program, fplan = timed("plan", phase_plan, torch, dev, cfg)
     update = timed("bundles", phase_update_bundles, torch, dev, cfg, program)
+    dw_rows, update_dw = timed("update_dw", phase_update_dw, torch, dev, cfg,
+                               fplan)
+    rows += dw_rows
     train = timed("train", phase_train, torch, dev, cfg, program)
     serve = timed("serve", phase_serve, torch, dev, cfg)
     free_card(torch)
@@ -1715,6 +2075,7 @@ def main() -> int:
     # 9. report: each row's launches come from its own main path's run
     names = {k.name: k for k in registry()}
     runs = {"serve": serve["counts"], "train": train["counts"],
+            "update_dw": update_dw["counts"],
             "paper": paper_run["counts"], "paged": paged["counts"],
             "moe": moe_run["counts"], "ops": ops_run["counts"]}
     for r in rows:
@@ -1730,6 +2091,9 @@ def main() -> int:
           f"{upd_ms:.3f} ms device (bound {update['bound_ms']:.3f} ms; "
           f"{train['counts']['adamw_member'] // TRAIN_STEPS} adamw launches "
           f"per step), peak {train['peak_gib']:.2f} GiB ({smi})")
+    print(f"[update_dw] program {update_dw['program_ms']:.4f} ms, "
+          f"separated {update_dw['separated_ms']:.4f} ms, bound "
+          f"{update_dw['bound_ms']:.4f} ms ({smi})")
     print(f"[serve] tokens/s {serve['tokens_per_s']:.3f} ({smi})")
     print(f"[paged] tokens/s {paged['tokens_per_s']:.3f}, prefix hit rate "
           f"{paged['prefix_hit_rate']:.3f}, prefill chunks paged/contiguous "

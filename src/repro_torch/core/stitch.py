@@ -5,19 +5,21 @@ kernel with the intermediate kept on chip: the chain is just an OpSpec,
 so it becomes one *member* of a horizontal bundle (one ratio coordinate
 for the autotuner, one node for the planner).
 
-On the card a chain's member is the producer kernel with the consumer
-fused as a prologue or an epilogue.  The row kernel implements three
-pairs: rmsnorm->matmul (normalise into shared memory, then the GEMM) and
-matmul->activation (the activation on the fp32 tile before the only
-store), which the decode step declares, and matmul->residual_add (the
-residual added to the rounded product before the only store; in fp32, in
-the K slices' combine).  A chain is bitwise equal to its two ops run
-separately (the row kernel's rounding contract, ``csrc/row_member.cuh``).
-The train update graph's dW->adamw pair is accepted with the reference's
-checks and planned, but it is planning-only in both packages: its member
-(``kernels/adam.DwAdamwChain``) raises if it is ever launched.
-``can_stitch`` gives the reason for any other pair, so the planner leaves
-it unstitched, and ``stitch`` raises on it.
+On the card a chain's member is ``kernels/row.RowChain``: one descriptor
+(producer, consumer, stitched slot) that the row kernel
+(``csrc/row_member.cuh``) runs as one member of the bundle launch.  Every
+pair that the reference's ``can_stitch`` accepts between the row family
+(rmsnorm, the row GEMM, the activation, the residual add) and the AdamW
+update is executable: a row-wise pair with its intermediate in shared
+memory, a row-wise producer as the GEMM's prologue, the GEMM's product
+handed to an activation, a residual add or the AdamW update (the dW->adamw
+chain of the train update graph) in its epilogue, or to an RMSNorm through
+a per-launch workspace.  A chain is bitwise equal to its two ops run
+separately (the row kernel's rounding contract).  ``can_stitch`` gives the
+reason for the few pairs it cannot run, which the reference accepts only
+for an operand every CTA reads whole (a GEMM's weight, a norm's scale) or
+for ops outside these families; the planner leaves those unstitched, and
+``stitch`` raises on them.
 
 ``can_stitch``'s planning checks (equal grids, per-step block
 correspondence, collision-free merged names) are the reference's
@@ -30,7 +32,7 @@ import math
 from typing import Optional
 
 from repro_torch.core.op_spec import Operand, OpSpec, itemsize, shrink_blocks
-from repro_torch.kernels import adam, row
+from repro_torch.kernels import row
 
 CHAIN_SEP = "→"
 
@@ -108,9 +110,7 @@ def can_stitch(producer: OpSpec, consumer: OpSpec,
                                           if n != operand)
     if len(set(merged_in)) != len(merged_in):
         return f"operand name collision in merged signature: {merged_in}"
-    if isinstance(consumer.member, adam.AdamwMember):
-        return adam.dw_chain_reason(producer.member, consumer.member)
-    return row.chain_reason(producer.member, consumer.member)
+    return row.chain_reason(producer.member, consumer.member, sidx)
 
 
 def _array_bytes(o: Operand) -> float:
@@ -147,10 +147,7 @@ def stitch(producer: OpSpec, consumer: OpSpec, operand: str) -> OpSpec:
             return None
         return stitch(ps, cs, operand)
 
-    if isinstance(consumer.member, adam.AdamwMember):
-        member = adam.DwAdamwChain(producer.member, consumer.member)
-    else:
-        member = row.chain(producer.member, consumer.member)
+    member = row.chain(producer.member, consumer.member, sidx)
     # the consumer's in-place outputs, at their inputs' places in the chain
     aliases = tuple((o, n_pi + i - (i > sidx)) for o, i in consumer.aliases)
     saved = _array_bytes(pout) + _array_bytes(cin)

@@ -24,11 +24,49 @@
 // Descriptor: i[0] = R, i[1] = bm (rows per CTA), i[2] = p/g dtype
 // (0 bf16, 1 fp32); f[0..5] = b1, 1-b1, b2, 1-b2, eps, wd;
 // in = {scalars, p, g, m, v}, out = {p, m, v}.
+//
+// adamw_update is the update of one element; the member and the row
+// chains that end in an AdamW update (csrc/row_member.cuh: the dW GEMM's
+// epilogue, a row-wise producer's stage) all call it, so a chain's update
+// is the member's, bit for bit.
 #pragma once
 
 #include "common.cuh"
 
 #define ADAMW_LANES 128
+
+// lr, bc1, bc2 from the (1, 128) scalars operand; the rest from f[0..5]
+struct AdamwK {
+  float lr, bc1, bc2, b1, omb1, b2, omb2, eps, wd;
+};
+
+__device__ __forceinline__ AdamwK adamw_consts(const MemberDesc& md,
+                                               const float* sc) {
+  return {sc[0], sc[1], sc[2], md.f[0], md.f[1], md.f[2], md.f[3], md.f[4],
+          md.f[5]};
+}
+
+// _adam_kernel's update of one element, in its operation order
+__device__ __forceinline__ void adamw_update(const AdamwK& k, float& p,
+                                             float g, float& m, float& v) {
+  m = __fadd_rn(__fmul_rn(k.b1, m), __fmul_rn(k.omb1, g));
+  v = __fadd_rn(__fmul_rn(k.b2, v), __fmul_rn(__fmul_rn(k.omb2, g), g));
+  const float den = __fadd_rn(__fsqrt_rn(__fdiv_rn(v, k.bc2)), k.eps);
+  const float step = __fadd_rn(__fdiv_rn(__fdiv_rn(m, k.bc1), den),
+                               __fmul_rn(k.wd, p));
+  p = __fsub_rn(p, __fmul_rn(k.lr, step));
+}
+
+// element e of p (T), m, v (fp32) updated in place with gradient g
+template <typename T>
+__device__ __forceinline__ void adamw_elem(const AdamwK& k, T* p, float* m,
+                                           float* v, size_t e, float g) {
+  float pv = to_f32(p[e]), mv = m[e], vv = v[e];
+  adamw_update(k, pv, g, mv, vv);
+  p[e] = from_f32<T>(pv);
+  m[e] = mv;
+  v[e] = vv;
+}
 
 __device__ __forceinline__ void adamw_load8(const bf16* src, float* f) {
   unpack8(*reinterpret_cast<const uint4*>(src), f);
@@ -57,10 +95,7 @@ __device__ __forceinline__ void adamw_store8(float* dst, const float* f) {
 template <typename T>
 __device__ __forceinline__ void adamw_block(const MemberDesc& md, size_t base,
                                             size_t n) {
-  const float* sc = static_cast<const float*>(md.in[0]);
-  const float lr = sc[0], bc1 = sc[1], bc2 = sc[2];
-  const float b1 = md.f[0], omb1 = md.f[1], b2 = md.f[2], omb2 = md.f[3];
-  const float eps = md.f[4], wd = md.f[5];
+  const AdamwK k = adamw_consts(md, static_cast<const float*>(md.in[0]));
   const T* p_in = static_cast<const T*>(md.in[1]) + base;
   const T* g_in = static_cast<const T*>(md.in[2]) + base;
   const float* m_in = static_cast<const float*>(md.in[3]) + base;
@@ -75,15 +110,7 @@ __device__ __forceinline__ void adamw_block(const MemberDesc& md, size_t base,
     adamw_load8(m_in + e, m);
     adamw_load8(v_in + e, v);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      m[j] = __fadd_rn(__fmul_rn(b1, m[j]), __fmul_rn(omb1, g[j]));
-      v[j] = __fadd_rn(__fmul_rn(b2, v[j]),
-                       __fmul_rn(__fmul_rn(omb2, g[j]), g[j]));
-      const float den = __fadd_rn(__fsqrt_rn(__fdiv_rn(v[j], bc2)), eps);
-      const float step = __fadd_rn(__fdiv_rn(__fdiv_rn(m[j], bc1), den),
-                                   __fmul_rn(wd, p[j]));
-      p[j] = __fsub_rn(p[j], __fmul_rn(lr, step));
-    }
+    for (int j = 0; j < 8; ++j) adamw_update(k, p[j], g[j], m[j], v[j]);
     adamw_store8(p_out + e, p);
     adamw_store8(m_out + e, m);
     adamw_store8(v_out + e, v);

@@ -27,6 +27,14 @@
 // own launch bounds and launcher, so neither weighs on this kernel's
 // registers.
 //
+// Two instances of the kernel: hf_bundle<true> holds the row family's chain
+// bodies (csrc/row_member.cuh: ROW_CHAIN, the GEMM's EPI_* epilogues, the
+// fp32 GEMM's staged producer) and runs every launch that carries one;
+// hf_bundle<false> runs all other launches.  Compiled into the one kernel,
+// the chain code moved ptxas's allocation of every member and slowed the
+// serve members 1.6-3.2% on the H100; the other instance keeps them as they
+// were.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false -shared
 // (src/repro_torch/kernels/cuda.py builds it at first use).
 #include "common.cuh"
@@ -41,6 +49,7 @@
 
 // At least two CTAs per SM: ptxas keeps every member within 128 registers a
 // thread, so no member's register appetite halves the others' occupancy.
+template <bool CHAINS>
 __global__ void __launch_bounds__(HF_THREADS, 2)
     hf_bundle(const __grid_constant__ BundleDesc b) {
   const int t = blockIdx.x;
@@ -51,7 +60,7 @@ __global__ void __launch_bounds__(HF_THREADS, 2)
     const int local = s * m.ratio + ph - m.offset;
     if (local >= m.ctas) return;
     switch (m.kind) {
-      case HF_ROW: row_member(m, local); break;
+      case HF_ROW: row_member<CHAINS>(m, local); break;
       case HF_DECODE_ATTN: decode_attn_member(m, local); break;
       case HF_PREFILL_ATTN: prefill_attn_member(m, local); break;
       case HF_ADAMW: adamw_member(m, local); break;
@@ -67,6 +76,20 @@ __global__ void __launch_bounds__(HF_THREADS, 2)
     }
     return;
   }
+}
+
+// Allow `smem` bytes of dynamic shared memory per CTA of one instance
+// (0 = allowed).
+template <bool CHAINS>
+static int hf_allow_smem(int smem) {
+  static int granted = 48 * 1024;
+  return hf_allow_kernel_smem(hf_bundle<CHAINS>, smem, &granted);
+}
+
+static bool hf_needs_chains(const BundleDesc& b) {
+  for (int i = 0; i < b.n; ++i)
+    if (b.m[i].kind == HF_ROW && row_chain_kernel(b.m[i])) return true;
+  return false;
 }
 
 extern "C" {
@@ -95,28 +118,34 @@ int hf_member_smem(const MemberDesc* m) {
   }
 }
 
-// Allow `smem` bytes of dynamic shared memory per CTA (0 = allowed).
-static int hf_allow_smem(int smem) {
-  static int granted = 48 * 1024;
-  return hf_allow_kernel_smem(hf_bundle, smem, &granted);
-}
-
 // Launch on `stream`; returns the cudaError_t of the launch (0 = queued).
 int hf_launch(const BundleDesc* b, int grid, int smem, void* stream) {
-  int e = hf_allow_smem(smem);
+  const bool chains = hf_needs_chains(*b);
+  int e = chains ? hf_allow_smem<true>(smem) : hf_allow_smem<false>(smem);
   if (e) return e;
-  hf_bundle<<<grid, HF_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(*b);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (chains)
+    hf_bundle<true><<<grid, HF_THREADS, smem, s>>>(*b);
+  else
+    hf_bundle<false><<<grid, HF_THREADS, smem, s>>>(*b);
   return (int)cudaGetLastError();
 }
 
 // CTAs of a launch with `smem` bytes of dynamic shared memory that fit on
-// one SM at once (registers, shared memory and threads counted); returns
-// the cudaError_t.
+// one SM at once (registers, shared memory and threads counted; the fewer
+// of the two instances); returns the cudaError_t.
 int hf_occupancy(int smem, int* ctas_per_sm) {
-  int e = hf_allow_smem(smem);
+  int e = hf_allow_smem<false>(smem);
+  if (!e) e = hf_allow_smem<true>(smem);
   if (e) return e;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      ctas_per_sm, hf_bundle, HF_THREADS, smem);
+  int a = 0, c = 0;
+  e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &a, hf_bundle<false>, HF_THREADS, smem);
+  if (!e)
+    e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &c, hf_bundle<true>, HF_THREADS, smem);
+  *ctas_per_sm = a < c ? a : c;
+  return e;
 }
 
 const char* hf_error_string(int e) {

@@ -23,9 +23,9 @@ enum { HF_ROW = 1, HF_DECODE_ATTN = 2, HF_PREFILL_ATTN = 3, HF_ADAMW = 4,
 
 struct MemberDesc {
   int kind, ctas, ratio, offset;
-  int i[12];
-  float f[6];   // baked float parameters (AdamW: b1, 1-b1, b2, 1-b2, eps, wd;
-                //   hist: bins / 8)
+  int i[16];
+  float f[8];   // baked float parameters (AdamW: b1, 1-b1, b2, 1-b2, eps, wd;
+                //   hist: bins / 8; a row chain's RMSNorm eps: f[6])
   const void* in[6];
   void* out[3];
 };

@@ -13,6 +13,12 @@ replaces the TPU kernels ``src/repro/kernels/adam.py:67`` (adamw_op), ``:42``
 place (``OpSpec.aliases``), so the update needs no second copy of the
 optimizer state.
 
+Chained: the update is also the consumer of a stitched chain
+(``core/stitch.py``): a dW GEMM or a row-wise member hands it the gradient
+in the same launch, through ``kernels/row.RowChain``, whose CUDA body calls
+this member's per-element update (``csrc/adamw_member.cuh``
+``adamw_update``).
+
 Memory: ``_flatten_leaf`` hands back a *view* of a leaf whose element count
 fills its padded rows exactly (every stacked layer leaf of granite-3-2b) and
 copies only a leaf that needs padding (its embedding).
@@ -71,18 +77,23 @@ class AdamwMember:
     def ctas(self) -> int:
         return self.R // self.bm
 
-    def pack(self, md, ins, outs) -> None:
+    def describe(self, md) -> None:
+        """The update's constants, f[0..5] (a row chain's AdamW stage
+        reads them too)."""
         if self.dtype not in _PDTYPES:
             raise ValueError(f"adamw member takes bf16 or fp32 params, got "
                              f"{self.dtype}")
-        R, f32 = self.R, torch.float32
-        md.kind = cuda.ADAMW
-        md.i[0], md.i[1], md.i[2] = R, self.bm, _PDTYPES[self.dtype]
         # 1-b1 and 1-b2 rounded from double, as a Python scalar reaches an
         # fp32 tensor op in the plain version
         for j, x in enumerate((self.b1, 1 - self.b1, self.b2, 1 - self.b2,
                                self.eps, self.wd)):
             md.f[j] = x
+
+    def pack(self, md, ins, outs) -> None:
+        self.describe(md)
+        R, f32 = self.R, torch.float32
+        md.kind = cuda.ADAMW
+        md.i[0], md.i[1], md.i[2] = R, self.bm, _PDTYPES[self.dtype]
         sc, p, g, m, v = ins
         md.inp[0] = cuda.check(sc, "adamw scalars", (1, LANES), f32)
         md.inp[1] = cuda.check(p, "adamw p", (R, LANES), self.dtype)
@@ -228,44 +239,3 @@ def unflatten_from_adam(flat2d, n, tree):
         out.append(flat[off:off + k].reshape(leaf.shape).to(leaf.dtype))
         off += k
     return tree_mod.unflatten(tree, out)
-
-
-# ---------------------------------------------------------------------------
-# The dW GEMM -> AdamW chain (planned, not executable)
-# ---------------------------------------------------------------------------
-def dw_chain_reason(producer, consumer: AdamwMember):
-    """None iff a bare row GEMM ``producer`` (dW = x^T @ dy) can hand its
-    output to ``consumer`` as the gradient block by block."""
-    from repro_torch.kernels.row import RowMember
-
-    p = producer
-    if not (isinstance(p, RowMember) and p.sub == "gemm"
-            and not p.prologue and p.act is None):
-        return "only a bare row GEMM (dW) chains into an AdamW update"
-    if p.M * p.N != consumer.R * LANES:
-        return (f"dW {p.M}x{p.N} does not fill the update's "
-                f"{consumer.R}x{LANES} gradient")
-    return None
-
-
-@dataclass(frozen=True)
-class DwAdamwChain:
-    """The member of a stitched ``dW_<w>→adamw_<w>`` chain.  The planner
-    contracts the pair as the reference does (its gradient block never
-    round-trips device memory), but the chain is planning-only in both
-    packages: the executed update graph holds no dW op, because dW's
-    operands are autograd internals.  Its CUDA body is not ported yet
-    (ROADMAP), so launching it raises; on CPU tensors the chain runs its
-    plain version like every member."""
-    gemm: object
-    adamw: AdamwMember
-    kernel: ClassVar[cuda.Kernel] = ADAMW
-
-    @property
-    def ctas(self) -> int:
-        return self.adamw.ctas          # one per update block = chain grid
-
-    def pack(self, md, ins, outs) -> None:
-        raise NotImplementedError(
-            "the dW→adamw chain is planning-only: its CUDA body is not "
-            "ported yet (ROADMAP)")

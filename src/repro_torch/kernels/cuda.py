@@ -5,6 +5,8 @@ headers) because any member must be able to share a launch with any other;
 the two standalone kernels the reference never fuses, the tiled matmul and
 flash attention, are their own ``__global__`` kernels in the same library,
 each with its own C launcher (``matmul``, ``flash_attention`` below).
+The bundle kernel itself has two instances, with and without the row
+family's chain bodies; ``hf_launch`` picks one from the members it carries.
 The library is compiled with ``nvcc`` for ``sm_90a`` at first use, into
 ``build/repro_torch/<hash of the sources>/`` at the root of the checkout,
 bound with ``ctypes`` (plain C interface, no PyTorch headers: seconds to
@@ -67,7 +69,7 @@ def reset_counts(kernels: Sequence[Kernel]) -> None:
 class MemberDesc(ctypes.Structure):
     _fields_ = [("kind", ctypes.c_int), ("ctas", ctypes.c_int),
                 ("ratio", ctypes.c_int), ("offset", ctypes.c_int),
-                ("i", ctypes.c_int * 12), ("f", ctypes.c_float * 6),
+                ("i", ctypes.c_int * 16), ("f", ctypes.c_float * 8),
                 ("inp", ctypes.c_void_p * 6), ("out", ctypes.c_void_p * 3)]
 
 

@@ -2,9 +2,9 @@
 family (``kernels/row.py``, CUDA source ``csrc/row_member.cuh``), replacing
 the TPU kernels ``src/repro/kernels/elementwise.py:20`` (activation_op) and
 ``:69`` (residual_add_op).  Standalone each is a pure device-memory round
-trip; its point is to be stitched onto the matmul that produces its input
+trip; its point is to be stitched onto the member that produces its input
 (``core/stitch.py``): the activation and the residual add become epilogues
-of the row GEMM."""
+of the row GEMM, or the second stage of a row-wise chain."""
 from __future__ import annotations
 
 from typing import Callable
@@ -21,7 +21,8 @@ def activation_op(R: int, F_in: int, F_out: int, fn: Callable,
                   dtype=torch.bfloat16, bm: int = 256,
                   name: str | None = None) -> OpSpec:
     """out = fn(h) row-wise; h (R, F_in) -> out (R, F_out).  ``fn`` is one
-    of ``silu_gate``, ``gelu_gate``, ``gelu_plain``, ``relu2``."""
+    of ``silu_gate``, ``gelu_gate``, ``gelu_plain``, ``relu2``; the CUDA
+    member takes bf16 or fp32."""
     act = row.act_name(fn)
     bm = min(bm, R)
     if R % bm:
@@ -32,7 +33,8 @@ def activation_op(R: int, F_in: int, F_out: int, fn: Callable,
 
     return OpSpec(
         name=name or f"act_{R}x{F_in}", grid=R // bm,
-        member=row.RowMember("act", M=R, K=F_in, N=F_out, act=act),
+        member=row.RowMember("act", M=R, K=F_in, N=F_out, act=act,
+                             fp32=dtype == torch.float32),
         plain=plain,
         inputs=(Operand((R, F_in), dtype, (bm, F_in), lambda s: (s, 0)),),
         outputs=(Operand((R, F_out), dtype, (bm, F_out), lambda s: (s, 0)),),

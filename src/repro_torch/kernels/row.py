@@ -1,23 +1,30 @@
-"""Row member family: RMSNorm, the row GEMM (with an optional RMSNorm
-prologue and an optional activation or residual-add epilogue), the
-activation alone and the residual add alone.
+"""Row member family: RMSNorm, the row GEMM, the activation and the residual
+add, each alone, and every chain of two of them, or of one of them and the
+AdamW update, that ``core/stitch.py`` builds.
 
 CUDA source: ``csrc/row_member.cuh``.  It replaces the TPU kernels
 ``src/repro/kernels/rmsnorm.py:38`` (rmsnorm_op) and ``:20`` (rmsnorm, the
 same body launched alone), ``src/repro/kernels/matmul.py:64``
 (matmul_1d_op), ``src/repro/kernels/elementwise.py:20`` (activation_op) and
 ``:69`` (residual_add_op), and the chain body of
-``src/repro/core/stitch.py:177`` for the pairs rmsnorm->matmul,
-matmul->activation and matmul->residual_add.  Bound on the card: bytes —
-at decode batch the GEMM streams its weight once and does 2*M flops per
-weight element; a CTA owns a 64-column weight tile for all rows, streams it
-in 16-byte vectors with x in shared memory, and the chains keep the
-intermediate out of device memory (see the source's header for the bitwise
-contract).  The GEMM also has an fp32 form
-(x, w, out fp32, no prologue or activation, partial column tiles masked, K
-split over CTAs with a fixed-order last-CTA combine, the residual added in
-that combine): the MoE router's ``matmul_1d_op(dtype=float32)``.  RMSNorm
-and the residual add take bf16 or fp32 rows; the activation bf16 only.
+``src/repro/core/stitch.py:177`` for every pair of them and for the dW
+GEMM -> AdamW update.  Bound on the card: bytes — at decode batch the GEMM
+streams its weight once and does 2*M flops per weight element; a CTA owns a
+64-column weight tile for a block of up to 64 rows, streams it in 16-byte
+vectors with x in shared memory.  The GEMM also has an fp32 form (x, w, out
+fp32, partial column tiles masked, K split over CTAs with a fixed-order
+last-CTA combine): the MoE router's ``matmul_1d_op(dtype=float32)``.
+RMSNorm, the activation and the residual add take bf16 or fp32 rows.
+
+``RowChain`` is the one descriptor of every chain: producer, consumer (a
+``RowMember`` or ``kernels/adam.AdamwMember``) and the stitched operand's
+slot.  Its ``pack`` picks the kernel path from the pair (see the source's
+header): a row-wise pair runs in one CTA per segment with the intermediate
+in shared memory; a row-wise producer fills the GEMM's x staging; the GEMM
+hands its stored product to an activation, a residual add or the AdamW
+update in its epilogue, and to an RMSNorm (or an fp32 activation) through a
+per-launch workspace and a last-CTA pass.  Each chain is bitwise equal to
+its two members run separately.
 
 Beside the kernel: ``ROW``, its launch record, and the plain PyTorch
 versions (``plain_rmsnorm``, ``plain_gemm``, ``plain_residual_add``, the
@@ -27,7 +34,7 @@ card.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass, replace
+from dataclasses import dataclass
 from typing import ClassVar, Optional
 
 import torch
@@ -41,6 +48,7 @@ ROW = cuda.Kernel(
     "src/repro/kernels/elementwise.py:20, :69, src/repro/core/stitch.py:177")
 
 GEMM_TN = 64          # weight columns per CTA (csrc/row_member.cuh)
+GEMM_MROWS = 64       # rows per CTA of the bf16 GEMM
 F32_K_SLICE = 64      # K rows per CTA of the fp32 GEMM
 ACT_COLS = 2048       # output columns per CTA of the standalone activation
 RESADD_BYTES = 16384  # bytes of each operand per CTA of the residual add
@@ -111,35 +119,40 @@ def act_name(fn) -> str:
 
 
 # ---------------------------------------------------------------------------
-# Member descriptor
+# Member descriptors
 # ---------------------------------------------------------------------------
+# csrc/row_member.cuh: sub-kinds, the AdamW consumer stage, GEMM epilogues
 _SUB = {"rmsnorm": 0, "gemm": 1, "act": 2, "resadd": 3}
+_CHAIN, _ADAMW = 4, 5
+_EPI_ROWS, _EPI_ADAMW = 1, 2
+_N_INPUTS = {"rmsnorm": 2, "gemm": 2, "act": 1, "resadd": 2}
+# largest shared-memory segment of a row-wise chain (the card's 227 KB)
+_SEGMENT_BYTES = 224 * 1024
 
 
 @dataclass(frozen=True)
 class RowMember:
     """One row-family member: ``sub`` is "rmsnorm" (x (M,K) -> (M,K)),
-    "gemm" (x (M,K) @ w (K,N), optionally normalised first, and activated
-    or added to a residual (M,N) after), "act" (h (M,K) -> (M,N)) or
-    "resadd" (h + res, both (M,K)).  The dims are the whole op's, so the
-    member computes the same function whatever block shape planned it."""
+    "gemm" (x (M,K) @ w (K,N)), "act" (h (M,K) -> (M,N)) or "resadd"
+    (h + res, both (M,K)).  The dims are the whole op's, so the member
+    computes the same function whatever block shape planned it."""
     sub: str
     M: int
     K: int
     N: int
-    prologue: bool = False
-    act: Optional[str] = None
-    residual: bool = False      # gemm: the residual-add epilogue
+    act: Optional[str] = None   # act: the activation's name
     eps: float = 1e-6
-    fp32: bool = False          # rmsnorm, gemm, resadd: fp32 operands
+    fp32: bool = False          # fp32 operands (else bf16)
     kernel: ClassVar[cuda.Kernel] = ROW
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return torch.float32 if self.fp32 else torch.bfloat16
 
     @property
     def out_cols(self) -> int:
         if self.sub in ("rmsnorm", "resadd"):
             return self.K
-        if self.act is not None and ACTIVATIONS[self.act][2]:
-            return self.N // 2
         return self.N
 
     @property
@@ -152,7 +165,9 @@ class RowMember:
         if self.sub == "rmsnorm":
             return self.M
         if self.sub == "gemm":
-            return math.ceil(self.N / GEMM_TN) * self.k_slices
+            blocks = self.k_slices if self.fp32 else math.ceil(
+                self.M / GEMM_MROWS)
+            return math.ceil(self.N / GEMM_TN) * blocks
         if self.sub == "resadd":
             return math.ceil(self.M * self.K * (4 if self.fp32 else 2)
                              / RESADD_BYTES)
@@ -161,86 +176,230 @@ class RowMember:
     def pack(self, md, ins, outs):
         """Describe, check and bind one launch; returns the fp32 GEMM's
         workspace (alive until the launch is queued), else None."""
-        bf, f32 = torch.bfloat16, torch.float32
-        dt = f32 if self.fp32 else bf
+        dt, M, K, N = self.dtype, self.M, self.K, self.N
+        if self.sub == "gemm":
+            _gemm_fields(md, self)
+            md.inp[0] = cuda.check(ins[0], "gemm x", (M, K), dt)
+            md.inp[2] = cuda.check(ins[1], "gemm w", (K, N), dt)
+            md.out[0] = cuda.check(outs[0], "gemm out", (M, N), dt)
+            return _workspace(md, self, outs[0].device, rows=False)
         md.kind = cuda.ROW
         md.i[0] = _SUB[self.sub]
-        md.i[1], md.i[2], md.i[3] = self.M, self.K, self.N
-        md.i[4] = int(self.prologue)
-        md.i[5] = -1 if self.act is None else ACTIVATIONS[self.act][1]
+        md.i[1], md.i[2], md.i[3] = M, K, N
+        md.i[5] = _act_id(self)
         md.i[6] = int(self.fp32)
-        md.i[8] = int(self.residual)
         md.f[0] = self.eps
-        M, K, N = self.M, self.K, self.N
         if self.sub == "rmsnorm":
             md.inp[0] = cuda.check(ins[0], "rmsnorm x", (M, K), dt)
-            md.inp[1] = cuda.check(ins[1], "rmsnorm scale", (1, K), f32)
-            md.out[0] = cuda.check(outs[0], "rmsnorm out", (M, K), dt)
-            return
-        if self.sub == "resadd":
-            md.inp[0] = cuda.check(ins[0], "resadd h", (M, K), dt)
-            md.inp[1] = cuda.check(ins[1], "resadd res", (M, K), dt)
-            md.out[0] = cuda.check(outs[0], "resadd out", (M, K), dt)
-            return
-        if self.sub == "act":
-            md.inp[0] = cuda.check(ins[0], "act h", (M, K), bf)
-            md.out[0] = cuda.check(outs[0], "act out", (M, N), bf)
-            return
-        if self.residual:
-            md.inp[3] = cuda.check(ins[-1], "gemm res", (M, N), dt)
-        if self.fp32:
-            if self.prologue or self.act is not None or N % 4:
-                raise ValueError("the fp32 row GEMM takes no prologue or "
-                                 f"activation and N % 4 == 0, got N={N}")
-            md.i[7] = self.k_slices
-            md.inp[0] = cuda.check(ins[0], "gemm x", (M, K), f32)
-            md.inp[2] = cuda.check(ins[1], "gemm w", (K, N), f32)
-            md.out[0] = cuda.check(outs[0], "gemm out", (M, N), f32)
-            # per-launch workspace: the K slices' partials, zeroed tickets
-            dev = outs[0].device
-            ws = (torch.empty(self.k_slices * M * N, dtype=f32, device=dev),
-                  torch.zeros(math.ceil(N / GEMM_TN), dtype=torch.int32,
-                              device=dev))
-            md.out[1], md.out[2] = ws[0].data_ptr(), ws[1].data_ptr()
-            return ws
-        if N % GEMM_TN or K % 8:
-            raise ValueError(f"row GEMM takes N % {GEMM_TN} == 0 and "
-                             f"K % 8 == 0, got K={K} N={N}")
-        x, *rest = ins
-        md.inp[0] = cuda.check(x, "gemm x", (M, K), bf)
-        if self.prologue:
-            md.inp[1] = cuda.check(rest.pop(0), "gemm norm scale", (1, K),
+            md.inp[1] = cuda.check(ins[1], "rmsnorm scale", (1, K),
                                    torch.float32)
-        md.inp[2] = cuda.check(rest[0], "gemm w", (K, N), bf)
-        md.out[0] = cuda.check(outs[0], "gemm out", (M, self.out_cols), bf)
+        else:
+            md.inp[0] = cuda.check(ins[0], f"{self.sub} h", (M, K), dt)
+            if self.sub == "resadd":
+                md.inp[1] = cuda.check(ins[1], "resadd res", (M, K), dt)
+        md.out[0] = cuda.check(outs[0], f"{self.sub} out",
+                               (M, self.out_cols), dt)
 
 
-def chain_reason(producer, consumer) -> Optional[str]:
-    """None iff the row kernel implements ``producer`` -> ``consumer`` as
-    one member (rmsnorm -> gemm as a prologue, gemm -> act and gemm ->
-    resadd as epilogues); otherwise why not."""
+def _gemm_fields(md, g: RowMember) -> None:
+    """The GEMM's own fields (i[0..7]) and its shape limits."""
+    md.kind = cuda.ROW
+    md.i[0] = _SUB["gemm"]
+    md.i[1], md.i[2], md.i[3] = g.M, g.K, g.N
+    md.i[5] = -1
+    md.i[6] = int(g.fp32)
+    if g.fp32:
+        if g.N % 4:
+            raise ValueError(f"the fp32 row GEMM takes N % 4 == 0, got "
+                             f"N={g.N}")
+        md.i[7] = g.k_slices
+    elif g.N % GEMM_TN or g.K % 8:
+        raise ValueError(f"row GEMM takes N % {GEMM_TN} == 0 and "
+                         f"K % 8 == 0, got K={g.K} N={g.N}")
+
+
+def _workspace(md, g: RowMember, dev, rows: bool):
+    """Per-launch workspace and zeroed tickets (out[1], out[2]): the fp32
+    GEMM's K-slice partials, and with ``rows`` (the EPI_ROWS epilogue) the
+    stored product a row consumer reads; None when neither is needed."""
+    M, N = g.M, g.N
+    tiles = math.ceil(N / GEMM_TN)
+    if g.fp32:
+        ws = torch.empty((g.k_slices + rows) * M * N, dtype=torch.float32,
+                         device=dev)
+        tickets = tiles + rows
+    elif rows:
+        ws = torch.empty(M * N, dtype=torch.bfloat16, device=dev)
+        tickets = 1
+    else:
+        return None
+    held = (ws, torch.zeros(tickets, dtype=torch.int32, device=dev))
+    md.out[1], md.out[2] = held[0].data_ptr(), held[1].data_ptr()
+    return held
+
+
+def _act_id(m: RowMember) -> int:
+    return -1 if m.act is None else ACTIVATIONS[m.act][1]
+
+
+def _producer_stage(md, p: RowMember, pins) -> None:
+    """The row-wise producer stage: i[9..11], in[0..1], f[6]."""
+    dt = p.dtype
+    md.i[9], md.i[10], md.i[11] = _SUB[p.sub] + 1, _act_id(p), p.K
+    md.inp[0] = cuda.check(pins[0], f"{p.sub} input", (p.M, p.K), dt)
+    if p.sub == "rmsnorm":
+        md.inp[1] = cuda.check(pins[1], "rmsnorm scale", (1, p.K),
+                               torch.float32)
+        md.f[6] = p.eps
+    elif p.sub == "resadd":
+        md.inp[1] = cuda.check(pins[1], "resadd res", (p.M, p.K), dt)
+
+
+def _consumer_stage(md, c, cins, outs, dt) -> None:
+    """The consumer stage: i[13..15], in[3..5], f[0..6], out[0]."""
+    from repro_torch.kernels.adam import LANES, AdamwMember
+
+    if isinstance(c, AdamwMember):
+        c.describe(md)                 # f[0..5], AdamW's constants
+        md.i[13], md.i[14], md.i[15] = _ADAMW, -1, LANES
+        shape = (c.R, LANES)
+        md.inp[3] = cuda.check(cins[0], "adamw scalars", (1, LANES),
+                               torch.float32)
+        md.out[0] = cuda.check(outs[0], "adamw p", shape, dt)
+        md.inp[4] = cuda.check(outs[1], "adamw m", shape, torch.float32)
+        md.inp[5] = cuda.check(outs[2], "adamw v", shape, torch.float32)
+        for t, o in zip(cins[1:], outs):
+            if t.data_ptr() != o.data_ptr():
+                raise ValueError("the AdamW stage updates p, m, v in place")
+        return
+    md.i[13], md.i[14], md.i[15] = _SUB[c.sub], _act_id(c), c.K
+    if c.sub == "rmsnorm":
+        md.inp[3] = cuda.check(cins[0], "rmsnorm scale", (1, c.K),
+                               torch.float32)
+        md.f[6] = c.eps
+    elif c.sub == "resadd":
+        md.inp[3] = cuda.check(cins[0], "resadd operand", (c.M, c.K), dt)
+    md.out[0] = cuda.check(outs[0], f"{c.sub} out", (c.M, c.out_cols), dt)
+
+
+@dataclass(frozen=True)
+class RowChain:
+    """The one member of a stitched producer -> consumer chain: the
+    producer (a ``RowMember``), the consumer (a ``RowMember`` or
+    ``kernels/adam.AdamwMember``) and ``slot``, the stitched operand's index
+    among the consumer's inputs.  The launch's operands are the producer's
+    inputs, then the consumer's minus the stitched one; its outputs are
+    the consumer's (AdamW: p, m, v in place)."""
+    producer: RowMember
+    consumer: object
+    slot: int
+    kernel: ClassVar[cuda.Kernel] = ROW
+
+    @property
+    def _gemm_consumer(self) -> bool:
+        c = self.consumer
+        return isinstance(c, RowMember) and c.sub == "gemm"
+
+    @property
+    def segment(self) -> int:
+        """Elements of the intermediate per CTA of a row-wise pair: one
+        consumer row (its norm or gated activation needs it whole), or one
+        producer row when the consumer is AdamW's (R, 128) update."""
+        c = self.consumer
+        return self.producer.out_cols if not isinstance(c, RowMember) \
+            else c.K
+
+    @property
+    def ctas(self) -> int:
+        p = self.producer
+        if p.sub == "gemm":
+            return p.ctas
+        if self._gemm_consumer:
+            return self.consumer.ctas
+        return p.M * p.out_cols // self.segment
+
+    def pack(self, md, ins, outs):
+        p, c = self.producer, self.consumer
+        dt = p.dtype
+        n_pi = _N_INPUTS[p.sub]
+        pins, cins = ins[:n_pi], ins[n_pi:]
+        dev = outs[0].device
+        if p.sub == "gemm":
+            _gemm_fields(md, p)
+            md.inp[0] = cuda.check(pins[0], "gemm x", (p.M, p.K), dt)
+            md.inp[2] = cuda.check(pins[1], "gemm w", (p.K, p.N), dt)
+            rows = False
+            if isinstance(c, RowMember) and c.sub == "resadd":
+                # the residual epilogue (flat: any row-stream reshape)
+                md.i[8] = 1
+                md.inp[3] = cuda.check(cins[0], "resadd operand",
+                                       (c.M, c.K), dt)
+                md.out[0] = cuda.check(outs[0], "resadd out", (c.M, c.K), dt)
+            elif (isinstance(c, RowMember) and c.sub == "act" and not p.fp32
+                  and c.K == p.N):
+                md.i[5] = _act_id(c)       # the activation epilogue
+                md.out[0] = cuda.check(outs[0], "act out", (c.M, c.N), dt)
+            else:
+                rows = isinstance(c, RowMember)
+                md.i[12] = _EPI_ROWS if rows else _EPI_ADAMW
+                _consumer_stage(md, c, cins, outs, dt)
+            return _workspace(md, p, dev, rows)
+        if self._gemm_consumer:
+            _gemm_fields(md, c)
+            md.inp[2] = cuda.check(cins[0], "gemm w", (c.K, c.N), dt)
+            md.out[0] = cuda.check(outs[0], "gemm out", (c.M, c.N), dt)
+            _producer_stage(md, p, pins)
+            return _workspace(md, c, dev, rows=False)
+        seg = self.segment
+        if seg * (4 if p.fp32 else 2) > _SEGMENT_BYTES:
+            raise ValueError(f"row chain {p.sub}->{_name(c)}: a segment of "
+                             f"{seg} elements exceeds shared memory")
+        md.kind = cuda.ROW
+        md.i[0], md.i[1], md.i[6] = _CHAIN, seg, int(p.fp32)
+        _producer_stage(md, p, pins)
+        _consumer_stage(md, c, cins, outs, dt)
+
+
+def _name(m) -> str:
+    return m.sub if isinstance(m, RowMember) else "adamw"
+
+
+def chain_reason(producer, consumer, slot: int) -> Optional[str]:
+    """None iff the row kernel computes ``producer`` -> ``consumer``
+    (stitched into the consumer's input ``slot``) as one member; otherwise
+    why not.  ``core/stitch.can_stitch`` has checked the reference's
+    contract (grids, dtypes, element counts, row streams, names) first."""
+    from repro_torch.kernels.adam import LANES, AdamwMember
+
     p, c = producer, consumer
-    if not (isinstance(p, RowMember) and isinstance(c, RowMember)):
-        return "no fused kernel: only row-family members chain"
-    if p.sub == "rmsnorm" and c.sub == "gemm" and not c.prologue:
-        if (p.M, p.K) != (c.M, c.K):
-            return f"rmsnorm {p.M}x{p.K} does not feed gemm {c.M}x{c.K}"
+    if not isinstance(p, RowMember):
+        return "no fused kernel: a chain's producer is a row-family member"
+    if isinstance(c, AdamwMember):
+        if slot != 2:
+            return "only the AdamW update's gradient takes a producer"
+        if p.M * p.out_cols != c.R * LANES:
+            return (f"{p.sub} {p.M}x{p.out_cols} does not fill the update's "
+                    f"{c.R}x{LANES} gradient")
         return None
-    if (p.sub == "gemm" and c.sub in ("act", "resadd") and p.act is None
-            and not p.residual):
-        if (p.M, p.N) != (c.M, c.K):
-            return f"gemm {p.M}x{p.N} does not feed {c.sub} {c.M}x{c.K}"
-        return None
-    return f"no fused kernel for {p.sub}->{c.sub}"
+    if not isinstance(c, RowMember):
+        return ("no fused kernel: a chain's consumer is a row-family member "
+                "or the AdamW update")
+    if c.sub == "gemm" and slot != 0:
+        return ("the row GEMM streams its weight through every CTA: only x "
+                "takes a producer")
+    if c.sub == "rmsnorm" and slot != 0:
+        return "every row of the norm reads its scale whole: only x chains"
+    if p.sub == "gemm" and c.sub == "gemm":
+        return "no fused kernel for gemm->gemm"
+    if p.M * p.out_cols != c.M * c.K:
+        return (f"{p.sub} {p.M}x{p.out_cols} does not feed {c.sub} "
+                f"{c.M}x{c.K}")
+    return None
 
 
-def chain(producer: RowMember, consumer: RowMember) -> RowMember:
+def chain(producer: RowMember, consumer, slot: int) -> RowChain:
     """The one member that computes producer then consumer."""
-    reason = chain_reason(producer, consumer)
+    reason = chain_reason(producer, consumer, slot)
     if reason is not None:
         raise ValueError(reason)
-    if producer.sub == "rmsnorm":
-        return replace(consumer, prologue=True, eps=producer.eps)
-    if consumer.sub == "resadd":
-        return replace(producer, residual=True)
-    return replace(producer, act=consumer.act)
+    return RowChain(producer, consumer, slot)

@@ -73,6 +73,9 @@ def main(argv=None):
                     help="eload: srpf, shedding one coresident chunk while "
                          "the per-expert hit skew exceeds the budget's "
                          "threshold (MoE)")
+    ap.add_argument("--reject-overlong", action="store_true",
+                    help="reject prompts longer than --chunk-rows instead "
+                         "of admitting them across iterations")
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the config's depth to N layers (0: as is)")
     ap.add_argument("--expect-moe-fused", action="store_true",
@@ -120,6 +123,7 @@ def main(argv=None):
                          max_len=args.prompt_len + args.shared_prefix
                          + args.stagger + args.max_new + 8,
                          prefill_budget=budget, device=dev,
+                         reject_overlong=args.reject_overlong,
                          paged_kv=args.kv_block_size > 0,
                          kv_block_size=args.kv_block_size or 16,
                          kv_blocks=args.kv_blocks,

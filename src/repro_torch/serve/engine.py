@@ -84,7 +84,9 @@ class PrefillBudget:
 
     ``chunk_rows``: tokens of one prompt consumed per iteration (one
     prefill-attention chunk).  ``max_coresident_chunks``: how many chunks
-    from different slots may ride one fused launch.  ``policy``: which
+    from different slots may ride one fused launch.  ``pad_to``: the row
+    tile a prefill FFN operand pads to beyond one tile (``pad_rows``).
+    ``policy``: which
     prefilling slots chunk first when more are ready than that —
     ``"fifo"`` (lowest slot index), ``"srpf"``
     (shortest-remaining-prefill-first, ties by slot index) or ``"eload"``
@@ -94,11 +96,12 @@ class PrefillBudget:
     and eload is srpf)."""
     chunk_rows: int = 2048
     max_coresident_chunks: int = 2
+    pad_to: int = 128
     policy: str = "fifo"
     skew_threshold: float = 1.5
 
     def __post_init__(self):
-        for f_ in ("chunk_rows", "max_coresident_chunks"):
+        for f_ in ("chunk_rows", "max_coresident_chunks", "pad_to"):
             if getattr(self, f_) < 1:
                 raise ValueError(f"PrefillBudget.{f_} must be >= 1")
         if self.policy not in ("fifo", "srpf", "eload"):
@@ -107,6 +110,12 @@ class PrefillBudget:
         if self.skew_threshold < 1.0:
             raise ValueError("PrefillBudget.skew_threshold must be >= 1.0 "
                              "(1.0 means perfectly balanced experts)")
+
+    def pad_rows(self, rows: int) -> int:
+        """Rows of a prefill FFN operand: raw up to one tile, the next
+        ``pad_to`` multiple beyond (zero-padded)."""
+        return rows if rows <= self.pad_to else \
+            -(-rows // self.pad_to) * self.pad_to
 
     def effective_chunk(self, cache_len: int, multiple: int = 1) -> int:
         """Chunk rows used against a ``cache_len`` cache: the largest
@@ -288,6 +297,7 @@ class ServeEngine:
                  plan_fusion: bool = True, measure=None,
                  schedule_cache=None, scheduling: str = "continuous",
                  prefill_budget: Optional[PrefillBudget] = None,
+                 reject_overlong: bool = False,
                  stitch_epilogues: bool = True, paged_kv: bool = False,
                  kv_block_size: int = 16,
                  kv_slot_blocks: Optional[int] = None,
@@ -345,6 +355,7 @@ class ServeEngine:
         self.params = params
         self.stitch_epilogues = stitch_epilogues
         self.prefill_budget = prefill_budget or PrefillBudget()
+        self.reject_overlong = reject_overlong
         self.plain = plain
         self.dtype = lm.torch_dtype(cfg.dtype)
         self.generator = torch.Generator(device=self.device)
@@ -838,6 +849,12 @@ class ServeEngine:
                     "cannot admit it (raise max_len"
                     + (" or kv_slot_blocks" if self.paged_kv else "")
                     + " or truncate the prompt)")
+            if self.reject_overlong and len(r.prompt) > self.chunk_rows:
+                raise ValueError(
+                    f"request {r.rid}: prompt length {len(r.prompt)} exceeds "
+                    f"the per-iteration prefill budget {self.chunk_rows} and "
+                    "this engine was built with reject_overlong=True (drop "
+                    "the flag to admit it in chunks)")
         self.stats = ServeStats(batch=self.batch)
         # FIFO by arrival step, submission order breaking ties
         waiting = sorted(requests, key=lambda r: r.arrival)

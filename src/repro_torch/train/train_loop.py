@@ -5,9 +5,13 @@ The reference's ``src/repro/train/train_loop.py``.  Forward and backward are
 plain torch autograd (the reference computes them in plain ``jnp``), with
 ``torch.utils.checkpoint`` per layer under ``remat``.  The optimizer step is
 the planner's: ``update_graph`` registers one AdamW OpSpec per param leaf
-(and, for planning, the dW GEMM each 2-D leaf's update depends on);
+(and the dW GEMM each 2-D leaf's update depends on);
 ``build_update_program`` plans and compiles every leaf's update into fused
 bundle launches that update params and moments in place.
+``plan_update_fusion``'s plan, dW GEMMs included, compiles with
+``core/executor.compile_plan`` as well: a stitched ``dW_w→adamw_w`` chain is
+one launch (``kernels/row.RowChain``) that hands each dW product to its
+AdamW update, given bindings for dW's operands.
 
 Not ported: ``compression=`` (int8 pod-axis gradients) and ``zero=``
 (ZeRO-1 moment sharding) raise; they wait for tensor parallelism (ROADMAP
@@ -76,7 +80,7 @@ def update_graph(params, *, tokens: int = 4096, bm: int = 1024,
     parameter's update depends on.  When the dW output's row-major layout
     lines up with the update's (R, 128) gradient, the dW op declares the
     update as its epilogue and the planner contracts the pair into one
-    ``dW_w→adamw_w`` member (planning-only, ``kernels/adam.DwAdamwChain``).
+    ``dW_w→adamw_w`` member (``kernels/row.RowChain``).
 
     ``params`` may be live tensors or ``device="meta"`` tensors.  Returns
     ``(graph, layout)`` with ``layout = [(name, path, n, R, bm_i), ...]``."""
@@ -175,8 +179,8 @@ def build_update_program(params, ocfg: Optional[AdamWConfig] = None, *,
                          bm: int = 1024, max_ways: int = 4, measure=None,
                          cache=None, plain: bool = False) -> UpdateProgram:
     """Plan and compile the executed optimizer step for ``params`` (live or
-    ``device="meta"`` tensors).  Every leaf takes part; the dW GEMMs are
-    planning-only (their operands are autograd internals), so the graph
+    ``device="meta"`` tensors).  Every leaf takes part; the train step has
+    no dW operands to bind (autograd computes the gradients), so the graph
     holds the updates alone, which fuse with each other
     (``allow_same_bound``: all memory-bound, the gain is launch and ramp
     amortization)."""

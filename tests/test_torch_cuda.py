@@ -23,6 +23,7 @@ separate launches.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import pytest
@@ -39,6 +40,7 @@ from repro_torch.kernels.rmsnorm import rmsnorm_op
 
 pytestmark = pytest.mark.cuda
 BF = torch.bfloat16
+F32 = torch.float32
 
 # (B, d, H, Hkv, D, d_ff, S): reduced granite-3-2b, the full widths, and
 # phi3.5-moe's attention and expert widths (head dim 128)
@@ -308,17 +310,179 @@ def test_multi_tensor_adamw_padded_leaves_bitwise(cuda_dev):
         assert all(torch.equal(got[k], want[k]) for k in got)
 
 
-def test_dw_adamw_chain_launch_raises(cuda_dev):
-    from repro_torch.kernels import adam
-    from repro_torch.kernels.matmul import matmul_1d_op
-    dw = matmul_1d_op(256, 64, 128, bm=256)
-    upd = adam.adamw_op(256, bm=256)
+@pytest.mark.parametrize("M,K,N", [(256, 64, 128), (40, 512, 256)])
+@pytest.mark.parametrize("dtype", [BF, F32])
+def test_dw_adamw_chain_launch_raises(cuda_dev, dtype, M, K, N):
+    """The dW->AdamW chain launches: bitwise equal to the dW GEMM, its
+    gradient stored, then the AdamW update (p, m, v in place), bf16 and
+    fp32; M 256 spans four row blocks of the bf16 GEMM, M 40 is the
+    stacked norm scales' shape."""
+    from repro_torch.kernels import adam, row
+    R = M * N // 128
+    dw = matmul_1d_op(M, K, N, dtype, bm=M)
+    upd = adam.adamw_op(R, dtype, bm=R)
     chain = stitch.stitch(dw, upd, "g")
+    assert isinstance(chain.member, row.RowChain)
     g = _gen(10)
-    ins = (_randn((256, 64), g), _randn((64, 128), g),
-           *(_adam_state(256, BF, g)[i] for i in (0, 1, 3, 4)))
-    with pytest.raises(NotImplementedError, match="planning-only"):
-        hfuse.run_single(chain)(*ins)
+    x, dy = _randn((M, K), g, dtype), _randn((K, N), g, dtype, K ** -0.5)
+    sc, p, _g, m, v = _adam_state(R, dtype, g)
+    a = [t.clone() for t in (p, m, v)]
+    before = row.ROW.launches
+    out = hfuse.run_single(chain)(x, dy, sc, *a)
+    assert row.ROW.launches == before + 1
+    assert all(o.data_ptr() == t.data_ptr() for o, t in zip(out, a))
+    (grad,) = hfuse.run_single(dw)(x, dy)
+    b = [t.clone() for t in (p, m, v)]
+    hfuse.run_single(upd)(sc, b[0], grad.reshape(R, 128), b[1], b[2])
+    for got, want in zip(a, b):
+        assert torch.equal(got, want)
+
+
+def _sweep_ops(M, d, dtype):
+    """Row-family ops of one dtype at M rows and width d (grid 1), plus
+    the AdamW update of an (M, d) gradient."""
+    from repro_torch.kernels import adam
+    ops = {"rmsnorm": rmsnorm_op(M, d, dtype, bm=M),
+           "resadd": elementwise.residual_add_op(M, d, dtype, bm=M),
+           "act_silu": elementwise.activation_op(
+               M, 2 * d, d, elementwise.silu_gate, dtype, bm=M),
+           "act_gelu": elementwise.activation_op(
+               M, d, d, elementwise.gelu_plain, dtype, bm=M),
+           "mm_dd": matmul_1d_op(M, d, d, dtype, bm=M),
+           "mm_d2d": matmul_1d_op(M, d, 2 * d, dtype, bm=M),
+           "adamw": adam.adamw_op(M * d // 128, dtype, bm=M * d // 128)}
+    return {k: _renamed(o, k) for k, o in ops.items()}
+
+
+def _renamed(op, name):
+    return dataclasses.replace(op, name=name)
+
+
+def _chain_cases(M, d):
+    """Every (producer, consumer, operand) of the sweep ops that
+    ``can_stitch`` accepts, in both dtypes."""
+    cases = []
+    for dtype in (BF, F32):
+        ops = _sweep_ops(M, d, dtype)
+        for p, pop in ops.items():
+            for c, cop in ops.items():
+                cop = _renamed(cop, c + "_2") if c == p else cop
+                for name in cop.in_names:
+                    if stitch.can_stitch(pop, cop, name) is None:
+                        cases.append((dtype, pop, cop, name))
+    return cases
+
+
+def _inputs_for(op, g):
+    ins = []
+    for name, o in zip(op.in_names, op.inputs):
+        if name == "scalars":
+            t = torch.zeros(o.shape, device="cuda")
+            t[0, :3] = torch.tensor([1e-3, 0.1, 0.05])
+        elif name == "v":
+            t = torch.rand(o.shape, generator=g, device="cuda")
+        elif name == "w":
+            t = _randn(o.shape, g, o.dtype, o.shape[0] ** -0.5)
+        else:
+            t = _randn(o.shape, g, o.dtype, 0.3 if name == "scale" else 1.0)
+        ins.append(t)
+    return ins
+
+
+@pytest.mark.parametrize("M,d", [(8, 256), (72, 128)])
+def test_every_chain_bitwise_equal_separate_members(cuda_dev, M, d):
+    """Each chain the stitching contract accepts among rmsnorm, the two
+    activations, the residual add, the two GEMMs and the AdamW update, bf16
+    and fp32: one launch of the row kernel, bitwise equal to its two
+    members launched separately, and within tolerance of its plain route.
+    M 72 spans two row blocks of the bf16 GEMM and ends in a part pass."""
+    from repro_torch.kernels import row
+    cases = _chain_cases(M, d)
+    kinds = {(p.member.sub if hasattr(p.member, "sub") else "adamw",
+              c.member.sub if hasattr(c.member, "sub") else "adamw")
+             for _dt, p, c, _n in cases}
+    assert len(kinds) >= 15, kinds
+    for dtype, pop, cop, name in cases:
+        chain = stitch.stitch(pop, cop, name)
+        g = _gen(40)
+        ins = _inputs_for(chain, g)
+        a = [t.clone() for t in ins]
+        before = row.ROW.launches
+        got = hfuse.run_single(chain)(*a)
+        assert row.ROW.launches == before + 1
+        b = [t.clone() for t in ins]
+        n_pi = len(pop.inputs)
+        (mid,) = hfuse.run_single(pop)(*b[:n_pi])
+        sidx = cop.in_names.index(name)
+        rest = b[n_pi:]
+        want = hfuse.run_single(cop)(*rest[:sidx],
+                                      mid.reshape(cop.inputs[sidx].shape),
+                                      *rest[sidx:])
+        label = f"{pop.name}->{cop.name}.{name} {dtype}"
+        assert all(torch.equal(x, y) for x, y in zip(got, want)), label
+        c = [t.clone() for t in ins]
+        plain = hfuse.run_single(chain, plain=True)(*c)
+        for x, y in zip(got, plain):
+            _close(x, y)
+
+
+@pytest.mark.parametrize("dtype", [BF, F32])
+def test_reshaped_chains_bitwise(cuda_dev, dtype):
+    """The row-stream reshape: (64, 256) producers feeding a (128, 128)
+    norm, a (32, 512) gated activation and a (128, 128) residual add, and a
+    GEMM's (64, 128) product into a (32, 256) norm."""
+    g = _gen(41)
+    add = _renamed(elementwise.residual_add_op(64, 256, dtype, bm=64), "add")
+    norm = rmsnorm_op(64, 256, dtype, bm=64)
+    pairs = [(add, rmsnorm_op(128, 128, dtype, bm=128), "x"),
+             (add, elementwise.activation_op(32, 512, 256,
+                                             elementwise.silu_gate, dtype,
+                                             bm=32), "h"),
+             (norm, elementwise.residual_add_op(128, 128, dtype, bm=128),
+              "res"),
+             (matmul_1d_op(64, 64, 128, dtype, bm=64),
+              rmsnorm_op(32, 256, dtype, bm=32), "x")]
+    for pop, cop, name in pairs:
+        chain = stitch.stitch(pop, cop, name)
+        ins = _inputs_for(chain, g)
+        (got,) = hfuse.run_single(chain)(*ins)
+        n_pi = len(pop.inputs)
+        (mid,) = hfuse.run_single(pop)(*ins[:n_pi])
+        sidx = cop.in_names.index(name)
+        rest = ins[n_pi:]
+        (want,) = hfuse.run_single(cop)(*rest[:sidx],
+                                        mid.reshape(cop.inputs[sidx].shape),
+                                        *rest[sidx:])
+        assert torch.equal(got, want), (pop.name, cop.name)
+
+
+@pytest.mark.parametrize("ratios", [(1,) * 8, (3, 1, 2, 1, 1, 2, 1, 1)])
+def test_chain_bundle_bitwise_equal_native(cuda_dev, ratios):
+    """Chains that run only in the bundle kernel's chain instance (a dW
+    GEMM -> AdamW, GEMM -> rmsnorm through the workspace, a row-wise pair,
+    the fp32 GEMM's epilogues and staged producer) beside a GEMM prologue
+    chain and the AdamW member, in one launch: bitwise equal to run_native
+    of the same members."""
+    from repro_torch.kernels import adam
+    M, d = 8, 256
+    bf, f32 = _sweep_ops(M, d, BF), _sweep_ops(M, d, F32)
+    dw = _renamed(matmul_1d_op(256, 64, 128, BF, bm=256), "dw")
+    dw_upd = _renamed(adam.adamw_op(256, BF, bm=256), "dw_upd")
+    ops = [stitch.stitch(dw, dw_upd, "g"),
+           stitch.stitch(bf["mm_dd"], bf["rmsnorm"], "x"),
+           stitch.stitch(bf["resadd"], bf["rmsnorm"], "x"),
+           stitch.stitch(bf["rmsnorm"], bf["mm_d2d"], "x"),
+           stitch.stitch(f32["mm_dd"], f32["adamw"], "g"),
+           stitch.stitch(f32["mm_dd"], f32["rmsnorm"], "x"),
+           stitch.stitch(f32["rmsnorm"], f32["mm_dd"], "x"),
+           bf["adamw"]]
+    g = _gen(42)
+    ins = [t for op in ops for t in _inputs_for(op, g)]
+    got = hfuse.generate(ops, Schedule(ratios))(*[t.clone() for t in ins])
+    want = hfuse.run_native(ops)(*[t.clone() for t in ins])
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 def test_make_measure_gpu_times_are_positive_and_repeatable(cuda_dev):
@@ -556,9 +720,6 @@ def test_moe_gmm_bundle_with_prefill_bitwise_equals_native(cuda_dev, ratios):
 # kernels/ops.py's surface: the tiled matmul, the standalone rmsnorm (bf16
 # and fp32), the residual add and its GEMM epilogue, flash attention
 # ---------------------------------------------------------------------------
-F32 = torch.float32
-
-
 def _close(out, ref):
     assert out.dtype == ref.dtype and out.shape == ref.shape
     (_close_bf16 if out.dtype == BF else _close_f32)(out, ref)

@@ -132,7 +132,8 @@ def test_norm_matmul_chain(dtype):
                         jmatmul(8, 64, 192, jdt, bm=8), "x")
     tc = stitch.stitch(rmsnorm_op(8, 64, tdt, bm=8),
                        matmul_1d_op(8, 64, 192, tdt, bm=8), "x")
-    assert tc.member.prologue and tc.member.sub == "gemm"
+    assert (tc.member.producer.sub, tc.member.consumer.sub) == ("rmsnorm",
+                                                                "gemm")
     _assert_match(*_run_both(jc, tc, (jx, js, jw), (tx, ts, tw)), tol)
 
 
@@ -151,18 +152,37 @@ def test_matmul_activation_chain(dtype, act):
     tc = stitch.stitch(matmul_1d_op(8, 64, n, tdt, bm=8),
                        tel.activation_op(8, n, 128, getattr(tel, act), tdt,
                                          bm=8), "h")
-    assert tc.member.act == act
+    assert tc.member.consumer.act == act
     _assert_match(*_run_both(jc, tc, (jx, jw), (tx, tw)), tol)
 
 
 def test_unsupported_chain_raises():
-    """Only rmsnorm->matmul and matmul->activation have a fused kernel."""
-    norm = rmsnorm_op(8, 64, torch.float32, bm=8)
-    act = tel.activation_op(8, 64, 64, tel.relu2, torch.float32, bm=8,
-                            name="act")
-    assert stitch.can_stitch(norm, act, "h") is not None
-    with pytest.raises(ValueError, match="no fused kernel"):
-        stitch.stitch(norm, act, "h")
+    """rmsnorm->activation stitches, as in the reference, and matches the
+    reference chain in both dtypes; a pair the reference refuses (a grid
+    mismatch) still raises, with the reference's reason."""
+    for dtype, (jdt, tdt, tol) in sorted(DTYPES.items()):
+        rng = np.random.default_rng(5)
+        jx, tx = _arrays(rng, (8, 64), _np_dtype(dtype))
+        js, ts = _arrays(rng, (1, 64), np.float32, 0.5)
+        jc = jstitch.stitch(jrmsnorm(8, 64, jdt, bm=8),
+                            jel.activation_op(8, 64, 64, jel.relu2, jdt,
+                                              bm=8, name="act"), "h")
+        norm = rmsnorm_op(8, 64, tdt, bm=8)
+        act = tel.activation_op(8, 64, 64, tel.relu2, tdt, bm=8, name="act")
+        assert stitch.can_stitch(norm, act, "h") is None
+        tc = stitch.stitch(norm, act, "h")
+        assert (tc.member.producer.sub, tc.member.consumer.sub) == (
+            "rmsnorm", "act")
+        _assert_match(*_run_both(jc, tc, (jx, js), (tx, ts)), tol)
+        act4 = tel.activation_op(8, 64, 64, tel.relu2, tdt, bm=4,
+                                 name="act")
+        jact4 = jel.activation_op(8, 64, 64, jel.relu2, jdt, bm=4,
+                                  name="act")
+        reason = stitch.can_stitch(norm, act4, "h")
+        assert reason == jstitch.can_stitch(jrmsnorm(8, 64, jdt, bm=8),
+                                            jact4, "h")
+        with pytest.raises(ValueError, match="grid mismatch"):
+            stitch.stitch(norm, act4, "h")
 
 
 @pytest.mark.parametrize("seed", [0, 1])

@@ -217,8 +217,9 @@ def test_matmul_residual_add_chain(dtype):
     add = tel.residual_add_op(R, N, tdt, bm=bm)
     tc = stitch.stitch(mm, add, "h")
     assert _planning(jc) == _planning(tc)
-    assert tc.member.sub == "gemm" and tc.member.residual
-    assert tc.member.fp32 == (tdt == torch.float32)
+    assert (tc.member.producer.sub, tc.member.consumer.sub) == ("gemm",
+                                                                "resadd")
+    assert tc.member.producer.fp32 == (tdt == torch.float32)
     rng = np.random.default_rng(7)
     jx, tx = _normal(rng, (R, K), np_dt)
     jw, tw = _normal(rng, (K, N), np_dt)

@@ -571,10 +571,18 @@ def test_serve_engine_measure_and_cache_reach_the_plan(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# the dW -> adamw chain: planned, not executable on the card
+# the dW -> adamw chain: one member, equal to the two ops and the reference
 # ---------------------------------------------------------------------------
 def test_dw_adamw_chain_plain_equals_separate_ops():
+    """The chain is a ``RowChain`` whose CTAs are the dW GEMM's; its plain
+    route equals dW then the update bit for bit, and the reference's chain
+    (``tests/test_stitch.py:127``, interpret mode) on the same numpy inputs
+    within fp32 rounding (two frameworks sum dW's products in other
+    orders)."""
+    from repro.core import stitch as jstitch
+    from repro.kernels.matmul import matmul_1d_op as jmatmul_op
     from repro_torch.core import stitch
+    from repro_torch.kernels import row
     from repro_torch.kernels.matmul import matmul_1d_op
     d_in, d_out, tokens = 64, 128, 16
     dw = dataclasses.replace(matmul_1d_op(d_in, tokens, d_out,
@@ -584,24 +592,32 @@ def test_dw_adamw_chain_plain_equals_separate_ops():
                         bm=64 * d_out // 128, name="adamw_w")
     assert stitch.can_stitch(dw, upd, "g") is None
     chain = stitch.stitch(dw, upd, "g")
-    assert isinstance(chain.member, adam.DwAdamwChain)
-    assert chain.ctas == chain.grid
-    g = torch.Generator().manual_seed(0)
-    x = torch.randn(d_in, tokens, generator=g)
-    dy = torch.randn(tokens, d_out, generator=g)
-    sc = torch.zeros(1, 128)
-    sc[0, :3] = torch.tensor([1e-3, 0.1, 0.05])
+    assert isinstance(chain.member, row.RowChain)
+    assert chain.member.consumer == upd.member
+    assert chain.ctas == dw.ctas
+    rng = np.random.default_rng(0)
     R = d_in * d_out // 128
-    state = [torch.randn(R, 128, generator=g) for _ in range(2)] + [
-        torch.rand(R, 128, generator=g)]            # v >= 0
+    arrs = [rng.normal(size=(d_in, tokens)), rng.normal(size=(tokens, d_out)),
+            np.zeros((1, 128)), rng.normal(size=(R, 128)),
+            rng.normal(size=(R, 128)), rng.uniform(size=(R, 128))]  # v >= 0
+    arrs[2][0, :3] = (1e-3, 0.1, 0.05)
+    arrs = [a.astype(np.float32) for a in arrs]
+    x, dy, sc, *state = [torch.from_numpy(a.copy()) for a in arrs]
     a = [t.clone() for t in state]
     out = hfuse.run_single(chain)(x, dy, sc, a[0], a[1], a[2])
     (grad,) = hfuse.run_single(dw)(x, dy)
     b = [t.clone() for t in state]
     ref = hfuse.run_single(upd)(sc, b[0], grad.reshape(R, 128), b[1], b[2])
     assert all(torch.equal(u, w) for u, w in zip(out, ref))
-    with pytest.raises(NotImplementedError, match="planning-only"):
-        chain.member.pack(None, (), ())
+    jchain = jstitch.stitch(jmatmul_op(d_in, tokens, d_out, jnp.float32,
+                                       bm=64),
+                            jadam.adamw_op(R, jnp.float32, bm=64 * d_out
+                                           // 128), "g")
+    want = jhfuse.run_single(jchain, interpret=True)(
+        *[jnp.asarray(a) for a in arrs])
+    for u, w in zip(out, want):
+        np.testing.assert_allclose(u.numpy(), np.asarray(w), rtol=1e-5,
+                                   atol=1e-5)
 
 
 # ---------------------------------------------------------------------------
