@@ -8,7 +8,12 @@ non-zero exit code and no result line.
 
   1. card    the card's name and power limit (nvidia-smi).
   2. build   nvcc the kernel library from ``src/repro_torch/csrc`` for
-             sm_90a (keyed by a hash of the sources, under ``build/``).
+             sm_90a (keyed by a hash of the sources, under ``build/``);
+             ptxas's registers, stack and spills of the bundle kernel's two
+             instances, the flash kernels and the prefill member's bodies,
+             and the HMMA (tensor-core) instructions in their SASS
+             (cuobjdump): the bf16 flash kernels and the prefill member
+             must hold some.
   2b. paper  the paper suite (``kernels/paper_suite.py``) at the
              reference's default sizes: each of the 9 atoms at its defaults
              and at ``SMALL_KW`` (and the bf16 forms of maxpool, upsample,
@@ -104,7 +109,12 @@ non-zero exit code and no result line.
              80) against their plain versions, timed beside them, their
              bounds and a torch.bmm yardstick; moe_gmm and a prefill chunk
              in one launch at the search's schedule, bitwise against
-             run_native; then 12 staggered requests under the eload
+             run_native; decode attention (mixed lengths) and prefill
+             attention (offsets 0 and 1024, contiguous and paged, the paged
+             member bitwise equal to the contiguous) at phi3.5-moe's heads
+             (32/8, head dim 128), each against its plain version and
+             timed beside it, its bound and SDPA; then 12 staggered
+             requests under the eload
              policy with the counters reset, and the first mixed step's
              logits through the 8 layers against the plain step.
   8d. ops    the public kernel entry points (``kernels/ops.py``) at
@@ -262,6 +272,94 @@ def ulps(torch, a, b) -> int:
     one float dtype (0 when bitwise equal)."""
     view = torch.int16 if a.element_size() == 2 else torch.int32
     return int((a.view(view).long() - b.view(view).long()).abs().max())
+
+
+def decode_cost(H, Hkv, D, bs=0) -> tuple[float, float]:
+    """(bytes, flops) decode attention must move / do on DECODE_LENS: each
+    slot's valid cache prefix (and, paged, its page-table entries), q, the
+    fp32 outputs."""
+    kv = sum(2 * L * Hkv * D * 2 + (-(-L // bs) * 4 if bs else 0)
+             for L in DECODE_LENS)
+    io = B * 4 + B * H * D * 2 + B * H * D * 4 + 2 * B * H * 4
+    return kv + io, sum(4.0 * H * D * L for L in DECODE_LENS)
+
+
+def prefill_cost(off, H, Hkv, D, bs=0) -> tuple[float, float]:
+    """(bytes, flops) a C-row prefill chunk at ``off`` must move / do: the
+    cache up to its last row (and, paged, the table entries), q, the fp32
+    outputs; causal work row by row."""
+    n = off + C
+    kv = 2 * n * Hkv * D * 2 + (-(-n // bs) * 4 if bs else 0)
+    io = 4 + C * H * D * 2 + C * H * D * 4 + 2 * C * H * 4
+    return kv + io, sum(4.0 * H * D * (off + r + 1) for r in range(C))
+
+
+def sdpa_decode(torch, q, k, v):
+    """SDPA over DECODE_LENS (the yardstick): q (B,H,D), k, v (B,S,Hkv,D);
+    the layout copies are made outside the timed call."""
+    import torch.nn.functional as F
+    kpos = torch.arange(k.shape[1], device=q.device)
+    lens = torch.tensor(DECODE_LENS, device=q.device)
+    mask = (kpos[None, :] < lens[:, None]).reshape(B, 1, 1, -1)
+    qh, kh, vh = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+    return lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                                  enable_gqa=True)
+
+
+def sdpa_prefill(torch, q, k, v, off):
+    """SDPA of a C-row chunk at ``off`` (the yardstick): q (C,H,D), k, v
+    (S,Hkv,D)."""
+    import torch.nn.functional as F
+    kpos = torch.arange(k.shape[0], device=q.device)
+    mask = kpos[None, :] <= off + torch.arange(C, device=q.device)[:, None]
+    qh, kh, vh = (t.transpose(0, 1)[None] for t in (q, k, v))
+    return lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                                  enable_gqa=True)
+
+
+def build_report() -> None:
+    """Registers, stack and spills (ptxas, from the build) of the bundle
+    kernel's two instances and the attention kernels; the count of HMMA
+    (tensor-core) instructions in each attention function's SASS, where the
+    toolkit has cuobjdump.  Fails if the tensor-core routes hold no HMMA."""
+    from repro_torch.kernels import cuda
+    use = cuda.ptxas_usage()
+    keys = {"hf_bundle<false>": "hf_bundleILb0E",
+            "hf_bundle<true>": "hf_bundleILb1E",
+            "flash_mma_kernel<64>": "flash_mma_kernelILi64E",
+            "flash_mma_kernel<128>": "flash_mma_kernelILi128E",
+            "flash_f32_kernel": "flash_f32_kernel",
+            "prefill_mma<64>": "prefill_mmaILi64E",
+            "prefill_mma<128>": "prefill_mmaILi128E"}
+    for label, key in keys.items():
+        hits = [v for k, v in use.items() if key in k]
+        check(len(hits) <= 1, f"ptxas report: {len(hits)} {label}")
+        if not hits:
+            check(not label.startswith(("hf_bundle", "flash")),
+                  f"ptxas report has no {label}")
+            print(f"[build] ptxas {label}: not in the report (inlined)")
+            continue
+        u = hits[0]
+        print(f"[build] ptxas {label}: registers {u.get('registers', '-')}, "
+              f"stack {u['stack']} B, spill stores {u['spill_stores']} B, "
+              f"spill loads {u['spill_loads']} B", flush=True)
+    hmma = cuda.sass_counts("HMMA")
+    if hmma is None:
+        print("[build] SASS: no cuobjdump here: HMMA not checked")
+        return
+    shown = {label: sum(n for f, n in hmma.items() if key in f)
+             for label, key in keys.items()
+             if any(key in f for f in hmma)}
+    print("[build] SASS HMMA instructions: " + ", ".join(
+        f"{k} {v}" for k, v in shown.items()), flush=True)
+    check(shown.get("flash_mma_kernel<64>", 0) > 0
+          and shown.get("flash_mma_kernel<128>", 0) > 0,
+          "the bf16 flash kernels' SASS holds no HMMA")
+    # the prefill body is listed inside each bundle instance's SASS, and is
+    # the only tensor-core code there
+    check(shown.get("hf_bundle<false>", 0) > 0
+          and shown.get("hf_bundle<true>", 0) > 0,
+          "the prefill member's SASS holds no HMMA")
 
 
 def device_profile(torch, run, what: str) -> None:
@@ -467,30 +565,8 @@ def phase_kernels(torch, dev, cfg) -> list[dict]:
 
     flush = flush_buffer(dev)
     lib_w1 = (1.0 + scale2).reshape(d).to(torch.bfloat16)
-    kpos = torch.arange(S, device=dev)
-    dec_mask = (kpos[None, :] < lens[:, None]).reshape(B, 1, 1, S)
-
-    def sdpa_prefill(off):
-        mask = kpos[None, :] <= off + torch.arange(C, device=dev)[:, None]
-        qh = q_pf.transpose(0, 1)[None]
-        kh, vh = k_cache[3].transpose(0, 1)[None], v_cache[3].transpose(0, 1)[None]
-        return lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, attn_mask=mask, enable_gqa=True)
-
-    qd = q_dec[:, :, None, :]
-    kd, vd = k_cache.transpose(1, 2), v_cache.transpose(1, 2)
 
     # bytes/flops each case must move/do, from this run's inputs
-    def dec_cost():
-        kv = sum(2 * L * Hkv * D * 2 for L in DECODE_LENS)
-        io = B * 4 + B * H * D * 2 + B * H * D * 4 + 2 * B * H * 4
-        return kv + io, sum(4.0 * H * D * L for L in DECODE_LENS)
-
-    def pf_cost(off):
-        kv = 2 * (off + C) * Hkv * D * 2
-        io = 4 + C * H * D * 2 + C * H * D * 4 + 2 * C * H * 4
-        return kv + io, sum(4.0 * H * D * (off + r + 1) for r in range(C))
-
     gemm_cost = lambda K, N, out: (K * N * 2 + B * K * 2 + B * out * 2,   # noqa: E731
                                    2.0 * B * K * N)
     norm_cost = (2 * B * d * 2 + d * 4, 4.0 * B * d)
@@ -518,17 +594,15 @@ def phase_kernels(torch, dev, cfg) -> list[dict]:
          gemm_cost(d, 2 * f, f), BF16_FLOPS, lambda: x @ w_in),
         ("decode_attention", dec_k, "decode_attention.cuh",
          "src/repro/kernels/decode_attention.py:44", att, dec_in,
-         dec_cost(), BF16_FLOPS,
-         lambda: F.scaled_dot_product_attention(qd, kd, vd,
-                                                attn_mask=dec_mask,
-                                                enable_gqa=True)),
+         decode_cost(H, Hkv, D), BF16_FLOPS,
+         sdpa_decode(torch, q_dec, k_cache, v_cache)),
     ]
     for off in PREFILL_OFFS:
         cases.append((f"prefill_attention:off={off}", pf_k,
                       "prefill_attention.cuh",
                       "src/repro/kernels/prefill_attention.py:40", pfs[0],
-                      pf_in(off), pf_cost(off), BF16_FLOPS,
-                      sdpa_prefill(off)))
+                      pf_in(off), prefill_cost(off, H, Hkv, D), BF16_FLOPS,
+                      sdpa_prefill(torch, q_pf, k_cache[3], v_cache[3], off)))
 
     rows = []
 
@@ -558,8 +632,9 @@ def phase_kernels(torch, dev, cfg) -> list[dict]:
     operands = {att.name: dec_in, pfs[0].name: pf_in(PREFILL_OFFS[0]),
                 pfs[1].name: pf_in(PREFILL_OFFS[1]), chain2.name: (x, w_in),
                 chain1.name: (x, scale1, w_qkv)}
-    costs = {att.name: dec_cost(), pfs[0].name: pf_cost(PREFILL_OFFS[0]),
-             pfs[1].name: pf_cost(PREFILL_OFFS[1]),
+    costs = {att.name: decode_cost(H, Hkv, D),
+             pfs[0].name: prefill_cost(PREFILL_OFFS[0], H, Hkv, D),
+             pfs[1].name: prefill_cost(PREFILL_OFFS[1], H, Hkv, D),
              chain2.name: gemm_cost(d, 2 * f, f)}
     fused_steps = [st for st in prog.steps if st.fused]
     check(len(fused_steps) == 2, f"expected 2 fused launches, got "
@@ -1420,7 +1495,6 @@ def phase_paged(torch, dev, cfg) -> tuple[list[dict], dict]:
     import dataclasses
 
     import numpy as np
-    import torch.nn.functional as F
 
     from repro_torch.core import hfuse
     from repro_torch.core.cost_model import Schedule
@@ -1477,42 +1551,22 @@ def phase_paged(torch, dev, cfg) -> tuple[list[dict], dict]:
         return (o, bt[3:4], q_pf, k_ar, v_ar), (o, q_pf, k_cache[3],
                                                 v_cache[3])
 
-    def dec_cost():
-        kv = sum(2 * L * Hkv * D * 2 + -(-L // KV_BS) * 4
-                 for L in DECODE_LENS)
-        io = B * 4 + B * H * D * 2 + B * H * D * 4 + 2 * B * H * 4
-        return kv + io, sum(4.0 * H * D * L for L in DECODE_LENS)
-
-    def pf_cost(off):
-        kv = 2 * (off + C) * Hkv * D * 2 + -(-(off + C) // KV_BS) * 4
-        io = 4 + C * H * D * 2 + C * H * D * 4 + 2 * C * H * 4
-        return kv + io, sum(4.0 * H * D * (off + r + 1) for r in range(C))
-
     flush = flush_buffer(dev)
-    kpos = torch.arange(S, device=dev)
-    dec_mask = (kpos[None, :] < lens[:, None]).reshape(B, 1, 1, S)
     rows = []
     by_name = {k.name: k for k in registry()}
     cases = [("decode_attention:paged bs16", by_name["decode_attention"],
               "decode_attention.cuh",
               "src/repro/kernels/decode_attention.py:35, :44 (block_table=)",
-              att, dec_in, catt, cdec_in, dec_cost(),
-              lambda: F.scaled_dot_product_attention(
-                  q_dec[:, :, None, :], k_cache.transpose(1, 2),
-                  v_cache.transpose(1, 2), attn_mask=dec_mask,
-                  enable_gqa=True))]
+              att, dec_in, catt, cdec_in, decode_cost(H, Hkv, D, KV_BS),
+              sdpa_decode(torch, q_dec, k_cache, v_cache))]
     for off in PREFILL_OFFS:
         p_in, c_in = pf_in(off)
-        mask = kpos[None, :] <= off + torch.arange(C, device=dev)[:, None]
         cases.append((
             f"prefill_attention:paged bs16 off={off}",
             by_name["prefill_attention"], "prefill_attention.cuh",
             "src/repro/kernels/prefill_attention.py:40 (block_table=)",
-            pfs[0], p_in, cpf, c_in, pf_cost(off),
-            lambda mask=mask: F.scaled_dot_product_attention(
-                q_pf.transpose(0, 1)[None], k_cache[3].transpose(0, 1)[None],
-                v_cache[3].transpose(0, 1)[None], attn_mask=mask,
-                enable_gqa=True)))
+            pfs[0], p_in, cpf, c_in, prefill_cost(off, H, Hkv, D, KV_BS),
+            sdpa_prefill(torch, q_pf, k_cache[3], v_cache[3], off)))
     for name, kernel, src, replaces, op, ins, cop, cins, cost, lib in cases:
         run, run_plain = hfuse.run_single(op), hfuse.run_single(op, plain=True)
         crun = hfuse.run_single(cop)
@@ -1626,6 +1680,7 @@ def phase_moe(torch, dev) -> tuple[list[dict], dict]:
     from repro_torch.core.timing import flush_buffer, median_ms
     from repro_torch.kernels import cuda, registry
     from repro_torch.kernels.moe_gmm import moe_gmm_op
+    from repro_torch.kernels.prefill_attention import prefill_attention_op
     from repro_torch.models import lm, moe
     from repro_torch.serve.engine import PrefillBudget, Request, ServeEngine
 
@@ -1709,11 +1764,8 @@ def phase_moe(torch, dev) -> tuple[list[dict], dict]:
           "the fused moe_gmm + prefill launch differs from run_native")
     plain = hfuse.run_native(pair, plain=True)
     err = compare(torch, out_f, plain(*ins))
-    off = 1024
-    pf_c = (2 * (off + C) * cfg.num_kv_heads * cfg.resolved_head_dim * 2
-            + C * cfg.num_heads * cfg.resolved_head_dim * 10,
-            sum(4.0 * cfg.num_heads * cfg.resolved_head_dim * (off + r + 1)
-                for r in range(C)))
+    pf_c = prefill_cost(1024, cfg.num_heads, cfg.num_kv_heads,
+                        cfg.resolved_head_dim)
     rows.append(kernel_row(
         "moe", f"bundle_launcher:moe_gmm+prefill_attn "
         f"({res.best.sched.label()})", by_name["bundle_launcher"],
@@ -1727,6 +1779,59 @@ def phase_moe(torch, dev) -> tuple[list[dict], dict]:
           "keeps moe_gmm single at this width, as the reference's does)",
           flush=True)
     del cases, ins, w_in, w_out, pf_ins, fused, native, plain
+
+    # rows j, l, k at phi3.5-moe's heads (32/8, head dim 128): decode and
+    # prefill attention as the MoE path launches them, and the paged prefill
+    # member (16-row pages, shuffled blocks) bitwise equal to the contiguous
+    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    att = next(o for n, o in ops.items() if n.startswith("decode_attn"))
+    lens = torch.tensor(DECODE_LENS, dtype=torch.int32, device=dev)
+    q_dec, q_pf = randn((B, H, D)), randn((C, H, D))
+    k_cache, v_cache = randn((B, S, Hkv, D)), randn((B, S, Hkv, D))
+    npg, nblk = S // KV_BS, B * (S // KV_BS) + B
+    bt = (torch.randperm(nblk - B, generator=torch.Generator().manual_seed(
+        15))[:npg] + B).reshape(1, npg).to(device=dev, dtype=torch.int32)
+    k_ar = torch.zeros((nblk, KV_BS, Hkv, D), dtype=torch.bfloat16,
+                       device=dev)
+    v_ar = torch.zeros_like(k_ar)
+    k_ar[bt.reshape(-1).long()] = k_cache[3].reshape(npg, KV_BS, Hkv, D)
+    v_ar[bt.reshape(-1).long()] = v_cache[3].reshape(npg, KV_BS, Hkv, D)
+    pf_paged = prefill_attention_op(C, S, H, Hkv, D, ck=1024,
+                                    block_table=(nblk, KV_BS))
+    pf_src = ("prefill_attention", "prefill_attention.cuh",
+              "src/repro/kernels/prefill_attention.py:40")
+    att_cases = [("moe", f"decode_attention:D{D}", "decode_attention",
+                  "decode_attention.cuh",
+                  "src/repro/kernels/decode_attention.py:44", att,
+                  (lens.reshape(B, 1), q_dec, k_cache, v_cache),
+                  decode_cost(H, Hkv, D),
+                  sdpa_decode(torch, q_dec, k_cache, v_cache))]
+    for off in PREFILL_OFFS:
+        o = torch.full((1, 1), off, dtype=torch.int32, device=dev)
+        c_in, p_in = (o, q_pf, k_cache[3], v_cache[3]), (o, bt, q_pf, k_ar,
+                                                         v_ar)
+        got = hfuse.run_single(pf_paged)(*p_in)
+        check(all(torch.equal(a, b) for a, b in
+                  zip(got, hfuse.run_single(pf)(*c_in))),
+              f"paged prefill at D {D}, off {off} differs from contiguous")
+        lib = sdpa_prefill(torch, q_pf, k_cache[3], v_cache[3], off)
+        att_cases += [
+            ("moe", f"prefill_attention:D{D} off={off}", *pf_src, pf, c_in,
+             prefill_cost(off, H, Hkv, D), lib),
+            ("paged", f"prefill_attention:paged bs16 D{D} off={off}",
+             pf_src[0], pf_src[1], pf_src[2] + " (block_table=)", pf_paged,
+             p_in, prefill_cost(off, H, Hkv, D, KV_BS), lib)]
+    for path, name, kernel, src, replaces, op, ins, cost, lib in att_cases:
+        run, run_plain = hfuse.run_single(op), hfuse.run_single(op, plain=True)
+        err = compare(torch, run(*ins), run_plain(*ins))
+        rows.append(kernel_row(
+            path, name, by_name[kernel], src, replaces, err,
+            median_ms(lambda: run(*ins), flush),
+            median_ms(lambda: run_plain(*ins), flush), cost, BF16_FLOPS,
+            median_ms(lib, flush)))
+    print(f"[moe] attention at D {D}: paged prefill bitwise equal the "
+          "contiguous member", flush=True)
+    del att_cases, k_cache, v_cache, k_ar, v_ar
     free_card(torch)
 
     # the path: 12 staggered requests, the eload policy
@@ -2039,6 +2144,7 @@ def main() -> int:
     cuda.library()
     print(f"[build] {so.relative_to(ROOT)} in {time.perf_counter() - t0:.1f}s",
           flush=True)
+    build_report()
 
     cfg = get_config("granite-3-2b")
     check(cfg.num_layers == 40 and cfg.d_model == 2048, "not full width")

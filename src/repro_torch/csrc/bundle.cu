@@ -23,9 +23,11 @@
 //
 // The library also holds the two standalone kernels the reference never
 // fuses (they are not OpSpecs): the tiled matmul (tiled_matmul.cuh) and flash
-// attention (flash_attention.cuh), each its own __global__ kernel with its
-// own launch bounds and launcher, so neither weighs on this kernel's
-// registers.
+// attention (flash_attention.cuh: an fp32 kernel and a bf16 tensor-core one
+// per head-dim class), each its own __global__ kernel with its own launch
+// bounds and launcher, so none weighs on this kernel's registers.  The
+// prefill attention member runs the same tensor-core tile loop
+// (attention_mma.cuh) as a non-inlined call.
 //
 // Two instances of the kernel: hf_bundle<true> holds the row family's chain
 // bodies (csrc/row_member.cuh: ROW_CHAIN, the GEMM's EPI_* epilogues, the

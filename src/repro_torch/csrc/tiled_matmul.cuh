@@ -16,7 +16,9 @@
 //     8 warps as 2 x 4, each a 64 x 32 piece of the tile (4 x 4 fragments,
 //     64 fp32 accumulators a thread); 32-deep k slabs copied with cp.async
 //     (16-byte chunks, zero-filled past M, N and K), so K % 8 == 0 and
-//     N % 8 == 0.  wgmma and TMA are later work.
+//     N % 8 == 0.  wgmma and TMA are later work.  The mma.sync, cp.async
+//     and packing helpers are common.cuh's, shared with the attention tile
+//     loop (attention_mma.cuh).
 //   fp32: CUDA-core fmaf (no TF32: the reference multiplies in fp32); each
 //     thread an 8 x 8 piece of the tile, 8-deep k slabs through registers
 //     into shared memory (x transposed), so K % 4 == 0 and N % 4 == 0.
@@ -30,28 +32,6 @@
 #define MM_APAD 8           // x slab row: 40 bf16 (20 words: conflict-free)
 #define MM_BPAD 8           // w slab row: 136 bf16 (68 words: conflict-free)
 #define MM_F32_BK 8         // k slab of the fp32 kernel
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma_bf16_16816(float* d, const uint32_t* a,
-                                               const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 typedef bf16 MmXSlab[MM_BM][MM_BK + MM_APAD];
 typedef bf16 MmWSlab[MM_BK][MM_BN + MM_BPAD];

@@ -20,6 +20,11 @@ kernel's launch and nowhere else: ``core/hfuse.py`` bumps the bundle
 launcher's and that of every member a launch carried; a standalone
 kernel's wrapper (``kernels/matmul.matmul``,
 ``kernels/flash_attention``) bumps its own.
+
+The build keeps ptxas's report (``-Xptxas -v``) beside the library:
+``ptxas_usage`` reads each function's registers, stack and spills from it.
+``sass_counts`` counts an instruction (``HMMA``: the tensor cores) in each
+function of the library's machine code.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ import ctypes
 import hashlib
 import math
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -39,7 +45,8 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 MAX_MEMBERS = 8
 
 # member kinds (csrc/common.cuh)
@@ -116,8 +123,7 @@ def build(verbose: bool = False) -> Path:
     out_dir.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", tmp, str(CSRC / "bundle.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / "bundle.cu")]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
@@ -127,8 +133,65 @@ def build(verbose: bool = False) -> Path:
     if verbose:
         print(proc.stdout + proc.stderr, end="")
         print(f"[build] nvcc {time.perf_counter() - t0:.1f}s -> {so}")
+    (out_dir / "ptxas.log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, so)
     return so
+
+
+def ptxas_usage() -> dict[str, dict[str, int]]:
+    """``parse_ptxas`` of the library's build report."""
+    return parse_ptxas((build().parent / "ptxas.log").read_text())
+
+
+def parse_ptxas(report: str) -> dict[str, dict[str, int]]:
+    """Per function of a ``-Xptxas -v`` report (mangled name): ``stack``,
+    ``spill_stores`` and ``spill_loads`` bytes, and for kernels
+    ``registers``.  A non-inlined function is compiled once per kernel that
+    calls it; it gets the largest of its figures."""
+    out: dict[str, dict[str, int]] = {}
+    name = None
+    for line in report.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            got = out.setdefault(name, {})
+            for key, val in zip(("stack", "spill_stores", "spill_loads"),
+                                m.groups()):
+                got[key] = max(got.get(key, 0), int(val))
+            continue
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
+
+
+def sass_counts(opcode: str = "HMMA") -> dict[str, int] | None:
+    """Per function of the library's SASS (mangled name): how many
+    ``opcode`` instructions it holds, by ``cuobjdump -sass``; None where the
+    toolkit has no cuobjdump."""
+    tool = Path(_nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(build())],
+                          capture_output=True, text=True, check=True).stdout
+    counts: dict[str, int] = {}
+    name = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+        elif name and re.search(rf"\b{opcode}\b", line):
+            counts[name] += 1
+    return counts
 
 
 def library():
@@ -251,8 +314,8 @@ def matmul(x: torch.Tensor, w: torch.Tensor, out: torch.Tensor) -> None:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     o: torch.Tensor, causal: bool, scale: float) -> None:
     """One launch of flash attention (``csrc/flash_attention.cuh``): q, o
-    (B,S,H,D), k, v (B,S,Hkv,D), all bf16 or all fp32, checked by the
-    caller."""
+    (B,S,H,D), k, v (B,S,Hkv,D), all bf16 (the tensor-core kernel) or all
+    fp32 (the CUDA-core kernel), checked by the caller."""
     B, S, H, D = q.shape
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -5,18 +5,20 @@ block arena.  The chunk's own k/v are in the cache before the launch, so
 the kernel only reads it.
 
 CUDA source: ``csrc/prefill_attention.cuh`` (on
-``csrc/attention_core.cuh``).  It replaces the TPU kernel
+``csrc/attention_mma.cuh``).  It replaces the TPU kernel
 ``src/repro/kernels/prefill_attention.py:40`` (prefill_attention_op,
 contiguous and ``block_table=`` forms; the paged form looks each kv row up
-in the slot's table row, as the decode member does).  Bound on the card: operations — a 512-row chunk does
-O(C) flops per cache byte.  Design: one CTA per (tile of query rows, KV
-head) with all rep query heads of the group, so each staged k/v tile serves
-32 query rows; the kv loop stops at the tile's last causal position.  The
-math runs on CUDA cores in fp32; tensor cores are the next step.
+in the slot's table row, as the decode member does).  Bound on the card:
+operations — a 512-row chunk does O(C) flops per cache byte.  Design: the
+tensor-core tile loop (``mma.sync``, fp32 accumulation, P as two bf16
+terms, the online softmax in fp32 registers); one CTA per (tile of
+``ROWS_PER_CTA`` rows, KV head), the rows being the chunk's query
+positions times the rep heads of the group, so each staged k/v tile
+serves them all; the kv loop stops at the tile's last causal position.
 
 Beside the kernel: ``PREFILL``, its launch record, and
-``plain_prefill_attention`` and ``plain_paged_prefill_attention``, the plain
-PyTorch versions.
+``plain_prefill_attention`` and ``plain_paged_prefill_attention``, the
+plain PyTorch versions.
 """
 from __future__ import annotations
 
@@ -29,12 +31,17 @@ import torch
 from repro_torch.core.op_spec import MIN_BLOCK_ROWS, Operand, OpSpec, itemsize
 from repro_torch.kernels import cuda
 from repro_torch.kernels.decode_attention import gather_pages
+from repro_torch.kernels.flash_attention import MAX_HEAD_DIM
 
 PREFILL = cuda.Kernel("prefill_attention",
                       "src/repro_torch/csrc/prefill_attention.cuh",
                       "src/repro/kernels/prefill_attention.py:40")
 NEG_INF = -1e30
-ROWS_PER_CTA = 32     # query rows (x query heads of one group) per CTA
+# rows (query positions x the group's rep heads) a CTA: 4 row groups of 16,
+# two kv parts each (csrc/prefill_attention.cuh).  The tile loop splits its 8
+# warps into RT / 16 row groups, so it takes RT in ROWS_TAKEN only.
+ROWS_PER_CTA = 64
+ROWS_TAKEN = (16, 32, 64, 128)
 
 
 def plain_prefill_attention(off: torch.Tensor, q: torch.Tensor,
@@ -80,23 +87,25 @@ class PrefillAttentionMember:
     kernel: ClassVar[cuda.Kernel] = PREFILL
 
     @property
-    def q_tile(self) -> int:
-        """Query rows per CTA: ROWS_PER_CTA rows across the rep heads."""
-        return max(1, ROWS_PER_CTA // (self.H // self.Hkv))
-
-    @property
     def ctas(self) -> int:
-        return math.ceil(self.C / self.q_tile) * self.Hkv
+        """One CTA per (tile of ROWS_PER_CTA of the group's C * rep rows,
+        KV head)."""
+        rep = self.H // self.Hkv
+        return math.ceil(self.C * rep / ROWS_PER_CTA) * self.Hkv
 
     def pack(self, md, ins, outs) -> None:
         C, S, H, Hkv, D = self.C, self.S, self.H, self.Hkv, self.D
-        if H % Hkv or D % 8:
+        if H % Hkv or D % 8 or not 8 <= D <= MAX_HEAD_DIM:
             raise ValueError(f"prefill attention takes H % Hkv == 0 and "
-                             f"D % 8 == 0, got H={H} Hkv={Hkv} D={D}")
+                             f"head dims that are multiples of 8 up to "
+                             f"{MAX_HEAD_DIM}, got H={H} Hkv={Hkv} D={D}")
+        if ROWS_PER_CTA not in ROWS_TAKEN:
+            raise ValueError(f"prefill attention takes {ROWS_TAKEN} rows a "
+                             f"CTA, got {ROWS_PER_CTA}")
         bf, f32 = torch.bfloat16, torch.float32
         md.kind = cuda.PREFILL_ATTN
         md.i[0], md.i[1], md.i[2], md.i[3], md.i[4] = C, S, H, Hkv, D
-        md.i[5] = self.q_tile
+        md.i[5] = ROWS_PER_CTA
         md.f[0] = 1.0 / math.sqrt(D)
         kv_shape = (S, Hkv, D)
         if self.bs:

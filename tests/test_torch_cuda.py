@@ -194,6 +194,71 @@ def test_prefill_attention_member(cuda_dev, width, off, C):
         _close_f32(a, b)
 
 
+@pytest.mark.parametrize("D", [72, 128])
+@pytest.mark.parametrize("H,Hkv,C,off", [(32, 8, 512, 0), (32, 8, 512, 1024),
+                                         (6, 2, 100, 37)])
+def test_prefill_attention_member_head_dims(cuda_dev, H, Hkv, C, off, D):
+    """Head dims past granite's on the tensor-core route: 128 (two kv parts
+    of 32 keys a warp) and 72 (the contraction zero-padded to 80), at
+    granite's heads with a late chunk and at rep 3 with a part last row
+    tile (300 rows, 64 a CTA)."""
+    S = 2048
+    g = _gen(16)
+    q = _randn((C, H, D), g)
+    k, v = _randn((S, Hkv, D), g), _randn((S, Hkv, D), g)
+    offa = torch.full((1, 1), off, dtype=torch.int32, device="cuda")
+    op = prefill_attention_op(C, S, H, Hkv, D, ck=1024)
+    got, want = _kernel_vs_plain(op, offa, q, k, v)
+    for a, b in zip(got, want):
+        _close_f32(a, b)
+
+
+def _device_kernels(run) -> set[str]:
+    """The names of the kernels ``run()`` puts on the card (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return {e.key for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+
+
+def test_attention_tensor_core_routes(cuda_dev):
+    """bf16 flash attention and the prefill member run on the tensor cores.
+    A bf16 flash launch runs flash_mma_kernel and an fp32 one
+    flash_f32_kernel (the kernels' names in a profiler trace), each counted
+    once.  The bf16 kernels hold HMMA in their SASS and the fp32 one none;
+    so do both bundle instances, whose only tensor-core code is the prefill
+    member's body, and a prefill member launch is counted."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.prefill_attention import PREFILL
+    g = _gen(17)
+    for dtype, runs, not_runs in ((BF, "flash_mma_kernel", "flash_f32"),
+                                  (F32, "flash_f32_kernel", "flash_mma")):
+        q = _randn((1, 128, 4, 64), g, dtype)
+        before = fa.FLASH.launches
+        ran = _device_kernels(lambda: fa.flash_attention_bshd(q, q, q))
+        assert any(runs in k for k in ran), ran
+        assert not any(not_runs in k for k in ran), ran
+        assert fa.FLASH.launches == before + 1
+    hmma = cuda.sass_counts("HMMA")
+    assert hmma is not None, "the toolkit has no cuobjdump"
+
+    def count(key):
+        return [n for f, n in hmma.items() if key in f]
+    for key in ("flash_mma_kernelILi64E", "flash_mma_kernelILi128E",
+                "hf_bundleILb0E", "hf_bundleILb1E"):
+        assert count(key) and all(n > 0 for n in count(key)), (key, hmma)
+    assert count("flash_f32_kernel") == [0]
+    before = PREFILL.launches
+    op = prefill_attention_op(64, 256, 4, 2, 64, ck=256)
+    offa = torch.zeros((1, 1), dtype=torch.int32, device="cuda")
+    hfuse.run_single(op)(offa, _randn((64, 4, 64), g),
+                         _randn((256, 2, 64), g), _randn((256, 2, 64), g))
+    assert PREFILL.launches == before + 1
+
+
 @pytest.mark.parametrize("ratios", [(1, 1), (8, 1), (1, 8), (3, 5)])
 def test_fused_bundle_bitwise_equals_native(cuda_dev, ratios):
     """decode attention + prefill attention, and the FFN chain + prefill
@@ -802,14 +867,15 @@ def test_gemm_resadd_chain_bitwise(cuda_dev, width, dtype):
 
 @pytest.mark.parametrize("dtype", [BF, F32])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 72, 128])
 @pytest.mark.parametrize("B,S,H,Hkv", [(2, 256, 4, 4), (2, 256, 8, 2),
                                        (1, 203, 6, 2), (1, 512, 8, 1)])
 def test_flash_attention_kernel(cuda_dev, B, S, H, Hkv, D, causal, dtype):
-    """No GQA, GQA at rep 4 and 8, a part last query tile at rep 3: the
-    (B,S,H,D) kernel against the reference's route on the plain version
-    (KV heads repeated, heads flattened); the (BH,S,D) form is the same
-    kernel at one head."""
+    """No GQA, GQA at rep 4 and 8, a part last query tile at rep 3, head dim
+    72 (the tensor-core route pads the contraction to 80): the (B,S,H,D)
+    kernel against the reference's route on the plain version (KV heads
+    repeated, heads flattened); the (BH,S,D) form is the same kernel at one
+    head."""
     from repro_torch.kernels import flash_attention as fa
     g = _gen(34)
     q = _randn((B, S, H, D), g, dtype)

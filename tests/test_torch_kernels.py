@@ -283,8 +283,8 @@ def test_fused_bundle_matches_reference(ratios):
 def test_member_geometry():
     """CTAs per member at the full-width shapes: qkv 3072/64 column
     tiles, the gated FFN chain 8192/32 column pairs, one CTA per (slot,
-    KV head) for decode and per (8 query rows x 4 heads, KV head) for
-    prefill."""
+    KV head) for decode and per (64 rows of the group's 512 query rows x 4
+    heads, KV head) for prefill on the tensor cores."""
     bf = torch.bfloat16
     assert matmul_1d_op(8, 2048, 3072, bf, bm=8).ctas == 48
     ffn = stitch.stitch(matmul_1d_op(8, 2048, 16384, bf, bm=8),
@@ -294,4 +294,61 @@ def test_member_geometry():
     assert rmsnorm_op(8, 2048, bf, bm=8).ctas == 8
     assert decode_attention_op(8, 2048, 32, 8, 64, bf,
                                dynamic_length=True).ctas == 64
-    assert prefill_attention_op(512, 2048, 32, 8, 64, bf).ctas == 512
+    assert prefill_attention_op(512, 2048, 32, 8, 64, bf).ctas == 256
+    # a part last tile: 100 positions x rep 3 = 300 rows, 5 tiles of 64
+    assert prefill_attention_op(100, 256, 6, 2, 72, bf, ck=256).ctas == 10
+
+
+@pytest.mark.parametrize("rows", [16, 32, 48, 64, 128, 256])
+def test_prefill_rows_per_cta_taken(monkeypatch, rows):
+    """The tile loop splits its 8 warps into rows / 16 row groups, so the
+    member packs 16, 32, 64 or 128 rows a CTA and refuses any other count
+    before it reads an operand (here CPU tensors, refused next)."""
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels import prefill_attention as pa
+    monkeypatch.setattr(pa, "ROWS_PER_CTA", rows)
+    op = prefill_attention_op(64, 256, 4, 2, 16, torch.bfloat16, ck=256)
+    ins = [torch.zeros(o.shape, dtype=o.dtype) for o in op.inputs]
+    outs = [torch.zeros(o.shape, dtype=o.dtype) for o in op.outputs]
+    want = ("expected a CUDA tensor" if rows in pa.ROWS_TAKEN
+            else "rows a CTA")
+    with pytest.raises(ValueError, match=want):
+        op.member.pack(cuda.MemberDesc(), ins, outs)
+
+
+PTXAS_REPORT = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z9hf_bundleILb0EEv10BundleDesc' for 'sm_90a'
+ptxas info    : Function properties for _Z11prefill_mmaILi64EEvRK10MemberDesci
+    16 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Function properties for _Z9hf_bundleILb0EEv10BundleDesc
+    8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 8 bytes cumulative stack size
+ptxas info    : Compiling entry function '_Z16flash_mma_kernelILi64EEvPK13__nv_bfloat16S2_S2_PS0_iiiiiiif' for 'sm_90a'
+ptxas info    : Function properties for _Z16flash_mma_kernelILi64EEvPK13__nv_bfloat16S2_S2_PS0_iiiiiiif
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 110 registers, used 1 barriers, 436 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z9hf_bundleILb1EEv10BundleDesc' for 'sm_90a'
+ptxas info    : Function properties for _Z11prefill_mmaILi64EEvRK10MemberDesci
+    0 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Function properties for _Z9hf_bundleILb1EEv10BundleDesc
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 126 registers, used 1 barriers
+"""
+
+
+def test_parse_ptxas():
+    """The build report's registers, stack and spills per function (the
+    bundle instances', the flash kernels' and the non-inlined members'; a
+    member compiled into both instances keeps its larger figures)."""
+    from repro_torch.kernels import cuda
+    got = cuda.parse_ptxas(PTXAS_REPORT)
+    assert got["_Z9hf_bundleILb0EEv10BundleDesc"] == dict(
+        stack=8, spill_stores=4, spill_loads=8, registers=128)
+    assert got["_Z11prefill_mmaILi64EEvRK10MemberDesci"] == dict(
+        stack=16, spill_stores=4, spill_loads=4)
+    assert got["_Z9hf_bundleILb1EEv10BundleDesc"] == dict(
+        stack=0, spill_stores=0, spill_loads=0, registers=126)
+    flash = [v for k, v in got.items() if "flash_mma_kernel" in k]
+    assert flash == [dict(stack=0, spill_stores=0, spill_loads=0,
+                          registers=110)]
