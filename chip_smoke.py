@@ -10,10 +10,12 @@ non-zero exit code and no result line.
   2. build   nvcc the kernel library from ``src/repro_torch/csrc`` for
              sm_90a (keyed by a hash of the sources, under ``build/``);
              ptxas's registers, stack and spills of the bundle kernel's two
-             instances, the flash kernels and the prefill member's bodies,
-             and the HMMA (tensor-core) instructions in their SASS
-             (cuobjdump): the bf16 flash kernels and the prefill member
-             must hold some.
+             instances, the flash kernels and the non-inlined member bodies
+             (prefill, moe_gmm, decode), and the HMMA (tensor-core)
+             instructions in their SASS (cuobjdump; a body's span inside a
+             bundle instance from the ELF symbol table): the bf16 flash
+             kernels, the prefill bodies and the moe_gmm body must hold
+             some.
   2b. paper  the paper suite (``kernels/paper_suite.py``) at the
              reference's default sizes: each of the 9 atoms at its defaults
              and at ``SMALL_KW`` (and the bf16 forms of maxpool, upsample,
@@ -107,7 +109,9 @@ non-zero exit code and no result line.
              need 83 GB): the fp32 router GEMM and the grouped expert FFN
              at the decode shape (E 16, C 8) and at a chunk's capacity (C
              80) against their plain versions, timed beside them, their
-             bounds and a torch.bmm yardstick; moe_gmm and a prefill chunk
+             bounds and a torch.bmm yardstick, with the bytes the grouped
+             FFN's design moves (weights per pass, fp32 partials written
+             and read, xe and ye); moe_gmm and a prefill chunk
              in one launch at the search's schedule, bitwise against
              run_native; decode attention (mixed lengths) and prefill
              attention (offsets 0 and 1024, contiguous and paged, the paged
@@ -319,26 +323,27 @@ def sdpa_prefill(torch, q, k, v, off):
 
 def build_report() -> None:
     """Registers, stack and spills (ptxas, from the build) of the bundle
-    kernel's two instances and the attention kernels; the count of HMMA
-    (tensor-core) instructions in each attention function's SASS, where the
-    toolkit has cuobjdump.  Fails if the tensor-core routes hold no HMMA."""
+    kernel's two instances, the attention kernels and the members'
+    non-inlined bodies; the count of HMMA (tensor-core) instructions in each
+    kernel's SASS and in each body inside the bundle instances, where the
+    toolkit has cuobjdump.  Fails if a tensor-core route (bf16 flash, the
+    prefill and moe_gmm bodies) holds no HMMA."""
     from repro_torch.kernels import cuda
     use = cuda.ptxas_usage()
     keys = {"hf_bundle<false>": "hf_bundleILb0E",
             "hf_bundle<true>": "hf_bundleILb1E",
             "flash_mma_kernel<64>": "flash_mma_kernelILi64E",
             "flash_mma_kernel<128>": "flash_mma_kernelILi128E",
-            "flash_f32_kernel": "flash_f32_kernel",
-            "prefill_mma<64>": "prefill_mmaILi64E",
-            "prefill_mma<128>": "prefill_mmaILi128E"}
-    for label, key in keys.items():
+            "flash_f32_kernel": "flash_f32_kernel"}
+    bodies = {"prefill_mma<64>": "prefill_mmaILi64E",
+              "prefill_mma<128>": "prefill_mmaILi128E",
+              **{f"moe_gmm_mma<{n}>": f"moe_gmm_mmaILi{n}E"
+                 for n in range(1, 6)},
+              "decode_split": "decode_split"}
+    for label, key in {**keys, **bodies}.items():
         hits = [v for k, v in use.items() if key in k]
         check(len(hits) <= 1, f"ptxas report: {len(hits)} {label}")
-        if not hits:
-            check(not label.startswith(("hf_bundle", "flash")),
-                  f"ptxas report has no {label}")
-            print(f"[build] ptxas {label}: not in the report (inlined)")
-            continue
+        check(bool(hits), f"ptxas report has no {label}")
         u = hits[0]
         print(f"[build] ptxas {label}: registers {u.get('registers', '-')}, "
               f"stack {u['stack']} B, spill stores {u['spill_stores']} B, "
@@ -347,19 +352,21 @@ def build_report() -> None:
     if hmma is None:
         print("[build] SASS: no cuobjdump here: HMMA not checked")
         return
-    shown = {label: sum(n for f, n in hmma.items() if key in f)
-             for label, key in keys.items()
-             if any(key in f for f in hmma)}
+    # kernels by their own entry; a body by its entries inside the two
+    # bundle instances ("kernel$body")
+    shown = {label: sum(n for f, n in hmma.items()
+                        if key in f and ("$" in f) == (label in bodies))
+             for label, key in {**keys, **bodies}.items()}
     print("[build] SASS HMMA instructions: " + ", ".join(
         f"{k} {v}" for k, v in shown.items()), flush=True)
-    check(shown.get("flash_mma_kernel<64>", 0) > 0
-          and shown.get("flash_mma_kernel<128>", 0) > 0,
+    check(shown["flash_mma_kernel<64>"] > 0
+          and shown["flash_mma_kernel<128>"] > 0,
           "the bf16 flash kernels' SASS holds no HMMA")
-    # the prefill body is listed inside each bundle instance's SASS, and is
-    # the only tensor-core code there
-    check(shown.get("hf_bundle<false>", 0) > 0
-          and shown.get("hf_bundle<true>", 0) > 0,
-          "the prefill member's SASS holds no HMMA")
+    check(shown["hf_bundle<false>"] > 0 and shown["hf_bundle<true>"] > 0,
+          "the bundle instances' SASS holds no HMMA")
+    for body in bodies:
+        if body != "decode_split":
+            check(shown[body] > 0, f"the {body} body's SASS holds no HMMA")
 
 
 def device_profile(torch, run, what: str) -> None:
@@ -1679,7 +1686,7 @@ def phase_moe(torch, dev) -> tuple[list[dict], dict]:
     from repro_torch.core import autotuner, hfuse
     from repro_torch.core.timing import flush_buffer, median_ms
     from repro_torch.kernels import cuda, registry
-    from repro_torch.kernels.moe_gmm import moe_gmm_op
+    from repro_torch.kernels.moe_gmm import f_tile, moe_gmm_op, pass_rows
     from repro_torch.kernels.prefill_attention import prefill_attention_op
     from repro_torch.models import lm, moe
     from repro_torch.serve.engine import PrefillBudget, Request, ServeEngine
@@ -1725,6 +1732,17 @@ def phase_moe(torch, dev) -> tuple[list[dict], dict]:
     def gmm_cost(op):
         return op.hbm_bytes, op.flops
 
+    def gmm_moved(op):
+        """Device-memory bytes the member moves (its design, not the
+        bound): the weights once per pass, the fp32 partials written and
+        read back, xe read and ye written."""
+        C = op.inputs[0].shape[1]
+        streams = -(-C // pass_rows(C))
+        return {"weights": streams * (E * d * 2 * f + E * f * d) * 2,
+                "weight_streams": streams,
+                "partials": 2 * E * (f // f_tile(f)) * C * d * 4,
+                "tokens": 2 * E * C * d * 2}
+
     cases = [("row_member:moe_router fp32", by_name["row_member"],
               "row_member.cuh", "src/repro/kernels/matmul.py:64 (float32)",
               router, (x_r, w_r),
@@ -1743,11 +1761,23 @@ def phase_moe(torch, dev) -> tuple[list[dict], dict]:
         err = compare(torch, got, run_plain(*ins))
         check(all(torch.equal(a, b) for a, b in zip(got, run(*ins))),
               f"{name} differs between two launches")
+        extra = {}
+        if op is not router:
+            extra["moved_bytes"] = gmm_moved(op)
         rows.append(kernel_row(
             "moe", name, kernel, src, replaces, err,
             median_ms(lambda: run(*ins), flush),
             median_ms(lambda: run_plain(*ins), flush), cost, peak,
-            median_ms(lib, flush)))
+            median_ms(lib, flush), **extra))
+        if extra:
+            mv = extra["moved_bytes"]
+            moved = mv["weights"] + mv["partials"] + mv["tokens"]
+            print(f"[moe] {name}: {op.member.ctas} CTAs, moves "
+                  f"{moved / 1e9:.3f} GB: weights "
+                  f"{mv['weights'] / 1e9:.3f} GB ({mv['weight_streams']} "
+                  f"stream(s)), partials {mv['partials'] / 1e9:.3f} GB "
+                  "written and read, xe + ye "
+                  f"{mv['tokens'] / 1e9:.4f} GB", flush=True)
 
     # the grouped FFN beside a prefill chunk in one launch, at the
     # schedule the search picks for the pair, bitwise equal to run_native

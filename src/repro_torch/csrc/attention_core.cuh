@@ -1,23 +1,20 @@
 // Online-softmax attention of R query rows (one KV head) against one
-// sequence's cache on the CUDA cores: the decode attention member (bf16,
-// contiguous and paged) and the fp32 route of the standalone flash attention
-// kernel use it.  bf16 flash attention and the prefill attention member run
-// on the tensor cores instead (attention_mma.cuh).
+// sequence's cache on the CUDA cores: the fp32 route of the standalone flash
+// attention kernel.  bf16 flash attention and the prefill attention member
+// run on the tensor cores (attention_mma.cuh); decode attention has a
+// split-KV loop of its own (decode_attention.cuh).
 //
-// The TPU kernels carry m, l and o across sequential grid steps in outputs
-// with constant index maps (src/repro/kernels/decode_attention.py:91-120,
-// src/repro/kernels/flash_attention.py:21-50).  CTAs run in no order, so
-// here that carry is a loop inside the CTA: kv tiles of ATT_TK positions are
-// staged in shared memory, scores and the running (m, l, o) stay fp32 in
-// shared memory, and nothing crosses CTAs.  Masked scores are -1e30 and l
-// has a 1e-30 floor, as in the reference, so even a row with every position
-// masked gives the reference's answer (decode: a slot of length 0).
+// The TPU kernel carries m, l and o across sequential grid steps in outputs
+// with constant index maps (src/repro/kernels/flash_attention.py:21-50).
+// CTAs run in no order, so here that carry is a loop inside the CTA: kv
+// tiles of ATT_TK positions are staged in shared memory, scores and the
+// running (m, l, o) stay fp32 in shared memory, and nothing crosses CTAs.
+// Masked scores are -1e30 and l has a 1e-30 floor, as in the reference, so
+// even a row with every position masked gives the reference's answer.
 //
-// Bound: decode reads each cached row once for the group's rep query rows
-// (O(D) flops a byte: bytes-bound; its loss is too few CTAs at batch 8,
-// ROADMAP's split-KV item); fp32 flash does its fp32 FMAs on the CUDA
-// cores, as the reference multiplies fp32 in fp32 (operations-bound, two
-// shared-memory operands per FMA).
+// Bound: fp32 flash does its fp32 FMAs on the CUDA cores, as the reference
+// multiplies fp32 in fp32 (operations-bound, two shared-memory operands per
+// FMA).
 #pragma once
 
 #include "common.cuh"

@@ -3,8 +3,8 @@
 // accumulation, the online softmax in fp32 registers.  Used by the bf16
 // route of the standalone flash attention kernel (flash_attention.cuh) and
 // by the prefill attention member (prefill_attention.cuh), contiguous and
-// paged.  Decode attention and fp32 flash attention stay on attn_loop
-// (attention_core.cuh).
+// paged.  fp32 flash attention stays on attn_loop (attention_core.cuh);
+// decode attention has its own split-KV loop (decode_attention.cuh).
 //
 // The TPU kernels carry (m, l, acc) across sequential kv grid steps in VMEM
 // (src/repro/kernels/flash_attention.py:21-50,

@@ -39,6 +39,8 @@
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false -shared
 // (src/repro_torch/kernels/cuda.py builds it at first use).
+#include <dlfcn.h>
+
 #include "common.cuh"
 #include "adamw_member.cuh"
 #include "decode_attention.cuh"
@@ -148,6 +150,47 @@ int hf_occupancy(int smem, int* ctas_per_sm) {
         &c, hf_bundle<true>, HF_THREADS, smem);
   *ctas_per_sm = a < c ? a : c;
   return e;
+}
+
+// The grouped expert FFN's two TMA tensor maps (CUtensorMap, 128 bytes
+// each, into `out`, 64-byte aligned): w_in (E, d, fin) and w_out (E, f, d)
+// bf16, boxes of 32 rows x 64 columns, 128-byte swizzle, zeros out of
+// bounds.  The encoder, cuTensorMapEncodeTiled, is looked up in the
+// already loaded libcuda (the library is not linked against it).  Returns
+// 0, a CUresult, or -1 when it cannot be found.
+int hf_gmm_tmaps(void* out, const void* w_in, const void* w_out, int E, int d,
+                 int f, int fin) {
+  typedef CUresult (*Encode)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                             void*, const cuuint64_t*, const cuuint64_t*,
+                             const cuuint32_t*, const cuuint32_t*,
+                             CUtensorMapInterleave, CUtensorMapSwizzle,
+                             CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (!encode) {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW);
+    if (!lib) return -1;
+    encode = reinterpret_cast<Encode>(dlsym(lib, "cuTensorMapEncodeTiled"));
+    if (!encode) return -1;
+  }
+  CUtensorMap* maps = static_cast<CUtensorMap*>(out);
+  const cuuint32_t box[3] = {64, GMM_KT, 1}, one[3] = {1, 1, 1};
+  const cuuint64_t din[3] = {(cuuint64_t)fin, (cuuint64_t)d, (cuuint64_t)E};
+  const cuuint64_t st_in[2] = {(cuuint64_t)fin * 2, (cuuint64_t)d * fin * 2};
+  const cuuint64_t dout[3] = {(cuuint64_t)d, (cuuint64_t)f, (cuuint64_t)E};
+  const cuuint64_t st_out[2] = {(cuuint64_t)d * 2, (cuuint64_t)f * d * 2};
+  CUresult r = encode(&maps[0], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                      const_cast<void*>(w_in), din, st_in, box, one,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE,
+                      CU_TENSOR_MAP_SWIZZLE_128B,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return (int)r;
+  return (int)encode(&maps[1], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                     const_cast<void*>(w_out), dout, st_out, box, one,
+                     CU_TENSOR_MAP_INTERLEAVE_NONE,
+                     CU_TENSOR_MAP_SWIZZLE_128B,
+                     CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                     CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 const char* hf_error_string(int e) {

@@ -27,7 +27,7 @@ struct MemberDesc {
   float f[8];   // baked float parameters (AdamW: b1, 1-b1, b2, 1-b2, eps, wd;
                 //   hist: bins / 8; a row chain's RMSNorm eps: f[6])
   const void* in[6];
-  void* out[3];
+  void* out[4];
 };
 
 struct BundleDesc {

@@ -24,7 +24,8 @@ kernel's wrapper (``kernels/matmul.matmul``,
 The build keeps ptxas's report (``-Xptxas -v``) beside the library:
 ``ptxas_usage`` reads each function's registers, stack and spills from it.
 ``sass_counts`` counts an instruction (``HMMA``: the tensor cores) in each
-function of the library's machine code.
+function of the library's machine code, the non-inlined member bodies
+inside each bundle instance included.
 """
 from __future__ import annotations
 
@@ -77,7 +78,7 @@ class MemberDesc(ctypes.Structure):
     _fields_ = [("kind", ctypes.c_int), ("ctas", ctypes.c_int),
                 ("ratio", ctypes.c_int), ("offset", ctypes.c_int),
                 ("i", ctypes.c_int * 16), ("f", ctypes.c_float * 8),
-                ("inp", ctypes.c_void_p * 6), ("out", ctypes.c_void_p * 3)]
+                ("inp", ctypes.c_void_p * 6), ("out", ctypes.c_void_p * 4)]
 
 
 class BundleDesc(ctypes.Structure):
@@ -176,12 +177,25 @@ def parse_ptxas(report: str) -> dict[str, dict[str, int]]:
 def sass_counts(opcode: str = "HMMA") -> dict[str, int] | None:
     """Per function of the library's SASS (mangled name): how many
     ``opcode`` instructions it holds, by ``cuobjdump -sass``; None where the
-    toolkit has no cuobjdump."""
+    toolkit has no cuobjdump.  A kernel's count includes the non-inlined
+    device functions compiled into it; each of those also gets its own
+    entry, ``kernel$function``, from the span the ELF symbol table
+    (``cuobjdump -elf``) gives it inside the kernel's code."""
     tool = Path(_nvcc()).parent / "cuobjdump"
     if not tool.exists():
         return None
-    sass = subprocess.run([str(tool), "-sass", str(build())],
-                          capture_output=True, text=True, check=True).stdout
+    lib = str(build())
+    sass, elf = (subprocess.run([str(tool), flag, lib], capture_output=True,
+                                text=True, check=True).stdout
+                 for flag in ("-sass", "-elf"))
+    spans: dict[str, list[tuple[int, int, str]]] = {}
+    for line in elf.splitlines():
+        m = re.match(r"\s*0x[0-9a-f]+\s+(0x[0-9a-f]+)\s+(0x[0-9a-f]+)\s+"
+                     r"\S+\s+\S+\s+\S+\s+\$(\w+)\$(\w+)\s*$", line)
+        if m:
+            lo = int(m.group(1), 16)
+            spans.setdefault(m.group(3), []).append(
+                (lo, lo + int(m.group(2), 16), f"{m.group(3)}${m.group(4)}"))
     counts: dict[str, int] = {}
     name = None
     for line in sass.splitlines():
@@ -189,8 +203,14 @@ def sass_counts(opcode: str = "HMMA") -> dict[str, int] | None:
         if m:
             name = m.group(1)
             counts[name] = 0
+            for _lo, _hi, sub in spans.get(name, ()):
+                counts[sub] = 0
         elif name and re.search(rf"\b{opcode}\b", line):
             counts[name] += 1
+            at = re.search(r"/\*([0-9a-f]+)\*/", line)
+            for lo, hi, sub in spans.get(name, ()):
+                if at and lo <= int(at.group(1), 16) < hi:
+                    counts[sub] += 1
     return counts
 
 
@@ -218,6 +238,8 @@ def library():
         lib.hf_flash_attention.argtypes = [ptr, ptr, ptr, ptr, *(i32,) * 7,
                                            ctypes.c_float, ptr]
         lib.hf_flash_attention.restype = i32
+        lib.hf_gmm_tmaps.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32]
+        lib.hf_gmm_tmaps.restype = i32
         ms, bs = ctypes.c_int(), ctypes.c_int()
         lib.hf_desc_sizes(ctypes.byref(ms), ctypes.byref(bs))
         if (ms.value, bs.value) != (ctypes.sizeof(MemberDesc),
@@ -323,6 +345,32 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, S, H,
             k.shape[2], D, int(q.dtype == torch.float32), int(causal),
             scale, ctypes.c_void_p(stream)), "flash attention")
+
+
+_TMAPS: dict[tuple, torch.Tensor] = {}
+
+
+def gmm_tensor_maps(w_in: torch.Tensor, w_out: torch.Tensor, E: int, d: int,
+                    f: int, fin: int) -> int:
+    """Device pointer to the grouped expert FFN's two TMA tensor maps of
+    w_in (E, d, fin) and w_out (E, f, d) (``hf_gmm_tmaps``), encoded once
+    per pair of weight addresses and shapes: a map holds only the address,
+    shape and strides, so it stays right for whatever tensor occupies the
+    memory later."""
+    key = (w_in.device.index, w_in.data_ptr(), w_out.data_ptr(), E, d, f,
+           fin)
+    maps = _TMAPS.get(key)
+    if maps is None:
+        buf = (ctypes.c_ubyte * 320)()
+        at = (ctypes.addressof(buf) + 63) & ~63
+        err = library().hf_gmm_tmaps(ctypes.c_void_p(at), w_in.data_ptr(),
+                                     w_out.data_ptr(), E, d, f, fin)
+        if err:
+            raise RuntimeError(f"moe_gmm tensor maps: error {err}")
+        host = torch.frombuffer(bytearray(ctypes.string_at(at, 256)),
+                                dtype=torch.uint8)
+        maps = _TMAPS[key] = host.to(w_in.device)
+    return maps.data_ptr()
 
 
 def member_smem(member) -> int:

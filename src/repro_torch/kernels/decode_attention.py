@@ -2,19 +2,21 @@
 cache, GQA, per-slot valid length; the cache either contiguous per slot or
 paged in a block arena shared by the slots.
 
-CUDA source: ``csrc/decode_attention.cuh`` (on ``csrc/attention_core.cuh``).
-It replaces the TPU kernel ``src/repro/kernels/decode_attention.py:44``
-(decode_attention_op with ``dynamic_length=True``, contiguous and
-``block_table=`` forms; the paged form's page gather, ``:35``
-``gather_pages``, becomes a table lookup per kv row inside the tile load).
-Bound on the card: bytes — it streams each slot's valid cache prefix and
-does O(D) flops per byte.  Design: one CTA per (slot, KV head) carries all
-rep = H/Hkv query heads of the group, so each cached row is read once; the
-kv loop (the reference's grid-order carry, made a loop inside the CTA)
-stops at the slot's own length.  The paged form reads position p from
-arena row ``bt[b, p // bs] * bs + p % bs`` and does the contiguous form's
-math on it, so the two are bitwise equal on equal logical content.
-Split-KV across CTAs is later work.
+CUDA source: ``csrc/decode_attention.cuh``.  It replaces the TPU kernel
+``src/repro/kernels/decode_attention.py:44`` (decode_attention_op with
+``dynamic_length=True``, contiguous and ``block_table=`` forms; the paged
+form's page gather, ``:35`` ``gather_pages``, becomes a table lookup per kv
+row inside the staging loop).  Bound on the card: bytes — it streams each
+slot's valid cache prefix and does O(D) flops per byte.  Design: split-KV.
+The positions are cut into ranges of ``kv_split(bs)`` (256) positions, one
+CTA per (slot, KV head, range), each carrying all rep = H/Hkv query heads
+of the group so a cached row is read once; a range past its slot's length
+exits at once, and the (slot, head)'s last CTA combines the live ranges in
+range order (no float atomics: any launch gives the same bits).  Inside a
+CTA each warp streams its own tiles by ``cp.async`` and reduces dot
+products by shuffles.  The paged form reads position p from arena row
+``bt[b, p // bs] * bs + p % bs`` and does the contiguous form's math on
+it, so the two are bitwise equal on equal logical content.
 
 Beside the kernel: ``DECODE``, its launch record, ``plain_decode_attention``
 and ``plain_paged_decode_attention``, the plain PyTorch versions.
@@ -35,6 +37,20 @@ DECODE = cuda.Kernel("decode_attention",
                      "src/repro/kernels/decode_attention.py:44, "
                      "src/repro/kernels/decode_attention.py:35")
 NEG_INF = -1e30
+KV_SPLIT = 256      # cache positions per CTA (csrc/decode_attention.cuh)
+MAX_HEAD_DIM = 256  # 8 elements a lane, at most 32 lanes a cached row
+
+
+def kv_split(bs: int = 0) -> int:
+    """Positions per split: ``KV_SPLIT``, or the least multiple of it that
+    holds whole pages of ``bs`` rows.  Never the live lengths: a planned
+    launch's CTA count is static."""
+    return math.lcm(KV_SPLIT, bs) if bs else KV_SPLIT
+
+
+def n_splits(S: int, bs: int = 0) -> int:
+    """CTAs per (slot, KV head): the splits that cover S positions."""
+    return -(-S // kv_split(bs))
 
 
 def plain_decode_attention(length: torch.Tensor, q: torch.Tensor,
@@ -87,16 +103,21 @@ class DecodeAttentionMember:
 
     @property
     def ctas(self) -> int:
-        return self.B * self.Hkv
+        return self.B * self.Hkv * n_splits(self.S, self.bs)
 
-    def pack(self, md, ins, outs) -> None:
+    def pack(self, md, ins, outs):
+        """Describe, check and bind one launch; returns the workspace (the
+        (slot, head) tickets, zeroed, then the splits' partials), alive
+        until the launch is queued."""
         B, S, H, Hkv, D = self.B, self.S, self.H, self.Hkv, self.D
-        if H % Hkv or D % 8:
+        if H % Hkv or D % 8 or D > MAX_HEAD_DIM:
             raise ValueError(f"decode attention takes H % Hkv == 0 and "
-                             f"D % 8 == 0, got H={H} Hkv={Hkv} D={D}")
+                             f"D % 8 == 0 up to {MAX_HEAD_DIM}, got H={H} "
+                             f"Hkv={Hkv} D={D}")
         bf, f32 = torch.bfloat16, torch.float32
         md.kind = cuda.DECODE_ATTN
         md.i[0], md.i[1], md.i[2], md.i[3], md.i[4] = B, S, H, Hkv, D
+        md.i[7] = kv_split(self.bs)
         md.f[0] = 1.0 / math.sqrt(D)
         kv_shape = (B, S, Hkv, D)
         if self.bs:
@@ -113,6 +134,14 @@ class DecodeAttentionMember:
         for j, (t, shape) in enumerate(zip(outs, ((B, H, D), (B, H, 1),
                                                   (B, H, 1)))):
             md.out[j] = cuda.check(t, f"decode out{j}", shape, f32)
+        # int tickets (padded to 16 bytes), then fp32 partials: (o, m, l)
+        # of each row of each (slot, head, split)
+        tickets = -(-B * Hkv // 4) * 4
+        ws = torch.empty(tickets + B * Hkv * n_splits(S, self.bs) * (H // Hkv)
+                         * (D + 2), dtype=torch.int32, device=q.device)
+        ws[:B * Hkv].zero_()
+        md.out[3] = ws.data_ptr()
+        return ws
 
 
 def decode_attention_op(B: int, S: int, H: int, Hkv: int, D: int,

@@ -7,10 +7,13 @@ decode step plans beside the router) and ``:34`` (moe_gmm, the same member
 launched alone).  Bound on the card: bytes — at decode every expert's
 weights stream once for C = 8 rows (2.52 GB at phi3.5-moe, 0.752 ms at
 3.35 TB/s).  Design: a CTA per (expert, f-tile of ``f_tile(f)`` hidden
-columns), not per expert, so 400 CTAs fill the 132 SMs at phi3.5-moe; each
-writes a (C, d) fp32 partial into a per-launch workspace and the expert's
-last CTA sums the partials in tile order (no float atomics, so a fused
-launch is bitwise equal to the member alone).
+columns), both products on the tensor cores (``mma.sync``, weights on the
+16-row side, tokens on the 8-column side), the weights through a ring of
+``cp.async`` stages, each slice applied to all ``pass_rows(C)`` token rows
+of a pass, so each weight byte streams once a launch at C <= 40.  Each CTA
+writes (C, d) fp32 partials into a per-launch workspace, and the last CTA
+of each (expert, pass, 256-column chunk) sums them in tile order (no float
+atomics, so a fused launch is bitwise equal to the member alone).
 
 Beside the kernel: ``MOE_GMM``, its launch record, and ``plain_moe_gmm``,
 the plain PyTorch version of ``_gmm_kernel`` (``:21-31``).
@@ -33,9 +36,23 @@ MOE_GMM = cuda.Kernel("moe_gmm", "src/repro_torch/csrc/moe_gmm_member.cuh",
 _ACT_IDS = {("silu", True): 0, ("gelu", True): 1, ("gelu", False): 2}
 
 
+PASS_ROWS = 40      # token rows a pass holds (registers: csrc NT <= 5)
+FT_MAX = 640        # hidden columns a CTA: 160 CTAs at phi3.5-moe
+CHUNK = 256         # output columns per combine ticket (csrc GMM_JC)
+
+
+def pass_rows(C: int) -> int:
+    """Token rows of a pass: C in ceil(C / PASS_ROWS) passes as even as
+    multiples of 8 allow (each pass streams the CTA's weights once)."""
+    per = -(-C // -(-C // PASS_ROWS))
+    return -(-per // 8) * 8
+
+
 def f_tile(f: int) -> int:
-    """Hidden columns per CTA: the largest of 256, 128, 64, 32 dividing f."""
-    for ft in (256, 128, 64, 32):
+    """Hidden columns per CTA: the largest multiple of 32 dividing f, at
+    most FT_MAX (the h tile of a pass, 40 x 648 bf16, then fits beside a
+    3-stage ring in the member's 112 KB)."""
+    for ft in range(min(f, FT_MAX) // 32 * 32, 0, -32):
         if f % ft == 0:
             return ft
     raise ValueError(f"moe_gmm member: d_ff_expert {f} is not a multiple "
@@ -75,10 +92,9 @@ class MoeGmmMember:
         """Describe, check and bind one launch; returns the workspace
         (partials, zeroed tickets), alive until the launch is queued."""
         E, C, d, f = self.E, self.C, self.d, self.f
-        ft = f_tile(f)
-        n1 = 2 * ft if self.gated else ft
-        if d % 8 or 256 % (n1 // 8):
-            raise ValueError(f"moe_gmm member: d={d} f={f} unsupported")
+        ft, rows = f_tile(f), pass_rows(C)
+        if d % 8:
+            raise ValueError(f"moe_gmm member: d={d} is not a multiple of 8")
         key = (self.act, self.gated)
         if key not in _ACT_IDS:
             raise ValueError(f"moe_gmm member: activation {key} has no "
@@ -87,16 +103,18 @@ class MoeGmmMember:
         fin = 2 * f if self.gated else f
         md.kind = cuda.MOE_GMM
         md.i[0], md.i[1], md.i[2], md.i[3] = E, C, d, f
-        md.i[4], md.i[5] = ft, _ACT_IDS[key]
+        md.i[4], md.i[5], md.i[6] = ft, _ACT_IDS[key], rows
         xe, w_in, w_out = ins
         md.inp[0] = cuda.check(xe, "moe_gmm xe", (E, C, d), bf)
         md.inp[1] = cuda.check(w_in, "moe_gmm w_in", (E, d, fin), bf)
         md.inp[2] = cuda.check(w_out, "moe_gmm w_out", (E, f, d), bf)
+        md.inp[3] = cuda.gmm_tensor_maps(w_in, w_out, E, d, f, fin)
         md.out[0] = cuda.check(outs[0], "moe_gmm ye", (E, C, d), bf)
         dev = outs[0].device
         ws = (torch.empty(E * (f // ft) * C * d, dtype=torch.float32,
                           device=dev),
-              torch.zeros(E, dtype=torch.int32, device=dev))
+              torch.zeros(E * -(-C // rows) * -(-d // CHUNK),
+                          dtype=torch.int32, device=dev))
         md.out[1], md.out[2] = ws[0].data_ptr(), ws[1].data_ptr()
         return ws
 

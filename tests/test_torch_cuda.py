@@ -32,7 +32,7 @@ import torch
 from repro_torch.core import hfuse, stitch
 from repro_torch.core.cost_model import Schedule
 from repro_torch.kernels import cuda, elementwise
-from repro_torch.kernels.decode_attention import decode_attention_op
+from repro_torch.kernels.decode_attention import decode_attention_op, kv_split
 from repro_torch.kernels.matmul import matmul_1d_op
 from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_op, plain_moe_gmm
 from repro_torch.kernels.prefill_attention import prefill_attention_op
@@ -161,12 +161,35 @@ def test_chains_bitwise_equal_separate_members(cuda_dev, width, fn):
     _close_bf16(got, hfuse.run_single(chain, plain=True)(x, w_in)[0])
 
 
-@pytest.mark.parametrize("width", sorted(WIDTHS))
-def test_decode_attention_member(cuda_dev, width):
-    B, _d, H, Hkv, D, _f, S = WIDTHS[width]
+def _decode_lens(kind, B, S):
+    """Per-slot lengths: "spread" 1..S evenly; "edges" a zero-length slot,
+    a slot at S and lengths at the 256-position split boundaries +-1 (as
+    many as B slots hold, those past S left out)."""
+    if kind == "spread":
+        return torch.linspace(1, S, B).round().to(torch.int32)
+    ks = kv_split()
+    edges = [x for x in (0, S, ks - 1, ks, ks + 1, 1, S - 1, 2 * ks + 1)
+             if x <= S]
+    return torch.tensor((edges * B)[:B], dtype=torch.int32)
+
+
+# the widths decode attention is checked at, and head dim 72 at granite's
+# heads (a row of 9 16-byte chunks, 16 lanes a row)
+DECODE_WIDTHS = [("full", None), ("phi", None), ("reduced", None),
+                 ("full", 72)]
+
+
+def _decode_shape(width, D):
+    B, _d, H, Hkv, D0, _f, S = WIDTHS[width]
+    return B, H, Hkv, D or D0, S
+
+
+@pytest.mark.parametrize("lens", ["spread", "edges"])
+@pytest.mark.parametrize("width,D", DECODE_WIDTHS)
+def test_decode_attention_member(cuda_dev, width, D, lens):
+    B, H, Hkv, D, S = _decode_shape(width, D)
     g = _gen(4)
-    lens = torch.linspace(1, S, B).round().to(torch.int32)
-    length = lens.reshape(B, 1).cuda()
+    length = _decode_lens(lens, B, S).reshape(B, 1).cuda()
     q = _randn((B, H, D), g)
     k = _randn((B, S, Hkv, D), g)
     v = _randn((B, S, Hkv, D), g)
@@ -175,6 +198,8 @@ def test_decode_attention_member(cuda_dev, width):
     got, want = _kernel_vs_plain(op, length, q, k, v)
     for a, b in zip(got, want):
         _close_f32(a, b)
+    # the splits' fixed-order combine: the same bits launch to launch
+    assert _same(got, hfuse.run_single(op)(length, q, k, v))
 
 
 @pytest.mark.parametrize("off,C", [(0, None), ("mid", None), (7, 5)])
@@ -225,12 +250,13 @@ def _device_kernels(run) -> set[str]:
 
 
 def test_attention_tensor_core_routes(cuda_dev):
-    """bf16 flash attention and the prefill member run on the tensor cores.
-    A bf16 flash launch runs flash_mma_kernel and an fp32 one
-    flash_f32_kernel (the kernels' names in a profiler trace), each counted
-    once.  The bf16 kernels hold HMMA in their SASS and the fp32 one none;
-    so do both bundle instances, whose only tensor-core code is the prefill
-    member's body, and a prefill member launch is counted."""
+    """bf16 flash attention, the prefill member and the grouped expert FFN
+    run on the tensor cores.  A bf16 flash launch runs flash_mma_kernel and
+    an fp32 one flash_f32_kernel (the kernels' names in a profiler trace),
+    each counted once.  The bf16 kernels hold HMMA in their SASS and the
+    fp32 one none; so do both bundle instances, and inside each the prefill
+    bodies and the moe_gmm bodies, one per 8-row group count (their spans
+    from the ELF symbol table); a prefill member launch is counted."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.prefill_attention import PREFILL
     g = _gen(17)
@@ -245,11 +271,15 @@ def test_attention_tensor_core_routes(cuda_dev):
     hmma = cuda.sass_counts("HMMA")
     assert hmma is not None, "the toolkit has no cuobjdump"
 
-    def count(key):
-        return [n for f, n in hmma.items() if key in f]
+    def count(key, body=False):
+        return [n for f, n in hmma.items() if key in f and ("$" in f) == body]
     for key in ("flash_mma_kernelILi64E", "flash_mma_kernelILi128E",
                 "hf_bundleILb0E", "hf_bundleILb1E"):
         assert count(key) and all(n > 0 for n in count(key)), (key, hmma)
+    for key in ("prefill_mmaILi64E", "prefill_mmaILi128E",
+                *(f"moe_gmm_mmaILi{n}E" for n in range(1, 6))):
+        assert len(count(key, True)) == 2, (key, hmma)
+        assert all(n > 0 for n in count(key, True)), (key, hmma)
     assert count("flash_f32_kernel") == [0]
     before = PREFILL.launches
     op = prefill_attention_op(64, 256, 4, 2, 64, ck=256)
@@ -683,13 +713,13 @@ def _paged(k, v, lens, bs, g):
     return ka, va, bt, kl, vl
 
 
+@pytest.mark.parametrize("lens", ["spread", "edges"])
 @pytest.mark.parametrize("bs", [4, 16, 64])
-@pytest.mark.parametrize("width", sorted(WIDTHS))
-def test_paged_decode_bitwise_equals_contiguous(cuda_dev, width, bs):
-    B, _d, H, Hkv, D, _f, S = WIDTHS[width]
+@pytest.mark.parametrize("width,D", DECODE_WIDTHS)
+def test_paged_decode_bitwise_equals_contiguous(cuda_dev, width, D, bs, lens):
+    B, H, Hkv, D, S = _decode_shape(width, D)
     g = _gen(11)
-    lens = torch.linspace(1, S, B).round().to(torch.int32)
-    lens[0] = 1                               # an idle slot's length
+    lens = _decode_lens(lens, B, S)           # slot 0 idle: length 1 or 0
     q = _randn((B, H, D), g)
     k, v = _randn((B, S, Hkv, D), g), _randn((B, S, Hkv, D), g)
     ka, va, bt, kl, vl = _paged(k, v, lens.tolist(), bs, g)
@@ -698,6 +728,7 @@ def test_paged_decode_bitwise_equals_contiguous(cuda_dev, width, bs):
     op = decode_attention_op(B, S, H, Hkv, D, ck=ck, dynamic_length=True,
                              block_table=(ka.shape[0], bs))
     base = decode_attention_op(B, S, H, Hkv, D, ck=ck, dynamic_length=True)
+    assert op.ctas == base.ctas
     got, want = _kernel_vs_plain(op, bt, length, q, ka, va)
     for a, b in zip(got, want):
         _close_f32(a, b)
@@ -738,8 +769,14 @@ def _gmm_operands(E, C, d, f, g, gated=True):
 @pytest.mark.parametrize("E,C,d,f,act,gated", [
     (4, 8, 512, 1024, "silu", True), (4, 8, 256, 96, "gelu", True),
     (4, 16, 256, 512, "gelu", False), (16, 8, 4096, 6400, "silu", True),
-    (16, 80, 4096, 6400, "silu", True)])
+    (16, 16, 4096, 6400, "silu", True), (16, 32, 4096, 6400, "silu", True),
+    (16, 80, 4096, 6400, "silu", True), (16, 128, 4096, 6400, "silu", True),
+    (16, 8, 4096, 6400, "gelu", False), (3, 41, 200, 96, "gelu", True)])
 def test_moe_gmm_member(cuda_dev, E, C, d, f, act, gated):
+    """Decode capacity, one pass of up to 40 token rows (C 16, 32), two and
+    four passes (C 80, 128), the non-gated gelu at phi3.5-moe's width, and
+    a ragged shape: 2 passes of 24 rows for C 41, d 200 (a part 16-column
+    output tile), f 96 (a part 128-column sweep)."""
     ins = _gmm_operands(E, C, d, f, _gen(13), gated)
     op = moe_gmm_op(E, C, d, f, act=act, gated=gated)
     (got,), (want,) = _kernel_vs_plain(op, *ins)
@@ -779,6 +816,40 @@ def test_moe_gmm_bundle_with_prefill_bitwise_equals_native(cuda_dev, ratios):
            _randn((S, Hkv, D), g))
     fused = hfuse.generate((gmm, pf), Schedule(ratios))(*ins)
     assert _same(fused, hfuse.run_native((gmm, pf))(*ins))
+
+
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("ratios", [(1, 1), (8, 1), (1, 8), (3, 5)])
+def test_split_decode_bundle_bitwise_equals_native(cuda_dev, ratios, paged):
+    """Decode attention at its split CTA count (512 at B 8, S 2048, Hkv 8)
+    with lengths at the split boundaries, a zero-length slot and a slot at
+    S, beside a 512-row prefill chunk at offset 1024, phi3.5-moe's head dim
+    128, contiguous and paged (16-row pages): one launch, bit for bit the
+    members launched alone."""
+    B, _d, H, Hkv, D, _f, S = WIDTHS["phi"]
+    C, bs = 512, 16
+    g = _gen(18)
+    lens = _decode_lens("edges", B, S)
+    q = _randn((B, H, D), g)
+    k, v = _randn((B, S, Hkv, D), g), _randn((B, S, Hkv, D), g)
+    length = lens.reshape(B, 1).cuda()
+    pf = prefill_attention_op(C, S, H, Hkv, D, ck=1024)
+    pf_in = (torch.full((1, 1), 1024, dtype=torch.int32, device="cuda"),
+             _randn((C, H, D), g), k[3], v[3])
+    if paged:
+        ka, va, bt, _kl, _vl = _paged(k, v, lens.tolist(), bs, g)
+        dec = decode_attention_op(B, S, H, Hkv, D, ck=1024,
+                                  dynamic_length=True,
+                                  block_table=(ka.shape[0], bs))
+        dec_in = (bt, length, q, ka, va)
+    else:
+        dec = decode_attention_op(B, S, H, Hkv, D, ck=1024,
+                                  dynamic_length=True)
+        dec_in = (length, q, k, v)
+    assert dec.ctas == B * Hkv * (S // kv_split())
+    ops, ins = (dec, pf), dec_in + pf_in
+    fused = hfuse.generate(ops, Schedule(ratios))(*ins)
+    assert _same(fused, hfuse.run_native(ops)(*ins))
 
 
 # ---------------------------------------------------------------------------

@@ -283,8 +283,9 @@ def test_fused_bundle_matches_reference(ratios):
 def test_member_geometry():
     """CTAs per member at the full-width shapes: qkv 3072/64 column
     tiles, the gated FFN chain 8192/32 column pairs, one CTA per (slot,
-    KV head) for decode and per (64 rows of the group's 512 query rows x 4
-    heads, KV head) for prefill on the tensor cores."""
+    KV head, 256-position split) for decode, contiguous and paged, and per
+    (64 rows of the group's 512 query rows x 4 heads, KV head) for prefill
+    on the tensor cores."""
     bf = torch.bfloat16
     assert matmul_1d_op(8, 2048, 3072, bf, bm=8).ctas == 48
     ffn = stitch.stitch(matmul_1d_op(8, 2048, 16384, bf, bm=8),
@@ -293,7 +294,9 @@ def test_member_geometry():
     assert ffn.ctas == 256
     assert rmsnorm_op(8, 2048, bf, bm=8).ctas == 8
     assert decode_attention_op(8, 2048, 32, 8, 64, bf,
-                               dynamic_length=True).ctas == 64
+                               dynamic_length=True).ctas == 512
+    assert decode_attention_op(8, 2048, 32, 8, 64, bf, dynamic_length=True,
+                               block_table=(8 * 128 + 8, 16)).ctas == 512
     assert prefill_attention_op(512, 2048, 32, 8, 64, bf).ctas == 256
     # a part last tile: 100 positions x rep 3 = 300 rows, 5 tiles of 64
     assert prefill_attention_op(100, 256, 6, 2, 72, bf, ck=256).ctas == 10
