@@ -9,7 +9,7 @@ non-zero exit code and no result line.
   1. card    the card's name and power limit (nvidia-smi).
   2. build   nvcc the kernel library from ``src/repro_torch/csrc`` for
              sm_90a (keyed by a hash of the sources, under ``build/``);
-             ptxas's registers, stack and spills of the bundle kernel's two
+             ptxas's registers, stack and spills of the bundle kernel's five
              instances, the flash kernels and the non-inlined member bodies
              (prefill, moe_gmm, decode), and the HMMA (tensor-core)
              instructions in their SASS (cuobjdump; a body's span inside a
@@ -40,7 +40,9 @@ non-zero exit code and no result line.
              each, the queue primed so host overhead stays out of the window)
              beside its plain version, one PyTorch library call as a
              yardstick (never used by the port) and its bound from bytes and
-             operations at the card's data-sheet rates.
+             operations at the card's data-sheet rates.  The host's time
+             to queue one decode launch, and of it the per-launch
+             workspace.
   4. adamw   the AdamW member at granite's w_qkv leaf, (1966080, 128) bf16
              p/g and fp32 m/v, bm 1024, in place, bitwise against its plain
              version; an embedding-shaped leaf (a padded tail, copied and
@@ -109,9 +111,10 @@ non-zero exit code and no result line.
              need 83 GB): the fp32 router GEMM and the grouped expert FFN
              at the decode shape (E 16, C 8) and at a chunk's capacity (C
              80) against their plain versions, timed beside them, their
-             bounds and a torch.bmm yardstick, with the bytes the grouped
-             FFN's design moves (weights per pass, fp32 partials written
-             and read, xe and ye); moe_gmm and a prefill chunk
+             bounds and a torch.bmm yardstick; a line of its own gives the
+             bytes the grouped FFN's design moves (weights per pass, fp32
+             partials written and read, xe and ye), worked out from its
+             passes and f-tiles; moe_gmm and a prefill chunk
              in one launch at the search's schedule, bitwise against
              run_native; decode attention (mixed lengths) and prefill
              attention (offsets 0 and 1024, contiguous and paged, the paged
@@ -271,6 +274,22 @@ def kernel_row(path, name, kernel, src, replaces, err, ms, plain_ms, cost,
             **extra}
 
 
+def host_us(torch, fn, n: int = 200, reps: int = 5) -> float:
+    """Host microseconds a call of ``fn`` takes to queue its work: the
+    median over ``reps`` of ``n`` calls in a row, the card synchronised
+    before each batch (not after, so the card's time is not counted while
+    it keeps up)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        times.append((time.perf_counter() - t0) / n * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def ulps(torch, a, b) -> int:
     """Largest distance in units in the last place between two tensors of
     one float dtype (0 when bitwise equal)."""
@@ -323,7 +342,7 @@ def sdpa_prefill(torch, q, k, v, off):
 
 def build_report() -> None:
     """Registers, stack and spills (ptxas, from the build) of the bundle
-    kernel's two instances, the attention kernels and the members'
+    kernel's five instances, the attention kernels and the members'
     non-inlined bodies; the count of HMMA (tensor-core) instructions in each
     kernel's SASS and in each body inside the bundle instances, where the
     toolkit has cuobjdump.  Fails if a tensor-core route (bf16 flash, the
@@ -332,6 +351,9 @@ def build_report() -> None:
     use = cuda.ptxas_usage()
     keys = {"hf_bundle<false>": "hf_bundleILb0E",
             "hf_bundle<true>": "hf_bundleILb1E",
+            "hf_rows<false>": "hf_rowsILb0E",
+            "hf_rows<true>": "hf_rowsILb1E",
+            "hf_paper": "hf_paper",
             "flash_mma_kernel<64>": "flash_mma_kernelILi64E",
             "flash_mma_kernel<128>": "flash_mma_kernelILi128E",
             "flash_f32_kernel": "flash_f32_kernel"}
@@ -623,6 +645,15 @@ def phase_kernels(torch, dev, cfg) -> list[dict]:
                median_ms(lambda: run(*ins), flush),
                median_ms(lambda: run_plain(*ins), flush), cost, peak,
                None if lib is None else median_ms(lib, flush))
+
+    # the host's time to queue one decode launch, and of it the per-launch
+    # workspace (split partials, zeroed tickets)
+    run = hfuse.run_single(att)
+    print(f"[kernels] decode_attention host: "
+          f"{host_us(torch, lambda: run(*dec_in)):.1f} us to queue a launch, "
+          f"of which the workspace "
+          f"{host_us(torch, lambda: att.member.workspace(dev)):.1f} us",
+          flush=True)
 
     # chains: bitwise equal to the two members launched separately
     (c1,) = hfuse.run_single(chain1)(x, scale1, w_qkv)
@@ -1761,16 +1792,13 @@ def phase_moe(torch, dev) -> tuple[list[dict], dict]:
         err = compare(torch, got, run_plain(*ins))
         check(all(torch.equal(a, b) for a, b in zip(got, run(*ins))),
               f"{name} differs between two launches")
-        extra = {}
-        if op is not router:
-            extra["moved_bytes"] = gmm_moved(op)
         rows.append(kernel_row(
             "moe", name, kernel, src, replaces, err,
             median_ms(lambda: run(*ins), flush),
             median_ms(lambda: run_plain(*ins), flush), cost, peak,
-            median_ms(lib, flush), **extra))
-        if extra:
-            mv = extra["moved_bytes"]
+            median_ms(lib, flush)))
+        if op is not router:
+            mv = gmm_moved(op)
             moved = mv["weights"] + mv["partials"] + mv["tokens"]
             print(f"[moe] {name}: {op.member.ctas} CTAs, moves "
                   f"{moved / 1e9:.3f} GB: weights "

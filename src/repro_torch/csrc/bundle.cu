@@ -29,13 +29,18 @@
 // prefill attention member runs the same tensor-core tile loop
 // (attention_mma.cuh) as a non-inlined call.
 //
-// Two instances of the kernel: hf_bundle<true> holds the row family's chain
-// bodies (csrc/row_member.cuh: ROW_CHAIN, the GEMM's EPI_* epilogues, the
-// fp32 GEMM's staged producer) and runs every launch that carries one;
-// hf_bundle<false> runs all other launches.  Compiled into the one kernel,
-// the chain code moved ptxas's allocation of every member and slowed the
-// serve members 1.6-3.2% on the H100; the other instance keeps them as they
-// were.
+// Instances of the kernel.  ptxas allocates each kernel as a whole, so code
+// compiled into it for one member moves every other member's allocation (1-5%
+// either way on the H100: PERF.md).  So a launch runs the narrowest instance
+// that holds its members:
+//   hf_rows<false>   row members only (the GEMM, RMSNorm, activation,
+//                    residual add, no chain),
+//   hf_rows<true>    row members of which one needs a chain body
+//                    (csrc/row_member.cuh row_chain_kernel: ROW_CHAIN, the
+//                    GEMM's EPI_* epilogues, the fp32 GEMM's staged producer),
+//   hf_paper         the paper suite's members only,
+//   hf_bundle<false> / <true>  any other mix (every member kind; <true>
+//                    when a row member needs a chain body).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false -shared
 // (src/repro_torch/kernels/cuda.py builds it at first use).
@@ -51,11 +56,26 @@
 #include "row_member.cuh"
 #include "tiled_matmul.cuh"
 
-// At least two CTAs per SM: ptxas keeps every member within 128 registers a
-// thread, so no member's register appetite halves the others' occupancy.
-template <bool CHAINS>
-__global__ void __launch_bounds__(HF_THREADS, 2)
-    hf_bundle(const __grid_constant__ BundleDesc b) {
+// kinds as bits, and the sets an instance holds
+#define HF_KIND(k) (1u << (k))
+#define HF_KINDS_ROW HF_KIND(HF_ROW)
+#define HF_KINDS_PAPER                                                   \
+  (HF_KIND(HF_MAXPOOL) | HF_KIND(HF_UPSAMPLE) | HF_KIND(HF_BNSTATS) |    \
+   HF_KIND(HF_IM2COL) | HF_KIND(HF_HIST) | HF_KIND(HF_ETHASH) |          \
+   HF_KIND(HF_HASH))
+#define HF_KINDS_ALL                                                     \
+  (HF_KINDS_ROW | HF_KINDS_PAPER | HF_KIND(HF_DECODE_ATTN) |             \
+   HF_KIND(HF_PREFILL_ATTN) | HF_KIND(HF_ADAMW) | HF_KIND(HF_MOE_GMM))
+
+// The body of every instance: the member kinds outside KINDS are not
+// compiled in (the host never sends them there).
+#define HF_CASE(k, call)                   \
+  case k:                                  \
+    if (KINDS & HF_KIND(k)) call(m, local); \
+    break
+
+template <bool CHAINS, unsigned KINDS>
+__device__ __forceinline__ void hf_run(const BundleDesc& b) {
   const int t = blockIdx.x;
   const int s = t / b.period, ph = t % b.period;
   for (int i = 0; i < b.n; ++i) {
@@ -64,36 +84,68 @@ __global__ void __launch_bounds__(HF_THREADS, 2)
     const int local = s * m.ratio + ph - m.offset;
     if (local >= m.ctas) return;
     switch (m.kind) {
-      case HF_ROW: row_member<CHAINS>(m, local); break;
-      case HF_DECODE_ATTN: decode_attn_member(m, local); break;
-      case HF_PREFILL_ATTN: prefill_attn_member(m, local); break;
-      case HF_ADAMW: adamw_member(m, local); break;
-      case HF_MAXPOOL: maxpool_member(m, local); break;
-      case HF_UPSAMPLE: upsample_member(m, local); break;
-      case HF_BNSTATS: bnstats_member(m, local); break;
-      case HF_IM2COL: im2col_member(m, local); break;
-      case HF_HIST: hist_member(m, local); break;
-      case HF_ETHASH: ethash_member(m, local); break;
-      case HF_HASH: hash_member(m, local); break;
-      case HF_MOE_GMM: moe_gmm_member(m, local); break;
+      HF_CASE(HF_ROW, row_member<CHAINS>);
+      HF_CASE(HF_DECODE_ATTN, decode_attn_member);
+      HF_CASE(HF_PREFILL_ATTN, prefill_attn_member);
+      HF_CASE(HF_ADAMW, adamw_member);
+      HF_CASE(HF_MAXPOOL, maxpool_member);
+      HF_CASE(HF_UPSAMPLE, upsample_member);
+      HF_CASE(HF_BNSTATS, bnstats_member);
+      HF_CASE(HF_IM2COL, im2col_member);
+      HF_CASE(HF_HIST, hist_member);
+      HF_CASE(HF_ETHASH, ethash_member);
+      HF_CASE(HF_HASH, hash_member);
+      HF_CASE(HF_MOE_GMM, moe_gmm_member);
       default: break;
     }
     return;
   }
 }
 
-// Allow `smem` bytes of dynamic shared memory per CTA of one instance
-// (0 = allowed).
+// At least two CTAs per SM: ptxas keeps every member within 128 registers a
+// thread, so no member's register appetite halves the others' occupancy.
 template <bool CHAINS>
-static int hf_allow_smem(int smem) {
-  static int granted = 48 * 1024;
-  return hf_allow_kernel_smem(hf_bundle<CHAINS>, smem, &granted);
+__global__ void __launch_bounds__(HF_THREADS, 2)
+    hf_bundle(const __grid_constant__ BundleDesc b) {
+  hf_run<CHAINS, HF_KINDS_ALL>(b);
+}
+template <bool CHAINS>
+__global__ void __launch_bounds__(HF_THREADS, 2)
+    hf_rows(const __grid_constant__ BundleDesc b) {
+  hf_run<CHAINS, HF_KINDS_ROW>(b);
+}
+__global__ void __launch_bounds__(HF_THREADS, 2)
+    hf_paper(const __grid_constant__ BundleDesc b) {
+  hf_run<false, HF_KINDS_PAPER>(b);
 }
 
-static bool hf_needs_chains(const BundleDesc& b) {
-  for (int i = 0; i < b.n; ++i)
-    if (b.m[i].kind == HF_ROW && row_chain_kernel(b.m[i])) return true;
-  return false;
+typedef void (*HfKernel)(BundleDesc);
+enum { HF_I_MIXED, HF_I_MIXED_CHAINS, HF_I_ROWS, HF_I_ROWS_CHAINS, HF_I_PAPER,
+       HF_INSTANCES };
+static const HfKernel hf_instances[HF_INSTANCES] = {
+    hf_bundle<false>, hf_bundle<true>, hf_rows<false>, hf_rows<true>,
+    hf_paper};
+
+// Allow `smem` bytes of dynamic shared memory per CTA of instance `inst`
+// (0 = allowed).
+static int hf_allow_smem(int inst, int smem) {
+  static int granted[HF_INSTANCES] = {48 * 1024, 48 * 1024, 48 * 1024,
+                                      48 * 1024, 48 * 1024};
+  return hf_allow_kernel_smem(hf_instances[inst], smem, &granted[inst]);
+}
+
+// The narrowest instance that holds every member of the launch.
+static int hf_instance(const BundleDesc& b) {
+  unsigned kinds = 0;
+  bool chains = false;
+  for (int i = 0; i < b.n; ++i) {
+    kinds |= HF_KIND(b.m[i].kind);
+    chains = chains || (b.m[i].kind == HF_ROW && row_chain_kernel(b.m[i]));
+  }
+  if (!(kinds & ~HF_KINDS_ROW))
+    return chains ? HF_I_ROWS_CHAINS : HF_I_ROWS;
+  if (!(kinds & ~HF_KINDS_PAPER)) return HF_I_PAPER;
+  return chains ? HF_I_MIXED_CHAINS : HF_I_MIXED;
 }
 
 extern "C" {
@@ -124,32 +176,29 @@ int hf_member_smem(const MemberDesc* m) {
 
 // Launch on `stream`; returns the cudaError_t of the launch (0 = queued).
 int hf_launch(const BundleDesc* b, int grid, int smem, void* stream) {
-  const bool chains = hf_needs_chains(*b);
-  int e = chains ? hf_allow_smem<true>(smem) : hf_allow_smem<false>(smem);
+  const int inst = hf_instance(*b);
+  int e = hf_allow_smem(inst, smem);
   if (e) return e;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (chains)
-    hf_bundle<true><<<grid, HF_THREADS, smem, s>>>(*b);
-  else
-    hf_bundle<false><<<grid, HF_THREADS, smem, s>>>(*b);
+  hf_instances[inst]<<<grid, HF_THREADS, smem,
+                       static_cast<cudaStream_t>(stream)>>>(*b);
   return (int)cudaGetLastError();
 }
 
 // CTAs of a launch with `smem` bytes of dynamic shared memory that fit on
-// one SM at once (registers, shared memory and threads counted; the fewer
-// of the two instances); returns the cudaError_t.
+// one SM at once (registers, shared memory and threads counted; the fewest
+// of the instances); returns the cudaError_t.
 int hf_occupancy(int smem, int* ctas_per_sm) {
-  int e = hf_allow_smem<false>(smem);
-  if (!e) e = hf_allow_smem<true>(smem);
-  if (e) return e;
-  int a = 0, c = 0;
-  e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &a, hf_bundle<false>, HF_THREADS, smem);
-  if (!e)
-    e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &c, hf_bundle<true>, HF_THREADS, smem);
-  *ctas_per_sm = a < c ? a : c;
-  return e;
+  int fewest = 1 << 30;
+  for (int inst = 0; inst < HF_INSTANCES; ++inst) {
+    int e = hf_allow_smem(inst, smem), n = 0;
+    if (!e)
+      e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, hf_instances[inst], HF_THREADS, smem);
+    if (e) return e;
+    fewest = n < fewest ? n : fewest;
+  }
+  *ctas_per_sm = fewest;
+  return 0;
 }
 
 // The grouped expert FFN's two TMA tensor maps (CUtensorMap, 128 bytes

@@ -15,9 +15,11 @@
 // 67 MB for its gate+up weight).  Design: a CTA owns a 64-column tile of the
 // weight for up to GEMM_MROWS rows (one row block at decode; a dW GEMM's
 // 2048 rows make 32), each thread streams 16-byte vectors (8 columns of one
-// weight row), x sits in shared memory, sums stay fp32.  A gated epilogue
-// needs gate column j and up column j+F in one CTA, so the gated tile is 32
-// gate columns plus their 32 up columns.
+// weight row) four k rows a step, the next step's four loaded before this
+// step's FMAs (with one step's loads only, the GEMM's time moved 5-11% with
+// whatever else the bundle kernel held), x sits in shared memory, sums stay
+// fp32.  A gated epilogue needs gate column j and up column j+F in one CTA,
+// so the gated tile is 32 gate columns plus their 32 up columns.
 //
 // RMSNorm, the activation and the residual add take bf16 or, with i[6] = 1,
 // fp32 rows.  All three are bound by bytes.  The residual add streams its
@@ -89,11 +91,11 @@
 // (gemm_stage_x, gemm_adamw_tile, gemm_rows_tail), called outside its K
 // loop so that a chain streams its weight in the member's own loop (a
 // second, non-inlined copy of the GEMM ran the W_o-shaped dW->AdamW chain
-// at 1.34x its two separate launches on the H100).  Only the chain instance
-// of the bundle kernel (CHAINS = true, csrc/bundle.cu) holds ROW_CHAIN, the
+// at 1.34x its two separate launches on the H100).  Only the chain instances
+// of the bundle kernel (CHAINS = true, csrc/bundle.cu) hold ROW_CHAIN, the
 // EPI_* epilogues and the fp32 GEMM's staged producer (row_chain_kernel
-// says which members need it); the other instance, which every launch
-// without them takes, keeps the allocation of the members it runs.
+// says which members need them); the other instances, which every launch
+// without them takes, keep the allocation of the members they run.
 #pragma once
 
 #include "adamw_member.cuh"
@@ -409,18 +411,33 @@ __device__ void row_gemm(const MemberDesc& m, int cta) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) acc[r][j] = 0.0f;
 
-    // four weight vectors in flight per thread; k ascends in both loops,
-    // so every column's sum runs in one fixed order
+    // steps of four weight vectors, the next step's loaded before this
+    // step's FMAs; k ascends in both loops, so every column's sum runs in
+    // one fixed order
     int k = kr;
-    for (; k + 96 < K; k += 128) {
-      uint4 w0 = *reinterpret_cast<const uint4*>(w + (size_t)k * N + col0);
-      uint4 w1 = *reinterpret_cast<const uint4*>(w + (size_t)(k + 32) * N + col0);
-      uint4 w2 = *reinterpret_cast<const uint4*>(w + (size_t)(k + 64) * N + col0);
-      uint4 w3 = *reinterpret_cast<const uint4*>(w + (size_t)(k + 96) * N + col0);
-      gemm_fma(acc, xs, K, k, mb, w0);
-      gemm_fma(acc, xs, K, k + 32, mb, w1);
-      gemm_fma(acc, xs, K, k + 64, mb, w2);
-      gemm_fma(acc, xs, K, k + 96, mb, w3);
+    if (k + 96 < K) {
+      uint4 wv[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        wv[u] = *reinterpret_cast<const uint4*>(w + (size_t)(k + 32 * u) * N +
+                                                col0);
+      for (;;) {
+        const int kn = k + 128;
+        const bool more = kn + 96 < K;
+        uint4 nv[4];
+        if (more) {
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            nv[u] = *reinterpret_cast<const uint4*>(
+                w + (size_t)(kn + 32 * u) * N + col0);
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) gemm_fma(acc, xs, K, k + 32 * u, mb, wv[u]);
+        k = kn;
+        if (!more) break;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) wv[u] = nv[u];
+      }
     }
     for (; k < K; k += 32) {
       uint4 w0 = *reinterpret_cast<const uint4*>(w + (size_t)k * N + col0);

@@ -5,8 +5,10 @@ headers) because any member must be able to share a launch with any other;
 the two standalone kernels the reference never fuses, the tiled matmul and
 flash attention, are their own ``__global__`` kernels in the same library,
 each with its own C launcher (``matmul``, ``flash_attention`` below).
-The bundle kernel itself has two instances, with and without the row
-family's chain bodies; ``hf_launch`` picks one from the members it carries.
+The bundle kernel itself has five instances (row members only, with and
+without the row family's chain bodies; the paper members only; any mix,
+with and without the chain bodies); ``hf_launch`` picks the narrowest one
+that holds the members a launch carries.
 The library is compiled with ``nvcc`` for ``sm_90a`` at first use, into
 ``build/repro_torch/<hash of the sources>/`` at the root of the checkout,
 bound with ``ctypes`` (plain C interface, no PyTorch headers: seconds to
@@ -38,6 +40,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from collections import OrderedDict
 from pathlib import Path
 from typing import Sequence
 
@@ -347,7 +350,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             scale, ctypes.c_void_p(stream)), "flash attention")
 
 
-_TMAPS: dict[tuple, torch.Tensor] = {}
+_TMAPS: OrderedDict[tuple, torch.Tensor] = OrderedDict()
+TMAPS_KEPT = 32     # weight pairs whose tensor maps stay on the card
 
 
 def gmm_tensor_maps(w_in: torch.Tensor, w_out: torch.Tensor, E: int, d: int,
@@ -356,7 +360,10 @@ def gmm_tensor_maps(w_in: torch.Tensor, w_out: torch.Tensor, E: int, d: int,
     w_in (E, d, fin) and w_out (E, f, d) (``hf_gmm_tmaps``), encoded once
     per pair of weight addresses and shapes: a map holds only the address,
     shape and strides, so it stays right for whatever tensor occupies the
-    memory later."""
+    memory later.  The ``TMAPS_KEPT`` pairs used last keep theirs (a model
+    uses one pair a layer); an evicted map's memory goes back to PyTorch's
+    allocator, which hands it only to work queued after the launches that
+    read it."""
     key = (w_in.device.index, w_in.data_ptr(), w_out.data_ptr(), E, d, f,
            fin)
     maps = _TMAPS.get(key)
@@ -370,6 +377,10 @@ def gmm_tensor_maps(w_in: torch.Tensor, w_out: torch.Tensor, E: int, d: int,
         host = torch.frombuffer(bytearray(ctypes.string_at(at, 256)),
                                 dtype=torch.uint8)
         maps = _TMAPS[key] = host.to(w_in.device)
+        while len(_TMAPS) > TMAPS_KEPT:
+            _TMAPS.popitem(last=False)
+    else:
+        _TMAPS.move_to_end(key)
     return maps.data_ptr()
 
 

@@ -106,9 +106,8 @@ class DecodeAttentionMember:
         return self.B * self.Hkv * n_splits(self.S, self.bs)
 
     def pack(self, md, ins, outs):
-        """Describe, check and bind one launch; returns the workspace (the
-        (slot, head) tickets, zeroed, then the splits' partials), alive
-        until the launch is queued."""
+        """Describe, check and bind one launch; returns the workspace,
+        alive until the launch is queued."""
         B, S, H, Hkv, D = self.B, self.S, self.H, self.Hkv, self.D
         if H % Hkv or D % 8 or D > MAX_HEAD_DIM:
             raise ValueError(f"decode attention takes H % Hkv == 0 and "
@@ -134,13 +133,20 @@ class DecodeAttentionMember:
         for j, (t, shape) in enumerate(zip(outs, ((B, H, D), (B, H, 1),
                                                   (B, H, 1)))):
             md.out[j] = cuda.check(t, f"decode out{j}", shape, f32)
-        # int tickets (padded to 16 bytes), then fp32 partials: (o, m, l)
-        # of each row of each (slot, head, split)
-        tickets = -(-B * Hkv // 4) * 4
-        ws = torch.empty(tickets + B * Hkv * n_splits(S, self.bs) * (H // Hkv)
-                         * (D + 2), dtype=torch.int32, device=q.device)
-        ws[:B * Hkv].zero_()
+        ws = self.workspace(q.device)
         md.out[3] = ws.data_ptr()
+        return ws
+
+    def workspace(self, device) -> torch.Tensor:
+        """A launch's workspace: B * Hkv int tickets, zeroed (padded to 16
+        bytes), then the fp32 partials, (o, m, l) of each query row of each
+        (slot, head, split)."""
+        B, H, Hkv, D = self.B, self.H, self.Hkv, self.D
+        tickets = -(-B * Hkv // 4) * 4
+        ws = torch.empty(tickets + B * Hkv * n_splits(self.S, self.bs)
+                         * (H // Hkv) * (D + 2), dtype=torch.int32,
+                         device=device)
+        ws[:B * Hkv].zero_()
         return ws
 
 

@@ -36,7 +36,8 @@ MOE_GMM = cuda.Kernel("moe_gmm", "src/repro_torch/csrc/moe_gmm_member.cuh",
 _ACT_IDS = {("silu", True): 0, ("gelu", True): 1, ("gelu", False): 2}
 
 
-PASS_ROWS = 40      # token rows a pass holds (registers: csrc NT <= 5)
+PASS_ROWS = 40      # token rows a pass holds
+KERNEL_PASS_ROWS = 40   # the most the kernel is compiled for (moe_gmm_mma<1..5>)
 FT_MAX = 640        # hidden columns a CTA: 160 CTAs at phi3.5-moe
 CHUNK = 256         # output columns per combine ticket (csrc GMM_JC)
 
@@ -93,6 +94,10 @@ class MoeGmmMember:
         (partials, zeroed tickets), alive until the launch is queued."""
         E, C, d, f = self.E, self.C, self.d, self.f
         ft, rows = f_tile(f), pass_rows(C)
+        if rows % 8 or rows > KERNEL_PASS_ROWS:
+            raise ValueError(f"moe_gmm member: passes of {rows} token rows; "
+                             "the kernel takes multiples of 8 up to "
+                             f"{KERNEL_PASS_ROWS}")
         if d % 8:
             raise ValueError(f"moe_gmm member: d={d} is not a multiple of 8")
         key = (self.act, self.gated)

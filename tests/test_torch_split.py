@@ -155,3 +155,22 @@ def test_moe_gmm_f_tile_divides_f(f, ft):
     """Other widths: the largest multiple of 32 dividing f, at most 640."""
     assert f_tile(f) == ft
     assert f % ft == 0 and ft % 32 == 0
+
+
+@pytest.mark.parametrize("pass_max", [8, 40, 48, 64])
+def test_moe_gmm_pass_rows_taken(monkeypatch, pass_max):
+    """The kernel is compiled for passes of 8..40 token rows (one body per
+    8-row group count), so the member refuses a larger pass before it reads
+    an operand (here CPU tensors, refused next).  C = PASS_ROWS: one pass
+    of all the rows."""
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels import moe_gmm as mg
+    monkeypatch.setattr(mg, "PASS_ROWS", pass_max)
+    op = mg.moe_gmm_op(2, pass_max, 16, 64, torch.bfloat16)
+    assert mg.pass_rows(pass_max) == pass_max
+    ins = [torch.zeros(o.shape, dtype=o.dtype) for o in op.inputs]
+    outs = [torch.zeros(o.shape, dtype=o.dtype) for o in op.outputs]
+    want = ("expected a CUDA tensor" if pass_max <= mg.KERNEL_PASS_ROWS
+            else "token rows")
+    with pytest.raises(ValueError, match=want):
+        op.member.pack(cuda.MemberDesc(), ins, outs)
