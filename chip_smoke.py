@@ -10,11 +10,13 @@ non-zero exit code and no result line.
   2. build   nvcc the kernel library from ``src/repro_torch/csrc`` for
              sm_90a (keyed by a hash of the sources, under ``build/``);
              ptxas's registers, stack and spills of the bundle kernel's five
-             instances, the flash kernels and the non-inlined member bodies
-             (prefill, moe_gmm, decode), and the HMMA (tensor-core)
-             instructions in their SASS (cuobjdump; a body's span inside a
-             bundle instance from the ELF symbol table): the bf16 flash
-             kernels, the prefill bodies and the moe_gmm body must hold
+             instances, the tiled matmul and flash kernels and the
+             non-inlined member bodies (prefill, moe_gmm, the bf16 row
+             GEMM, decode), and the HMMA (mma.sync) instructions in their
+             SASS (cuobjdump; a body's span inside a bundle instance from
+             the ELF symbol table): the bf16 flash kernels, the prefill,
+             moe_gmm and row GEMM bodies must hold some; and the HGMMA
+             (wgmma) instructions of the bf16 tiled matmul, which must hold
              some.
   2b. paper  the paper suite (``kernels/paper_suite.py``) at the
              reference's default sizes: each of the 9 atoms at its defaults
@@ -35,14 +37,15 @@ non-zero exit code and no result line.
              shapes (B=8, S=2048, chunk C=512, bf16) against its plain
              PyTorch version; each chain bitwise against its two members
              launched separately; the two fused bundles the planner picks
-             bitwise against ``run_native`` of the same members.  Each is
+             bitwise against ``run_native`` of the same members, with the
+             launch's shared memory and CTAs per SM.  Each is
              timed with CUDA events (median of 20 launches, L2 flushed before
              each, the queue primed so host overhead stays out of the window)
              beside its plain version, one PyTorch library call as a
              yardstick (never used by the port) and its bound from bytes and
              operations at the card's data-sheet rates.  The host's time
              to queue one decode launch, and of it the per-launch
-             workspace.
+             workspace; and to queue one qkv_proj launch.
   4. adamw   the AdamW member at granite's w_qkv leaf, (1966080, 128) bf16
              p/g and fp32 m/v, bm 1024, in place, bitwise against its plain
              version; an embedding-shaped leaf (a padded tail, copied and
@@ -127,7 +130,7 @@ non-zero exit code and no result line.
   8d. ops    the public kernel entry points (``kernels/ops.py``) at
              full-width granite-3-2b train shapes (8192 rows, d_model 2048,
              32/8 heads, head dim 64, d_ff 8192): the tiled matmul (QKV,
-             gate+up, down in bf16; QKV in fp32), flash attention (causal
+             W_o, gate+up, down in bf16; QKV in fp32), flash attention (causal
              and not, bf16 and fp32; head dim 128 at phi3.5-moe's 32/8
              heads), the standalone rmsnorm and the residual add (bf16 and
              fp32), each against its plain version and timed beside it, its
@@ -342,11 +345,12 @@ def sdpa_prefill(torch, q, k, v, off):
 
 def build_report() -> None:
     """Registers, stack and spills (ptxas, from the build) of the bundle
-    kernel's five instances, the attention kernels and the members'
-    non-inlined bodies; the count of HMMA (tensor-core) instructions in each
-    kernel's SASS and in each body inside the bundle instances, where the
-    toolkit has cuobjdump.  Fails if a tensor-core route (bf16 flash, the
-    prefill and moe_gmm bodies) holds no HMMA."""
+    kernel's five instances, the tiled matmul and attention kernels and the
+    members' non-inlined bodies; the count of HMMA (mma.sync) instructions
+    in each kernel's SASS and in each body inside the bundle instances, and
+    of HGMMA (wgmma) in the tiled matmul's, where the toolkit has cuobjdump.
+    Fails if a tensor-core route (bf16 flash, the prefill, moe_gmm and bf16
+    row GEMM bodies; wgmma in the bf16 tiled matmul) holds none."""
     from repro_torch.kernels import cuda
     use = cuda.ptxas_usage()
     keys = {"hf_bundle<false>": "hf_bundleILb0E",
@@ -354,6 +358,8 @@ def build_report() -> None:
             "hf_rows<false>": "hf_rowsILb0E",
             "hf_rows<true>": "hf_rowsILb1E",
             "hf_paper": "hf_paper",
+            "mm_bf16_kernel": "mm_bf16_kernel",
+            "mm_f32_kernel": "mm_f32_kernel",
             "flash_mma_kernel<64>": "flash_mma_kernelILi64E",
             "flash_mma_kernel<128>": "flash_mma_kernelILi128E",
             "flash_f32_kernel": "flash_f32_kernel"}
@@ -361,6 +367,8 @@ def build_report() -> None:
               "prefill_mma<128>": "prefill_mmaILi128E",
               **{f"moe_gmm_mma<{n}>": f"moe_gmm_mmaILi{n}E"
                  for n in range(1, 6)},
+              **{f"row_gemm_mma<{n},{c}>": f"row_gemm_mmaILi{n}ELb{c}E"
+                 for n in (1, 2, 4, 8) for c in (0, 1)},
               "decode_split": "decode_split"}
     for label, key in {**keys, **bodies}.items():
         hits = [v for k, v in use.items() if key in k]
@@ -389,6 +397,13 @@ def build_report() -> None:
     for body in bodies:
         if body != "decode_split":
             check(shown[body] > 0, f"the {body} body's SASS holds no HMMA")
+    hgmma = cuda.sass_counts("HGMMA")
+    wg = {k: sum(n for f, n in hgmma.items() if k in f)
+          for k in ("mm_bf16_kernel", "mm_f32_kernel")}
+    print("[build] SASS HGMMA instructions: " + ", ".join(
+        f"{k} {v}" for k, v in wg.items()), flush=True)
+    check(wg["mm_bf16_kernel"] > 0,
+          "the bf16 tiled matmul's SASS holds no HGMMA")
 
 
 def device_profile(torch, run, what: str) -> None:
@@ -546,7 +561,7 @@ def phase_kernels(torch, dev, cfg) -> list[dict]:
     from repro_torch.core import hfuse
     from repro_torch.core.cost_model import Schedule
     from repro_torch.core.timing import flush_buffer, median_ms
-    from repro_torch.kernels import registry
+    from repro_torch.kernels import cuda, registry
     from repro_torch.serve.engine import PrefillBudget, ServeEngine
 
     by_name = {k.name: k for k in registry()}
@@ -647,12 +662,18 @@ def phase_kernels(torch, dev, cfg) -> list[dict]:
                None if lib is None else median_ms(lib, flush))
 
     # the host's time to queue one decode launch, and of it the per-launch
-    # workspace (split partials, zeroed tickets)
+    # workspace (split partials, zeroed tickets); beside it qkv_proj's,
+    # whose split workspace persists (nothing allocated per launch)
     run = hfuse.run_single(att)
     print(f"[kernels] decode_attention host: "
           f"{host_us(torch, lambda: run(*dec_in)):.1f} us to queue a launch, "
           f"of which the workspace "
           f"{host_us(torch, lambda: att.member.workspace(dev)):.1f} us",
+          flush=True)
+    run_qkv = hfuse.run_single(ops0["qkv_proj"])
+    print(f"[kernels] qkv_proj host: "
+          f"{host_us(torch, lambda: run_qkv(x, w_qkv)):.1f} us to queue a "
+          f"launch ({ops0['qkv_proj'].ctas} CTAs, workspace kept)",
           flush=True)
 
     # chains: bitwise equal to the two members launched separately
@@ -695,6 +716,16 @@ def phase_kernels(torch, dev, cfg) -> list[dict]:
                median_ms(lambda: fused(*ins), flush),
                median_ms(lambda: plain(*ins), flush), cost, BF16_FLOPS,
                None, native_ms=median_ms(lambda: native(*ins), flush))
+        # the launch's shared memory per CTA and its CTAs per SM
+        per_in, per_out, k, j = [], [], 0, 0
+        for op in st.ops:
+            per_in.append(ins[k:k + len(op.inputs)])
+            per_out.append(out_f[j:j + len(op.outputs)])
+            k, j = k + len(op.inputs), j + len(op.outputs)
+        smem = cuda.launch_smem([op.member for op in st.ops], per_in,
+                                per_out)
+        print(f"[kernels] {label}: launch smem {smem} B, "
+              f"{cuda.occupancy(smem)} CTAs/SM", flush=True)
     print("[kernels] fused bundles bitwise equal run_native")
     return rows
 

@@ -44,8 +44,6 @@
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false -shared
 // (src/repro_torch/kernels/cuda.py builds it at first use).
-#include <dlfcn.h>
-
 #include "common.cuh"
 #include "adamw_member.cuh"
 #include "decode_attention.cuh"
@@ -204,23 +202,12 @@ int hf_occupancy(int smem, int* ctas_per_sm) {
 // The grouped expert FFN's two TMA tensor maps (CUtensorMap, 128 bytes
 // each, into `out`, 64-byte aligned): w_in (E, d, fin) and w_out (E, f, d)
 // bf16, boxes of 32 rows x 64 columns, 128-byte swizzle, zeros out of
-// bounds.  The encoder, cuTensorMapEncodeTiled, is looked up in the
-// already loaded libcuda (the library is not linked against it).  Returns
-// 0, a CUresult, or -1 when it cannot be found.
+// bounds (common.cuh hf_tmap_encoder).  Returns 0, a CUresult, or -1 when
+// the encoder cannot be found.
 int hf_gmm_tmaps(void* out, const void* w_in, const void* w_out, int E, int d,
                  int f, int fin) {
-  typedef CUresult (*Encode)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                             void*, const cuuint64_t*, const cuuint64_t*,
-                             const cuuint32_t*, const cuuint32_t*,
-                             CUtensorMapInterleave, CUtensorMapSwizzle,
-                             CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-  static Encode encode = nullptr;
-  if (!encode) {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW);
-    if (!lib) return -1;
-    encode = reinterpret_cast<Encode>(dlsym(lib, "cuTensorMapEncodeTiled"));
-    if (!encode) return -1;
-  }
+  const HfTmapEncode encode = hf_tmap_encoder();
+  if (!encode) return -1;
   CUtensorMap* maps = static_cast<CUtensorMap*>(out);
   const cuuint32_t box[3] = {64, GMM_KT, 1}, one[3] = {1, 1, 1};
   const cuuint64_t din[3] = {(cuuint64_t)fin, (cuuint64_t)d, (cuuint64_t)E};

@@ -7,7 +7,9 @@
 // two agree before the first launch.
 #pragma once
 
+#include <cuda.h>   // CUtensorMap and its enums (declarations only)
 #include <cuda_bf16.h>
+#include <dlfcn.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -123,6 +125,91 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(a));
+}
+
+// mbarriers and TMA copies (the grouped expert FFN's weight ring, the bf16
+// tiled matmul's operand ring)
+__device__ __forceinline__ unsigned hf_saddr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+// a barrier whose phase completes after `count` arrivals (and the bytes
+// announced by hf_bar_expect)
+__device__ __forceinline__ void hf_bar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+      hf_saddr(bar)), "r"(count));
+}
+// one arrival of the phase, expecting `bytes` from TMA copies
+__device__ __forceinline__ void hf_bar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(hf_saddr(bar)), "r"(bytes) : "memory");
+}
+// one arrival of the phase
+__device__ __forceinline__ void hf_bar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+      hf_saddr(bar)) : "memory");
+}
+// wait for the phase of the given parity; a phase that never completes
+// traps (an error at the next synchronisation) instead of hanging the card
+__device__ __forceinline__ void hf_bar_wait(uint64_t* bar, int parity) {
+  for (unsigned n = 0;; ++n) {
+    unsigned done;
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(hf_saddr(bar)), "r"(parity) : "memory");
+    if (done) return;
+    if (n > (1u << 26)) __trap();
+  }
+}
+// 2-D TMA box at (c0 inner, c1 outer) of `map` (a __grid_constant__ kernel
+// parameter or a map in device memory) into dst, completing on bar
+__device__ __forceinline__ void hf_tma_2d(void* dst, const void* map, int c0,
+                                          int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(hf_saddr(dst)),
+      "l"(map), "r"(c0), "r"(c1), "r"(hf_saddr(bar))
+      : "memory");
+}
+
+// The TMA tensor-map encoder, cuTensorMapEncodeTiled, looked up in the
+// already loaded libcuda (the library is not linked against it); null when
+// it cannot be found.
+typedef CUresult (*HfTmapEncode)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+static HfTmapEncode hf_tmap_encoder() {
+  static HfTmapEncode encode = nullptr;
+  if (!encode) {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW);
+    if (lib)
+      encode = reinterpret_cast<HfTmapEncode>(
+          dlsym(lib, "cuTensorMapEncodeTiled"));
+  }
+  return encode;
+}
+
+// A 2-D tensor map of a row-major bf16 matrix (outer rows of inner
+// elements), boxes of box_inner x box_outer, 128-byte swizzle, zeros out of
+// bounds.  Returns 0, -1 without an encoder, or 1000 + the CUresult.
+static int hf_tmap_2d(CUtensorMap* map, const void* p, int inner, int outer,
+                      int box_inner, int box_outer) {
+  const HfTmapEncode encode = hf_tmap_encoder();
+  if (!encode) return -1;
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)inner * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
+  const cuuint32_t one[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p), dims,
+      strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : 1000 + (int)r;
 }
 
 __host__ __device__ __forceinline__ int hf_align16(int bytes) {

@@ -73,8 +73,6 @@
 // ceil(d / 256) tickets (int, zeroed).
 #pragma once
 
-#include <cuda.h>   // CUtensorMap and its enums (declarations only)
-
 #include "row_member.cuh"
 
 #define GMM_KT 32               // rows of a weight slice
@@ -116,41 +114,14 @@ __device__ __forceinline__ void gmm_wait(int pending) {
   }
 }
 
-// mbarriers and TMA box loads (the weights of a slice land through them)
-__device__ __forceinline__ unsigned gmm_saddr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-__device__ __forceinline__ void gmm_bar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-      gmm_saddr(bar)));
-}
-// the one arrival of a stage's phase, expecting `bytes` from the boxes
-__device__ __forceinline__ void gmm_bar_expect(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(gmm_saddr(bar)), "r"(bytes) : "memory");
-}
-// wait for the phase of the given parity; a stage that never lands traps
-// (an error at the next synchronisation) instead of hanging the card
-__device__ __forceinline__ void gmm_bar_wait(uint64_t* bar, int parity) {
-  for (unsigned n = 0;; ++n) {
-    unsigned done;
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(gmm_saddr(bar)), "r"(parity) : "memory");
-    if (done) return;
-    if (n > (1u << 26)) __trap();
-  }
-}
 // box (64 columns from col, 32 rows from row) of expert e's matrix; out of
 // bounds (rows past d, columns past the matrix) lands as zeros
 __device__ __forceinline__ void gmm_box(void* dst, const void* tmap, int col,
                                         int row, int e, uint64_t* bar) {
   asm volatile(
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(gmm_saddr(dst)),
-      "l"(tmap), "r"(col), "r"(row), "r"(e), "r"(gmm_saddr(bar))
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(hf_saddr(dst)),
+      "l"(tmap), "r"(col), "r"(row), "r"(e), "r"(hf_saddr(bar))
       : "memory");
 }
 // where a box keeps row r, columns c.. (c % 8 == 0): rows of 128 bytes, the
@@ -199,7 +170,7 @@ __device__ __noinline__ void moe_gmm_mma(const MemberDesc& m, int cta) {
   // the tensor maps of w_in (E, d, 2f or f) and w_out (E, f, d): in[3]
   const unsigned char* tmaps = static_cast<const unsigned char*>(m.in[3]);
   float* part = static_cast<float*>(m.out[1]);
-  unsigned char* smem = smem_raw + ((1024 - (gmm_saddr(smem_raw) & 1023)) &
+  unsigned char* smem = smem_raw + ((1024 - (hf_saddr(smem_raw) & 1023)) &
                                     1023);
   bf16* hs = reinterpret_cast<bf16*>(smem + stages * sbytes);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + stages * sbytes +
@@ -214,7 +185,7 @@ __device__ __noinline__ void moe_gmm_mma(const MemberDesc& m, int cta) {
   // completing on the stage's mbarrier; the xe slice (row tid / 4, columns
   // (tid % 4) * 8) comes by cp.async, one commit group per slice.
   if (tid == 0)
-    for (int st = 0; st < stages; ++st) gmm_bar_init(bars + st);
+    for (int st = 0; st < stages; ++st) hf_bar_init(bars + st, 1);
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   __syncthreads();
   GmmPos lp{0, 0, 0, 0};
@@ -229,7 +200,7 @@ __device__ __noinline__ void moe_gmm_mma(const MemberDesc& m, int cta) {
         const int s0 = lp.a * GMM_SW, sw = min(GMM_SW, FT - s0);
         const int col0 = gmm_hidden(T, t, s0, sw), nb = (sw + 63) / 64;
         if (tid == 0) {
-          gmm_bar_expect(bar, (gated ? 2 : 1) * nb * GMM_BOX);
+          hf_bar_expect(bar, (gated ? 2 : 1) * nb * GMM_BOX);
           for (int b = 0; b < nb; ++b) {
             gmm_box(W + b * GMM_BOX, tmaps, col0 + 64 * b, k0, e, bar);
             if (gated)
@@ -248,7 +219,7 @@ __device__ __noinline__ void moe_gmm_mma(const MemberDesc& m, int cta) {
         const int row0 = gmm_hidden(T, t, s0, min(GMM_SW, FT - s0)) +
                          k0 - s0;
         if (tid == 0) {
-          gmm_bar_expect(bar, 4 * GMM_BOX);
+          hf_bar_expect(bar, 4 * GMM_BOX);
           for (int b = 0; b < 4; ++b)
             gmm_box(W + b * GMM_BOX, tmaps + 128, j0 + 64 * b, row0, e, bar);
         }
@@ -273,7 +244,7 @@ __device__ __noinline__ void moe_gmm_mma(const MemberDesc& m, int cta) {
 #pragma unroll 1
   for (int i = 0; i < N; ++i) {
     gmm_wait(stages - 2);           // slice i has landed: its xe slice,
-    gmm_bar_wait(bars + i % stages, (i / stages) & 1);   // its weights
+    hf_bar_wait(bars + i % stages, (i / stages) & 1);   // its weights
     __syncthreads();                // and slot (i - 1) % stages is free
     load();                         // slice i + stages - 1
     const unsigned char* S = smem + (i % stages) * sbytes;

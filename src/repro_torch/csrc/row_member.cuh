@@ -12,14 +12,27 @@
 // Bound on the card: bytes.  At decode batch (M = 8 rows) the GEMM does 2*M
 // flops per weight element it streams, far under the H100's ~295 flop/byte
 // ridge, so its time is the weight stream (12.6 MB for granite's QKV weight,
-// 67 MB for its gate+up weight).  Design: a CTA owns a 64-column tile of the
-// weight for up to GEMM_MROWS rows (one row block at decode; a dW GEMM's
-// 2048 rows make 32), each thread streams 16-byte vectors (8 columns of one
-// weight row) four k rows a step, the next step's four loaded before this
-// step's FMAs (with one step's loads only, the GEMM's time moved 5-11% with
-// whatever else the bundle kernel held), x sits in shared memory, sums stay
-// fp32.  A gated epilogue needs gate column j and up column j+F in one CTA,
-// so the gated tile is 32 gate columns plus their 32 up columns.
+// 67 MB for its gate+up weight); a dW GEMM (2048 rows) is bound by
+// operations.  Design of the bf16 GEMM (row_gemm_mma):
+//   * every SM busy: a CTA owns a 128-column tile of the weight, a row block
+//     of 8, 16, 32 or 64 rows and one of i[7] slices of K, so qkv_proj at
+//     decode runs 24 tiles x 6 slices = 144 CTAs (kernels/row.py
+//     RowMember.k_slice: the fewest slices that give every SM one CTA; on
+//     the H100 one CTA an SM streams as fast as two) and each CTA's six
+//     stages are all but one in flight at once; the tile's last CTA sums the
+//     slices' fp32 partials in slice order and runs the epilogue;
+//   * the tensor cores: mma.sync.m16n8k16, the weight's 16 columns on the
+//     16-row side and 8 token rows on the 8-column side, so 8 decode rows
+//     fill an mma with no padding (as csrc/moe_gmm_member.cuh does); fp32
+//     accumulators;
+//   * the stream: 64-row stages of the weight (and of x) through a ring of 3
+//     to 5 stages by cp.async, 2 to 4 stages (35-79 KB) in flight a CTA,
+//     each weight row read as 256 contiguous bytes (a gated tile: two runs
+//     of 128); wider tiles (256, 512 columns) ran slower on the H100;
+//   * each weight stage is applied to the whole row block, so the weight
+//     leaves memory once a row block, not once every 8 rows.
+// A gated epilogue needs gate column j and up column j+F in one CTA, so the
+// gated tile is 64 gate columns plus their 64 up columns.
 //
 // RMSNorm, the activation and the residual add take bf16 or, with i[6] = 1,
 // fp32 rows.  All three are bound by bytes.  The residual add streams its
@@ -50,20 +63,25 @@
 //     row-stream reshape, so a producer row of one width feeds consumer rows
 //     of another (AdamW's (R, 128) rows among them).
 //   * row-wise -> GEMM x (i[9]): the producer fills the GEMM's x staging
-//     buffer, row by row (a norm) or element by element.
+//     buffer with the CTA's K slice, gemm_xc columns at a time; a norm
+//     first reduces each whole row for its 1/rms, one warp a row, in
+//     rms_inv's order.
 //   * GEMM -> activation or residual add: the epilogues (i[5], i[8]).
 //   * GEMM -> AdamW's g (the dW -> AdamW chain, i[12] = EPI_ADAMW): each
 //     product, rounded to the param dtype as the GEMM stores it (fp32: the
 //     K slices' sum, in the tile's combine), updates its element of the
 //     (R, 128) view of p, m, v in place; the gradient never reaches memory.
 //   * GEMM -> any other row consumer (RMSNorm; fp32 activations), i[12] =
-//     EPI_ROWS: the consumer needs whole rows while a GEMM CTA owns 64
-//     columns, so THE INTERMEDIATE PASSES THROUGH A PER-LAUNCH WORKSPACE in
-//     device memory (out[1]), stored as the GEMM stores it; every CTA takes a
-//     ticket (out[2]) and the last one runs the consumer over all rows.
+//     EPI_ROWS: the consumer needs whole rows while a GEMM CTA owns 64 or
+//     128 columns, so THE INTERMEDIATE PASSES THROUGH A WORKSPACE in device
+//     memory (out[3]; the fp32 GEMM's: out[1]), stored as the GEMM stores
+//     it; the CTA that finishes each tile takes a ticket (out[2]) and the
+//     last one runs the consumer over all rows.
 //
-// Chain descriptor (beside the GEMM fields i[0..8]; i[4] is unused): the
-// producer stage
+// GEMM descriptor: i[1..3] = M, K, N, i[4] = rows of a K slice (bf16; a
+// multiple of GEMM_KT), i[5] = the activation epilogue, i[6] = fp32, i[7] =
+// K slices, i[8] = the residual epilogue.  Chain descriptor (beside them):
+// the producer stage
 // i[9] = sub + 1 (0: none), i[10] = its activation, i[11] = its input row
 // width; i[12] = the GEMM's epilogue (EPI_*); the consumer stage i[13] =
 // sub (ROW_ADAMW for the update), i[14] = its activation, i[15] = its input
@@ -71,27 +89,30 @@
 // Pointers: in[0], in[1] the producer's operands (x or h; scale or res),
 // in[2] the GEMM weight, in[3] the consumer's other operand (scale, res, or
 // AdamW's scalars), in[4], in[5] AdamW's m and v (updated in place),
-// out[0] the output (AdamW: p, in place), out[1], out[2] workspace and
-// tickets.  ROW_CHAIN's segment length is i[1].  The stitched operand's slot
+// out[0] the output (AdamW: p, in place), out[1] the K slices' fp32
+// partials, out[2] tickets (the bf16 GEMM's persist across launches: the
+// CTA that draws the last resets it), out[3] the bf16 GEMM's EPI_ROWS
+// product.  ROW_CHAIN's segment length is i[1].  The stitched operand's slot
 // matters to the card only for the residual add, where h + res == res + h.
 //
 // Bitwise contract: a chain equals its two members run separately.  Each
 // element of the intermediate is computed by the producer's own code
 // (rms_inv / act_apply / the fp32 add) and rounded to the stored dtype; the
 // consumer applies its own code to that value; each column's K-sum runs in
-// the same order whichever tile holds it; each row's RMSNorm reduction runs
-// in the same thread order (rms_inv, HF_THREADS threads); the AdamW update
+// the same order whichever tile, position or row block holds it; each row's
+// RMSNorm reduction runs in the same thread order (rms_inv, HF_THREADS threads); the AdamW update
 // is adamw_update (csrc/adamw_member.cuh); the build uses -fmad=false so no
 // call site fuses a multiply-add the other does not.
 //
 // Registers: the chain bodies are non-inlined calls, like the fp32 GEMM,
 // RMSNorm and residual add (inlined, a new row path moved ptxas's
 // allocation of the whole bundle kernel and slowed the grouped expert FFN
-// member by 5% on the H100): row_chain, and the bf16 GEMM's stages
-// (gemm_stage_x, gemm_adamw_tile, gemm_rows_tail), called outside its K
-// loop so that a chain streams its weight in the member's own loop (a
-// second, non-inlined copy of the GEMM ran the W_o-shaped dW->AdamW chain
-// at 1.34x its two separate launches on the H100).  Only the chain instances
+// member by 5% on the H100): row_chain, the bf16 GEMM's body
+// (row_gemm_mma, one per row-block size) and its stages (gemm_stage_inv,
+// gemm_stage_x, gemm_adamw_tile, gemm_rows_tail), so that a chain streams its weight in
+// the member's own loop (a second, non-inlined copy of the GEMM ran the
+// W_o-shaped dW->AdamW chain at 1.34x its two separate launches on the
+// H100).  Only the chain instances
 // of the bundle kernel (CHAINS = true, csrc/bundle.cu) hold ROW_CHAIN, the
 // EPI_* epilogues and the fp32 GEMM's staged producer (row_chain_kernel
 // says which members need them); the other instances, which every launch
@@ -107,9 +128,17 @@ enum { ACT_NONE = -1, ACT_SILU_GATE = 0, ACT_GELU_GATE = 1, ACT_GELU = 2,
        ACT_RELU2 = 3 };
 enum { EPI_STORE = 0, EPI_ROWS = 1, EPI_ADAMW = 2 };
 
-#define GEMM_TN 64          // weight columns per CTA tile
-#define GEMM_MB 8           // rows per pass (accumulators: GEMM_MB x 8 / thread)
-#define GEMM_MROWS 64       // rows per CTA of the bf16 GEMM (row blocks)
+#define GEMM_TN 64          // weight columns per CTA tile of the fp32 GEMM
+#define GEMM_MB 8           // rows per pass of the fp32 GEMM
+// the bf16 GEMM (kernels/row.py): a CTA's tile of weight columns, 16 a warp
+// (wider tiles, 256 and 512, streamed slower on the H100), and the k rows
+// of a ring stage; row strides of a staged weight and x slice 16 bytes past
+// a multiple of 128, so the 8 rows an ldmatrix reads fall in 8 bank groups
+#define GEMM_BN 128
+#define GEMM_KT 64
+#define GEMM_LDW (GEMM_BN + 8)
+#define GEMM_LDX (GEMM_KT + 8)
+#define GEMM_W_BYTES (GEMM_KT * GEMM_LDW * 2)
 #define ACT_COLS 2048       // output columns per CTA of the standalone activation
 #define RESADD_VECS 4       // 16-byte vectors per thread per operand of the
                             // standalone residual add (all loads in flight
@@ -304,197 +333,448 @@ __device__ __noinline__ void row_chain(const MemberDesc& m, int cta) {
 // ---------------------------------------------------------------------------
 // bf16 GEMM
 // ---------------------------------------------------------------------------
-__host__ __device__ inline int gemm_smem_bytes(int K) {
-  return hf_align16(GEMM_MB * K * 2) + HF_WARPS * GEMM_MB * GEMM_TN * 4 +
-         GEMM_MB * GEMM_TN * 4 + HF_WARPS * 4;
+// rows of a CTA's row block: 8 * gemm_nt(M) (kernels/row.py gemm_rows)
+__host__ __device__ inline int gemm_nt(int M) {
+  return M <= 8 ? 1 : M <= 16 ? 2 : M <= 32 ? 4 : 8;
+}
+// ring stages per row-block size (80-104 KB of shared memory: 2 CTAs an SM)
+__host__ __device__ constexpr int gemm_stages(int nt) {
+  return nt <= 2 ? 5 : nt == 4 ? 4 : 3;
+}
+// x columns a prologue stages at once, per row (a multiple of GEMM_KT)
+__host__ __device__ inline int gemm_xc(int nt) {
+  return nt == 8 ? 256 : 1024 / nt;
+}
+// a ring stage: the weight slice [GEMM_KT][GEMM_LDW] | x's slice [8 nt]
+// [GEMM_LDX] (streamed; a prologue stages x apart)
+__host__ __device__ inline int gemm_stage_bytes(int nt, bool staged) {
+  return GEMM_W_BYTES + (staged ? 0 : 8 * nt * GEMM_LDX * 2);
+}
+// ring | a prologue's x [8 nt][gemm_xc + 8] | 64 floats (a norm's 1/rms per
+// row, its reduction scratch); the summed (8 nt, GEMM_BN) fp32 tile reuses
+// the ring after the K loop
+__host__ __device__ inline int gemm_smem_bytes(const MemberDesc& m) {
+  const int nt = gemm_nt(m.i[1]);
+  const bool staged = m.i[9] != 0;
+  return gemm_stages(nt) * gemm_stage_bytes(nt, staged) +
+         (staged ? 8 * nt * (gemm_xc(nt) + 8) * 2 : 0) + 64 * 4;
 }
 
-__device__ __forceinline__ void gemm_fma(float (&acc)[GEMM_MB][8],
-                                         const bf16* xs, int K, int k, int mb,
-                                         uint4 wv) {
-  float wf[8];
-  unpack8(wv, wf);
+// rms_inv of one row by one warp, bitwise equal to the CTA's rms_inv: the
+// lane plays each warp's thread of that lane (elements 32 v + lane + 256 j,
+// summed in j order), the eight warp sums added in warp order.  The loads of
+// 2048 elements are issued before their first use (addresses clamped into
+// the row, the sum skipping what lies past it).
+__device__ __forceinline__ float rms_inv_warp(const bf16* x, int d,
+                                              float eps) {
+  const int lane = threadIdx.x & 31;
+  float ss[HF_WARPS];
 #pragma unroll
-  for (int r = 0; r < GEMM_MB; ++r) {
-    if (r < mb) {
-      float xv = bf2f(xs[r * K + k]);
+  for (int v = 0; v < HF_WARPS; ++v) ss[v] = 0.0f;
+  for (int j0 = 0; j0 < d; j0 += 8 * HF_THREADS) {
+    float e[8][HF_WARPS];
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[r][j] = fmaf(xv, wf[j], acc[r][j]);
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int v = 0; v < HF_WARPS; ++v) {
+        const int k = j0 + j * HF_THREADS + 32 * v + lane;
+        e[j][v] = bf2f(x[k < d ? k : 0]);
+      }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int v = 0; v < HF_WARPS; ++v)
+        if (j0 + j * HF_THREADS + 32 * v + lane < d)
+          ss[v] = fmaf(e[j][v], e[j][v], ss[v]);
+  }
+  float tot = 0.0f;
+#pragma unroll
+  for (int v = 0; v < HF_WARPS; ++v) tot += warp_sum(ss[v]);
+  return rsqrtf(tot / (float)d + eps);
+}
+
+// The bf16 GEMM's chain stages, each a call (see the header).
+// A norm prologue's 1/rms of the block's rows, one warp a row, into inv
+__device__ __noinline__ void gemm_stage_inv(const MemberDesc& m, int r0,
+                                            int rows, float* inv) {
+  const long long K = m.i[2];
+  for (int r = threadIdx.x >> 5; r < rows; r += HF_WARPS) {
+    const float v = rms_inv_warp(static_cast<const bf16*>(m.in[0]) +
+                                     (r0 + r) * K, (int)K, m.f[6]);
+    if ((threadIdx.x & 31) == 0) inv[r] = v;
+  }
+  __syncthreads();
+}
+
+// x rows [r0, r0 + rows), columns [kc0, kc1), of a row-wise producer's
+// output, each element as the producer computes and stores it (stage_elem's
+// arithmetic: a norm's row scaled by inv), into xs (row stride ld); zeros in
+// the block's other rows and past kc1 up to the next whole stage of kt
+// rows, so every slice the K loop reads is finite.  Eight columns a thread
+// at a time in 16-byte vectors (K, kc0 and kc1 are multiples of 8); a
+// thread's four vectors' operands are all loaded (addresses clamped into
+// the operands) before the first is used, so their latencies overlap.
+template <int SUB>
+__device__ void gemm_stage_block(const MemberDesc& m, int r0, int rows,
+                                 int R, int kt, int kc0, int kc1, bf16* xs,
+                                 int ld, const float* inv) {
+  constexpr int U = 4;
+  const long long K = m.i[2];
+  const int w = kc1 - kc0, wv = (w + kt - 1) / kt * kt / 8, act = m.i[10];
+  const long long w_in = m.i[11];
+  const bf16* a = static_cast<const bf16*>(m.in[0]);
+  const long long boff = SUB == ROW_ACT && act_gated(act) ? K : 0;
+  for (int i0 = threadIdx.x; i0 < R * wv; i0 += U * HF_THREADS) {
+    uint4 va[U], vb[U];
+    float4 s0[U], s1[U];
+    bool ok[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int idx = i0 + u * HF_THREADS, r = idx / wv, c = (idx - r * wv) * 8;
+      ok[u] = idx < R * wv && r < rows && c < w;
+      const long long row = r0 + (ok[u] ? r : 0), col = kc0 + (ok[u] ? c : 0);
+      if (SUB == ROW_NORM) {
+        const float* sc = static_cast<const float*>(m.in[1]) + col;
+        va[u] = *reinterpret_cast<const uint4*>(a + row * K + col);
+        s0[u] = *reinterpret_cast<const float4*>(sc);
+        s1[u] = *reinterpret_cast<const float4*>(sc + 4);
+      } else if (SUB == ROW_ACT) {
+        va[u] = *reinterpret_cast<const uint4*>(a + row * w_in + col);
+        vb[u] = *reinterpret_cast<const uint4*>(a + row * w_in + boff + col);
+      } else {
+        va[u] = *reinterpret_cast<const uint4*>(a + row * K + col);
+        vb[u] = *reinterpret_cast<const uint4*>(
+            static_cast<const bf16*>(m.in[1]) + row * K + col);
+      }
     }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int idx = i0 + u * HF_THREADS, r = idx / wv, c = (idx - r * wv) * 8;
+      if (idx >= R * wv) continue;
+      float f[8], g[8], v[8];
+      unpack8(va[u], f);
+      if (SUB == ROW_NORM) {
+        const float sc[8] = {s0[u].x, s0[u].y, s0[u].z, s0[u].w,
+                             s1[u].x, s1[u].y, s1[u].z, s1[u].w};
+#pragma unroll
+        for (int j = 0; j < 8; ++j) g[j] = sc[j];
+      } else {
+        unpack8(vb[u], g);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        v[j] = 0.0f;
+        if (ok[u]) {
+          if (SUB == ROW_NORM)
+            v[j] = f[j] * inv[r] * (1.0f + g[j]);
+          else if (SUB == ROW_ACT)
+            v[j] = act_apply(act, f[j], act_gated(act) ? g[j] : 0.0f);
+          else
+            v[j] = f[j] + g[j];
+        }
+      }
+      uint4 o;
+      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&o);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        h[j] = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+      *reinterpret_cast<uint4*>(xs + r * ld + c) = o;
+    }
+  }
+  __syncthreads();
+}
+
+// A producer whose rows are the GEMM's rows takes gemm_stage_block; one
+// whose output the row stream reshapes (another row width) is produced row
+// by row of the GEMM's x (produce_range: a norm reduces each of its own
+// rows), inv serving as its scratch.
+__device__ __noinline__ void gemm_stage_x(const MemberDesc& m, int r0,
+                                          int rows, int R, int kt, int kc0,
+                                          int kc1, bf16* xs, int ld,
+                                          float* inv) {
+  const int sub = m.i[9] - 1;
+  if (stage_width(sub, m.i[10], m.i[11]) != m.i[2]) {
+    const long long K = m.i[2];
+    for (int r = 0; r < rows; ++r)
+      produce_range<bf16>(sub, m.i[10], m.f[6], m.in[0], m.in[1], m.i[11],
+                          (r0 + r) * K + kc0, (r0 + r) * K + kc1,
+                          xs + r * ld, inv);
+    const int w = kc1 - kc0, wp = (w + kt - 1) / kt * kt;
+    for (int idx = threadIdx.x; idx < R * wp; idx += HF_THREADS) {
+      const int r = idx / wp, c = idx - r * wp;
+      if (r >= rows || c >= w) xs[r * ld + c] = f2bf(0.0f);
+    }
+    __syncthreads();
+    return;
+  }
+  switch (sub) {
+    case ROW_NORM:
+      gemm_stage_block<ROW_NORM>(m, r0, rows, R, kt, kc0, kc1, xs, ld, inv);
+      break;
+    case ROW_ACT:
+      gemm_stage_block<ROW_ACT>(m, r0, rows, R, kt, kc0, kc1, xs, ld, inv);
+      break;
+    default:
+      gemm_stage_block<ROW_RESADD>(m, r0, rows, R, kt, kc0, kc1, xs, ld,
+                                   inv);
+      break;
   }
 }
 
-// The bf16 GEMM's chain stages, each a call (see the header):
-// rows [m0, m0 + mb) of a row-wise producer's output staged as x
-__device__ __noinline__ void gemm_stage_x(const MemberDesc& m, int m0, int mb,
-                                          bf16* xs, float* red) {
-  const long long K = m.i[2];
-  produce_range<bf16>(m.i[9] - 1, m.i[10], m.f[6], m.in[0], m.in[1], m.i[11],
-                      m0 * K, (m0 + mb) * K, xs, red);
+// the global column of column c of a bf16 GEMM tile tn of bn columns, and
+// whether it lies inside the weight: a gated tile's first half are gate
+// columns tn * bn / 2.. (of F), its second half the up columns F + tn * bn
+// / 2..
+__device__ __forceinline__ bool gemm_col(bool gated, int N, int bn, int tn,
+                                         int c, int* col) {
+  const int F = N / 2, h = bn / 2;
+  if (!gated) {
+    *col = tn * bn + c;
+    return *col < N;
+  }
+  const int j = tn * h + (c < h ? c : c - h);
+  *col = c < h ? j : F + j;
+  return j < F;
 }
 
-// EPI_ADAMW: the pass's (mb, 64) tile of the product, rounded as the GEMM
+// EPI_ADAMW: the block's (mb, bn) tile of the product, rounded as the GEMM
 // stores it, is the gradient of elements (m0 + r) * N + col of AdamW's
 // (R, 128) view
 __device__ __noinline__ void gemm_adamw_tile(const MemberDesc& m,
                                              const float* tile, int m0,
-                                             int mb, int tn) {
+                                             int mb, int tn, int bn) {
   const int N = m.i[3];
+  const int cols = min(bn, N - tn * bn);
   const AdamwK k = adamw_consts(m, static_cast<const float*>(m.in[3]));
   bf16* p = static_cast<bf16*>(m.out[0]);
   float* mm = static_cast<float*>(const_cast<void*>(m.in[4]));
   float* vv = static_cast<float*>(const_cast<void*>(m.in[5]));
-  for (int idx = threadIdx.x; idx < mb * GEMM_TN; idx += HF_THREADS) {
-    const int r = idx / GEMM_TN, c = idx % GEMM_TN;
-    adamw_elem(k, p, mm, vv, (size_t)(m0 + r) * N + tn * GEMM_TN + c,
-               bf_round(tile[idx]));
+  for (int idx = threadIdx.x; idx < mb * cols; idx += HF_THREADS) {
+    const int r = idx / cols, c = idx - r * cols;
+    adamw_elem(k, p, mm, vv, (size_t)(m0 + r) * N + tn * bn + c,
+               bf_round(tile[r * bn + c]));
   }
 }
 
-// EPI_ROWS: after every CTA stored its product into the workspace, the last
-// runs the consumer over all rows
-__device__ __noinline__ void gemm_rows_tail(const MemberDesc& m, float* red) {
-  if (!hf_last_of_group(static_cast<int*>(m.out[2]), 0, m.ctas)) return;
+// EPI_ROWS: after each of the `tiles` (row block, column tile) pairs stored
+// its product into the workspace (out[3]), the last runs the consumer over
+// all rows and resets its ticket for the next launch
+__device__ __noinline__ void gemm_rows_tail(const MemberDesc& m, int tiles,
+                                            float* red) {
+  int* tickets = static_cast<int*>(m.out[2]);
+  if (!hf_last_of_group(tickets, tiles, tiles)) return;
+  if (threadIdx.x == 0) tickets[tiles] = 0;
   consume_range<bf16>(m, m.i[13], m.i[14], m.f[6], m.in[3], m.i[15], 0,
                       (long long)m.i[1] * m.i[3],
-                      static_cast<const bf16*>(m.out[1]),
+                      static_cast<const bf16*>(m.out[3]),
                       static_cast<bf16*>(m.out[0]), red);
 }
 
-// out(M, N or F) = epilogue(prologue(x)(M, K) @ w(K, N)); CTA c owns column
-// tile c % (N / 64) of row block c / (N / 64).  One body for the member and
-// every chain through it: the chain stages are the calls above, outside
-// the K loop; CHAINS compiles in the EPI_* epilogues.
-template <bool CHAINS>
-__device__ void row_gemm(const MemberDesc& m, int cta) {
+// out(M, N or F) = epilogue(prologue(x)(M, K) @ w(K, N)).  CTA c owns column
+// tile c % T (T = ceil(N / GEMM_BN)) of row block (c / T) % B (B = ceil(M /
+// (8 NT))) and K slice c / (T B), i[4] rows from i[4] * slice (i[7]
+// slices).  The weight (and x, unless a prologue stages it) streams through
+// a ring of GEMM_KT-row stages by cp.async; warp w runs mma.sync.m16n8k16
+// with the weight's 16 columns 16 w.. on the 16-row side (ldmatrix.trans)
+// and the block's 8-row groups on the 8-column side (ldmatrix), over every
+// k row of each stage in order.  Every
+// stage is applied to all the block's rows, so the weight slice leaves
+// memory once a row block.  The tile's last CTA (ticket out[2], reset by
+// that CTA) sums the slices' partials (out[1]) in slice order, so every
+// element's sum runs in the same order in every launch, whichever tile or
+// position holds its column and whatever runs beside it.  One body for the
+// member and every chain through it: the chain stages are the calls above;
+// CHAINS compiles in the EPI_* epilogues.
+template <int NT, bool CHAINS>
+__device__ __noinline__ void row_gemm_mma(const MemberDesc& m, int cta) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int M = m.i[1], K = m.i[2], N = m.i[3];
+  constexpr int R = 8 * NT, BN = GEMM_BN, KT = GEMM_KT;
+  constexpr int STG = gemm_stages(NT), LDW = GEMM_LDW, LDX = GEMM_LDX;
+  static_assert(BN == 16 * HF_WARPS && KT % 32 == 0, "warp and stage layout");
+  const int M = m.i[1], K = m.i[2], N = m.i[3], KSL = m.i[4], KS = m.i[7];
   const int act = m.i[5];
   const bf16* x = static_cast<const bf16*>(m.in[0]);
   const bf16* w = static_cast<const bf16*>(m.in[2]);
   bf16* out = static_cast<bf16*>(m.out[0]);
-  const bool gated = act_gated(act);
-  const int F = N / 2;
-  const int ntile = N / GEMM_TN, tn = cta % ntile;
-  const int r0 = cta / ntile * GEMM_MROWS, r1 = min(M, r0 + GEMM_MROWS);
-
-  bf16* xs = reinterpret_cast<bf16*>(smem);
-  float* red = reinterpret_cast<float*>(smem + hf_align16(GEMM_MB * K * 2));
-  float* tile = red + HF_WARPS * GEMM_MB * GEMM_TN;
-  float* nred = tile + GEMM_MB * GEMM_TN;
+  const bool gated = act_gated(act), staged = m.i[9] != 0;
+  const int F = N / 2, ntile = (N + BN - 1) / BN;
+  const int nblk = (M + R - 1) / R;
+  const int tn = cta % ntile, blk = (cta / ntile) % nblk;
+  const int ks = cta / (ntile * nblk);
+  const int r0 = blk * R, rows = min(R, M - r0);
+  const int k0 = ks * KSL, k1 = min(K, k0 + KSL);
+  const int nst = (k1 - k0 + KT - 1) / KT;
+  const int sb = gemm_stage_bytes(NT, staged);
+  const int xc = gemm_xc(NT), ldxs = xc + 8, xcs = xc / KT;
+  bf16* xs = reinterpret_cast<bf16*>(smem + STG * sb);
+  float* nred = reinterpret_cast<float*>(smem + STG * sb +
+                                         (staged ? R * ldxs * 2 : 0));
+  float* tile = reinterpret_cast<float*>(smem);    // after the K loop
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int cg = tid & 7;       // this thread's 8-column group in the tile
-  const int kr = tid >> 3;      // this thread's k residue mod 32
-  int col0;
-  if (gated)
-    col0 = (cg < 4) ? tn * (GEMM_TN / 2) + cg * 8
-                    : F + tn * (GEMM_TN / 2) + (cg - 4) * 8;
-  else
-    col0 = tn * GEMM_TN + cg * 8;
 
-  for (int m0 = r0; m0 < r1; m0 += GEMM_MB) {
-    const int mb = min(GEMM_MB, r1 - m0);
-    if (m.i[9]) {
-      gemm_stage_x(m, m0, mb, xs, nred);
-    } else {
-      const int nv = mb * K / 8;
-      for (int v = tid; v < nv; v += HF_THREADS)
-        reinterpret_cast<uint4*>(xs)[v] =
-            reinterpret_cast<const uint4*>(x + (size_t)m0 * K)[v];
-    }
-    __syncthreads();
-
-    float acc[GEMM_MB][8];
+  // stage i of the slice: its weight rows (16-byte chunks) and, streamed,
+  // x's slice; zeros past k1, N (F) and M.  A thread's weight chunks share
+  // one column (rows kw, kw + WRP, ..) and its x chunks one k offset.
+  constexpr int CPR = BN / 8, WRP = HF_THREADS / CPR, XCR = KT / 8;
+  static_assert(HF_THREADS % CPR == 0 && KT % WRP == 0, "loader layout");
+  const int kw = tid / CPR, cw = tid % CPR * 8;
+  int wcol;
+  const bool wok = gemm_col(gated, N, BN, tn, cw, &wcol);
+  const bf16* wsrc = w + wcol;
+  const int xr0 = tid / XCR, xo = tid % XCR * 8;
+  const bf16* xsrc = x + (size_t)r0 * K + xo;
+  auto load = [&](int i) {
+    if (i < nst) {
+      unsigned char* S = smem + (i % STG) * sb;
+      bf16* Ws = reinterpret_cast<bf16*>(S) + kw * LDW + cw;
+      const int kb = k0 + i * KT;
 #pragma unroll
-    for (int r = 0; r < GEMM_MB; ++r)
+      for (int u = 0; u < KT / WRP; ++u) {
+        const int k = kb + kw + u * WRP;
+        const bool ok = wok && k < k1;
+        cp_async16(Ws + u * WRP * LDW, ok ? wsrc + (size_t)k * N : w, ok);
+      }
+      if (!staged) {
+        bf16* Xs = reinterpret_cast<bf16*>(S + GEMM_W_BYTES) +
+                   xr0 * LDX + xo;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[r][j] = 0.0f;
-
-    // steps of four weight vectors, the next step's loaded before this
-    // step's FMAs; k ascends in both loops, so every column's sum runs in
-    // one fixed order
-    int k = kr;
-    if (k + 96 < K) {
-      uint4 wv[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        wv[u] = *reinterpret_cast<const uint4*>(w + (size_t)(k + 32 * u) * N +
-                                                col0);
-      for (;;) {
-        const int kn = k + 128;
-        const bool more = kn + 96 < K;
-        uint4 nv[4];
-        if (more) {
-#pragma unroll
-          for (int u = 0; u < 4; ++u)
-            nv[u] = *reinterpret_cast<const uint4*>(
-                w + (size_t)(kn + 32 * u) * N + col0);
+        for (int u = 0; u < (R * XCR + HF_THREADS - 1) / HF_THREADS; ++u) {
+          const int xr = xr0 + u * (HF_THREADS / XCR);
+          if (xr < R) {
+            const bool ok = xr < rows && kb + xo < k1;
+            cp_async16(Xs + u * (HF_THREADS / XCR) * LDX,
+                       ok ? xsrc + (size_t)xr * K + kb : x, ok);
+          }
         }
-#pragma unroll
-        for (int u = 0; u < 4; ++u) gemm_fma(acc, xs, K, k + 32 * u, mb, wv[u]);
-        k = kn;
-        if (!more) break;
-#pragma unroll
-        for (int u = 0; u < 4; ++u) wv[u] = nv[u];
       }
     }
-    for (; k < K; k += 32) {
-      uint4 w0 = *reinterpret_cast<const uint4*>(w + (size_t)k * N + col0);
-      gemm_fma(acc, xs, K, k, mb, w0);
-    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
 
-    // lanes l, l^8, l^16, l^24 share a column group: fold them, then the
-    // eight warps through shared memory in warp order
+  // a prologue's first x chunk (a norm's 1/rms of each row first) before
+  // the weight stream: issued after it, its few loads would wait behind the
+  // whole stream in the memory system
+  if (staged) {
+    if (m.i[9] - 1 == ROW_NORM && m.i[11] == K)
+      gemm_stage_inv(m, r0, rows, nred);
+    gemm_stage_x(m, r0, rows, R, KT, k0, min(k1, k0 + xc), xs, ldxs, nred);
+  }
+  for (int i = 0; i < STG - 1; ++i) load(i);
+
+  float acc[NT][4];
 #pragma unroll
-    for (int r = 0; r < GEMM_MB; ++r) {
+  for (int nt = 0; nt < NT; ++nt)
+    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.0f;
+  // an ldmatrix.trans address: lane's k row and column offset in a stage
+  const int ar = (lane >> 4) * 8 + (lane & 7), ac = ((lane >> 3) & 1) * 8;
+
+#pragma unroll 1
+  for (int i = 0; i < nst; ++i) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(STG - 2));
+    __syncthreads();                // stage i has landed, i - 1 is free
+    if (staged && i > 0 && i % xcs == 0) {
+      const int kc0 = k0 + i * KT;
+      gemm_stage_x(m, r0, rows, R, KT, kc0, min(k1, kc0 + xc), xs, ldxs,
+                   nred);
+    }
+    load(i + STG - 1);
+    const unsigned char* S = smem + (i % STG) * sb;
+    const bf16* W = reinterpret_cast<const bf16*>(S);
+    const bf16* X =
+        staged ? xs + (i % xcs) * KT
+               : reinterpret_cast<const bf16*>(S + GEMM_W_BYTES);
+    const int ldx = staged ? ldxs : LDX;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        float v = acc[r][j];
-        v += __shfl_xor_sync(0xffffffffu, v, 8);
-        v += __shfl_xor_sync(0xffffffffu, v, 16);
-        if (lane < 8) red[(warp * GEMM_MB + r) * GEMM_TN + cg * 8 + j] = v;
+    for (int kp = 0; kp < KT / 32; ++kp) {
+      uint32_t a[2][4];
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk)
+        ldsm_x4_trans(a[kk], W + (kp * 32 + kk * 16 + ar) * LDW + warp * 16 +
+                                 ac);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        uint32_t b[4];
+        ldsm_x4(b, X + (nt * 8 + (lane & 7)) * ldx + kp * 32 +
+                       (lane >> 3) * 8);
+        mma_bf16_16816(acc[nt], a[0], b);
+        mma_bf16_16816(acc[nt], a[1], b + 2);
       }
     }
-    __syncthreads();
-    for (int idx = tid; idx < mb * GEMM_TN; idx += HF_THREADS) {
-      const int r = idx / GEMM_TN, c = idx % GEMM_TN;
-      float s = 0.0f;
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+
+  // accumulator v of group nt: tile column warp * 16 + lane / 4 (+8 for v
+  // >= 2), x row nt * 8 + 2 (lane % 4) + v % 2
 #pragma unroll
-      for (int wv = 0; wv < HF_WARPS; ++wv)
-        s += red[(wv * GEMM_MB + r) * GEMM_TN + c];
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int v = 0; v < 4; ++v)
+      tile[(nt * 8 + 2 * (lane & 3) + (v & 1)) * BN + warp * 16 +
+           (lane >> 2) + (v >> 1) * 8] = acc[nt][v];
+  __syncthreads();
+
+  if (KS > 1) {
+    // this slice's partial, then the tile's last CTA sums the slices in
+    // slice order into the tile
+    float* part = static_cast<float*>(m.out[1]);
+    int* tickets = static_cast<int*>(m.out[2]);
+    const size_t tsz = (size_t)R * BN;
+    const size_t sstride = (size_t)nblk * ntile * tsz;
+    float* first = part + ((size_t)blk * ntile + tn) * tsz;
+    for (int idx = tid; idx < rows * BN; idx += HF_THREADS)
+      first[ks * sstride + idx] = tile[idx];
+    const int grp = blk * ntile + tn;
+    if (!hf_last_of_group(tickets, grp, KS)) return;
+    if (tid == 0) tickets[grp] = 0;
+    for (int idx = tid; idx < rows * BN; idx += HF_THREADS) {
+      float s = __ldcg(first + idx);
+      for (int q = 1; q < KS; ++q) s += __ldcg(first + q * sstride + idx);
       tile[idx] = s;
     }
     __syncthreads();
+  }
 
-    if (gated) {
-      for (int idx = tid; idx < mb * (GEMM_TN / 2); idx += HF_THREADS) {
-        const int r = idx / (GEMM_TN / 2), c = idx % (GEMM_TN / 2);
-        const float a = bf_round(tile[r * GEMM_TN + c]);
-        const float b = bf_round(tile[r * GEMM_TN + GEMM_TN / 2 + c]);
-        out[(size_t)(m0 + r) * F + tn * (GEMM_TN / 2) + c] =
-            f2bf(act_apply(act, a, b));
+  if (gated) {
+    constexpr int H = BN / 2;
+    for (int idx = tid; idx < rows * H; idx += HF_THREADS) {
+      const int r = idx / H, c = idx % H, j = tn * H + c;
+      if (j < F) {
+        const float a = bf_round(tile[r * BN + c]);
+        const float b = bf_round(tile[r * BN + H + c]);
+        out[(size_t)(r0 + r) * F + j] = f2bf(act_apply(act, a, b));
       }
-    } else if (CHAINS && m.i[12] == EPI_ADAMW) {
-      gemm_adamw_tile(m, tile, m0, mb, tn);
-    } else {
-      // read here, not live across the K loop; EPI_ROWS stores the
-      // product into the workspace instead of out
-      const bf16* res = m.i[8] ? static_cast<const bf16*>(m.in[3]) : nullptr;
-      bf16* dst =
-          CHAINS && m.i[12] == EPI_ROWS ? static_cast<bf16*>(m.out[1]) : out;
-      for (int idx = tid; idx < mb * GEMM_TN; idx += HF_THREADS) {
-        const int r = idx / GEMM_TN, c = idx % GEMM_TN;
-        const size_t o = (size_t)(m0 + r) * N + tn * GEMM_TN + c;
+    }
+  } else if (CHAINS && m.i[12] == EPI_ADAMW) {
+    gemm_adamw_tile(m, tile, r0, rows, tn, BN);
+  } else {
+    // EPI_ROWS stores the product into its workspace instead of out
+    const bf16* res = m.i[8] ? static_cast<const bf16*>(m.in[3]) : nullptr;
+    bf16* dst =
+        CHAINS && m.i[12] == EPI_ROWS ? static_cast<bf16*>(m.out[3]) : out;
+    for (int idx = tid; idx < rows * BN; idx += HF_THREADS) {
+      const int r = idx / BN, c = idx % BN, col = tn * BN + c;
+      if (col < N) {
+        const size_t o = (size_t)(r0 + r) * N + col;
         const float h = tile[idx];
         dst[o] = f2bf(res ? bf_round(h) + bf2f(res[o])
                       : act == ACT_NONE ? h
                                         : act_apply(act, bf_round(h), 0.0f));
       }
     }
-    __syncthreads();
   }
-  if (CHAINS && m.i[12] == EPI_ROWS) gemm_rows_tail(m, nred);
+  if (CHAINS && m.i[12] == EPI_ROWS) gemm_rows_tail(m, nblk * ntile, nred);
+}
+
+template <bool CHAINS>
+__device__ __forceinline__ void row_gemm(const MemberDesc& m, int cta) {
+  switch (gemm_nt(m.i[1])) {
+    case 1: row_gemm_mma<1, CHAINS>(m, cta); break;
+    case 2: row_gemm_mma<2, CHAINS>(m, cta); break;
+    case 4: row_gemm_mma<4, CHAINS>(m, cta); break;
+    default: row_gemm_mma<8, CHAINS>(m, cta); break;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -800,7 +1080,7 @@ __host__ __device__ inline int row_smem_bytes(const MemberDesc& m) {
   switch (m.i[0]) {
     case ROW_NORM: return HF_WARPS * 4;
     case ROW_GEMM: return m.i[6] ? gemm_f32_smem_bytes(gemm_chained(m))
-                                 : gemm_smem_bytes(m.i[2]);
+                                 : gemm_smem_bytes(m);
     case ROW_CHAIN:
       return hf_align16(m.i[1] * (m.i[6] ? 4 : 2)) + HF_WARPS * 4;
     default: return 0;   // activation, residual add

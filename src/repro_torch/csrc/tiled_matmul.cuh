@@ -4,128 +4,190 @@
 // Replaces the TPU kernel src/repro/kernels/matmul.py:38 (matmul, body :24),
 // as src/repro/kernels/ops.py:37 calls it.  The reference's 3-D grid carries
 // an fp32 accumulator across its sequential k steps in VMEM; CTAs run in no
-// order, so here K is a loop inside one CTA: one CTA per 128 x 128 output
-// tile, K staged through shared memory in slabs (double-buffered), the
-// accumulators in registers, rows and columns past M and N masked.  Every
-// output element's sum runs in one fixed order.
+// order, so here K is a loop inside one CTA, the accumulators in registers.
+// No split-K: every output element's sum runs in one fixed order, so two
+// calls are bitwise equal.
 //
 // Bound on the card: operations at granite-3-2b's train shapes (8192 rows x
 // 2048 @ 2048 x 3072 does 103 GFLOP against 59 MB: 0.104 ms at the bf16
 // tensor-core peak).
-//   bf16: mma.sync.m16n8k16 (bf16 in, fp32 accumulate) on the tensor cores.
-//     8 warps as 2 x 4, each a 64 x 32 piece of the tile (4 x 4 fragments,
-//     64 fp32 accumulators a thread); 32-deep k slabs copied with cp.async
-//     (16-byte chunks, zero-filled past M, N and K), so K % 8 == 0 and
-//     N % 8 == 0.  wgmma and TMA are later work.  The mma.sync, cp.async
-//     and packing helpers are common.cuh's, shared with the attention tile
-//     loop (attention_mma.cuh).
+//   bf16 (mm_bf16_kernel): wgmma, the only way to the tensor cores' full
+//     rate, fed by a TMA ring.  A CTA of three warpgroups walks output tiles
+//     of 128 x 256 (persistent: one CTA per SM, tile t, t + grid, ...; the
+//     tile's row block varies fastest, so the CTAs running at once share a
+//     few w panels in L2).  Warpgroup 0 is the producer: one thread issues,
+//     per k slab of 64, the TMA copies of x's 128 x 64 box and w's four 64 x
+//     64 boxes (128-byte swizzle; zeros past M, N and K, so the ragged
+//     edges need no masks) into a ring of MMW_STAGES stages, each completing
+//     on its stage's full mbarrier; the warpgroup gives its registers back
+//     (setmaxnreg.dec).  Warpgroups 1 and 2 are the consumers (setmaxnreg.inc),
+//     64 rows each: per slab four wgmma.mma_async.m64n256k16 (bf16 in, fp32
+//     accumulate in 128 registers a thread), x as the K-major A operand and
+//     w, (K, N) row-major as the reference takes it, as the MN-major B
+//     operand (the transpose flag 16-bit types allow: no transposed copy of
+//     w).  A stage goes back to the producer through its empty mbarrier once
+//     the next slab's wgmma group is issued and this one's has completed.
+//     The store is masked at M and N, so K % 8 == 0 and N % 8 == 0 (TMA's
+//     16-byte row strides); the tensor maps come from hf_matmul.
 //   fp32: CUDA-core fmaf (no TF32: the reference multiplies in fp32); each
-//     thread an 8 x 8 piece of the tile, 8-deep k slabs through registers
-//     into shared memory (x transposed), so K % 4 == 0 and N % 4 == 0.
+//     thread an 8 x 8 piece of a 128 x 128 tile, 8-deep k slabs through
+//     registers into shared memory (x transposed), so K % 4 == 0 and
+//     N % 4 == 0.
 #pragma once
 
 #include "common.cuh"
 
-#define MM_BM 128           // output tile rows
-#define MM_BN 128           // output tile columns
-#define MM_BK 32            // k slab of the bf16 kernel
-#define MM_APAD 8           // x slab row: 40 bf16 (20 words: conflict-free)
-#define MM_BPAD 8           // w slab row: 136 bf16 (68 words: conflict-free)
+#define MM_BM 128           // output tile rows (both kernels)
+#define MM_BN 128           // output tile columns of the fp32 kernel
 #define MM_F32_BK 8         // k slab of the fp32 kernel
+#define MMW_BN 256          // output tile columns of the bf16 kernel
+#define MMW_BK 64           // k slab of the bf16 kernel: 128 bytes of x a row
+#define MMW_STAGES 4
+#define MMW_THREADS 384     // the producer warpgroup and two consumers
+#define MMW_X_BYTES (MM_BM * MMW_BK * 2)      // x box, 16 KB
+#define MMW_WBOX_BYTES (MMW_BK * 64 * 2)      // one 64-column w box, 8 KB
+#define MMW_STAGE_BYTES (MMW_X_BYTES + 4 * MMW_WBOX_BYTES)
+// 1024 bytes of alignment slack | ring | full and empty mbarriers
+#define MMW_SMEM (1024 + MMW_STAGES * MMW_STAGE_BYTES + 16 * MMW_STAGES)
 
-typedef bf16 MmXSlab[MM_BM][MM_BK + MM_APAD];
-typedef bf16 MmWSlab[MM_BK][MM_BN + MM_BPAD];
-
-// one k slab from k0: x 128 x 32 and w 32 x 128, 512 16-byte chunks each,
-// two of each per thread, as one cp.async group
-__device__ __forceinline__ void mm_load_slab(MmXSlab& xs, MmWSlab& ws,
-                                             const bf16* x, const bf16* w,
-                                             int M, int N, int K, int m0,
-                                             int n0, int k0) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int c = threadIdx.x + i * 256;
-    const int r = c >> 2, kc = (c & 3) * 8;
-    const bool ok = m0 + r < M && k0 + kc < K;
-    cp_async16(&xs[r][kc], ok ? x + (size_t)(m0 + r) * K + k0 + kc : x, ok);
-    const int kr = c >> 4, nc = (c & 15) * 8;
-    const bool okw = k0 + kr < K && n0 + nc < N;
-    cp_async16(&ws[kr][nc], okw ? w + (size_t)(k0 + kr) * N + n0 + nc : w,
-               okw);
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
+// A wgmma shared-memory descriptor of a 128-byte-swizzled operand at p
+// (1024-byte aligned atoms): lbo / sbo are the byte strides between 64-element
+// atoms along MN (MN-major) and between 8-row groups.
+__device__ __forceinline__ uint64_t mmw_desc(const void* p, unsigned lbo,
+                                             unsigned sbo) {
+  return (uint64_t)((hf_saddr(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
+         (1ull << 62);
 }
 
-__global__ void __launch_bounds__(256)
-    mm_bf16_kernel(const bf16* x, const bf16* w, bf16* out, int M, int N,
-                   int K) {
-  __shared__ __align__(16) MmXSlab xs[2];
-  __shared__ __align__(16) MmWSlab ws[2];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gid = lane >> 2, tig = lane & 3;     // mma fragment coordinates
-  const int wm = warp >> 2, wn = warp & 3;       // warp's 64 x 32 piece
-  const int m0 = blockIdx.y * MM_BM, n0 = blockIdx.x * MM_BN;
+#define MMW_D8(i)                                                     \
+  "+f"(d[(i)]), "+f"(d[(i) + 1]), "+f"(d[(i) + 2]), "+f"(d[(i) + 3]), \
+      "+f"(d[(i) + 4]), "+f"(d[(i) + 5]), "+f"(d[(i) + 6]), "+f"(d[(i) + 7])
 
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+// d (64 x 256 fp32, the wgmma accumulator layout) += A (64 x 16, K-major)
+// * B (16 x 256, MN-major: imm-trans-b 1)
+__device__ __forceinline__ void mmw_mma(float (&d)[128], uint64_t a,
+                                        uint64_t b) {
+  asm volatile(
+    "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+    "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+    "%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,"
+    "%12,%13,%14,%15,%16,%17,%18,%19,%20,%21,%22,%23,"
+    "%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,"
+    "%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,"
+    "%48,%49,%50,%51,%52,%53,%54,%55,%56,%57,%58,%59,"
+    "%60,%61,%62,%63,%64,%65,%66,%67,%68,%69,%70,%71,"
+    "%72,%73,%74,%75,%76,%77,%78,%79,%80,%81,%82,%83,"
+    "%84,%85,%86,%87,%88,%89,%90,%91,%92,%93,%94,%95,"
+    "%96,%97,%98,%99,%100,%101,%102,%103,%104,%105,%106,%107,"
+    "%108,%109,%110,%111,%112,%113,%114,%115,%116,%117,%118,%119,"
+    "%120,%121,%122,%123,%124,%125,%126,%127}, "
+    "%128, %129, p, 1, 1, 0, 1;\n}\n"
+    : MMW_D8(0), MMW_D8(8), MMW_D8(16), MMW_D8(24), MMW_D8(32), MMW_D8(40),
+      MMW_D8(48), MMW_D8(56), MMW_D8(64), MMW_D8(72), MMW_D8(80), MMW_D8(88),
+      MMW_D8(96), MMW_D8(104), MMW_D8(112), MMW_D8(120)
+    : "l"(a), "l"(b), "r"(1));
+}
+#undef MMW_D8
 
-  const int nk = (K + MM_BK - 1) / MM_BK;
-  mm_load_slab(xs[0], ws[0], x, w, M, N, K, m0, n0, 0);
-  for (int kt = 0; kt < nk; ++kt) {
-    const int st = kt & 1;
-    if (kt + 1 < nk) {
-      mm_load_slab(xs[st ^ 1], ws[st ^ 1], x, w, M, N, K, m0, n0,
-                   (kt + 1) * MM_BK);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
+// keep the compiler from moving reads or writes of the accumulators across
+// the wgmma fences and waits
+__device__ __forceinline__ void mmw_fence_acc(float (&d)[128]) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__global__ void __launch_bounds__(MMW_THREADS, 1)
+    mm_bf16_kernel(const __grid_constant__ CUtensorMap tx,
+                   const __grid_constant__ CUtensorMap tw, bf16* out, int M,
+                   int N, int K) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* ring =
+      smem_raw + ((1024 - (hf_saddr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + MMW_STAGES *
+                                               MMW_STAGE_BYTES);
+  uint64_t* empty = full + MMW_STAGES;
+  const int tiles_m = (M + MM_BM - 1) / MM_BM;
+  const int ntiles = tiles_m * ((N + MMW_BN - 1) / MMW_BN);
+  const int nk = (K + MMW_BK - 1) / MMW_BK;
+  const int wg = threadIdx.x / 128;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < MMW_STAGES; ++s) {
+      hf_bar_init(full + s, 1);
+      hf_bar_init(empty + s, 8);     // one arrival per consumer warp
     }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < MM_BK; kk += 16) {
-      uint32_t a[4][4], b[4][2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = wm * 64 + i * 16 + gid;
-        const int c = kk + tig * 2;
-        a[i][0] = *reinterpret_cast<const uint32_t*>(&xs[st][r][c]);
-        a[i][1] = *reinterpret_cast<const uint32_t*>(&xs[st][r + 8][c]);
-        a[i][2] = *reinterpret_cast<const uint32_t*>(&xs[st][r][c + 8]);
-        a[i][3] = *reinterpret_cast<const uint32_t*>(&xs[st][r + 8][c + 8]);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = wn * 32 + j * 8 + gid;
-        const int k = kk + tig * 2;
-        b[j][0] = pack_bf16(ws[st][k][n], ws[st][k + 1][n]);
-        b[j][1] = pack_bf16(ws[st][k + 8][n], ws[st][k + 9][n]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_bf16_16816(acc[i][j], a[i], b[j]);
-    }
-    __syncthreads();
   }
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  __syncthreads();
 
-  // accumulator e of fragment (i, j): row gid (+8 for e >= 2), columns
-  // tig * 2 + (e & 1)
+  if (wg == 0) {
+    // the producer: one thread keeps the ring full across the CTA's tiles
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      int it = 0;
+      for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+        const int m0 = (t % tiles_m) * MM_BM, n0 = (t / tiles_m) * MMW_BN;
+        for (int kb = 0; kb < nk; ++kb, ++it) {
+          const int s = it % MMW_STAGES;
+          hf_bar_wait(empty + s, ((it / MMW_STAGES) & 1) ^ 1);
+          unsigned char* st = ring + s * MMW_STAGE_BYTES;
+          hf_bar_expect(full + s, MMW_STAGE_BYTES);
+          hf_tma_2d(st, &tx, kb * MMW_BK, m0, full + s);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+          for (int b = 0; b < 4; ++b)
+            hf_tma_2d(st + MMW_X_BYTES + b * MMW_WBOX_BYTES, &tw,
+                      n0 + 64 * b, kb * MMW_BK, full + s);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    // a consumer: rows 64 * (wg - 1).. of each tile
+    const int c = wg - 1, t128 = threadIdx.x - 128 * wg;
+    const int lane = threadIdx.x & 31;
+    const int r0 = 64 * c + 16 * (t128 >> 5) + (lane >> 2);
+    const int c0 = 2 * (lane & 3);
+    float d[128];
+    int it = 0;
+    for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+      const int m0 = (t % tiles_m) * MM_BM, n0 = (t / tiles_m) * MMW_BN;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + wn * 32 + j * 8 + tig * 2;
+      for (int i = 0; i < 128; ++i) d[i] = 0.0f;
+      mmw_fence_acc(d);
+      for (int kb = 0; kb < nk; ++kb, ++it) {
+        const int s = it % MMW_STAGES;
+        hf_bar_wait(full + s, (it / MMW_STAGES) & 1);
+        const unsigned char* st = ring + s * MMW_STAGE_BYTES;
+        // A: this warpgroup's 64 rows of x's box (rows of 128 bytes, 8-row
+        // groups 1024 bytes apart), +32 bytes a k16 step; B: w's boxes 8 KB
+        // apart along N, 8-row groups 1024 bytes apart, +2048 bytes a step
+        const uint64_t da = mmw_desc(st + c * 64 * 128, 16, 1024);
+        const uint64_t db = mmw_desc(st + MMW_X_BYTES, MMW_WBOX_BYTES, 1024);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm * 64 + i * 16 + gid + h * 8;
-        if (row < M && col < N)
-          *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * N + col) =
-              __floats2bfloat162_rn(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+        for (int k = 0; k < MMW_BK / 16; ++k)
+          mmw_mma(d, da + 2 * k, db + 128 * k);
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        // the previous slab's group has completed: its stage is free
+        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+        mmw_fence_acc(d);
+        if (kb > 0 && lane == 0)
+          hf_bar_arrive(empty + (it - 1) % MMW_STAGES);
+      }
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      mmw_fence_acc(d);
+      if (lane == 0) hf_bar_arrive(empty + (it - 1) % MMW_STAGES);
+      // accumulator 4 j + e: row r0 (+8 for e >= 2), columns 8 j + c0 + (e & 1)
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int col = n0 + 8 * j + c0;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = m0 + r0 + 8 * h;
+          if (row < M && col < N)
+            *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * N + col) =
+                __floats2bfloat162_rn(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+        }
       }
     }
   }
@@ -216,19 +278,34 @@ __global__ void __launch_bounds__(256)
 
 extern "C" {
 
-// Launch on `stream`; returns the cudaError_t of the launch (0 = queued).
+// Launch on `stream`; returns the cudaError_t of the launch (0 = queued), or
+// -1 when the tensor-map encoder cannot be found, or a CUresult + 1000 when
+// it refuses a map.
 int hf_matmul(const void* x, const void* w, void* out, int M, int N, int K,
               int fp32, void* stream) {
-  const dim3 grid((N + MM_BN - 1) / MM_BN, (M + MM_BM - 1) / MM_BM);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (fp32)
+  if (fp32) {
+    const dim3 grid((N + MM_BN - 1) / MM_BN, (M + MM_BM - 1) / MM_BM);
     mm_f32_kernel<<<grid, 256, 0, s>>>(static_cast<const float*>(x),
                                        static_cast<const float*>(w),
                                        static_cast<float*>(out), M, N, K);
-  else
-    mm_bf16_kernel<<<grid, 256, 0, s>>>(static_cast<const bf16*>(x),
-                                        static_cast<const bf16*>(w),
-                                        static_cast<bf16*>(out), M, N, K);
+    return (int)cudaGetLastError();
+  }
+  // x (M, K): boxes of 64 k x 128 rows; w (K, N): boxes of 64 columns x 64
+  // k rows; both 128-byte swizzled, zeros out of bounds
+  CUtensorMap tx, tw;
+  int e = hf_tmap_2d(&tx, x, K, M, MMW_BK, MM_BM);
+  if (!e) e = hf_tmap_2d(&tw, w, N, K, 64, MMW_BK);
+  if (e) return e;
+  static int granted = 48 * 1024;
+  e = hf_allow_kernel_smem(mm_bf16_kernel, MMW_SMEM, &granted);
+  if (e) return e;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int ntiles = ((M + MM_BM - 1) / MM_BM) * ((N + MMW_BN - 1) / MMW_BN);
+  mm_bf16_kernel<<<ntiles < sms ? ntiles : sms, MMW_THREADS, MMW_SMEM, s>>>(
+      tx, tw, static_cast<bf16*>(out), M, N, K);
   return (int)cudaGetLastError();
 }
 

@@ -25,9 +25,10 @@ kernel's wrapper (``kernels/matmul.matmul``,
 
 The build keeps ptxas's report (``-Xptxas -v``) beside the library:
 ``ptxas_usage`` reads each function's registers, stack and spills from it.
-``sass_counts`` counts an instruction (``HMMA``: the tensor cores) in each
-function of the library's machine code, the non-inlined member bodies
-inside each bundle instance included.
+``sass_counts`` counts an instruction (``HMMA``: ``mma.sync`` on the
+tensor cores; ``HGMMA``: ``wgmma``) in each function of the library's
+machine code, the non-inlined member bodies inside each bundle instance
+included.  ``workspace`` keeps a member's workspace across launches.
 """
 from __future__ import annotations
 
@@ -283,23 +284,47 @@ def grid_size(ctas: Sequence[int], ratios: Sequence[int]) -> int:
     return max(math.ceil(c / r) for c, r in zip(ctas, ratios)) * sum(ratios)
 
 
-def launch(members: Sequence, ins: Sequence[Sequence[torch.Tensor]],
-           outs: Sequence[Sequence[torch.Tensor]],
-           ratios: Sequence[int]) -> None:
-    """One launch of the bundle kernel carrying ``members`` with their
-    operands, CTAs partitioned by ``ratios``, on PyTorch's current stream
-    of the current device.
-    Raises if the launch is refused; faults during the run surface at the
-    next synchronisation."""
+_WORKSPACES: dict[tuple, tuple[torch.Tensor, ...]] = {}
+_USES: dict[tuple, int] = {}     # workspace requests of the launch being packed
+
+
+def workspace(dev: torch.device, key: tuple,
+              sizes: Sequence[tuple[int, torch.dtype]]
+              ) -> tuple[torch.Tensor, ...]:
+    """A member's workspace that persists across launches: one zeroed
+    tensor per (elements, dtype) of ``sizes``, kept per device, stream,
+    ``key``, ``sizes`` and the request's rank among the launch's requests
+    of ``key``, so two members of one launch never share one and a later
+    launch on the stream reuses it.  A kernel that keeps tickets here must
+    leave them at zero when it ends."""
+    key = (key, tuple((int(c), dt) for c, dt in sizes))
+    n = _USES.get(key, 0)
+    _USES[key] = n + 1
+    full = (dev.index, torch.cuda.current_stream(dev).cuda_stream, key, n)
+    got = _WORKSPACES.get(full)
+    if got is None:
+        got = _WORKSPACES[full] = tuple(
+            torch.zeros(max(count, 1), dtype=dt, device=dev)
+            for count, dt in sizes)
+    return got
+
+
+def _describe(members: Sequence, ins: Sequence[Sequence[torch.Tensor]],
+              outs: Sequence[Sequence[torch.Tensor]],
+              ratios: Sequence[int]) -> tuple[BundleDesc, int, list]:
+    """The launch's descriptor, its dynamic shared memory per CTA (the
+    largest any member needs) and the members' workspaces (alive until the
+    launch is queued)."""
     if not 1 <= len(members) <= MAX_MEMBERS:
         raise ValueError(f"a bundle holds 1..{MAX_MEMBERS} members, "
                          f"got {len(members)}")
     lib = library()
+    _USES.clear()
     desc = BundleDesc()
     desc.n = len(members)
     desc.period = sum(ratios)
     offset, smem = 0, 0
-    held = []      # a member's per-launch workspace, alive until queued
+    held = []
     for j, (mem, i_, o_, r) in enumerate(zip(members, ins, outs, ratios)):
         md = desc.m[j]
         held.append(mem.pack(md, i_, o_))
@@ -309,8 +334,28 @@ def launch(members: Sequence, ins: Sequence[Sequence[torch.Tensor]],
         if need < 0:
             raise ValueError(f"unknown member kind {md.kind}")
         smem = max(smem, need)
+    return desc, smem, held
+
+
+def launch_smem(members: Sequence, ins: Sequence[Sequence[torch.Tensor]],
+                outs: Sequence[Sequence[torch.Tensor]]) -> int:
+    """Dynamic shared memory per CTA of a launch carrying ``members`` with
+    these operands (nothing is launched)."""
+    return _describe(members, ins, outs, [1] * len(members))[1]
+
+
+def launch(members: Sequence, ins: Sequence[Sequence[torch.Tensor]],
+           outs: Sequence[Sequence[torch.Tensor]],
+           ratios: Sequence[int]) -> None:
+    """One launch of the bundle kernel carrying ``members`` with their
+    operands, CTAs partitioned by ``ratios``, on PyTorch's current stream
+    of the current device.
+    Raises if the launch is refused; faults during the run surface at the
+    next synchronisation."""
+    desc, smem, _held = _describe(members, ins, outs, ratios)
     grid = grid_size([m.ctas for m in members], ratios)
     stream = torch.cuda.current_stream().cuda_stream
+    lib = library()
     err = lib.hf_launch(ctypes.byref(desc), grid, smem,
                         ctypes.c_void_p(stream))
     if err:
@@ -326,14 +371,18 @@ def _raise_if(err: int, what: str) -> None:
 
 def matmul(x: torch.Tensor, w: torch.Tensor, out: torch.Tensor) -> None:
     """One launch of the tiled matmul (``csrc/tiled_matmul.cuh``): out =
-    x @ w, all three bf16 or all fp32, checked by the caller."""
+    x @ w, all three bf16 or all fp32, checked by the caller; the bf16
+    kernel's two TMA tensor maps are encoded by the launcher."""
     (M, K), N = x.shape, w.shape[1]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        _raise_if(library().hf_matmul(
+        err = library().hf_matmul(
             x.data_ptr(), w.data_ptr(), out.data_ptr(), M, N, K,
-            int(x.dtype == torch.float32), ctypes.c_void_p(stream)),
-            "tiled matmul")
+            int(x.dtype == torch.float32), ctypes.c_void_p(stream))
+    if err == -1 or err >= 1000:
+        raise RuntimeError(f"tiled matmul: tensor map error {err} (-1: no "
+                           f"cuTensorMapEncodeTiled; 1000 + CUresult)")
+    _raise_if(err, "tiled matmul")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

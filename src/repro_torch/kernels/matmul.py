@@ -6,12 +6,14 @@
   * ``matmul`` — its own CUDA kernel (``csrc/tiled_matmul.cuh``), replacing
     the TPU kernel ``src/repro/kernels/matmul.py:38`` (matmul).  Bound on
     the card: operations at the shapes ``kernels/ops.py`` serves (a 8192 x
-    2048 @ 2048 x 3072 product does 103 GFLOP against 59 MB).  One CTA per
-    128 x 128 output tile loops over K in shared-memory slabs with its
-    accumulators in registers; bf16 on the tensor cores (``mma.sync``),
-    fp32 on the CUDA cores (no TF32).  ``TILED_MATMUL`` is its launch
-    record, bumped by ``matmul`` right after each launch; its plain version
-    is ``row.plain_gemm``.
+    2048 @ 2048 x 3072 product does 103 GFLOP against 59 MB).  bf16: a
+    persistent CTA per SM walks 128 x 256 output tiles, a producer warp
+    bringing x and w by TMA into a 4-stage ring and two consumer
+    warpgroups running ``wgmma`` (w fed as the MN-major operand, no
+    transposed copy), K a loop inside the CTA (no split-K: two calls are
+    bitwise equal); fp32 on the CUDA cores (no TF32), 128 x 128 tiles.
+    ``TILED_MATMUL`` is its launch record, bumped by ``matmul`` right after
+    each launch; its plain version is ``row.plain_gemm``.
 """
 from __future__ import annotations
 

@@ -9,11 +9,14 @@ same body launched alone), ``src/repro/kernels/matmul.py:64``
 ``:69`` (residual_add_op), and the chain body of
 ``src/repro/core/stitch.py:177`` for every pair of them and for the dW
 GEMM -> AdamW update.  Bound on the card: bytes — at decode batch the GEMM
-streams its weight once and does 2*M flops per weight element; a CTA owns a
-64-column weight tile for a block of up to 64 rows, streams it in 16-byte
-vectors with x in shared memory.  The GEMM also has an fp32 form (x, w, out
-fp32, partial column tiles masked, K split over CTAs with a fixed-order
-last-CTA combine): the MoE router's ``matmul_1d_op(dtype=float32)``.
+streams its weight once and does 2*M flops per weight element.  The bf16
+GEMM's CTA owns a ``GEMM_BN``-column weight tile of a row block of
+``gemm_rows(M)`` rows and one K slice of ``RowMember.k_slice`` rows (at least
+``GEMM_MIN_CTAS`` CTAs in all, so every SM streams), runs ``mma.sync`` on
+the tensor cores over a ``cp.async`` ring, and the tile's last CTA sums the
+slices in slice order.  The GEMM also has an fp32 form (x, w, out fp32,
+partial column tiles masked, K split over CTAs with a fixed-order last-CTA
+combine): the MoE router's ``matmul_1d_op(dtype=float32)``.
 RMSNorm, the activation and the residual add take bf16 or fp32 rows.
 
 ``RowChain`` is the one descriptor of every chain: producer, consumer (a
@@ -47,8 +50,16 @@ ROW = cuda.Kernel(
     "src/repro/kernels/rmsnorm.py:38, :20, src/repro/kernels/matmul.py:64, "
     "src/repro/kernels/elementwise.py:20, :69, src/repro/core/stitch.py:177")
 
-GEMM_TN = 64          # weight columns per CTA (csrc/row_member.cuh)
-GEMM_MROWS = 64       # rows per CTA of the bf16 GEMM
+GEMM_TN = 64          # weight columns per CTA of the fp32 GEMM
+#                       (csrc/row_member.cuh); the bf16 GEMM takes N % 64 == 0
+GEMM_BN = 128         # weight columns per CTA of the bf16 GEMM (a gated tile:
+#                       64 gate columns and their 64 up columns)
+GEMM_KT = 64          # K rows of a bf16 GEMM ring stage; slices are whole
+#                       stages
+GEMM_MIN_CTAS = 132   # CTAs the bf16 GEMM's K split reaches where its tiles
+#                       alone do not: one an SM on the H100 (one streams as
+#                       fast as two there, and each slice more costs a
+#                       partial and the combine)
 F32_K_SLICE = 64      # K rows per CTA of the fp32 GEMM
 ACT_COLS = 2048       # output columns per CTA of the standalone activation
 RESADD_BYTES = 16384  # bytes of each operand per CTA of the residual add
@@ -118,6 +129,12 @@ def act_name(fn) -> str:
                      f"(supported: {sorted(ACTIVATIONS)})")
 
 
+def gemm_rows(M: int) -> int:
+    """Rows of a bf16 GEMM CTA's row block (csrc/row_member.cuh gemm_nt):
+    8, 16, 32 or 64, each weight stage applied to all of them."""
+    return 8 if M <= 8 else 16 if M <= 16 else 32 if M <= 32 else 64
+
+
 # ---------------------------------------------------------------------------
 # Member descriptors
 # ---------------------------------------------------------------------------
@@ -156,18 +173,45 @@ class RowMember:
         return self.N
 
     @property
+    def col_tiles(self) -> int:
+        """Weight column tiles of the GEMM: GEMM_TN columns (fp32) or
+        GEMM_BN (bf16), the last one part."""
+        return math.ceil(self.N / (GEMM_TN if self.fp32 else GEMM_BN))
+
+    @property
+    def row_blocks(self) -> int:
+        """Row blocks of the GEMM: the bf16 GEMM's of ``gemm_rows(M)`` rows;
+        the fp32 GEMM keeps all rows in each CTA."""
+        return 1 if self.fp32 else math.ceil(self.M / gemm_rows(self.M))
+
+    @property
+    def k_slice(self) -> int:
+        """K rows per GEMM CTA: F32_K_SLICE (fp32); bf16 whole ring stages,
+        the fewest slices that bring column tiles x row blocks x slices to
+        GEMM_MIN_CTAS (K whole where the tiles alone reach it, one stage a
+        slice at most).  It depends on (M, K, N) alone, so a chain through
+        the GEMM sums in the same order as the GEMM launched alone."""
+        if self.fp32:
+            return F32_K_SLICE
+        base = self.col_tiles * self.row_blocks
+        want = math.ceil(GEMM_MIN_CTAS / base)
+        ksl = math.ceil(self.K / want / GEMM_KT) * GEMM_KT
+        while (ksl > GEMM_KT
+               and base * math.ceil(self.K / ksl) < GEMM_MIN_CTAS):
+            ksl -= GEMM_KT
+        return ksl
+
+    @property
     def k_slices(self) -> int:
-        """CTAs along K: the fp32 GEMM splits K in slices of F32_K_SLICE."""
-        return math.ceil(self.K / F32_K_SLICE) if self.fp32 else 1
+        """CTAs along K."""
+        return math.ceil(self.K / self.k_slice)
 
     @property
     def ctas(self) -> int:
         if self.sub == "rmsnorm":
             return self.M
         if self.sub == "gemm":
-            blocks = self.k_slices if self.fp32 else math.ceil(
-                self.M / GEMM_MROWS)
-            return math.ceil(self.N / GEMM_TN) * blocks
+            return self.col_tiles * self.row_blocks * self.k_slices
         if self.sub == "resadd":
             return math.ceil(self.M * self.K * (4 if self.fp32 else 2)
                              / RESADD_BYTES)
@@ -213,28 +257,50 @@ def _gemm_fields(md, g: RowMember) -> None:
             raise ValueError(f"the fp32 row GEMM takes N % 4 == 0, got "
                              f"N={g.N}")
         md.i[7] = g.k_slices
-    elif g.N % GEMM_TN or g.K % 8:
+        return
+    if g.N % GEMM_TN or g.K % 8:
         raise ValueError(f"row GEMM takes N % {GEMM_TN} == 0 and "
                          f"K % 8 == 0, got K={g.K} N={g.N}")
+    md.i[4], md.i[7] = g.k_slice, g.k_slices
+
+
+def gemm_workspace_sizes(g: RowMember, rows: bool) -> tuple[int, int, int]:
+    """Elements of the bf16 GEMM's workspace: the K slices' fp32 partials
+    (one (gemm_rows, tile columns) tile per slice, row block and column
+    tile; none without a split), the tickets (one per row block and column
+    tile, one more for the EPI_ROWS pass) and, with ``rows`` (the EPI_ROWS
+    epilogue), the bf16 product a row consumer reads; all 0 when the launch
+    needs none."""
+    tiles = g.col_tiles * g.row_blocks
+    parts = (g.k_slices * tiles * gemm_rows(g.M) * GEMM_BN
+             if g.k_slices > 1 else 0)
+    if not parts and not rows:
+        return 0, 0, 0
+    return parts, tiles + 1, g.M * g.N if rows else 0
 
 
 def _workspace(md, g: RowMember, dev, rows: bool):
-    """Per-launch workspace and zeroed tickets (out[1], out[2]): the fp32
-    GEMM's K-slice partials, and with ``rows`` (the EPI_ROWS epilogue) the
-    stored product a row consumer reads; None when neither is needed."""
+    """The GEMM's workspace (out[1..3]); returns it (alive until the launch
+    is queued), or None when the launch needs none.  The fp32 GEMM's is
+    allocated per launch: its K-slice partials, with ``rows`` the product
+    behind them, and zeroed tickets.  The bf16 GEMM's persists per device,
+    stream and shape (``cuda.workspace``): its tickets are zeroed once and
+    reset by the CTA that draws the last, so a launch allocates nothing."""
     M, N = g.M, g.N
-    tiles = math.ceil(N / GEMM_TN)
     if g.fp32:
         ws = torch.empty((g.k_slices + rows) * M * N, dtype=torch.float32,
                          device=dev)
-        tickets = tiles + rows
-    elif rows:
-        ws = torch.empty(M * N, dtype=torch.bfloat16, device=dev)
-        tickets = 1
-    else:
+        held = (ws, torch.zeros(math.ceil(N / GEMM_TN) + rows,
+                                dtype=torch.int32, device=dev))
+        md.out[1], md.out[2] = held[0].data_ptr(), held[1].data_ptr()
+        return held
+    parts, tickets, prod = gemm_workspace_sizes(g, rows)
+    if not tickets:
         return None
-    held = (ws, torch.zeros(tickets, dtype=torch.int32, device=dev))
-    md.out[1], md.out[2] = held[0].data_ptr(), held[1].data_ptr()
+    held = cuda.workspace(dev, ("row_gemm", M, g.K, N, rows),
+                          ((parts, torch.float32), (tickets, torch.int32),
+                           (prod, torch.bfloat16)))
+    md.out[1], md.out[2], md.out[3] = (t.data_ptr() for t in held)
     return held
 
 

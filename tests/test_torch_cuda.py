@@ -239,10 +239,14 @@ def test_prefill_attention_member_head_dims(cuda_dev, H, Hkv, C, off, D):
 
 
 def _device_kernels(run) -> set[str]:
-    """The names of the kernels ``run()`` puts on the card (torch.profiler)."""
+    """The names of the kernels ``run()`` puts on the card (torch.profiler).
+    One PyTorch kernel runs first in the session: on the H100 a session
+    after the process's first one has dropped the first kernel it saw."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.zeros(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
         run()
         torch.cuda.synchronize()
     return {e.key for e in prof.key_averages()
@@ -405,13 +409,14 @@ def test_multi_tensor_adamw_padded_leaves_bitwise(cuda_dev):
         assert all(torch.equal(got[k], want[k]) for k in got)
 
 
-@pytest.mark.parametrize("M,K,N", [(256, 64, 128), (40, 512, 256)])
+@pytest.mark.parametrize("M,K,N", [(256, 64, 128), (40, 512, 256),
+                                   (2048, 256, 128)])
 @pytest.mark.parametrize("dtype", [BF, F32])
 def test_dw_adamw_chain_launch_raises(cuda_dev, dtype, M, K, N):
     """The dW->AdamW chain launches: bitwise equal to the dW GEMM, its
     gradient stored, then the AdamW update (p, m, v in place), bf16 and
     fp32; M 256 spans four row blocks of the bf16 GEMM, M 40 is the
-    stacked norm scales' shape."""
+    stacked norm scales' shape, M 2048 a layer's dW rows."""
     from repro_torch.kernels import adam, row
     R = M * N // 128
     dw = matmul_1d_op(M, K, N, dtype, bm=M)
@@ -490,7 +495,7 @@ def test_every_chain_bitwise_equal_separate_members(cuda_dev, M, d):
     activations, the residual add, the two GEMMs and the AdamW update, bf16
     and fp32: one launch of the row kernel, bitwise equal to its two
     members launched separately, and within tolerance of its plain route.
-    M 72 spans two row blocks of the bf16 GEMM and ends in a part pass."""
+    M 72 spans two row blocks of the bf16 GEMM and ends in a part block."""
     from repro_torch.kernels import row
     cases = _chain_cases(M, d)
     kinds = {(p.member.sub if hasattr(p.member, "sub") else "adamw",
@@ -525,7 +530,8 @@ def test_every_chain_bitwise_equal_separate_members(cuda_dev, M, d):
 def test_reshaped_chains_bitwise(cuda_dev, dtype):
     """The row-stream reshape: (64, 256) producers feeding a (128, 128)
     norm, a (32, 512) gated activation and a (128, 128) residual add, and a
-    GEMM's (64, 128) product into a (32, 256) norm."""
+    GEMM's (64, 128) product into a (32, 256) norm; a (64, 256) norm and a
+    (64, 256) residual add staged as the x of GEMMs of other row widths."""
     g = _gen(41)
     add = _renamed(elementwise.residual_add_op(64, 256, dtype, bm=64), "add")
     norm = rmsnorm_op(64, 256, dtype, bm=64)
@@ -536,7 +542,9 @@ def test_reshaped_chains_bitwise(cuda_dev, dtype):
              (norm, elementwise.residual_add_op(128, 128, dtype, bm=128),
               "res"),
              (matmul_1d_op(64, 64, 128, dtype, bm=64),
-              rmsnorm_op(32, 256, dtype, bm=32), "x")]
+              rmsnorm_op(32, 256, dtype, bm=32), "x"),
+             (norm, matmul_1d_op(128, 128, 128, dtype, bm=128), "x"),
+             (add, matmul_1d_op(32, 512, 128, dtype, bm=32), "x")]
     for pop, cop, name in pairs:
         chain = stitch.stitch(pop, cop, name)
         ins = _inputs_for(chain, g)
@@ -862,13 +870,21 @@ def _close(out, ref):
 
 
 @pytest.mark.parametrize("dtype", [BF, F32])
-@pytest.mark.parametrize("M,K,N", [(256, 128, 128), (512, 256, 384),
-                                   (128, 512, 256), (300, 200, 136),
-                                   (8192, 2048, 3072)])
+@pytest.mark.parametrize("M,K,N", [
+    (256, 128, 128), (512, 256, 384), (128, 512, 256), (300, 200, 136),
+    # the bf16 kernel's 128 x 256 tile and 64-deep stage edges (each dim
+    # under the reference's 512 tile or a multiple of it): M and N past a
+    # tile, K shorter than one stage, K not a multiple of the stage, more
+    # tiles than the persistent CTAs take in one round
+    (129, 40, 264), (8, 8, 8), (500, 456, 488), (8192, 200, 1536),
+    # granite-3-2b's four train products: QKV, W_o, gate+up, down
+    (8192, 2048, 3072), (8192, 2048, 2048), (8192, 2048, 16384),
+    (8192, 8192, 2048)])
 def test_tiled_matmul(cuda_dev, M, K, N, dtype):
-    """The reference's shapes, one ragged in every dim (masked edges and a
-    part k slab) and granite's QKV at train rows; a launch bumps the
-    count."""
+    """The reference's shapes, ragged ones at the kernels' tile and stage
+    edges (TMA's zeros past M, N and K, masked stores) and granite's four
+    products at train rows; a launch bumps the count, and two calls are
+    bitwise equal."""
     from repro_torch.kernels import matmul as mm
     g = _gen(30)
     x = _randn((M, K), g, dtype)
@@ -878,6 +894,107 @@ def test_tiled_matmul(cuda_dev, M, K, N, dtype):
     assert mm.TILED_MATMUL.launches == before + 1
     _close(got, mm.row.plain_gemm(x, w, dtype))
     assert torch.equal(got, mm.matmul(x, w))      # fixed summation order
+
+
+def test_matmul_and_row_gemm_tensor_core_routes(cuda_dev):
+    """The bf16 tiled matmul runs mm_bf16_kernel (its name in a profiler
+    trace) and its SASS holds HGMMA (wgmma); the fp32 one runs
+    mm_f32_kernel, which holds none.  The bf16 row GEMM bodies hold HMMA
+    inside every bundle instance that runs the row member."""
+    from repro_torch.kernels import matmul as mm
+    g = _gen(32)
+    xb, xf = _randn((256, 256), g, BF), _randn((256, 256), g, F32)
+    ran = _device_kernels(lambda: (mm.matmul(xb, xb), mm.matmul(xf, xf)))
+    for runs in ("mm_bf16_kernel", "mm_f32_kernel"):
+        assert sum(runs in k for k in ran) == 1, ran
+    hgmma = cuda.sass_counts("HGMMA")
+    assert hgmma is not None, "the toolkit has no cuobjdump"
+    assert [n for f, n in hgmma.items() if "mm_bf16_kernel" in f] and all(
+        n > 0 for f, n in hgmma.items() if "mm_bf16_kernel" in f), hgmma
+    assert all(n == 0 for f, n in hgmma.items() if "mm_f32_kernel" in f)
+    hmma = cuda.sass_counts("HMMA")
+    for nt in (1, 2, 4, 8):
+        for chains in (0, 1):
+            body = [n for f, n in hmma.items() if "$" in f
+                    and f"row_gemm_mmaILi{nt}ELb{chains}E" in f]
+            # hf_rows and hf_bundle each hold the body
+            assert len(body) == 2 and all(n > 0 for n in body), (nt, hmma)
+
+
+# (M, K, N): the bf16 row GEMM at its split and tile edges: one part tile
+# (64 of its 128 columns; 32 K slices), a whole and a part tile, K not a
+# multiple of the slice or of a stage, each row-block size (8, 16, 64 with
+# 40 rows in it, 64), a dW-like 2048 rows
+ROW_GEMM_EDGES = [(8, 2048, 64), (8, 1000, 128), (16, 2056, 192),
+                  (40, 512, 256), (256, 520, 128), (2048, 1024, 128)]
+
+
+@pytest.mark.parametrize("M,K,N", ROW_GEMM_EDGES)
+def test_row_gemm_split_edges(cuda_dev, M, K, N):
+    """The GEMM alone within bf16 tolerance of plain and bitwise equal
+    across two launches (its tickets reset, its workspace reused); the
+    norm prologue, the gated activation and the residual add epilogues
+    bitwise equal to their separate members."""
+    from repro_torch.kernels import row
+    g = _gen(33)
+    x = _randn((M, K), g)
+    w = _randn((K, N), g, scale=K ** -0.5)
+    mm = matmul_1d_op(M, K, N, bm=M)
+    (got,), (want,) = _kernel_vs_plain(mm, x, w)
+    _close_bf16(got, want)
+    def kept():
+        return [ws for k, ws in cuda._WORKSPACES.items()
+                if k[2][0] == ("row_gemm", M, K, N, False)]
+    held = kept()
+    (again,) = hfuse.run_single(mm)(x, w)
+    assert torch.equal(got, again)
+    if mm.member.k_slices > 1:
+        assert len(held) == 1 and all(
+            a is b for a, b in zip(held[0], kept()[0]))
+        torch.cuda.synchronize()
+        assert int(held[0][1].abs().sum()) == 0   # every ticket reset
+    scale = _randn((1, K), g, F32, 0.1)
+    norm = rmsnorm_op(M, K, bm=M)
+    (mid,) = hfuse.run_single(norm)(x, scale)
+    (sep,) = hfuse.run_single(mm)(mid, w)
+    (chain,) = hfuse.run_single(stitch.stitch(norm, mm, "x"))(x, scale, w)
+    assert torch.equal(chain, sep)
+    act = elementwise.activation_op(M, N, N // 2, elementwise.silu_gate,
+                                    bm=M)
+    (sep,) = hfuse.run_single(act)(got)
+    (chain,) = hfuse.run_single(stitch.stitch(mm, act, "h"))(x, w)
+    assert torch.equal(chain, sep)
+    res = _randn((M, N), g)
+    add = elementwise.residual_add_op(M, N, bm=M)
+    (sep,) = hfuse.run_single(add)(got, res)
+    (chain,) = hfuse.run_single(stitch.stitch(mm, add, "h"))(x, w, res)
+    assert torch.equal(chain, sep)
+    assert row.ROW.launches > 0
+
+
+def test_qkv_proj_fills_the_card_and_allocates_nothing(cuda_dev):
+    """qkv_proj at decode (8 x 2048 @ 2048 x 3072) launches at least one CTA
+    per SM, and a launch after the first takes no new workspace: the
+    persistent one, with every ticket back at zero."""
+    mm = matmul_1d_op(8, 2048, 3072, bm=8)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert mm.member.ctas >= sms, (mm.member.ctas, sms)
+    g = _gen(34)
+    x, w = _randn((8, 2048), g), _randn((2048, 3072), g, scale=2048 ** -0.5)
+    run = hfuse.run_single(mm)
+    (first,) = run(x, w)
+    kept = dict(cuda._WORKSPACES)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    for _ in range(3):
+        (out,) = run(x, w)
+    torch.cuda.synchronize()
+    assert cuda._WORKSPACES.keys() == kept.keys() and all(
+        a is b for k in kept for a, b in zip(kept[k], cuda._WORKSPACES[k]))
+    # the only new memory is the last output, the earlier ones freed
+    assert torch.cuda.memory_allocated() - before <= out.numel() * 2 + 512
+    assert torch.equal(out, first)
+    assert all(int(ws[1].abs().sum()) == 0 for ws in kept.values())
 
 
 @pytest.mark.parametrize("dtype,K,N", [(torch.float16, 64, 64),

@@ -281,13 +281,14 @@ def test_fused_bundle_matches_reference(ratios):
 
 
 def test_member_geometry():
-    """CTAs per member at the full-width shapes: qkv 3072/64 column
-    tiles, the gated FFN chain 8192/32 column pairs, one CTA per (slot,
+    """CTAs per member at the full-width shapes: qkv 3072/128 column
+    tiles x 6 K slices of 384 rows (the last 128), the gated FFN chain
+    8192/64 column pairs (64 gate, 64 up) x 2 K slices, one CTA per (slot,
     KV head, 256-position split) for decode, contiguous and paged, and per
     (64 rows of the group's 512 query rows x 4 heads, KV head) for prefill
     on the tensor cores."""
     bf = torch.bfloat16
-    assert matmul_1d_op(8, 2048, 3072, bf, bm=8).ctas == 48
+    assert matmul_1d_op(8, 2048, 3072, bf, bm=8).ctas == 144
     ffn = stitch.stitch(matmul_1d_op(8, 2048, 16384, bf, bm=8),
                         tel.activation_op(8, 16384, 8192, tel.silu_gate, bf,
                                           bm=8), "h")

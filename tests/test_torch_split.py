@@ -1,14 +1,17 @@
-"""The split layouts of the two redesigned members, on the CPU.
+"""The split layouts of the redesigned members, on the CPU.
 
 Decode attention (``kernels/decode_attention.py``) cuts each slot's cache
 into fixed ranges of positions, one CTA each, and combines the ranges' (o,
 m, l) in range order; the grouped expert FFN (``kernels/moe_gmm.py``)
-picks an f-tile and the token rows a pass holds.  Here: the ranges are
-whole pages and whole warp tiles and cover the cache; the combine's
-arithmetic, done in PyTorch on the plain version's per-range results
-exactly as the kernel orders it, against the reference's
-``decode_attention_op`` in interpret mode on the same numpy inputs; and the
-FFN's f-tiles, passes and CTA counts.
+picks an f-tile and the token rows a pass holds; the bf16 row GEMM
+(``kernels/row.py``) cuts K into slices of whole ring stages, one CTA per
+(column tile, row block, slice), and sums the slices in slice order.
+Here: the ranges are whole pages and whole warp tiles and cover the cache;
+the combine's arithmetic, done in PyTorch on the plain version's per-range
+results exactly as the kernel orders it, against the reference's
+``decode_attention_op`` in interpret mode on the same numpy inputs; the
+FFN's f-tiles, passes and CTA counts; the GEMM's slices, CTAs and
+workspace, and its slice sum against the reference's ``matmul_1d_op``.
 
 Tolerances are ``tests/test_torch_kernels.py``'s: fp32 inputs 1e-5
 relative and absolute, bf16 inputs 2e-2 of the largest reference value.
@@ -23,9 +26,12 @@ import torch
 
 from repro.core import hfuse as jhfuse
 from repro.kernels.decode_attention import decode_attention_op as jdecode
+from repro.kernels.matmul import matmul_1d_op as jmatmul_1d
+from repro_torch.kernels import cuda, row
 from repro_torch.kernels.decode_attention import (
     KV_SPLIT, decode_attention_op, kv_split, n_splits,
     plain_decode_attention)
+from repro_torch.kernels.matmul import matmul_1d_op
 from repro_torch.kernels.moe_gmm import MoeGmmMember, f_tile, pass_rows
 
 DTYPES = {"float32": (jnp.float32, np.float32, 1e-5),
@@ -174,3 +180,78 @@ def test_moe_gmm_pass_rows_taken(monkeypatch, pass_max):
             else "token rows")
     with pytest.raises(ValueError, match=want):
         op.member.pack(cuda.MemberDesc(), ins, outs)
+
+
+# (M, K, N): (rows a block, blocks, K slice, slices, CTAs) of the bf16 row
+# GEMM: granite-3-2b's decode GEMMs (qkv_proj, W_o, gate+up, down), a
+# layer's W_o dW (2048 rows, K whole: its 512 tiles alone pass the target),
+# the card tests' edges (a part tile, K not a multiple of a stage, 40 rows)
+GEMM_GEOMETRY = {
+    (8, 2048, 3072): (8, 1, 384, 6, 144),
+    (8, 2048, 2048): (8, 1, 192, 11, 176),
+    (8, 2048, 16384): (8, 1, 1024, 2, 256),
+    (8, 8192, 2048): (8, 1, 960, 9, 144),
+    (2048, 8192, 2048): (64, 32, 8192, 1, 512),
+    (8, 2048, 64): (8, 1, 64, 32, 32),
+    (16, 2056, 192): (16, 1, 64, 33, 66),
+    (40, 512, 256): (64, 1, 64, 8, 16),
+    (256, 520, 128): (64, 4, 64, 9, 36),
+}
+
+
+@pytest.mark.parametrize("MKN", sorted(GEMM_GEOMETRY))
+def test_row_gemm_slices_ctas_and_workspace(MKN):
+    """The bf16 row GEMM's geometry: slices of whole 64-row ring stages
+    that cover K (the last one part), CTAs = 128-column tiles x row blocks
+    x slices, at least the H100's 132 SMs wherever K has stages enough
+    (qkv_proj and W_o at decode among them), K whole where the tiles alone
+    reach 132; the descriptor's slice fields; and the workspace: one fp32
+    (rows, 128) partial per slice, row block and tile (none unsplit), a
+    ticket per (row block, tile) and one more, the EPI_ROWS product M x
+    N."""
+    M, K, N = MKN
+    rows, blocks, ksl, ks, ctas = GEMM_GEOMETRY[MKN]
+    g = matmul_1d_op(M, K, N, bm=M).member
+    assert (row.gemm_rows(M), g.row_blocks, g.k_slice, g.k_slices,
+            g.ctas) == (rows, blocks, ksl, ks, ctas)
+    bn, kt = row.GEMM_BN, row.GEMM_KT
+    assert ksl % kt == 0 and (ks - 1) * ksl < K <= ks * ksl
+    tiles = -(-N // bn) * blocks
+    assert ctas == tiles * ks
+    assert ctas >= row.GEMM_MIN_CTAS or ksl == kt
+    if tiles >= row.GEMM_MIN_CTAS:
+        assert ks == 1
+    if (M, K) == (8, 2048) and N in (2048, 3072):
+        assert ctas >= 132
+    md = cuda.MemberDesc()
+    row._gemm_fields(md, g)
+    assert (md.i[4], md.i[7]) == (ksl, ks)
+    parts = ks * tiles * rows * bn if ks > 1 else 0
+    assert row.gemm_workspace_sizes(g, False) == (
+        (parts, tiles + 1, 0) if ks > 1 else (0, 0, 0))
+    assert row.gemm_workspace_sizes(g, True) == (parts, tiles + 1, M * N)
+
+
+@pytest.mark.parametrize("MKN", [(8, 2048, 64), (16, 200, 128),
+                                 (40, 520, 64)])
+def test_row_gemm_slice_sum_matches_reference(MKN):
+    """The split's arithmetic in PyTorch as the kernel orders it: each K
+    slice's product in fp32, the slices summed in slice order, rounded to
+    bf16, against the reference's matmul_1d_op in interpret mode on the
+    same numpy inputs (bf16 tolerance)."""
+    M, K, N = MKN
+    g = matmul_1d_op(M, K, N, bm=M).member
+    assert g.k_slices > 1
+    rng = np.random.default_rng(7)
+    jx, tx = _both(rng, (M, K), ml_dtypes.bfloat16)
+    jw, tw = _both(rng, (K, N), ml_dtypes.bfloat16)
+    (want,) = jhfuse.run_single(jmatmul_1d(M, K, N, jnp.bfloat16, bm=M),
+                                interpret=True)(jx, jw)
+    parts = [tx[:, k:k + g.k_slice].float() @ tw[k:k + g.k_slice].float()
+             for k in range(0, K, g.k_slice)]
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    got = total.to(torch.bfloat16).float().numpy()
+    ref = np.asarray(want, np.float32)
+    assert np.abs(got - ref).max() <= 2e-2 * np.abs(ref).max()
