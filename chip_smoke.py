@@ -12,7 +12,9 @@ non-zero exit code and no result line.
              ptxas's registers, stack and spills of the bundle kernel's five
              instances, the tiled matmul and flash kernels and the
              non-inlined member bodies (prefill, moe_gmm, the bf16 row
-             GEMM, decode), and the HMMA (mma.sync) instructions in their
+             GEMM, decode, RMSNorm's row_norm per type, which must not
+             spill), the tiled matmul's shared memory a
+             CTA, and the HMMA (mma.sync) instructions in their
              SASS (cuobjdump; a body's span inside a bundle instance from
              the ELF symbol table): the bf16 flash kernels, the prefill,
              moe_gmm and row GEMM bodies must hold some; and the HGMMA
@@ -346,7 +348,9 @@ def sdpa_prefill(torch, q, k, v, off):
 def build_report() -> None:
     """Registers, stack and spills (ptxas, from the build) of the bundle
     kernel's five instances, the tiled matmul and attention kernels and the
-    members' non-inlined bodies; the count of HMMA (mma.sync) instructions
+    members' non-inlined bodies (RMSNorm's among them: a spill there fails
+    the run), the tiled matmul's shared memory a CTA; the count of HMMA
+    (mma.sync) instructions
     in each kernel's SASS and in each body inside the bundle instances, and
     of HGMMA (wgmma) in the tiled matmul's, where the toolkit has cuobjdump.
     Fails if a tensor-core route (bf16 flash, the prefill, moe_gmm and bf16
@@ -370,7 +374,10 @@ def build_report() -> None:
               **{f"row_gemm_mma<{n},{c}>": f"row_gemm_mmaILi{n}ELb{c}E"
                  for n in (1, 2, 4, 8) for c in (0, 1)},
               "decode_split": "decode_split"}
-    for label, key in {**keys, **bodies}.items():
+    # RMSNorm's standalone bodies, one per type: neither may spill
+    norms = {"row_norm<bf16>": "row_normI13__nv_bfloat16E",
+             "row_norm<float>": "row_normIfE"}
+    for label, key in {**keys, **bodies, **norms}.items():
         hits = [v for k, v in use.items() if key in k]
         check(len(hits) <= 1, f"ptxas report: {len(hits)} {label}")
         check(bool(hits), f"ptxas report has no {label}")
@@ -378,6 +385,12 @@ def build_report() -> None:
         print(f"[build] ptxas {label}: registers {u.get('registers', '-')}, "
               f"stack {u['stack']} B, spill stores {u['spill_stores']} B, "
               f"spill loads {u['spill_loads']} B", flush=True)
+        if label in norms:
+            check(u["spill_stores"] == 0 and u["spill_loads"] == 0,
+                  f"the {label} body spills")
+    print(f"[build] mm_f32_kernel: {cuda.matmul_smem(True)} B of dynamic "
+          f"shared memory a CTA (its cp.async ring); mm_bf16_kernel "
+          f"{cuda.matmul_smem(False)} B", flush=True)
     hmma = cuda.sass_counts("HMMA")
     if hmma is None:
         print("[build] SASS: no cuobjdump here: HMMA not checked")

@@ -37,7 +37,13 @@
 // RMSNorm, the activation and the residual add take bf16 or, with i[6] = 1,
 // fp32 rows.  All three are bound by bytes.  The residual add streams its
 // (M, F) operands in 16-byte vectors, 16 KB of each operand per CTA, every
-// load of a thread issued before its first add.
+// load of a thread issued before its first add.  RMSNorm alone (row_norm)
+// is one warp a row, i[4] rows a CTA (kernels/row.py norm_rows: 1 at decode
+// sizes, 8 at 8192 rows): a row of up to 4096 bf16 or 2048 fp32 is loaded
+// in 16-byte vectors into the lane's registers, all loads in flight before
+// the first use, reduced with warp shuffles (no shared memory, no
+// __syncthreads), then scaled and stored from the same registers, so x
+// leaves memory once.
 //
 // fp32 GEMM (i[6] = 1, the MoE router: 8 x 4096 @ 4096 x 16 at phi3.5-moe):
 // x, w and out fp32.  A CTA owns 64 columns and one of i[7] slices of K (the
@@ -64,8 +70,8 @@
 //     of another (AdamW's (R, 128) rows among them).
 //   * row-wise -> GEMM x (i[9]): the producer fills the GEMM's x staging
 //     buffer with the CTA's K slice, gemm_xc columns at a time; a norm
-//     first reduces each whole row for its 1/rms, one warp a row, in
-//     rms_inv's order.
+//     first reduces each whole row for its 1/rms, one warp a row
+//     (rms_inv_warp).
 //   * GEMM -> activation or residual add: the epilogues (i[5], i[8]).
 //   * GEMM -> AdamW's g (the dW -> AdamW chain, i[12] = EPI_ADAMW): each
 //     product, rounded to the param dtype as the GEMM stores it (fp32: the
@@ -78,6 +84,7 @@
 //     it; the CTA that finishes each tile takes a ticket (out[2]) and the
 //     last one runs the consumer over all rows.
 //
+// RMSNorm descriptor: i[1], i[2] = M, d, i[4] = rows a CTA, f[0] = eps.
 // GEMM descriptor: i[1..3] = M, K, N, i[4] = rows of a K slice (bf16; a
 // multiple of GEMM_KT), i[5] = the activation epilogue, i[6] = fp32, i[7] =
 // K slices, i[8] = the residual epilogue.  Chain descriptor (beside them):
@@ -97,17 +104,19 @@
 //
 // Bitwise contract: a chain equals its two members run separately.  Each
 // element of the intermediate is computed by the producer's own code
-// (rms_inv / act_apply / the fp32 add) and rounded to the stored dtype; the
-// consumer applies its own code to that value; each column's K-sum runs in
-// the same order whichever tile, position or row block holds it; each row's
-// RMSNorm reduction runs in the same thread order (rms_inv, HF_THREADS threads); the AdamW update
-// is adamw_update (csrc/adamw_member.cuh); the build uses -fmad=false so no
-// call site fuses a multiply-add the other does not.
+// (x * inv * (1 + scale) / act_apply / the fp32 add) and rounded to the
+// stored dtype; the consumer applies its own code to that value; each
+// column's K-sum runs in the same order whichever tile, position or row
+// block holds it; each row's RMSNorm reduction runs in one order, one warp
+// a row, whichever body and rows per CTA take it (see "RMSNorm's one
+// reduction order" below); the AdamW update is adamw_update
+// (csrc/adamw_member.cuh); the build uses -fmad=false so no call site fuses
+// a multiply-add the other does not.
 //
 // Registers: the chain bodies are non-inlined calls, like the fp32 GEMM,
-// RMSNorm and residual add (inlined, a new row path moved ptxas's
-// allocation of the whole bundle kernel and slowed the grouped expert FFN
-// member by 5% on the H100): row_chain, the bf16 GEMM's body
+// RMSNorm (row_norm<bf16|float>) and the residual add (inlined, a new row
+// path moved ptxas's allocation of the whole bundle kernel and slowed the
+// grouped expert FFN member by 5% on the H100): row_chain, the bf16 GEMM's body
 // (row_gemm_mma, one per row-block size) and its stages (gemm_stage_inv,
 // gemm_stage_x, gemm_adamw_tile, gemm_rows_tail), so that a chain streams its weight in
 // the member's own loop (a second, non-inlined copy of the GEMM ran the
@@ -139,6 +148,11 @@ enum { EPI_STORE = 0, EPI_ROWS = 1, EPI_ADAMW = 2 };
 #define GEMM_LDW (GEMM_BN + 8)
 #define GEMM_LDX (GEMM_KT + 8)
 #define GEMM_W_BYTES (GEMM_KT * GEMM_LDW * 2)
+// vectors a lane of a GEMM prologue's 1/rms loads at once (gemm_stage_inv;
+// gemm_stage_x's reshaped rows): few, because the registers of those
+// non-inlined stages are registers the row_gemm_mma bodies must keep clear
+#define GEMM_INV_CHUNK 4
+#define GEMM_STAGE_CHUNK 2  // (and its EPI_ROWS tail's)
 #define ACT_COLS 2048       // output columns per CTA of the standalone activation
 #define RESADD_VECS 4       // 16-byte vectors per thread per operand of the
                             // standalone residual add (all loads in flight
@@ -168,35 +182,182 @@ __device__ __forceinline__ float act_apply(int act, float a, float b) {
   }
 }
 
-// rsqrt(mean(x^2) + eps) of one row of d values, fp32; all HF_THREADS
-// threads of the CTA call it; red holds HF_WARPS floats and may be written
-// again only after a __syncthreads
+// one 16-byte vector of T (8 bf16 or 4 fp32) <-> fp32
 template <typename T>
-__device__ __forceinline__ float rms_inv(const T* x, int d, float eps,
-                                         float* red) {
-  float ss = 0.0f;
-  for (int k = threadIdx.x; k < d; k += HF_THREADS) {
-    float v = to_f32(x[k]);
-    ss = fmaf(v, v, ss);
-  }
-  ss = warp_sum(ss);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = ss;
-  __syncthreads();
-  float tot = 0.0f;
+__device__ __forceinline__ void unpack16(const uint4& u, float* f) {
+  const T* e = reinterpret_cast<const T*>(&u);
 #pragma unroll
-  for (int w = 0; w < HF_WARPS; ++w) tot += red[w];
-  return rsqrtf(tot / (float)d + eps);
+  for (int j = 0; j < 16 / (int)sizeof(T); ++j) f[j] = to_f32(e[j]);
+}
+template <typename T>
+__device__ __forceinline__ void store16(T* p, const float* f) {
+  uint4 u;
+  T* e = reinterpret_cast<T*>(&u);
+#pragma unroll
+  for (int j = 0; j < 16 / (int)sizeof(T); ++j) e[j] = from_f32<T>(f[j]);
+  *reinterpret_cast<uint4*>(p) = u;
 }
 
-// y = x * rsqrt(mean(x^2) + eps) * (1 + scale), fp32 math, stored as T
-// (bf16 or fp32).  All HF_THREADS threads of the CTA call it.
+// ---------------------------------------------------------------------------
+// RMSNorm's one reduction order
+// ---------------------------------------------------------------------------
+// Every 1/rms in this file is one warp's, in one order: element k of a row
+// belongs to lane (k / V) % 32, V = 16 / sizeof(T) the elements of a
+// 16-byte vector (8 bf16, 4 fp32); the lane adds the squares of its
+// elements in k order (fmaf), warp_sum adds the 32 lanes' sums in its
+// butterfly order, and 1/rms = rsqrtf(sum / d + eps).  The standalone
+// member (whatever rows a CTA holds), every chain's norm stage and the GEMM
+// prologues run it, so a chain gives each row the bits its members give
+// (the bitwise contract).  A row whose start is 16-byte aligned is read in
+// 16-byte vectors, the part vector past the last whole one element by
+// element; any other row (d * sizeof(T) % 16 != 0 puts most rows there)
+// element by element, in the same order.
+#define NORM_VECS 16        // 16-byte vectors a lane of the standalone
+                            // member holds: rows of 4096 bf16 or 2048 fp32
+                            // leave memory once
+#define NORM_CHUNK 8        // vectors a lane of rms_inv_warp loads at once
+                            // (its default; the order does not depend on it)
+
 template <typename T>
-__device__ void rms_row(const T* x, const float* scale, int d, float eps,
-                        T* y, float* red) {
-  const float inv = rms_inv(x, d, eps, red);
-  for (int k = threadIdx.x; k < d; k += HF_THREADS)
-    y[k] = from_f32<T>(to_f32(x[k]) * inv * (1.0f + scale[k]));
-  __syncthreads();
+__host__ __device__ constexpr int norm_v() { return 16 / (int)sizeof(T); }
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// the lane's vectors j0 + lane + 32 u (u < U) of row x, those below nv (its
+// whole vectors), all loads issued before the first use
+template <typename T, int U>
+__device__ __forceinline__ void norm_load(const T* x, int j0, int nv,
+                                          uint4 (&v)[U]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int j = j0 + lane + 32 * u;
+    v[u] = j < nv ? reinterpret_cast<const uint4*>(x)[j]
+                  : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// ss plus the squares of the vectors norm_load gave, in element order
+template <typename T, int U>
+__device__ __forceinline__ float norm_sumsq(const uint4 (&v)[U], int j0,
+                                            int nv, float ss) {
+  constexpr int V = norm_v<T>();
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    if (j0 + lane + 32 * u < nv) {
+      float f[V];
+      unpack16<T>(v[u], f);
+#pragma unroll
+      for (int e = 0; e < V; ++e) ss = fmaf(f[e], f[e], ss);
+    }
+  }
+  return ss;
+}
+
+// ss plus the squares of elements [k0, k1) of x, in order
+template <typename T>
+__device__ __forceinline__ float norm_sumsq_elems(const T* x, int k0, int k1,
+                                                  float ss) {
+  for (int k = k0; k < k1; ++k) {
+    const float f = to_f32(x[k]);
+    ss = fmaf(f, f, ss);
+  }
+  return ss;
+}
+
+// the lane's part vector (elements past the last whole vector: the last of
+// its lane's elements) and, for a row that is not 16-byte aligned, all of
+// the lane's elements one by one
+template <typename T>
+__device__ __forceinline__ float norm_sumsq_rest(const T* x, int d,
+                                                 bool vec, float ss) {
+  constexpr int V = norm_v<T>();
+  const int lane = threadIdx.x & 31, nv = d / V;
+  if (vec) return lane == nv % 32 ? norm_sumsq_elems(x, nv * V, d, ss) : ss;
+  for (int j = lane; j * V < d; j += 32)
+    ss = norm_sumsq_elems(x, j * V, min(d, j * V + V), ss);
+  return ss;
+}
+
+__device__ __forceinline__ float norm_inv(float ss, int d, float eps) {
+  return rsqrtf(warp_sum(ss) / (float)d + eps);
+}
+
+// 1/rms of row x (d values of T, in global or shared memory) by the calling
+// warp, all 32 lanes, in the order above; U vectors a lane in flight at
+// once.  Inlined, U chosen per site: the registers the bf16 GEMM's
+// non-inlined prologue stages use are registers every row_gemm_mma body
+// must keep clear across the call (more of them made ptxas spill more in
+// those bodies).
+template <typename T, int U = NORM_CHUNK>
+__device__ __forceinline__ float rms_inv_warp(const T* x, int d, float eps) {
+  const bool vec = aligned16(x);
+  float ss = 0.0f;
+  if (vec) {
+    const int nv = d / norm_v<T>();
+    for (int j0 = 0; j0 < nv; j0 += 32 * U) {
+      uint4 v[U];
+      norm_load<T, U>(x, j0, nv, v);
+      ss = norm_sumsq<T, U>(v, j0, nv, ss);
+    }
+  }
+  return norm_inv(norm_sumsq_rest(x, d, vec, ss), d, eps);
+}
+
+// (1 + scale)'s d values into L1 while a row's x is in flight, thread t of
+// the n calling threads taking 128-byte lines t, t + n, ..: the scale pass
+// after the reduction then waits on L1, not on device memory
+__device__ __forceinline__ void norm_prefetch(const float* scale, int d,
+                                              int t, int n) {
+  for (int c = 32 * t; c < d; c += 32 * n)
+    asm volatile("prefetch.global.L1 [%0];" ::"l"(scale + c));
+}
+
+// RMSNorm of `rows` whole rows of d at x into y by the whole CTA: warp w
+// reduces row r0 + w of each group of HF_WARPS rows, then every thread
+// scales the group's elements; red holds HF_WARPS floats
+template <typename T, int U>
+__device__ void norm_rows_cta(const T* x, const float* scale, int d,
+                              float eps, int rows, T* y, float* red) {
+  const int warp = threadIdx.x >> 5;
+  norm_prefetch(scale, d, threadIdx.x, HF_THREADS);
+  for (int r0 = 0; r0 < rows; r0 += HF_WARPS) {
+    const int n = min(HF_WARPS, rows - r0);
+    if (warp < n) {
+      const float inv =
+          rms_inv_warp<T, U>(x + (long long)(r0 + warp) * d, d, eps);
+      if ((threadIdx.x & 31) == 0) red[warp] = inv;
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < n * d; e += HF_THREADS) {
+      const int r = e / d, c = e - r * d;
+      const long long o = (long long)(r0 + r) * d + c;
+      y[o] = from_f32<T>(to_f32(x[o]) * red[r] * (1.0f + scale[c]));
+    }
+    __syncthreads();
+  }
+}
+
+// y's 16-byte vector = x's vector v * inv * (1 + s), s its V scale values
+// (16-byte aligned)
+template <typename T>
+__device__ __forceinline__ void norm_store16(const uint4& v, const float* s,
+                                             float inv, T* y) {
+  constexpr int V = norm_v<T>();
+  float f[V];
+  unpack16<T>(v, f);
+#pragma unroll
+  for (int e = 0; e < V; e += 4) {
+    const float4 sv = *reinterpret_cast<const float4*>(s + e);
+    f[e] = f[e] * inv * (1.0f + sv.x);
+    f[e + 1] = f[e + 1] * inv * (1.0f + sv.y);
+    f[e + 2] = f[e + 2] * inv * (1.0f + sv.z);
+    f[e + 3] = f[e + 3] * inv * (1.0f + sv.w);
+  }
+  store16(y, f);
 }
 
 // ---------------------------------------------------------------------------
@@ -208,7 +369,7 @@ __device__ __forceinline__ int stage_width(int sub, int act, int w_in) {
 }
 
 // Element (r, c) of a row-wise producer's output in fp32, before the
-// member's rounding to its stored dtype: the norm (inv = rms_inv of row r),
+// member's rounding to its stored dtype: the norm (inv: row r's 1/rms),
 // the activation, the residual add.  a, b: rmsnorm x, scale; act h;
 // resadd h, res.
 template <typename T, int SUB>
@@ -227,53 +388,68 @@ __device__ __forceinline__ float stage_elem(int act, const void* a,
          to_f32(static_cast<const T*>(b)[r * w + c]);
 }
 
-template <typename T, int SUB>
+// A norm's rows are taken HF_WARPS at a time: warp w reduces row rb + w of
+// the group (rms_inv_warp, U vectors a lane at once, into red[w]) before
+// any of them is produced.
+template <typename T, int SUB, int U>
 __device__ __forceinline__ void produce_rows(int act, float eps,
                                              const void* a, const void* b,
                                              int w_in, long long f0,
                                              long long f1, T* dst,
                                              float* red) {
   const int w = stage_width(SUB, act, w_in);
-  for (long long r = f0 / w; r * w < f1; ++r) {
-    const int c0 = (int)(max(f0, r * w) - r * w);
-    const int c1 = (int)(min(f1, (r + 1) * w) - r * w);
-    const long long at = r * w - f0;     // dst[at + c] holds column c
-    float inv = 0.0f;
-    if (SUB == ROW_NORM)
-      inv = rms_inv(static_cast<const T*>(a) + r * w, w, eps, red);
-    // four elements' loads issued before their stores: through generic
-    // pointers the compiler must assume a store to dst may feed a later load
-    int c = c0 + threadIdx.x;
-    for (; c + 3 * HF_THREADS < c1; c += 4 * HF_THREADS) {
-      float v[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        v[u] = stage_elem<T, SUB>(act, a, b, w_in, w, r, c + u * HF_THREADS,
-                                  inv);
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-        dst[at + c + u * HF_THREADS] = from_f32<T>(v[u]);
+  if (SUB == ROW_NORM)
+    norm_prefetch(static_cast<const float*>(b), w, threadIdx.x, HF_THREADS);
+  for (long long rb = f0 / w; rb * w < f1; rb += HF_WARPS) {
+    if (SUB == ROW_NORM) {
+      const long long r = rb + (threadIdx.x >> 5);
+      if (r * w < f1) {
+        const float inv =
+            rms_inv_warp<T, U>(static_cast<const T*>(a) + r * w, w, eps);
+        if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = inv;
+      }
+      __syncthreads();
     }
-    for (; c < c1; c += HF_THREADS)
-      dst[at + c] = from_f32<T>(stage_elem<T, SUB>(act, a, b, w_in, w, r, c,
-                                                   inv));
-    if (SUB == ROW_NORM) __syncthreads();  // red is written again next row
+    for (long long r = rb; r < rb + HF_WARPS && r * w < f1; ++r) {
+      const int c0 = (int)(max(f0, r * w) - r * w);
+      const int c1 = (int)(min(f1, (r + 1) * w) - r * w);
+      const long long at = r * w - f0;     // dst[at + c] holds column c
+      const float inv = SUB == ROW_NORM ? red[r - rb] : 0.0f;
+      // four elements' loads issued before their stores: through generic
+      // pointers the compiler must assume a store to dst may feed a later
+      // load
+      int c = c0 + threadIdx.x;
+      for (; c + 3 * HF_THREADS < c1; c += 4 * HF_THREADS) {
+        float v[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          v[u] = stage_elem<T, SUB>(act, a, b, w_in, w, r,
+                                    c + u * HF_THREADS, inv);
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          dst[at + c + u * HF_THREADS] = from_f32<T>(v[u]);
+      }
+      for (; c < c1; c += HF_THREADS)
+        dst[at + c] = from_f32<T>(stage_elem<T, SUB>(act, a, b, w_in, w, r,
+                                                     c, inv));
+    }
+    if (SUB == ROW_NORM) __syncthreads();  // red is written again next group
   }
   __syncthreads();
 }
 
 // Elements [f0, f1) of a row-wise producer's flat output, each as the
 // member computes and stores it, into dst[0 .. f1 - f0) (shared memory).
-template <typename T>
+template <typename T, int U = NORM_CHUNK>
 __device__ void produce_range(int sub, int act, float eps, const void* a,
                               const void* b, int w_in, long long f0,
                               long long f1, T* dst, float* red) {
   if (sub == ROW_NORM)
-    produce_rows<T, ROW_NORM>(act, eps, a, b, w_in, f0, f1, dst, red);
+    produce_rows<T, ROW_NORM, U>(act, eps, a, b, w_in, f0, f1, dst, red);
   else if (sub == ROW_ACT)
-    produce_rows<T, ROW_ACT>(act, eps, a, b, w_in, f0, f1, dst, red);
+    produce_rows<T, ROW_ACT, U>(act, eps, a, b, w_in, f0, f1, dst, red);
   else
-    produce_rows<T, ROW_RESADD>(act, eps, a, b, w_in, f0, f1, dst, red);
+    produce_rows<T, ROW_RESADD, U>(act, eps, a, b, w_in, f0, f1, dst, red);
 }
 
 // The consumer stage over elements [f0, f1) of the intermediate, read from
@@ -281,15 +457,16 @@ __device__ void produce_range(int sub, int act, float eps, const void* a,
 // activation, element by element for the rest.  other: the norm's scale,
 // the residual add's other operand, AdamW's scalars (with m.in[4], m.in[5]
 // its m and v, out its p).
-template <typename T>
+template <typename T, int U = NORM_CHUNK>
 __device__ void consume_range(const MemberDesc& m, int kind, int act,
                               float eps, const void* other, int w_in,
                               long long f0, long long f1, const T* mid,
                               T* out, float* red) {
   if (kind == ROW_NORM) {
-    for (long long r = f0 / w_in; r * w_in < f1; ++r)
-      rms_row(mid + (r * w_in - f0), static_cast<const float*>(other), w_in,
-              eps, out + r * w_in, red);
+    // [f0, f1) holds whole rows
+    norm_rows_cta<T, U>(mid, static_cast<const float*>(other), w_in, eps,
+                  (int)((f1 - f0) / w_in), out + f0, red);
+    return;                       // norm_rows_cta ends in a __syncthreads
   } else if (kind == ROW_ACT && act_gated(act)) {
     const int F = w_in / 2;
     for (long long r = f0 / w_in; r * w_in < f1; ++r) {
@@ -360,47 +537,14 @@ __host__ __device__ inline int gemm_smem_bytes(const MemberDesc& m) {
          (staged ? 8 * nt * (gemm_xc(nt) + 8) * 2 : 0) + 64 * 4;
 }
 
-// rms_inv of one row by one warp, bitwise equal to the CTA's rms_inv: the
-// lane plays each warp's thread of that lane (elements 32 v + lane + 256 j,
-// summed in j order), the eight warp sums added in warp order.  The loads of
-// 2048 elements are issued before their first use (addresses clamped into
-// the row, the sum skipping what lies past it).
-__device__ __forceinline__ float rms_inv_warp(const bf16* x, int d,
-                                              float eps) {
-  const int lane = threadIdx.x & 31;
-  float ss[HF_WARPS];
-#pragma unroll
-  for (int v = 0; v < HF_WARPS; ++v) ss[v] = 0.0f;
-  for (int j0 = 0; j0 < d; j0 += 8 * HF_THREADS) {
-    float e[8][HF_WARPS];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int v = 0; v < HF_WARPS; ++v) {
-        const int k = j0 + j * HF_THREADS + 32 * v + lane;
-        e[j][v] = bf2f(x[k < d ? k : 0]);
-      }
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int v = 0; v < HF_WARPS; ++v)
-        if (j0 + j * HF_THREADS + 32 * v + lane < d)
-          ss[v] = fmaf(e[j][v], e[j][v], ss[v]);
-  }
-  float tot = 0.0f;
-#pragma unroll
-  for (int v = 0; v < HF_WARPS; ++v) tot += warp_sum(ss[v]);
-  return rsqrtf(tot / (float)d + eps);
-}
-
 // The bf16 GEMM's chain stages, each a call (see the header).
 // A norm prologue's 1/rms of the block's rows, one warp a row, into inv
 __device__ __noinline__ void gemm_stage_inv(const MemberDesc& m, int r0,
                                             int rows, float* inv) {
   const long long K = m.i[2];
   for (int r = threadIdx.x >> 5; r < rows; r += HF_WARPS) {
-    const float v = rms_inv_warp(static_cast<const bf16*>(m.in[0]) +
-                                     (r0 + r) * K, (int)K, m.f[6]);
+    const float v = rms_inv_warp<bf16, GEMM_INV_CHUNK>(
+        static_cast<const bf16*>(m.in[0]) + (r0 + r) * K, (int)K, m.f[6]);
     if ((threadIdx.x & 31) == 0) inv[r] = v;
   }
   __syncthreads();
@@ -496,9 +640,9 @@ __device__ __noinline__ void gemm_stage_x(const MemberDesc& m, int r0,
   if (stage_width(sub, m.i[10], m.i[11]) != m.i[2]) {
     const long long K = m.i[2];
     for (int r = 0; r < rows; ++r)
-      produce_range<bf16>(sub, m.i[10], m.f[6], m.in[0], m.in[1], m.i[11],
-                          (r0 + r) * K + kc0, (r0 + r) * K + kc1,
-                          xs + r * ld, inv);
+      produce_range<bf16, GEMM_STAGE_CHUNK>(
+          sub, m.i[10], m.f[6], m.in[0], m.in[1], m.i[11], (r0 + r) * K + kc0,
+          (r0 + r) * K + kc1, xs + r * ld, inv);
     const int w = kc1 - kc0, wp = (w + kt - 1) / kt * kt;
     for (int idx = threadIdx.x; idx < R * wp; idx += HF_THREADS) {
       const int r = idx / wp, c = idx - r * wp;
@@ -564,7 +708,8 @@ __device__ __noinline__ void gemm_rows_tail(const MemberDesc& m, int tiles,
   int* tickets = static_cast<int*>(m.out[2]);
   if (!hf_last_of_group(tickets, tiles, tiles)) return;
   if (threadIdx.x == 0) tickets[tiles] = 0;
-  consume_range<bf16>(m, m.i[13], m.i[14], m.f[6], m.in[3], m.i[15], 0,
+  consume_range<bf16, GEMM_STAGE_CHUNK>(m, m.i[13], m.i[14], m.f[6],
+                                        m.in[3], m.i[15], 0,
                       (long long)m.i[1] * m.i[3],
                       static_cast<const bf16*>(m.out[3]),
                       static_cast<bf16*>(m.out[0]), red);
@@ -790,26 +935,42 @@ __host__ __device__ inline int gemm_f32_smem_bytes(bool chain) {
 }
 
 // STAGED (a row-wise producer's chain, i[9]): this CTA's slice [k0, k1) of
-// the pass's x rows, computed by the producer into shared memory; a norm
-// row by row (each needs its 1/rms), the rest in one loop
+// the pass's x rows, computed by the producer into shared memory; a norm's
+// mb rows reduced first, row r by warp r (rms_inv_warp, into red), then
+// every element in one loop; a norm whose rows the row stream reshapes (of
+// another width than K) row by row through produce_range
 __device__ __forceinline__ void gemm_f32_stage(const MemberDesc& m, int m0,
                                                int mb, int k0, int k1,
                                                float* xs, float* red) {
+  static_assert(GEMM_MB <= HF_WARPS, "a warp per staged row");
   const long long K = m.i[2];
   const int sub = m.i[9] - 1, act = m.i[10], w_in = m.i[11];
-  if (sub == ROW_NORM) {
+  if (sub == ROW_NORM && w_in != K) {
     for (int r = 0; r < mb; ++r)
       produce_range<float>(sub, act, m.f[6], m.in[0], m.in[1], w_in,
                            (m0 + r) * K + k0, (m0 + r) * K + k1,
                            xs + r * F32_KSLICE, red);
     return;
   }
+  if (sub == ROW_NORM) {
+    const int warp = threadIdx.x >> 5;
+    if (warp < mb) {
+      const float inv = rms_inv_warp(
+          static_cast<const float*>(m.in[0]) + (m0 + warp) * K, (int)K,
+          m.f[6]);
+      if ((threadIdx.x & 31) == 0) red[warp] = inv;
+    }
+    __syncthreads();
+  }
   const int w = stage_width(sub, act, w_in), kc = k1 - k0;
   for (int idx = threadIdx.x; idx < mb * kc; idx += HF_THREADS) {
     const int r = idx / kc;
     const long long f = (m0 + r) * K + k0 + idx % kc;
     xs[r * F32_KSLICE + idx % kc] =
-        sub == ROW_ACT
+        sub == ROW_NORM
+            ? stage_elem<float, ROW_NORM>(act, m.in[0], m.in[1], w_in, w,
+                                          f / w, (int)(f % w), red[r])
+        : sub == ROW_ACT
             ? stage_elem<float, ROW_ACT>(act, m.in[0], m.in[1], w_in, w,
                                          f / w, (int)(f % w), 0.0f)
             : stage_elem<float, ROW_RESADD>(act, m.in[0], m.in[1], w_in, w,
@@ -951,28 +1112,12 @@ __device__ __noinline__ void row_act_f32(const MemberDesc& m, int cta) {
   row_act<float>(m, cta);
 }
 
-// one 16-byte vector of T (8 bf16 or 4 fp32) <-> fp32
-template <typename T>
-__device__ __forceinline__ void unpack16(const uint4& u, float* f) {
-  const T* e = reinterpret_cast<const T*>(&u);
-#pragma unroll
-  for (int j = 0; j < 16 / (int)sizeof(T); ++j) f[j] = to_f32(e[j]);
-}
-template <typename T>
-__device__ __forceinline__ void store16(T* p, const float* f) {
-  uint4 u;
-  T* e = reinterpret_cast<T*>(&u);
-#pragma unroll
-  for (int j = 0; j < 16 / (int)sizeof(T); ++j) e[j] = from_f32<T>(f[j]);
-  *reinterpret_cast<uint4*>(p) = u;
-}
-
 // standalone residual add: out = h + res over (M, F), in fp32, stored as T;
 // CTA c owns elements [c * CH, (c + 1) * CH), CH = HF_THREADS * RESADD_VECS
-// 16-byte vectors.  Not inlined, like row_norm_f32 below: inlined, these
-// two paths moved ptxas's allocation of the whole bundle kernel and slowed
-// the grouped expert FFN member by 5% on the H100; as calls the kernel keeps
-// the allocation (and the 24 bytes of spills) it had without them.
+// 16-byte vectors.  Not inlined, like row_norm below: inlined, the
+// residual add and the fp32 norm moved ptxas's allocation of the whole
+// bundle kernel and slowed the grouped expert FFN member by 5% on the
+// H100; as calls the kernel keeps the allocation it had without them.
 template <typename T>
 __device__ __noinline__ void row_resadd(const MemberDesc& m, int cta) {
   constexpr int VEC = 16 / (int)sizeof(T);
@@ -1009,18 +1154,54 @@ __device__ __noinline__ void row_resadd(const MemberDesc& m, int cta) {
     out[e] = from_f32<T>(to_f32(h[e]) + to_f32(r[e]));
 }
 
+// RMSNorm alone: CTA c owns rows c * i[4] .. (i[4] rows a CTA, one a warp:
+// kernels/row.py norm_rows), the order above.  A row of at most NORM_VECS
+// vectors a lane leaves memory once: the lane's vectors all loaded before
+// the first is used, summed, then scaled from the same registers and
+// stored as 16-byte vectors, (1 + scale) read as 16-byte vectors beside
+// them.  A wider row reads x again after its 1/rms; a row that is not
+// 16-byte aligned goes element by element.  At one row a CTA (decode) the
+// lane also prefetches (1 + scale) into L1 while x is in flight, so the
+// scale pass waits on L1, not on device memory; with more rows a CTA the
+// scale is in L1 already and the prefetches only cost issue slots (at
+// 8192 rows they made the member slower on the H100).  Not inlined, for
+// either type: inlined, a row body moved ptxas's allocation of the whole
+// bundle kernel (PERF.md).
 template <typename T>
-__device__ void row_norm(const MemberDesc& m, int cta) {
-  extern __shared__ __align__(16) unsigned char smem[];
+__device__ __noinline__ void row_norm(const MemberDesc& m, int cta) {
+  constexpr int V = norm_v<T>();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int d = m.i[2];
-  rms_row(static_cast<const T*>(m.in[0]) + (size_t)cta * d,
-          static_cast<const float*>(m.in[1]), d, m.f[0],
-          static_cast<T*>(m.out[0]) + (size_t)cta * d,
-          reinterpret_cast<float*>(smem));
-}
-
-__device__ __noinline__ void row_norm_f32(const MemberDesc& m, int cta) {
-  row_norm<float>(m, cta);
+  const long long r = (long long)cta * m.i[4] + warp;
+  if (warp >= m.i[4] || r >= m.i[1]) return;
+  const T* x = static_cast<const T*>(m.in[0]) + r * d;
+  const float* scale = static_cast<const float*>(m.in[1]);
+  T* y = static_cast<T*>(m.out[0]) + r * d;
+  const float eps = m.f[0];
+  const bool vec = aligned16(x) && aligned16(y) && aligned16(scale);
+  const int nv = vec ? d / V : 0;       // the whole vectors taken as such
+  float inv;
+  if (vec && nv <= 32 * NORM_VECS) {
+    uint4 v[NORM_VECS];
+    norm_load<T, NORM_VECS>(x, 0, nv, v);
+    if (m.i[4] == 1) norm_prefetch(scale, d, lane, 32);
+    inv = norm_inv(norm_sumsq_rest(x, d, true,
+                                   norm_sumsq<T, NORM_VECS>(v, 0, nv, 0.0f)),
+                   d, eps);
+#pragma unroll
+    for (int u = 0; u < NORM_VECS; ++u) {
+      const int j = lane + 32 * u;
+      if (j < nv) norm_store16(v[u], scale + j * V, inv, y + j * V);
+    }
+  } else {
+    if (m.i[4] == 1) norm_prefetch(scale, d, lane, 32);
+    inv = rms_inv_warp(x, d, eps);
+    for (int j = lane; j < nv; j += 32)
+      norm_store16(reinterpret_cast<const uint4*>(x)[j], scale + j * V, inv,
+                   y + j * V);
+  }
+  for (int k = nv * V + lane; k < d; k += 32)
+    y[k] = from_f32<T>(to_f32(x[k]) * inv * (1.0f + scale[k]));
 }
 
 // an fp32 GEMM descriptor that uses the chain paths (staged producer, EPI_*)
@@ -1041,7 +1222,7 @@ __device__ void row_member(const MemberDesc& m, int cta) {
   switch (m.i[0]) {
     case ROW_NORM:
       if (m.i[6])
-        row_norm_f32(m, cta);
+        row_norm<float>(m, cta);
       else
         row_norm<bf16>(m, cta);
       break;
@@ -1078,7 +1259,7 @@ __device__ void row_member(const MemberDesc& m, int cta) {
 
 __host__ __device__ inline int row_smem_bytes(const MemberDesc& m) {
   switch (m.i[0]) {
-    case ROW_NORM: return HF_WARPS * 4;
+    case ROW_NORM: return 0;
     case ROW_GEMM: return m.i[6] ? gemm_f32_smem_bytes(gemm_chained(m))
                                  : gemm_smem_bytes(m);
     case ROW_CHAIN:

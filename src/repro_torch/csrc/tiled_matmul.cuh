@@ -29,17 +29,35 @@
 //     the next slab's wgmma group is issued and this one's has completed.
 //     The store is masked at M and N, so K % 8 == 0 and N % 8 == 0 (TMA's
 //     16-byte row strides); the tensor maps come from hf_matmul.
-//   fp32: CUDA-core fmaf (no TF32: the reference multiplies in fp32); each
-//     thread an 8 x 8 piece of a 128 x 128 tile, 8-deep k slabs through
-//     registers into shared memory (x transposed), so K % 4 == 0 and
-//     N % 4 == 0.
+//   fp32 (mm_f32_kernel): CUDA-core fmaf (no TF32: the reference
+//     multiplies in fp32), bound by the FMA rate (67 TFLOP/s), so the design
+//     keeps the FMA pipes fed: 128 x 128 tiles, four warps of 64 x 64, each
+//     thread 16 x 8 outputs (128 FMAs for 6 float4 shared-memory reads a k;
+//     8 x 8 a thread of 256 threads ran slower on the H100), two CTAs an
+//     SM;
+//     16-deep k slabs through a ring of MMF_STAGES stages by cp.async, two
+//     slabs in flight while one is read, one __syncthreads a slab; x lands
+//     transposed (one 4-byte copy an element, a warp's copies whole runs of
+//     k) so its fragments are float4s like w's; the next k's fragments are
+//     read while this k's FMAs run; the CTAs running at once walk groups of
+//     MMF_GROUP row blocks, row block fastest, so they share x's and w's
+//     panels in L2.  Zeros past M, N and K (the copies' zero fill), stores
+//     masked at M and N, so K % 4 == 0 and N % 4 == 0.  Each output's sum is
+//     one fmaf chain in k order.
 #pragma once
 
 #include "common.cuh"
 
 #define MM_BM 128           // output tile rows (both kernels)
-#define MM_BN 128           // output tile columns of the fp32 kernel
-#define MM_F32_BK 8         // k slab of the fp32 kernel
+#define MMF_BN 128          // output tile columns of the fp32 kernel
+#define MMF_BK 16           // k slab of an fp32 ring stage
+#define MMF_STAGES 3        // fp32 ring: two slabs in flight, one read
+#define MMF_THREADS 128
+#define MMF_GROUP 16        // row blocks of a group of the fp32 tile walk
+#define MMF_LDA (MM_BM + 4) // row stride of the transposed x slab (floats)
+#define MMF_A_FLOATS (MMF_BK * MMF_LDA)
+#define MMF_STAGE_FLOATS (MMF_A_FLOATS + MMF_BK * MMF_BN)
+#define MMF_SMEM (MMF_STAGES * MMF_STAGE_FLOATS * 4)  // 49,920 bytes
 #define MMW_BN 256          // output tile columns of the bf16 kernel
 #define MMW_BK 64           // k slab of the bf16 kernel: 128 bytes of x a row
 #define MMW_STAGES 4
@@ -193,81 +211,123 @@ __global__ void __launch_bounds__(MMW_THREADS, 1)
   }
 }
 
-__global__ void __launch_bounds__(256)
+// one 4-byte global -> shared copy (through L1), zero-filled when !valid
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   hf_saddr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__global__ void __launch_bounds__(MMF_THREADS, 2)
     mm_f32_kernel(const float* x, const float* w, float* out, int M, int N,
                   int K) {
-  __shared__ __align__(16) float xs[2][MM_F32_BK][MM_BM + 4];   // x^T slab
-  __shared__ __align__(16) float ws[2][MM_F32_BK][MM_BN + 4];
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4, tx = tid & 15;   // rows ty*4 (+64), cols tx*4 (+64)
-  const int m0 = blockIdx.y * MM_BM, n0 = blockIdx.x * MM_BN;
-  const int xr = tid >> 1, xk = (tid & 1) * 4;     // this thread's x load
-  const int wk = tid >> 5, wc = (tid & 31) * 4;    // this thread's w load
-  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  float4 xv, wv;
-  // the slab at k0 into registers (zeros past M, N and K)
-#define MM_F32_FETCH(k0)                                                    \
-  xv = (m0 + xr < M && (k0) + xk < K)                                       \
-           ? *reinterpret_cast<const float4*>(x + (size_t)(m0 + xr) * K +   \
-                                              (k0) + xk)                    \
-           : zero;                                                          \
-  wv = ((k0) + wk < K && n0 + wc < N)                                       \
-           ? *reinterpret_cast<const float4*>(w + (size_t)((k0) + wk) * N + \
-                                              n0 + wc)                      \
-           : zero;
-  // the registers into shared slab st, x transposed
-#define MM_F32_STASH(st)                                 \
-  xs[st][xk][xr] = xv.x;                                 \
-  xs[st][xk + 1][xr] = xv.y;                             \
-  xs[st][xk + 2][xr] = xv.z;                             \
-  xs[st][xk + 3][xr] = xv.w;                             \
-  *reinterpret_cast<float4*>(&ws[st][wk][wc]) = wv;
+  extern __shared__ __align__(16) float mmf_smem[];
+  // the tile walk: groups of MMF_GROUP row blocks; in a group the row block
+  // varies fastest, then the column tile
+  const int tiles_m = (M + MM_BM - 1) / MM_BM;
+  const int tiles_n = (N + MMF_BN - 1) / MMF_BN;
+  const int per_group = MMF_GROUP * tiles_n, g = blockIdx.x / per_group;
+  const int in_g = blockIdx.x - g * per_group;
+  const int gm = min(MMF_GROUP, tiles_m - g * MMF_GROUP);
+  const int m0 = (g * MMF_GROUP + in_g % gm) * MM_BM;
+  const int n0 = (in_g / gm) * MMF_BN;
 
-  float acc[8][8];
+  // four warps, warp w owns the 64 x 64 quarter at rows 64 (w / 2),
+  // columns 64 (w % 2); lane l rows 4 (l / 8) + 16 q + {0..3} (q < 4),
+  // columns 4 (l % 8) + 32 h + {0..3} (h < 2) of it: 128 outputs a thread,
+  // and a warp's fragment reads are 64 contiguous bytes of the x slab and
+  // 128 of the w slab, one shared-memory wavefront each
+  static_assert(MMF_THREADS == 128, "four warps of 64 x 64");
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int fr = (warp >> 1) * 64 + (lane >> 3) * 4;
+  const int fc = (warp & 1) * 64 + (lane & 7) * 4;
+  // loaders: x element (row tid / BK + XR u, k tid % BK), one 4-byte copy
+  // each into the transposed slab (a warp's copies: whole runs of k); w's
+  // 16-byte chunk (row tid / 32 + WR u, columns 4 (tid % 32)..)
+  constexpr int XR = MMF_THREADS / MMF_BK, WR = MMF_THREADS / 32;
+  const int xr = tid / MMF_BK, xk = tid % MMF_BK;
+  const int wk = tid >> 5, wc = (tid & 31) * 4;
+  const float* xsrc = x + (size_t)(m0 + xr) * K + xk;
+  const float* wsrc = w + (size_t)wk * N + n0 + wc;
+  const bool wcol = n0 + wc < N;
+  const int nk = (K + MMF_BK - 1) / MMF_BK;
+  auto load = [&](int kt) {
+    if (kt < nk) {
+      float* As = mmf_smem + (kt % MMF_STAGES) * MMF_STAGE_FLOATS;
+      float* Bs = As + MMF_A_FLOATS;
+      const int kb = kt * MMF_BK;
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+      for (int u = 0; u < MM_BM / XR; ++u) {
+        const bool ok = m0 + xr + XR * u < M && kb + xk < K;
+        cp_async4(As + xk * MMF_LDA + xr + XR * u,
+                  ok ? xsrc + (size_t)XR * u * K + kb : x, ok);
+      }
+#pragma unroll
+      for (int u = 0; u < MMF_BK / WR; ++u) {
+        const bool ok = wcol && kb + wk + WR * u < K;
+        cp_async16(Bs + (wk + WR * u) * MMF_BN + wc,
+                   ok ? wsrc + (size_t)(kb + WR * u) * N : w, ok);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+
+  float acc[16][8];
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  // the fragments of slab row k, double-buffered: six float4 reads
+  float4 a[2][4], b[2][2];
+  auto frag = [&](const float* As, const float* Bs, int k, float4* fa,
+                  float4* fb) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      fa[q] = *reinterpret_cast<const float4*>(As + k * MMF_LDA + fr + 16 * q);
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      fb[h] = *reinterpret_cast<const float4*>(Bs + k * MMF_BN + fc + 32 * h);
+  };
 
-  const int nk = (K + MM_F32_BK - 1) / MM_F32_BK;
-  MM_F32_FETCH(0)
-  MM_F32_STASH(0)
-  __syncthreads();
+#pragma unroll
+  for (int s = 0; s < MMF_STAGES - 1; ++s) load(s);
+#pragma unroll 1
   for (int kt = 0; kt < nk; ++kt) {
-    const int st = kt & 1;
-    if (kt + 1 < nk) {
-      MM_F32_FETCH((kt + 1) * MM_F32_BK)
-    }
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(MMF_STAGES - 2));
+    __syncthreads();               // slab kt has landed; kt - 1 is free
+    load(kt + MMF_STAGES - 1);
+    const float* As = mmf_smem + (kt % MMF_STAGES) * MMF_STAGE_FLOATS;
+    const float* Bs = As + MMF_A_FLOATS;
+    frag(As, Bs, 0, a[0], b[0]);
 #pragma unroll
-    for (int k = 0; k < MM_F32_BK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&xs[st][k][ty * 4]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&xs[st][k][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&ws[st][k][tx * 4]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&ws[st][k][64 + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+    for (int k = 0; k < MMF_BK; ++k) {
+      // the next k's fragments in flight while this k's FMAs run
+      if (k + 1 < MMF_BK) frag(As, Bs, k + 1, a[(k + 1) & 1], b[(k + 1) & 1]);
+      const float4* A = a[k & 1];
+      const float4* B = b[k & 1];
+      const float av[16] = {A[0].x, A[0].y, A[0].z, A[0].w, A[1].x, A[1].y,
+                            A[1].z, A[1].w, A[2].x, A[2].y, A[2].z, A[2].w,
+                            A[3].x, A[3].y, A[3].z, A[3].w};
+      const float bv[8] = {B[0].x, B[0].y, B[0].z, B[0].w,
+                           B[1].x, B[1].y, B[1].z, B[1].w};
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+      for (int i = 0; i < 16; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        for (int j = 0; j < 8; ++j)
+          acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
     }
-    if (kt + 1 < nk) {
-      MM_F32_STASH(st ^ 1)
-    }
-    __syncthreads();
   }
-#undef MM_F32_FETCH
-#undef MM_F32_STASH
+  asm volatile("cp.async.wait_group 0;\n" ::);
 
+  // acc[i][j]: row fr + 16 (i / 4) + i % 4, column fc + 32 (j / 4) + j % 4
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int row = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
+  for (int i = 0; i < 16; ++i) {
+    const int row = m0 + fr + 16 * (i >> 2) + (i & 3);
     if (row >= M) continue;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int col = n0 + h * 64 + tx * 4;
+      const int col = n0 + fc + 32 * h;
       if (col < N)
         *reinterpret_cast<float4*>(out + (size_t)row * N + col) =
             make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
@@ -285,10 +345,13 @@ int hf_matmul(const void* x, const void* w, void* out, int M, int N, int K,
               int fp32, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (fp32) {
-    const dim3 grid((N + MM_BN - 1) / MM_BN, (M + MM_BM - 1) / MM_BM);
-    mm_f32_kernel<<<grid, 256, 0, s>>>(static_cast<const float*>(x),
-                                       static_cast<const float*>(w),
-                                       static_cast<float*>(out), M, N, K);
+    static int granted_f32 = 48 * 1024;
+    int e = hf_allow_kernel_smem(mm_f32_kernel, MMF_SMEM, &granted_f32);
+    if (e) return e;
+    const int grid = ((M + MM_BM - 1) / MM_BM) * ((N + MMF_BN - 1) / MMF_BN);
+    mm_f32_kernel<<<grid, MMF_THREADS, MMF_SMEM, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w),
+        static_cast<float*>(out), M, N, K);
     return (int)cudaGetLastError();
   }
   // x (M, K): boxes of 64 k x 128 rows; w (K, N): boxes of 64 columns x 64
@@ -308,5 +371,8 @@ int hf_matmul(const void* x, const void* w, void* out, int M, int N, int K,
       tx, tw, static_cast<bf16*>(out), M, N, K);
   return (int)cudaGetLastError();
 }
+
+// Dynamic shared memory per CTA of the tiled matmul's kernel for the type
+int hf_matmul_smem(int fp32) { return fp32 ? MMF_SMEM : MMW_SMEM; }
 
 }  // extern "C"

@@ -239,6 +239,8 @@ def library():
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.hf_matmul.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, ptr]
         lib.hf_matmul.restype = i32
+        lib.hf_matmul_smem.argtypes = [i32]
+        lib.hf_matmul_smem.restype = i32
         lib.hf_flash_attention.argtypes = [ptr, ptr, ptr, ptr, *(i32,) * 7,
                                            ctypes.c_float, ptr]
         lib.hf_flash_attention.restype = i32
@@ -383,6 +385,12 @@ def matmul(x: torch.Tensor, w: torch.Tensor, out: torch.Tensor) -> None:
         raise RuntimeError(f"tiled matmul: tensor map error {err} (-1: no "
                            f"cuTensorMapEncodeTiled; 1000 + CUresult)")
     _raise_if(err, "tiled matmul")
+
+
+def matmul_smem(fp32: bool) -> int:
+    """Dynamic shared memory per CTA of the tiled matmul's fp32 or bf16
+    kernel (its ring of stages)."""
+    return library().hf_matmul_smem(int(fp32))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -11,7 +11,12 @@
     bringing x and w by TMA into a 4-stage ring and two consumer
     warpgroups running ``wgmma`` (w fed as the MN-major operand, no
     transposed copy), K a loop inside the CTA (no split-K: two calls are
-    bitwise equal); fp32 on the CUDA cores (no TF32), 128 x 128 tiles.
+    bitwise equal); fp32 on the CUDA cores (no TF32), bound by the FMA
+    rate: 128 x 128 tiles of four warps, 16 x 8 outputs a thread, 16-deep
+    k slabs through a 3-stage ``cp.async`` ring (x transposed on the way
+    in, so both operands' fragments are float4 reads), groups of 16 row
+    blocks walked row block fastest, each output one fmaf chain in k
+    order.
     ``TILED_MATMUL`` is its launch record, bumped by ``matmul`` right after
     each launch; its plain version is ``row.plain_gemm``.
 """

@@ -18,6 +18,8 @@ slices in slice order.  The GEMM also has an fp32 form (x, w, out fp32,
 partial column tiles masked, K split over CTAs with a fixed-order last-CTA
 combine): the MoE router's ``matmul_1d_op(dtype=float32)``.
 RMSNorm, the activation and the residual add take bf16 or fp32 rows.
+RMSNorm reduces each row with one warp, in one order shared by the member
+and every chain (``csrc/row_member.cuh``), ``norm_rows(M)`` rows a CTA.
 
 ``RowChain`` is the one descriptor of every chain: producer, consumer (a
 ``RowMember`` or ``kernels/adam.AdamwMember``) and the stitched operand's
@@ -64,6 +66,15 @@ F32_K_SLICE = 64      # K rows per CTA of the fp32 GEMM
 ACT_COLS = 2048       # output columns per CTA of the standalone activation
 RESADD_BYTES = 16384  # bytes of each operand per CTA of the residual add
 #                       (csrc/row_member.cuh: HF_THREADS x RESADD_VECS x 16)
+NORM_ROWS = 8         # rows a CTA of RMSNorm past NORM_PACK_M rows, one a
+#                       warp (8192 rows: 1024 CTAs, about 4 waves at 2 CTAs
+#                       an SM)
+NORM_PACK_M = 256     # from this many rows RMSNorm packs NORM_ROWS rows a
+#                       CTA; below it (decode batches) one row a CTA, so
+#                       the CTA count, which the bundle grid and the
+#                       interpret proxy read, stays M there.  The reduction
+#                       order is per row (one warp), so results do not
+#                       depend on it
 
 
 # ---------------------------------------------------------------------------
@@ -127,6 +138,13 @@ def act_name(fn) -> str:
             return name
     raise ValueError(f"activation {fn!r} has no CUDA member "
                      f"(supported: {sorted(ACTIVATIONS)})")
+
+
+def norm_rows(M: int) -> int:
+    """Rows a CTA of the RMSNorm member takes, one a warp
+    (csrc/row_member.cuh row_norm): 1 below NORM_PACK_M rows, else
+    NORM_ROWS."""
+    return 1 if M < NORM_PACK_M else NORM_ROWS
 
 
 def gemm_rows(M: int) -> int:
@@ -209,7 +227,7 @@ class RowMember:
     @property
     def ctas(self) -> int:
         if self.sub == "rmsnorm":
-            return self.M
+            return math.ceil(self.M / norm_rows(self.M))
         if self.sub == "gemm":
             return self.col_tiles * self.row_blocks * self.k_slices
         if self.sub == "resadd":
@@ -234,6 +252,7 @@ class RowMember:
         md.i[6] = int(self.fp32)
         md.f[0] = self.eps
         if self.sub == "rmsnorm":
+            md.i[4] = norm_rows(M)
             md.inp[0] = cuda.check(ins[0], "rmsnorm x", (M, K), dt)
             md.inp[1] = cuda.check(ins[1], "rmsnorm scale", (1, K),
                                    torch.float32)

@@ -869,8 +869,7 @@ def _close(out, ref):
     (_close_bf16 if out.dtype == BF else _close_f32)(out, ref)
 
 
-@pytest.mark.parametrize("dtype", [BF, F32])
-@pytest.mark.parametrize("M,K,N", [
+_MM_SHAPES = [
     (256, 128, 128), (512, 256, 384), (128, 512, 256), (300, 200, 136),
     # the bf16 kernel's 128 x 256 tile and 64-deep stage edges (each dim
     # under the reference's 512 tile or a multiple of it): M and N past a
@@ -879,10 +878,23 @@ def _close(out, ref):
     (129, 40, 264), (8, 8, 8), (500, 456, 488), (8192, 200, 1536),
     # granite-3-2b's four train products: QKV, W_o, gate+up, down
     (8192, 2048, 3072), (8192, 2048, 2048), (8192, 2048, 16384),
-    (8192, 8192, 2048)])
+    (8192, 8192, 2048)]
+# fp32 only (K and N multiples of 4, not of 8): the fp32 kernel's 128 x 128
+# tile and 16-deep slab edges: K under one slab and not a multiple of it, M
+# and N one past a tile, one exact slab and tile, more row blocks than a
+# group of the walk and a part last group (20 row blocks)
+_MM_F32_SHAPES = [(1, 4, 4), (64, 12, 36), (129, 500, 132), (128, 16, 128),
+                  (255, 20, 260), (2560, 496, 388)]
+
+
+@pytest.mark.parametrize("M,K,N,dtype", [
+    pytest.param(*s, dt, id=f"{s[0]}-{s[1]}-{s[2]}-dtype{i}")
+    for s in _MM_SHAPES for i, dt in enumerate((BF, F32))] + [
+    pytest.param(*s, F32, id=f"{s[0]}-{s[1]}-{s[2]}-dtype1")
+    for s in _MM_F32_SHAPES])
 def test_tiled_matmul(cuda_dev, M, K, N, dtype):
-    """The reference's shapes, ragged ones at the kernels' tile and stage
-    edges (TMA's zeros past M, N and K, masked stores) and granite's four
+    """The reference's shapes, ragged ones at the kernels' tile, stage and
+    slab edges (the zeros past M, N and K, masked stores) and granite's four
     products at train rows; a launch bumps the count, and two calls are
     bitwise equal."""
     from repro_torch.kernels import matmul as mm
@@ -1020,6 +1032,35 @@ def test_rmsnorm_standalone(cuda_dev, R, d, dtype):
     got = rmsnorm(x, scale)
     assert row.ROW.launches == before + 1
     _close(got, row.plain_rmsnorm(x, scale))
+
+
+@pytest.mark.parametrize("dtype", [BF, F32])
+@pytest.mark.parametrize("d", [100, 2050, 4096, 8192])
+def test_rmsnorm_widths_and_rows_per_cta(cuda_dev, d, dtype):
+    """The RMSNorm member at widths that are not 16-byte aligned (100 bf16,
+    2050), that fill the registers (4096 bf16) and past them (4096 fp32,
+    8192): M one under, at and one past the rows-per-CTA threshold within
+    tolerance of plain, and the same rows bitwise equal whether a CTA takes
+    one (decode geometry) or row.NORM_ROWS of them, since each row is one
+    warp's in one order."""
+    from repro_torch.kernels import row
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    g = _gen(35)
+    P = row.NORM_PACK_M
+    x = _randn((P + 1, d), g, dtype)
+    scale = _randn((d,), g, F32, 0.1)
+    outs = {}
+    for M in (8, P - 1, P, P + 1):
+        before = row.ROW.launches
+        outs[M] = rmsnorm(x[:M], scale, bm=M)
+        assert row.ROW.launches == before + 1
+        _close(outs[M], row.plain_rmsnorm(x[:M], scale))
+    assert rmsnorm_op(P - 1, d, dtype, bm=P - 1).ctas == P - 1
+    assert rmsnorm_op(P + 1, d, dtype, bm=P + 1).ctas == -(-(P + 1)
+                                                            // row.NORM_ROWS)
+    for M in (P, P + 1):
+        assert torch.equal(outs[M][:P - 1], outs[P - 1])
+        assert torch.equal(outs[M][:8], outs[8])
 
 
 @pytest.mark.parametrize("dtype", [BF, F32])
