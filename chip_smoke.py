@@ -51,8 +51,11 @@ non-zero exit code and no result line.
   4. adamw   the AdamW member at granite's w_qkv leaf, (1966080, 128) bf16
              p/g and fp32 m/v, bm 1024, in place, bitwise against its plain
              version; an embedding-shaped leaf (a padded tail, copied and
-             written back); timed beside its plain version and
-             ``torch.optim.AdamW(fused=True)`` on the same leaf.
+             written back); timed beside its plain version.
+             ``torch.optim.AdamW(fused=True)`` on the same leaf is timed on
+             a line of its own: it keeps a bf16 parameter's moments in
+             bf16 (14 B an element against the member's 22), another
+             function, so the member's row has no library time.
   5. plan    ``plan_update_fusion`` and ``build_update_program`` at full
              width with ``make_measure("gpu")`` through a schedule cache
              (n_measured, cost-model-vs-measured deltas), then the same plans
@@ -83,6 +86,11 @@ non-zero exit code and no result line.
              row-wise pair, the fp32 GEMM's epilogues and staged producer)
              and the AdamW member in ONE ``hfuse.generate`` launch, BITWISE
              against ``run_native`` of the same members, and timed beside it.
+             Row e's fp32 gate+up alone at decode width (8 x 2048 @ 2048 x
+             16384) against its plain version, timed beside
+             ``torch.matmul``; each fp32 GEMM's split (``[row_gemm_f32]``:
+             K slices, CTAs, the partials written and read beside the
+             weight's bytes).
   7. train   full-width granite-3-2b (40 layers, bf16, fp32 moments, remat,
              random weights from a seeded torch.Generator), batch 4 x seq
              2048 from ``TokenPipeline``, 4 steps of ``make_train_step`` with
@@ -348,13 +356,14 @@ def sdpa_prefill(torch, q, k, v, off):
 def build_report() -> None:
     """Registers, stack and spills (ptxas, from the build) of the bundle
     kernel's five instances, the tiled matmul and attention kernels and the
-    members' non-inlined bodies (RMSNorm's among them: a spill there fails
-    the run), the tiled matmul's shared memory a CTA; the count of HMMA
-    (mma.sync) instructions
-    in each kernel's SASS and in each body inside the bundle instances, and
-    of HGMMA (wgmma) in the tiled matmul's, where the toolkit has cuobjdump.
-    Fails if a tensor-core route (bf16 flash, the prefill, moe_gmm and bf16
-    row GEMM bodies; wgmma in the bf16 tiled matmul) holds none."""
+    members' non-inlined bodies (the fp32 row GEMM's and RMSNorm's among
+    them; a spill in RMSNorm's or in the fp32 flash kernel fails the run),
+    the tiled matmul's shared memory a CTA; the count of HMMA (mma.sync)
+    instructions in each kernel's SASS and in each body inside the bundle
+    instances, and of HGMMA (wgmma) in the tiled matmul's, where the
+    toolkit has cuobjdump.  Fails if a tensor-core route (bf16 flash, the
+    prefill, moe_gmm and bf16 row GEMM bodies; wgmma in the bf16 tiled
+    matmul) holds none, or if the fp32 flash kernel holds any."""
     from repro_torch.kernels import cuda
     use = cuda.ptxas_usage()
     keys = {"hf_bundle<false>": "hf_bundleILb0E",
@@ -377,7 +386,10 @@ def build_report() -> None:
     # RMSNorm's standalone bodies, one per type: neither may spill
     norms = {"row_norm<bf16>": "row_normI13__nv_bfloat16E",
              "row_norm<float>": "row_normIfE"}
-    for label, key in {**keys, **bodies, **norms}.items():
+    # the fp32 row GEMM's bodies (CUDA cores: no HMMA expected)
+    f32 = {"row_gemm_f32<false>": "row_gemm_f32ILb0E",
+           "row_gemm_f32<true>": "row_gemm_f32ILb1E"}
+    for label, key in {**keys, **bodies, **norms, **f32}.items():
         hits = [v for k, v in use.items() if key in k]
         check(len(hits) <= 1, f"ptxas report: {len(hits)} {label}")
         check(bool(hits), f"ptxas report has no {label}")
@@ -385,9 +397,9 @@ def build_report() -> None:
         print(f"[build] ptxas {label}: registers {u.get('registers', '-')}, "
               f"stack {u['stack']} B, spill stores {u['spill_stores']} B, "
               f"spill loads {u['spill_loads']} B", flush=True)
-        if label in norms:
+        if label in norms or label == "flash_f32_kernel":
             check(u["spill_stores"] == 0 and u["spill_loads"] == 0,
-                  f"the {label} body spills")
+                  f"{label} spills")
     print(f"[build] mm_f32_kernel: {cuda.matmul_smem(True)} B of dynamic "
           f"shared memory a CTA (its cp.async ring); mm_bf16_kernel "
           f"{cuda.matmul_smem(False)} B", flush=True)
@@ -407,6 +419,8 @@ def build_report() -> None:
           "the bf16 flash kernels' SASS holds no HMMA")
     check(shown["hf_bundle<false>"] > 0 and shown["hf_bundle<true>"] > 0,
           "the bundle instances' SASS holds no HMMA")
+    check(shown["flash_f32_kernel"] == 0,
+          "the fp32 flash kernel's SASS holds HMMA (it multiplies in fp32)")
     for body in bodies:
         if body != "decode_split":
             check(shown[body] > 0, f"the {body} body's SASS holds no HMMA")
@@ -816,10 +830,21 @@ def phase_adamw(torch, dev) -> list[dict]:
           f"{st['exp_avg'].dtype}, exp_avg_sq {st['exp_avg_sq'].dtype}")
     lib_ms = median_ms(lib.step, flush)
     n = QKV_ROWS * 128
+    # not the member's function: PyTorch keeps a bf16 parameter's moments
+    # in bf16 (p, g, m, v: 14 B an element moved), the member fp32 moments
+    # (22 B); no PyTorch call updates bf16 p with fp32 m and v, so the
+    # member's row has no library time
+    lib_bytes = n * sum(t.element_size() * k for t, k in (
+        (param, 2), (param.grad, 1), (st["exp_avg"], 2),
+        (st["exp_avg_sq"], 2)))
+    print(f"[adamw] fused torch.optim.AdamW at the same leaf: {lib_ms:.4f} "
+          f"ms, moments {st['exp_avg'].dtype} / {st['exp_avg_sq'].dtype}, "
+          f"{lib_bytes / n:.0f} B an element moved (the member: 22 B, fp32 "
+          "moments): another function, no yardstick", flush=True)
     row = kernel_row("train", f"adamw_member:w_qkv ({QKV_ROWS}x128, bm "
                      f"{ADAM_BM})", adam.ADAMW, "adamw_member.cuh",
                      "src/repro/kernels/adam.py:67", err, ms, plain_ms,
-                     (22.0 * n, 12.0 * n), FP32_FLOPS, lib_ms, ulp=ulp)
+                     (22.0 * n, 12.0 * n), FP32_FLOPS, None, ulp=ulp)
     del ins, param, lib, st
     torch.cuda.empty_cache()
     return [row]
@@ -1007,6 +1032,18 @@ def _chain_inputs(torch, op, g, dev="cuda"):
 def _io_bytes(ins, outs) -> float:
     """Each input read once, each output written once."""
     return float(sum(t.numel() * t.element_size() for t in (*ins, *outs)))
+
+
+def f32_split_line(name, g) -> None:
+    """The fp32 row GEMM ``g``'s split (kernels/row.py): its K slices and
+    CTAs, and the fp32 partials a launch writes and reads back beside the
+    weight it streams (worked out from the geometry, not measured)."""
+    from repro_torch.kernels import row
+    parts = row.gemm_workspace_sizes(g, False)[0] * 4
+    print(f"[row_gemm_f32] {name} {g.M}x{g.K}@{g.K}x{g.N}: {g.k_slices} K "
+          f"slices of {g.k_slice} rows, {g.ctas} CTAs; partials "
+          f"{parts / 1e6:.3f} MB written and read, weight "
+          f"{g.K * g.N * 4 / 1e6:.3f} MB", flush=True)
 
 
 def _sweep_ops(torch, cfg, dt):
@@ -1258,6 +1295,7 @@ def phase_update_dw(torch, dev, cfg, fplan) -> tuple[list[dict], dict]:
     rows = []
     for chain in chains:
         dw, upd = ops[chain.chain[0]], ops[chain.chain[1]]
+        f32_split_line(f"{dw.name}->adamw", dw.member)
         ins = [st_a[f"{chain.name}.{n}"] for n in chain.in_names]
         run, plain = hfuse.run_single(chain), hfuse.run_single(chain,
                                                                plain=True)
@@ -1305,6 +1343,28 @@ def phase_update_dw(torch, dev, cfg, fplan) -> tuple[list[dict], dict]:
             separate_ms=median_ms(lambda: sep(*ins), flush)))
     print(f"[update_dw] {len(runs)} chains bitwise equal their separate "
           "members", flush=True)
+
+    # row e, fp32 at decode width: gate+up alone (8 x 2048 @ 2048 x 16384)
+    sweep32 = _sweep_ops(torch, cfg, torch.float32)
+    for name in ("W_o", "gate_up", "down"):
+        f32_split_line(name, sweep32[name].member)
+    op = sweep32["gate_up"]
+    x, w = _chain_inputs(torch, op, g, dev)
+    run, plain = hfuse.run_single(op), hfuse.run_single(op, plain=True)
+    got = run(x, w)
+    err = compare(torch, got, plain(x, w))
+    check(all(torch.equal(a, b) for a, b in zip(got, run(x, w))),
+          "row_member:gate_up float32 differs between two launches")
+    gm = op.member
+    rows.append(kernel_row(
+        "update_dw", f"row_member:gate_up float32 {gm.M}x{gm.K}@{gm.K}x"
+        f"{gm.N}", row.ROW, "row_member.cuh",
+        "src/repro/kernels/matmul.py:64 (float32)", err,
+        median_ms(lambda: run(x, w), flush),
+        median_ms(lambda: plain(x, w), flush),
+        (_io_bytes((x, w), got), op.flops), FP32_FLOPS,
+        median_ms(lambda: torch.matmul(x, w), flush)))
+    del x, w, got
     chain_bundle(torch, dev, cfg, runs, flush)
     del runs, outs
     free_card(torch)
@@ -1830,6 +1890,7 @@ def phase_moe(torch, dev) -> tuple[list[dict], dict]:
                       "src/repro/kernels/moe_gmm.py:54, :34", op,
                       (xe, w_in, w_out), gmm_cost(op), BF16_FLOPS,
                       gmm_lib(xe)))
+    f32_split_line("moe_router", router.member)
     for name, kernel, src, replaces, op, ins, cost, peak, lib in cases:
         run, run_plain = hfuse.run_single(op), hfuse.run_single(op, plain=True)
         got = run(*ins)

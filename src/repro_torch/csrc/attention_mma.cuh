@@ -3,8 +3,9 @@
 // accumulation, the online softmax in fp32 registers.  Used by the bf16
 // route of the standalone flash attention kernel (flash_attention.cuh) and
 // by the prefill attention member (prefill_attention.cuh), contiguous and
-// paged.  fp32 flash attention stays on attn_loop (attention_core.cuh);
-// decode attention has its own split-KV loop (decode_attention.cuh).
+// paged.  fp32 flash attention has an FFMA loop of its own
+// (flash_attention.cuh flash_f32_kernel); decode attention has its own
+// split-KV loop (decode_attention.cuh).
 //
 // The TPU kernels carry (m, l, acc) across sequential kv grid steps in VMEM
 // (src/repro/kernels/flash_attention.py:21-50,

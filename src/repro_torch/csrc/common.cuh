@@ -64,13 +64,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
 // eight bf16 values packed in a 16-byte vector -> fp32
 __device__ __forceinline__ void unpack8(uint4 v, float* f) {
   const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
@@ -132,6 +125,14 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
 __device__ __forceinline__ unsigned hf_saddr(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
 }
+// one 4-byte global -> shared copy (through L1), zero-filled when !valid
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   hf_saddr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
 // a barrier whose phase completes after `count` arrivals (and the bytes
 // announced by hf_bar_expect)
 __device__ __forceinline__ void hf_bar_init(uint64_t* bar, int count) {

@@ -45,18 +45,28 @@
 // __syncthreads), then scaled and stored from the same registers, so x
 // leaves memory once.
 //
-// fp32 GEMM (i[6] = 1, the MoE router: 8 x 4096 @ 4096 x 16 at phi3.5-moe):
-// x, w and out fp32.  A CTA owns 64 columns and one of i[7] slices of K (the
-// router's N = 16 is a quarter of one tile, so a single CTA walking all of K
-// is bound by load latency: 0.19 ms on the H100).  A thread streams 16-byte
-// vectors of 4 columns, reads x through the cache (a half-warp shares one x
-// value), and columns past N are masked, so N needs only N % 4 == 0.  Each
-// CTA writes its slice's (M, 64) partial into a per-launch workspace
-// (out[1]) and takes a ticket of its column tile (out[2], zeroed); the
-// tile's last CTA sums the slices in slice order, as the paper members'
-// carries do, so the result is the same every launch.  With the residual
-// epilogue (i[8] = 1, in[3] = res (M, N)) that CTA adds res to each column's
-// sum before the store.
+// fp32 GEMM (i[6] = 1: the MoE router, 8 x 4096 @ 4096 x 16 at phi3.5-moe;
+// the fp32 chains, among them the dW -> AdamW of the stacked norm scales,
+// 40 x 8192 @ 8192 x 2048): x, w and out fp32, fmaf on the CUDA cores.
+// Bound by bytes at every shape a path launches (M 8..40 rows do 2 M flops
+// per 4-byte weight element).  Design (row_gemm_f32):
+//   * every SM busy: a CTA owns a 64-column tile and one of i[7] slices of
+//     i[4] K rows, the fewest slices that bring tiles x slices to 132 CTAs
+//     (kernels/row.py RowMember.k_slice), so W_o and the dW take 160 CTAs
+//     and the router 64 (K allows no more); the partials a split writes
+//     are (slices, M, N): 1.6 MB at the dW, not the weight's size;
+//   * the weight streams once a pass: 64-row stages (16 KB) through a ring
+//     of 3..8 stages by cp.async, x beside it, every stage applied to all
+//     the pass's rows (up to 128: M 40 is one pass) before it is released;
+//     rows are spread over threads (8 a thread) and what the rows leave of
+//     the 256 threads takes k residues of the stage (all 256 threads work
+//     at M 8, 240 at M 40); a tile narrower than 64 columns
+//     (the router's 16) gives its idle column threads more k residues;
+//   * the tile's last CTA sums the slices in slice order (8 loads in
+//     flight), so the result is the same every launch; the residual add
+//     (i[8] = 1, in[3] = res (M, N)) and the chain epilogues run there, on
+//     the sum; columns past N are masked, so N needs only N % 4 == 0.
+// Its partials and tickets persist in a workspace like the bf16 GEMM's.
 //
 // Chains.  A chain keeps its intermediate out of device memory where the
 // consumer can take it in the producer's CTA, and says so where it cannot:
@@ -69,9 +79,9 @@
 //     row-stream reshape, so a producer row of one width feeds consumer rows
 //     of another (AdamW's (R, 128) rows among them).
 //   * row-wise -> GEMM x (i[9]): the producer fills the GEMM's x staging
-//     buffer with the CTA's K slice, gemm_xc columns at a time; a norm
-//     first reduces each whole row for its 1/rms, one warp a row
-//     (rms_inv_warp).
+//     buffer with the CTA's K slice, gemm_xc (fp32: F32Geo.xc) columns at a
+//     time; a norm first reduces each whole row for its 1/rms, one warp a
+//     row (rms_inv_warp).
 //   * GEMM -> activation or residual add: the epilogues (i[5], i[8]).
 //   * GEMM -> AdamW's g (the dW -> AdamW chain, i[12] = EPI_ADAMW): each
 //     product, rounded to the param dtype as the GEMM stores it (fp32: the
@@ -80,26 +90,25 @@
 //   * GEMM -> any other row consumer (RMSNorm; fp32 activations), i[12] =
 //     EPI_ROWS: the consumer needs whole rows while a GEMM CTA owns 64 or
 //     128 columns, so THE INTERMEDIATE PASSES THROUGH A WORKSPACE in device
-//     memory (out[3]; the fp32 GEMM's: out[1]), stored as the GEMM stores
+//     memory (out[3]), stored as the GEMM stores
 //     it; the CTA that finishes each tile takes a ticket (out[2]) and the
 //     last one runs the consumer over all rows.
 //
 // RMSNorm descriptor: i[1], i[2] = M, d, i[4] = rows a CTA, f[0] = eps.
-// GEMM descriptor: i[1..3] = M, K, N, i[4] = rows of a K slice (bf16; a
-// multiple of GEMM_KT), i[5] = the activation epilogue, i[6] = fp32, i[7] =
-// K slices, i[8] = the residual epilogue.  Chain descriptor (beside them):
-// the producer stage
-// i[9] = sub + 1 (0: none), i[10] = its activation, i[11] = its input row
-// width; i[12] = the GEMM's epilogue (EPI_*); the consumer stage i[13] =
-// sub (ROW_ADAMW for the update), i[14] = its activation, i[15] = its input
-// row width; f[6] = the chain's RMSNorm eps, f[0..5] = AdamW's constants.
+// GEMM descriptor: i[1..3] = M, K, N, i[4] = rows of a K slice (a multiple
+// of GEMM_KT, fp32 of F32_KT), i[5] = the activation epilogue, i[6] = fp32,
+// i[7] = K slices, i[8] = the residual epilogue.  Chain descriptor (beside
+// them): the producer stage i[9] = sub + 1 (0: none), i[10] = its
+// activation, i[11] = its input row width; i[12] = the GEMM's epilogue
+// (EPI_*); the consumer stage i[13] = sub (ROW_ADAMW for the update), i[14]
+// = its activation, i[15] = its input row width; f[6] = the chain's
+// RMSNorm eps, f[0..5] = AdamW's constants.
 // Pointers: in[0], in[1] the producer's operands (x or h; scale or res),
 // in[2] the GEMM weight, in[3] the consumer's other operand (scale, res, or
 // AdamW's scalars), in[4], in[5] AdamW's m and v (updated in place),
 // out[0] the output (AdamW: p, in place), out[1] the K slices' fp32
-// partials, out[2] tickets (the bf16 GEMM's persist across launches: the
-// CTA that draws the last resets it), out[3] the bf16 GEMM's EPI_ROWS
-// product.  ROW_CHAIN's segment length is i[1].  The stitched operand's slot
+// partials, out[2] tickets (they persist across launches: the CTA that
+// draws the last resets it), out[3] the EPI_ROWS product.  ROW_CHAIN's segment length is i[1].  The stitched operand's slot
 // matters to the card only for the residual add, where h + res == res + h.
 //
 // Bitwise contract: a chain equals its two members run separately.  Each
@@ -113,7 +122,10 @@
 // (csrc/adamw_member.cuh); the build uses -fmad=false so no call site fuses
 // a multiply-add the other does not.
 //
-// Registers: the chain bodies are non-inlined calls, like the fp32 GEMM,
+// Registers: the chain bodies are non-inlined calls, like the fp32 GEMM
+// (row_gemm_f32<STAGED>, its producer stage inlined into <true>: as a call
+// inside the K loop it made the body spill more and ran the staged chains
+// slower on the H100),
 // RMSNorm (row_norm<bf16|float>) and the residual add (inlined, a new row
 // path moved ptxas's allocation of the whole bundle kernel and slowed the
 // grouped expert FFN member by 5% on the H100): row_chain, the bf16 GEMM's body
@@ -138,7 +150,6 @@ enum { ACT_NONE = -1, ACT_SILU_GATE = 0, ACT_GELU_GATE = 1, ACT_GELU = 2,
 enum { EPI_STORE = 0, EPI_ROWS = 1, EPI_ADAMW = 2 };
 
 #define GEMM_TN 64          // weight columns per CTA tile of the fp32 GEMM
-#define GEMM_MB 8           // rows per pass of the fp32 GEMM
 // the bf16 GEMM (kernels/row.py): a CTA's tile of weight columns, 16 a warp
 // (wider tiles, 256 and 512, streamed slower on the H100), and the k rows
 // of a ring stage; row strides of a staged weight and x slice 16 bytes past
@@ -390,14 +401,16 @@ __device__ __forceinline__ float stage_elem(int act, const void* a,
 
 // A norm's rows are taken HF_WARPS at a time: warp w reduces row rb + w of
 // the group (rms_inv_warp, U vectors a lane at once, into red[w]) before
-// any of them is produced.
-template <typename T, int SUB, int U>
+// any of them is produced.  Element f lands in dst[f - f0], or
+// dst[(f - f0) * ld] when STRIDED.
+template <typename T, int SUB, int U, bool STRIDED>
 __device__ __forceinline__ void produce_rows(int act, float eps,
                                              const void* a, const void* b,
                                              int w_in, long long f0,
                                              long long f1, T* dst,
-                                             float* red) {
+                                             float* red, int ld) {
   const int w = stage_width(SUB, act, w_in);
+  if (!STRIDED) ld = 1;
   if (SUB == ROW_NORM)
     norm_prefetch(static_cast<const float*>(b), w, threadIdx.x, HF_THREADS);
   for (long long rb = f0 / w; rb * w < f1; rb += HF_WARPS) {
@@ -427,11 +440,11 @@ __device__ __forceinline__ void produce_rows(int act, float eps,
                                     c + u * HF_THREADS, inv);
 #pragma unroll
         for (int u = 0; u < 4; ++u)
-          dst[at + c + u * HF_THREADS] = from_f32<T>(v[u]);
+          dst[(at + c + u * HF_THREADS) * ld] = from_f32<T>(v[u]);
       }
       for (; c < c1; c += HF_THREADS)
-        dst[at + c] = from_f32<T>(stage_elem<T, SUB>(act, a, b, w_in, w, r,
-                                                     c, inv));
+        dst[(at + c) * ld] = from_f32<T>(
+            stage_elem<T, SUB>(act, a, b, w_in, w, r, c, inv));
     }
     if (SUB == ROW_NORM) __syncthreads();  // red is written again next group
   }
@@ -439,17 +452,21 @@ __device__ __forceinline__ void produce_rows(int act, float eps,
 }
 
 // Elements [f0, f1) of a row-wise producer's flat output, each as the
-// member computes and stores it, into dst[0 .. f1 - f0) (shared memory).
-template <typename T, int U = NORM_CHUNK>
+// member computes and stores it, into dst[0 .. f1 - f0) (shared memory; ld
+// elements apart when STRIDED: the fp32 GEMM stages x transposed).
+template <typename T, int U = NORM_CHUNK, bool STRIDED = false>
 __device__ void produce_range(int sub, int act, float eps, const void* a,
                               const void* b, int w_in, long long f0,
-                              long long f1, T* dst, float* red) {
+                              long long f1, T* dst, float* red, int ld = 1) {
   if (sub == ROW_NORM)
-    produce_rows<T, ROW_NORM, U>(act, eps, a, b, w_in, f0, f1, dst, red);
+    produce_rows<T, ROW_NORM, U, STRIDED>(act, eps, a, b, w_in, f0, f1, dst,
+                                          red, ld);
   else if (sub == ROW_ACT)
-    produce_rows<T, ROW_ACT, U>(act, eps, a, b, w_in, f0, f1, dst, red);
+    produce_rows<T, ROW_ACT, U, STRIDED>(act, eps, a, b, w_in, f0, f1, dst,
+                                         red, ld);
   else
-    produce_rows<T, ROW_RESADD, U>(act, eps, a, b, w_in, f0, f1, dst, red);
+    produce_rows<T, ROW_RESADD, U, STRIDED>(act, eps, a, b, w_in, f0, f1,
+                                            dst, red, ld);
 }
 
 // The consumer stage over elements [f0, f1) of the intermediate, read from
@@ -924,167 +941,404 @@ __device__ __forceinline__ void row_gemm(const MemberDesc& m, int cta) {
 
 // ---------------------------------------------------------------------------
 // fp32 GEMM: out(M, N) = x(M, K) @ w(K, N), every operand fp32, split over
-// i[7] slices of K
+// i[7] slices of i[4] K rows (kernels/row.py RowMember.k_slice)
 // ---------------------------------------------------------------------------
-#define GEMM_F32_KR 16      // k residues (threads per column group)
-#define F32_KSLICE 64       // K rows per slice (kernels/row.py F32_K_SLICE)
+#define F32_KT 64           // K rows of a ring stage (kernels/row.py F32_KT)
+#define F32_RM 8            // x rows a thread accumulates
+#define F32_CN 4            // weight columns a thread accumulates
+#define F32_RG_MAX 16       // row groups of a pass: at most 128 rows
+#define F32_RING_BYTES (64 * 1024)   // the ring's budget
+#define F32_XS_BYTES (32 * 1024)     // a staged producer's x chunk budget
 
-__host__ __device__ inline int gemm_f32_smem_bytes(bool chain) {
-  return HF_WARPS * GEMM_MB * GEMM_TN * 4 +
-         (chain ? GEMM_MB * F32_KSLICE * 4 + HF_WARPS * 4 : 0);
+// The fp32 GEMM's layout for (M, N), the same for the member and every
+// chain through it (the sums' order depends on nothing else):
+//   cg   4-column groups of a 64-column tile (16; for N < 64 the power of
+//        two that covers N, so that the threads a narrow tile leaves idle
+//        take more k residues), tw = 4 cg columns staged a k row;
+//   rg   row groups of F32_RM rows: a pass holds mp = 8 rg rows, at most
+//        F32_RG_MAX groups, so up to 128 rows share each weight stage;
+//   kr   k residues: thread (cg, rg, kr) takes k rows kr, kr + kr_n, ..
+//        of each stage (cg x rg x kr <= 256 threads);
+//   ldx  the row stride of x staged transposed, [k][ldx], so a thread's 8
+//        rows are two float4 reads;
+//   stg  ring stages (64 KB, 3..8 stages); xc the columns of a staged
+//        producer's x chunk (a multiple of F32_KT, about 32 KB).
+struct F32Geo {
+  int cg, lcg, tw, rg, mp, kr, ldx, stg, stage_f, ring_f, xc;
+};
+
+__host__ __device__ inline F32Geo gemm_f32_geo(int M, int N, bool staged) {
+  F32Geo g;
+  const int cols = ((N < GEMM_TN ? N : GEMM_TN) + F32_CN - 1) / F32_CN;
+  g.cg = 1;
+  g.lcg = 0;
+  while (g.cg < cols) {
+    g.cg *= 2;
+    ++g.lcg;
+  }
+  g.tw = F32_CN * g.cg;
+  const int slots = HF_THREADS / g.cg, rows = (M + F32_RM - 1) / F32_RM;
+  g.rg = rows < F32_RG_MAX ? rows : F32_RG_MAX;
+  if (g.rg > slots) g.rg = slots;
+  g.mp = F32_RM * g.rg;
+  g.kr = slots / g.rg < F32_KT ? slots / g.rg : F32_KT;
+  g.ldx = g.mp + 4;
+  g.stage_f = F32_KT * (g.tw + (staged ? 0 : g.ldx));
+  const int n = F32_RING_BYTES / (4 * g.stage_f);
+  g.stg = n < 3 ? 3 : n > 8 ? 8 : n;
+  // after the K loop the ring holds the k residues' sums
+  const int red = g.kr * g.mp * g.tw;
+  g.ring_f = g.stg * g.stage_f > red ? g.stg * g.stage_f : red;
+  const int xst = F32_XS_BYTES / (4 * F32_KT * g.ldx);
+  g.xc = staged ? F32_KT * (xst > 1 ? xst : 1) : 0;
+  return g;
 }
 
-// STAGED (a row-wise producer's chain, i[9]): this CTA's slice [k0, k1) of
-// the pass's x rows, computed by the producer into shared memory; a norm's
-// mb rows reduced first, row r by warp r (rms_inv_warp, into red), then
-// every element in one loop; a norm whose rows the row stream reshapes (of
-// another width than K) row by row through produce_range
+// ring | a staged producer's x chunk [xc][ldx] | a norm's 1/rms per row of
+// the pass and HF_WARPS floats of scratch
+__host__ __device__ inline int gemm_f32_smem_bytes(const MemberDesc& m) {
+  const F32Geo g = gemm_f32_geo(m.i[1], m.i[3], m.i[9] != 0);
+  return 4 * (g.ring_f + g.xc * g.ldx + g.mp + HF_WARPS);
+}
+
+// cp.async.wait_group with a count known only at run time (the ring's
+// depth): at most n groups still pending
+__device__ __forceinline__ void cp_async_wait(int n) {
+  switch (n) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::); break;
+    case 3: asm volatile("cp.async.wait_group 3;\n" ::); break;
+    case 4: asm volatile("cp.async.wait_group 4;\n" ::); break;
+    case 5: asm volatile("cp.async.wait_group 5;\n" ::); break;
+    default: asm volatile("cp.async.wait_group 6;\n" ::); break;
+  }
+}
+
+// STAGED (a row-wise producer's chain, i[9]): columns [kc0, kc1) of the
+// pass's x rows m0 .. m0 + mb, each as the producer computes and stores it,
+// into xs [k][ld] (transposed; zeros in rows mb .. mp and past kc1 up to a
+// whole stage, so every stage reads finite values).  With inv, a norm's 1/rms of
+// each of the pass's rows first, one warp a row (rms_inv_warp), into
+// nred[0 .. mb); nred[mp ..] is produce_range's scratch.  A norm whose rows
+// the row stream reshapes (of another width than K) goes row by row through
+// produce_range.  Inlined: as a call inside the K loop it made the body
+// spill more and ran the staged chains slower on the H100.
 __device__ __forceinline__ void gemm_f32_stage(const MemberDesc& m, int m0,
-                                               int mb, int k0, int k1,
-                                               float* xs, float* red) {
-  static_assert(GEMM_MB <= HF_WARPS, "a warp per staged row");
+                                               int mb, int mp, int ld,
+                                               int kc0, int kc1, bool inv,
+                                               float* xs, float* nred) {
   const long long K = m.i[2];
   const int sub = m.i[9] - 1, act = m.i[10], w_in = m.i[11];
+  const int kc = kc1 - kc0, kcp = (kc + F32_KT - 1) / F32_KT * F32_KT;
   if (sub == ROW_NORM && w_in != K) {
     for (int r = 0; r < mb; ++r)
-      produce_range<float>(sub, act, m.f[6], m.in[0], m.in[1], w_in,
-                           (m0 + r) * K + k0, (m0 + r) * K + k1,
-                           xs + r * F32_KSLICE, red);
+      produce_range<float, NORM_CHUNK, true>(
+          sub, act, m.f[6], m.in[0], m.in[1], w_in, (m0 + r) * K + kc0,
+          (m0 + r) * K + kc1, xs + r, nred + mp, ld);
+    for (int idx = threadIdx.x; idx < mp * kcp; idx += HF_THREADS) {
+      const int r = idx / kcp, c = idx - r * kcp;
+      if (r >= mb || c >= kc) xs[c * ld + r] = 0.0f;
+    }
+    __syncthreads();
     return;
   }
-  if (sub == ROW_NORM) {
-    const int warp = threadIdx.x >> 5;
-    if (warp < mb) {
-      const float inv = rms_inv_warp(
-          static_cast<const float*>(m.in[0]) + (m0 + warp) * K, (int)K,
-          m.f[6]);
-      if ((threadIdx.x & 31) == 0) red[warp] = inv;
+  if (sub == ROW_NORM && inv) {
+    for (int r = threadIdx.x >> 5; r < mb; r += HF_WARPS) {
+      const float v = rms_inv_warp(
+          static_cast<const float*>(m.in[0]) + (m0 + r) * K, (int)K, m.f[6]);
+      if ((threadIdx.x & 31) == 0) nred[r] = v;
     }
     __syncthreads();
   }
-  const int w = stage_width(sub, act, w_in), kc = k1 - k0;
-  for (int idx = threadIdx.x; idx < mb * kc; idx += HF_THREADS) {
-    const int r = idx / kc;
-    const long long f = (m0 + r) * K + k0 + idx % kc;
-    xs[r * F32_KSLICE + idx % kc] =
-        sub == ROW_NORM
-            ? stage_elem<float, ROW_NORM>(act, m.in[0], m.in[1], w_in, w,
-                                          f / w, (int)(f % w), red[r])
-        : sub == ROW_ACT
-            ? stage_elem<float, ROW_ACT>(act, m.in[0], m.in[1], w_in, w,
-                                         f / w, (int)(f % w), 0.0f)
-            : stage_elem<float, ROW_RESADD>(act, m.in[0], m.in[1], w_in, w,
-                                            f / w, (int)(f % w), 0.0f);
+  const int w = stage_width(sub, act, w_in);
+  if (w == K && K % 4 == 0) {
+    const bool gated = sub == ROW_ACT && act_gated(act);
+    // four columns a thread at a time in 16-byte vectors (x's rows are the
+    // producer's rows, kc0 and kcp multiples of 4), the arithmetic
+    // stage_elem's; a thread's U vectors' loads issued before their stores
+    constexpr int U = 4;
+    const int q4 = kcp / 4, n = mp * q4;
+    for (int i0 = threadIdx.x; i0 < n; i0 += U * HF_THREADS) {
+      float4 v[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int idx = i0 + u * HF_THREADS, r = idx / q4;
+        const int c = 4 * (idx - r * q4);
+        v[u] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (idx < n && r < mb && c < kc) {
+          const long long row = m0 + r;
+          const int col = kc0 + c;
+          const float* a = static_cast<const float*>(m.in[0]);
+          const float* b = static_cast<const float*>(m.in[1]);
+          if (sub == ROW_NORM) {
+            const float4 xv = *reinterpret_cast<const float4*>(a + row * K +
+                                                               col);
+            const float4 sv = *reinterpret_cast<const float4*>(b + col);
+            const float inv = nred[r];
+            v[u] = make_float4(xv.x * inv * (1.0f + sv.x),
+                               xv.y * inv * (1.0f + sv.y),
+                               xv.z * inv * (1.0f + sv.z),
+                               xv.w * inv * (1.0f + sv.w));
+          } else if (sub == ROW_ACT) {
+            const float* h = a + row * w_in;
+            const float4 av = *reinterpret_cast<const float4*>(h + col);
+            const float4 bv =
+                gated ? *reinterpret_cast<const float4*>(h + w + col)
+                      : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            v[u] = make_float4(act_apply(act, av.x, bv.x),
+                               act_apply(act, av.y, bv.y),
+                               act_apply(act, av.z, bv.z),
+                               act_apply(act, av.w, bv.w));
+          } else {
+            const float4 av =
+                *reinterpret_cast<const float4*>(a + row * K + col);
+            const float4 bv =
+                *reinterpret_cast<const float4*>(b + row * K + col);
+            v[u] = make_float4(av.x + bv.x, av.y + bv.y, av.z + bv.z,
+                               av.w + bv.w);
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int idx = i0 + u * HF_THREADS, r = idx / q4;
+        if (idx < n) {
+          float* d = xs + 4 * (idx - r * q4) * ld + r;
+          d[0] = v[u].x;
+          d[ld] = v[u].y;
+          d[2 * ld] = v[u].z;
+          d[3 * ld] = v[u].w;
+        }
+      }
+    }
+    __syncthreads();
+    return;
+  }
+  // element by element (x's rows reshaped from the producer's, or K % 4):
+  // four elements' loads issued before their stores: through generic
+  // pointers the compiler must assume a store to xs may feed a later load
+  constexpr int U = 4;
+  const int n = mp * kcp;
+  for (int i0 = threadIdx.x; i0 < n; i0 += U * HF_THREADS) {
+    float v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int idx = i0 + u * HF_THREADS, r = idx / kcp, c = idx - r * kcp;
+      v[u] = 0.0f;
+      if (idx < n && r < mb && c < kc) {
+        // the producer's (row, column) of x's element (m0 + r, kc0 + c)
+        long long pr = m0 + r;
+        int pc = kc0 + c;
+        if (w != K) {
+          const long long f = pr * K + pc;
+          pr = f / w;
+          pc = (int)(f % w);
+        }
+        v[u] = sub == ROW_NORM
+                   ? stage_elem<float, ROW_NORM>(act, m.in[0], m.in[1], w_in,
+                                                 w, pr, pc, nred[r])
+               : sub == ROW_ACT
+                   ? stage_elem<float, ROW_ACT>(act, m.in[0], m.in[1], w_in,
+                                                w, pr, pc, 0.0f)
+                   : stage_elem<float, ROW_RESADD>(act, m.in[0], m.in[1],
+                                                   w_in, w, pr, pc, 0.0f);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int idx = i0 + u * HF_THREADS, r = idx / kcp;
+      if (idx < n) xs[(idx - r * kcp) * ld + r] = v[u];
+    }
   }
   __syncthreads();
 }
 
-// Not inlined: inlined, its split-K bookkeeping made ptxas spill inside the
-// 128-register bundle kernel; as a call it spills nothing itself and the
-// other members keep their allocation.  STAGED: a row-wise producer stages
-// this slice of x (i[9]).  The chain epilogues run in the combine, after
-// the K loop: AdamW (EPI_ADAMW) or the workspace of a row consumer
-// (EPI_ROWS: the combined product after the K slices' partials in out[1],
-// its ticket after the tiles' in out[2]).
+// the GEMM's product s of element (r, col) through its epilogue: the
+// residual add (i[8]), the AdamW update (EPI_ADAMW), the workspace of a row
+// consumer (EPI_ROWS, out[3]) or the store
+__device__ __forceinline__ void gemm_f32_out(const MemberDesc& m, int r,
+                                             int col, float s) {
+  const size_t e = (size_t)r * m.i[3] + col;
+  if (m.i[8]) s += static_cast<const float*>(m.in[3])[e];
+  if (m.i[12] == EPI_ADAMW)
+    adamw_elem(adamw_consts(m, static_cast<const float*>(m.in[3])),
+               static_cast<float*>(m.out[0]),
+               static_cast<float*>(const_cast<void*>(m.in[4])),
+               static_cast<float*>(const_cast<void*>(m.in[5])), e, s);
+  else
+    static_cast<float*>(m.i[12] == EPI_ROWS ? m.out[3] : m.out[0])[e] = s;
+}
+
+// CTA c owns column tile c % T (T = ceil(N / GEMM_TN)) and K slice c / T.
+// For each pass of up to mp rows the weight slice streams once through a
+// ring of F32_KT-row stages by cp.async (16-byte copies; x, unless a
+// producer stages it, beside it in 4-byte copies landing transposed), and
+// each stage is applied to every row of the pass before it is released:
+// thread (cg, rg, kr) accumulates rows 8 rg .. + 7 x columns 4 cg .. + 3
+// over its k residue, a float4 of w and two of x for 32 FMAs (8 x 8 a
+// thread, and 4-row k quads over x staged row-major, spilled inside the
+// 128-register bundle kernel and ran the 8-row GEMMs slower on the H100).
+// The k residues' sums are added in residue order; a split K writes the
+// slice's partial (out[1], (KS, M, N)) and the tile's last CTA (ticket
+// out[2], which it resets) sums the slices in slice order, 8 loads in
+// flight at a time.  So each element's sum runs in one order in every
+// launch and in every chain through the GEMM.  Not inlined: inlined, its
+// bookkeeping made ptxas spill inside the 128-register bundle kernel.
+// STAGED: a row-wise producer stages x (i[9]).  The chain epilogues run
+// where the sum is done (gemm_f32_out); EPI_ROWS's last tile then runs the
+// consumer over the whole product (ticket out[2][T], reset by that CTA).
 template <bool STAGED>
 __device__ __noinline__ void row_gemm_f32(const MemberDesc& m, int cta) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int M = m.i[1], K = m.i[2], N = m.i[3], KS = m.i[7];
+  const int M = m.i[1], K = m.i[2], N = m.i[3], KSL = m.i[4], KS = m.i[7];
+  const F32Geo G = gemm_f32_geo(M, N, STAGED);
   const float* x = static_cast<const float*>(m.in[0]);
   const float* w = static_cast<const float*>(m.in[2]);
-  const float* res = m.i[8] ? static_cast<const float*>(m.in[3]) : nullptr;
-  float* out = static_cast<float*>(m.out[0]);
   float* ws = static_cast<float*>(m.out[1]);
-  float* red = reinterpret_cast<float*>(smem);
-  float* xs = red + HF_WARPS * GEMM_MB * GEMM_TN;      // STAGED: x's slice
-  float* nred = xs + GEMM_MB * F32_KSLICE;
+  int* tickets = static_cast<int*>(m.out[2]);
+  float* ring = reinterpret_cast<float*>(smem);
+  float* xs = ring + G.ring_f;                 // STAGED: x's chunk
+  float* nred = xs + G.xc * G.ldx;
 
   const int ntile = (N + GEMM_TN - 1) / GEMM_TN;
   const int tile = cta % ntile, ks = cta / ntile;
-  const int kchunk = (K + KS - 1) / KS;
-  const int k0 = ks * kchunk, k1 = min(K, k0 + kchunk);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int cg = tid % (GEMM_TN / 4);     // this thread's 4-column group
-  const int kr = tid / (GEMM_TN / 4);     // this thread's k residue
-  const int col0 = tile * GEMM_TN + cg * 4;
-  const bool live = col0 < N;
+  const int k0 = ks * KSL, k1 = min(K, k0 + KSL);
+  const int nst = (k1 - k0 + F32_KT - 1) / F32_KT, xcs = G.xc / F32_KT;
+  const int c0 = tile * GEMM_TN;
+  const int tid = threadIdx.x, cg = tid & (G.cg - 1), o = tid >> G.lcg;
+  const int rg = o % G.rg, kr = o / G.rg;
 
-  for (int m0 = 0; m0 < M; m0 += GEMM_MB) {
-    const int mb = min(GEMM_MB, M - m0);
-    if (STAGED) gemm_f32_stage(m, m0, mb, k0, k1, xs, nred);
-    float acc[GEMM_MB][4];
-#pragma unroll
-    for (int r = 0; r < GEMM_MB; ++r)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[r][j] = 0.0f;
-    if (live) {
-      // k ascends: every column's sum runs in one fixed order
-#pragma unroll 2
-      for (int k = k0 + kr; k < k1; k += GEMM_F32_KR) {
-        const float4 wv =
-            *reinterpret_cast<const float4*>(w + (size_t)k * N + col0);
-#pragma unroll
-        for (int r = 0; r < GEMM_MB; ++r) {
-          if (r < mb) {
-            const float xv = STAGED ? xs[r * F32_KSLICE + k - k0]
-                                    : x[(size_t)(m0 + r) * K + k];
-            acc[r][0] = fmaf(xv, wv.x, acc[r][0]);
-            acc[r][1] = fmaf(xv, wv.y, acc[r][1]);
-            acc[r][2] = fmaf(xv, wv.z, acc[r][2]);
-            acc[r][3] = fmaf(xv, wv.w, acc[r][3]);
+  for (int m0 = 0; m0 < M; m0 += G.mp) {
+    const int mb = min(G.mp, M - m0);
+    // stage i into ring slot `slot`: the weight's rows k0 + 64 i.., the
+    // tile's tw columns, zeros past k1 and N; streamed x rows m0..
+    // likewise, zeros past mb and k1
+    auto load = [&](int i, int slot) {
+      if (i < nst) {
+        float* S = ring + slot * G.stage_f;
+        const int kb = k0 + i * F32_KT;
+        for (int c = tid; c < F32_KT * G.cg; c += HF_THREADS) {
+          const int kk = c >> G.lcg, cc = 4 * (c & (G.cg - 1));
+          const bool ok = kb + kk < k1 && c0 + cc < N;
+          cp_async16(S + kk * G.tw + cc,
+                     ok ? w + (size_t)(kb + kk) * N + c0 + cc : w, ok);
+        }
+        if (!STAGED) {
+          float* X = S + F32_KT * G.tw;
+          for (int e = tid; e < F32_KT * G.mp; e += HF_THREADS) {
+            const int r = e / F32_KT, kk = e % F32_KT;
+            const bool ok = r < mb && kb + kk < k1;
+            cp_async4(X + kk * G.ldx + r,
+                      ok ? x + (size_t)(m0 + r) * K + kb + kk : x, ok);
           }
         }
       }
+      asm volatile("cp.async.commit_group;\n" ::);
+    };
+    // a producer's first x chunk (a norm's 1/rms first) before the stream
+    if (STAGED)
+      gemm_f32_stage(m, m0, mb, G.mp, G.ldx, k0, min(k1, k0 + G.xc), true,
+                     xs, nred);
+    for (int i = 0; i < G.stg - 1; ++i) load(i, i);
+
+    float acc[F32_RM][F32_CN];
+#pragma unroll
+    for (int r = 0; r < F32_RM; ++r)
+#pragma unroll
+      for (int c = 0; c < F32_CN; ++c) acc[r][c] = 0.0f;
+    int rd = 0, wr = G.stg - 1, xo = 0;   // ring slots read / loaded, x chunk
+#pragma unroll 1
+    for (int i = 0; i < nst; ++i) {
+      cp_async_wait(G.stg - 2);
+      __syncthreads();                // stage i has landed, i - 1 is free
+      if (STAGED && i > 0 && xo == xcs) {
+        const int kc0 = k0 + i * F32_KT;
+        gemm_f32_stage(m, m0, mb, G.mp, G.ldx, kc0, min(k1, kc0 + G.xc),
+                       false, xs, nred);
+        xo = 0;
+      }
+      load(i + G.stg - 1, wr);
+      wr = wr + 1 == G.stg ? 0 : wr + 1;
+      const float* W = ring + rd * G.stage_f + 4 * cg;
+      const float* X = (STAGED ? xs + xo * F32_KT * G.ldx
+                               : ring + rd * G.stage_f + F32_KT * G.tw) +
+                       F32_RM * rg;
+      rd = rd + 1 == G.stg ? 0 : rd + 1;
+      ++xo;
+      if (kr < G.kr) {
+#pragma unroll 2
+        for (int kk = kr; kk < F32_KT; kk += G.kr) {
+          const float4 wa = *reinterpret_cast<const float4*>(W + kk * G.tw);
+          const float4 xa = *reinterpret_cast<const float4*>(X + kk * G.ldx);
+          const float4 xb =
+              *reinterpret_cast<const float4*>(X + kk * G.ldx + 4);
+          const float xv[F32_RM] = {xa.x, xa.y, xa.z, xa.w,
+                                    xb.x, xb.y, xb.z, xb.w};
+          const float wv[F32_CN] = {wa.x, wa.y, wa.z, wa.w};
+#pragma unroll
+          for (int r = 0; r < F32_RM; ++r)
+#pragma unroll
+            for (int c = 0; c < F32_CN; ++c)
+              acc[r][c] = fmaf(xv[r], wv[c], acc[r][c]);
+        }
+      }
     }
-    // lanes l and l^16 share a column group: fold them, then the eight
-    // warps through shared memory in warp order, into this slice's partial
+    cp_async_wait(0);
+    __syncthreads();
+
+    // the k residues' sums through the ring, added in residue order
+    if (kr < G.kr) {
 #pragma unroll
-    for (int r = 0; r < GEMM_MB; ++r) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float v = acc[r][j] + __shfl_xor_sync(0xffffffffu, acc[r][j], 16);
-        if (lane < 16) red[(warp * GEMM_MB + r) * GEMM_TN + cg * 4 + j] = v;
+      for (int r = 0; r < F32_RM; ++r) {
+        *reinterpret_cast<float4*>(
+            ring + (kr * G.mp + F32_RM * rg + r) * G.tw + 4 * cg) =
+            make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
       }
     }
     __syncthreads();
-    for (int idx = tid; idx < mb * GEMM_TN; idx += HF_THREADS) {
-      const int r = idx / GEMM_TN, c = idx % GEMM_TN;
-      const int col = tile * GEMM_TN + c;
-      if (col < N) {
-        float s = 0.0f;
-#pragma unroll
-        for (int wv = 0; wv < HF_WARPS; ++wv)
-          s += red[(wv * GEMM_MB + r) * GEMM_TN + c];
+    for (int idx = tid; idx < mb * G.tw; idx += HF_THREADS) {
+      const int r = idx / G.tw, col = c0 + idx - r * G.tw;
+      if (col >= N) continue;
+      float s = ring[idx];
+      for (int q = 1; q < G.kr; ++q) s += ring[q * G.mp * G.tw + idx];
+      if (KS > 1)
         ws[((size_t)ks * M + m0 + r) * N + col] = s;
-      }
+      else
+        gemm_f32_out(m, m0 + r, col, s);
     }
-    __syncthreads();
+    __syncthreads();                  // the ring is loaded again next pass
   }
 
-  // the tile's last CTA sums the K slices in slice order
-  if (!hf_last_of_group(static_cast<int*>(m.out[2]), tile, KS)) return;
-  const int epi = m.i[12];
-  float* mid = ws + (size_t)KS * M * N;         // EPI_ROWS: the product
-  for (int idx = tid; idx < M * GEMM_TN; idx += HF_THREADS) {
-    const int r = idx / GEMM_TN, col = tile * GEMM_TN + idx % GEMM_TN;
-    if (col < N) {
-      float s = ws[(size_t)r * N + col];
-      for (int q = 1; q < KS; ++q) s += ws[((size_t)q * M + r) * N + col];
-      if (res) s += res[(size_t)r * N + col];
-      if (epi == EPI_ADAMW)
-        adamw_elem(adamw_consts(m, static_cast<const float*>(m.in[3])), out,
-                   static_cast<float*>(const_cast<void*>(m.in[4])),
-                   static_cast<float*>(const_cast<void*>(m.in[5])),
-                   (size_t)r * N + col, s);
-      else
-        (epi == EPI_ROWS ? mid : out)[(size_t)r * N + col] = s;
+  if (KS > 1) {
+    // the tile's last CTA sums the K slices in slice order
+    if (!hf_last_of_group(tickets, tile, KS)) return;
+    if (tid == 0) tickets[tile] = 0;
+    const size_t step = (size_t)M * N;
+    for (int idx = tid; idx < M * G.tw; idx += HF_THREADS) {
+      const int r = idx / G.tw, col = c0 + idx - r * G.tw;
+      if (col >= N) continue;
+      const float* p = ws + (size_t)r * N + col;
+      float s = __ldcg(p);
+      int q = 1;
+      for (; q + 8 <= KS; q += 8) {
+        float v[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) v[u] = __ldcg(p + (q + u) * step);
+#pragma unroll
+        for (int u = 0; u < 8; ++u) s += v[u];
+      }
+      for (; q < KS; ++q) s += __ldcg(p + q * step);
+      gemm_f32_out(m, r, col, s);
     }
   }
-  if (epi != EPI_ROWS) return;
+  if (m.i[12] != EPI_ROWS) return;
   // the last tile to finish runs the consumer over the whole product
-  if (!hf_last_of_group(static_cast<int*>(m.out[2]), ntile, ntile)) return;
+  if (!hf_last_of_group(tickets, ntile, ntile)) return;
+  if (tid == 0) tickets[ntile] = 0;
   consume_range<float>(m, m.i[13], m.i[14], m.f[6], m.in[3], m.i[15], 0,
-                       (long long)M * N, mid, out, nred);
+                       (long long)M * N, static_cast<const float*>(m.out[3]),
+                       static_cast<float*>(m.out[0]), nred + G.mp);
 }
 
 // ---------------------------------------------------------------------------
@@ -1204,11 +1458,6 @@ __device__ __noinline__ void row_norm(const MemberDesc& m, int cta) {
     y[k] = from_f32<T>(to_f32(x[k]) * inv * (1.0f + scale[k]));
 }
 
-// an fp32 GEMM descriptor that uses the chain paths (staged producer, EPI_*)
-__host__ __device__ __forceinline__ bool gemm_chained(const MemberDesc& m) {
-  return m.i[9] != 0 || m.i[12] != EPI_STORE;
-}
-
 // a row member that only the chain instance of the bundle kernel runs: a
 // row-wise pair, a GEMM epilogue into a row consumer or AdamW, an fp32
 // GEMM's staged producer
@@ -1260,7 +1509,7 @@ __device__ void row_member(const MemberDesc& m, int cta) {
 __host__ __device__ inline int row_smem_bytes(const MemberDesc& m) {
   switch (m.i[0]) {
     case ROW_NORM: return 0;
-    case ROW_GEMM: return m.i[6] ? gemm_f32_smem_bytes(gemm_chained(m))
+    case ROW_GEMM: return m.i[6] ? gemm_f32_smem_bytes(m)
                                  : gemm_smem_bytes(m);
     case ROW_CHAIN:
       return hf_align16(m.i[1] * (m.i[6] ? 4 : 2)) + HF_WARPS * 4;

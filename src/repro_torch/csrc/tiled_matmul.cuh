@@ -211,14 +211,6 @@ __global__ void __launch_bounds__(MMW_THREADS, 1)
   }
 }
 
-// one 4-byte global -> shared copy (through L1), zero-filled when !valid
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   hf_saddr(dst)),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
 __global__ void __launch_bounds__(MMF_THREADS, 2)
     mm_f32_kernel(const float* x, const float* w, float* out, int M, int N,
                   int K) {

@@ -18,8 +18,10 @@ CUDA tensor falls back to the plain version:
   mma  bf16: ``csrc/attention_mma.cuh``, QK^T and P.V on the tensor cores
        (``mma.sync``, fp32 accumulation; P as two bf16 terms), the online
        softmax in fp32 registers, 128 rows a CTA.
-  fma  fp32: ``csrc/attention_core.cuh`` ``attn_loop``, fp32 FMAs on the
-       CUDA cores, as the reference multiplies fp32 in fp32.
+  fma  fp32: ``flash_f32_kernel``, fp32 FMAs on the CUDA cores, as the
+       reference multiplies fp32 in fp32: register tiles of 8 rows x 8 (D
+       > 64: 4) keys and 8 rows x 8 output columns a thread, 256 rows a CTA
+       (D > 64: 128), K and V tiles through a ``cp.async`` ring.
 
 Beside the kernel: ``FLASH``, its launch record (bumped right after each
 launch), and ``plain_flash_attention``, the plain PyTorch version: the

@@ -15,8 +15,13 @@ GEMM's CTA owns a ``GEMM_BN``-column weight tile of a row block of
 ``GEMM_MIN_CTAS`` CTAs in all, so every SM streams), runs ``mma.sync`` on
 the tensor cores over a ``cp.async`` ring, and the tile's last CTA sums the
 slices in slice order.  The GEMM also has an fp32 form (x, w, out fp32,
-partial column tiles masked, K split over CTAs with a fixed-order last-CTA
-combine): the MoE router's ``matmul_1d_op(dtype=float32)``.
+``fmaf`` on the CUDA cores: the MoE router's ``matmul_1d_op(dtype=float32)``
+and the fp32 chains): a CTA owns a ``GEMM_TN``-column tile and one K slice
+of ``RowMember.k_slice`` rows (whole ``F32_KT``-row stages, the fewest
+slices that reach ``GEMM_MIN_CTAS``), streams it once through a ``cp.async``
+ring applied to every row of a pass (up to 128 rows), and the tile's last
+CTA sums the slices in slice order.  Both forms keep their partials and
+tickets in a workspace that persists across launches (``cuda.workspace``).
 RMSNorm, the activation and the residual add take bf16 or fp32 rows.
 RMSNorm reduces each row with one warp, in one order shared by the member
 and every chain (``csrc/row_member.cuh``), ``norm_rows(M)`` rows a CTA.
@@ -58,11 +63,12 @@ GEMM_BN = 128         # weight columns per CTA of the bf16 GEMM (a gated tile:
 #                       64 gate columns and their 64 up columns)
 GEMM_KT = 64          # K rows of a bf16 GEMM ring stage; slices are whole
 #                       stages
-GEMM_MIN_CTAS = 132   # CTAs the bf16 GEMM's K split reaches where its tiles
+GEMM_MIN_CTAS = 132   # CTAs a GEMM's K split reaches where its tiles
 #                       alone do not: one an SM on the H100 (one streams as
 #                       fast as two there, and each slice more costs a
 #                       partial and the combine)
-F32_K_SLICE = 64      # K rows per CTA of the fp32 GEMM
+F32_KT = 64           # K rows of an fp32 GEMM ring stage (16 KB of a 64-column
+#                       tile); its slices are whole stages
 ACT_COLS = 2048       # output columns per CTA of the standalone activation
 RESADD_BYTES = 16384  # bytes of each operand per CTA of the residual add
 #                       (csrc/row_member.cuh: HF_THREADS x RESADD_VECS x 16)
@@ -204,19 +210,18 @@ class RowMember:
 
     @property
     def k_slice(self) -> int:
-        """K rows per GEMM CTA: F32_K_SLICE (fp32); bf16 whole ring stages,
-        the fewest slices that bring column tiles x row blocks x slices to
-        GEMM_MIN_CTAS (K whole where the tiles alone reach it, one stage a
-        slice at most).  It depends on (M, K, N) alone, so a chain through
-        the GEMM sums in the same order as the GEMM launched alone."""
-        if self.fp32:
-            return F32_K_SLICE
+        """K rows per GEMM CTA: whole ring stages (GEMM_KT rows bf16,
+        F32_KT fp32), the fewest slices that bring column tiles x row
+        blocks x slices to GEMM_MIN_CTAS (K whole where the tiles alone
+        reach it, one stage a slice at most).  It depends on (M, K, N)
+        alone, so a chain through the GEMM sums in the same order as the
+        GEMM launched alone."""
+        kt = F32_KT if self.fp32 else GEMM_KT
         base = self.col_tiles * self.row_blocks
         want = math.ceil(GEMM_MIN_CTAS / base)
-        ksl = math.ceil(self.K / want / GEMM_KT) * GEMM_KT
-        while (ksl > GEMM_KT
-               and base * math.ceil(self.K / ksl) < GEMM_MIN_CTAS):
-            ksl -= GEMM_KT
+        ksl = math.ceil(self.K / want / kt) * kt
+        while ksl > kt and base * math.ceil(self.K / ksl) < GEMM_MIN_CTAS:
+            ksl -= kt
         return ksl
 
     @property
@@ -236,7 +241,7 @@ class RowMember:
         return self.M * math.ceil(self.N / ACT_COLS)
 
     def pack(self, md, ins, outs):
-        """Describe, check and bind one launch; returns the fp32 GEMM's
+        """Describe, check and bind one launch; returns the GEMM's
         workspace (alive until the launch is queued), else None."""
         dt, M, K, N = self.dtype, self.M, self.K, self.N
         if self.sub == "gemm":
@@ -271,28 +276,25 @@ def _gemm_fields(md, g: RowMember) -> None:
     md.i[1], md.i[2], md.i[3] = g.M, g.K, g.N
     md.i[5] = -1
     md.i[6] = int(g.fp32)
-    if g.fp32:
-        if g.N % 4:
-            raise ValueError(f"the fp32 row GEMM takes N % 4 == 0, got "
-                             f"N={g.N}")
-        md.i[7] = g.k_slices
-        return
-    if g.N % GEMM_TN or g.K % 8:
+    if g.fp32 and g.N % 4:
+        raise ValueError(f"the fp32 row GEMM takes N % 4 == 0, got N={g.N}")
+    if not g.fp32 and (g.N % GEMM_TN or g.K % 8):
         raise ValueError(f"row GEMM takes N % {GEMM_TN} == 0 and "
                          f"K % 8 == 0, got K={g.K} N={g.N}")
     md.i[4], md.i[7] = g.k_slice, g.k_slices
 
 
 def gemm_workspace_sizes(g: RowMember, rows: bool) -> tuple[int, int, int]:
-    """Elements of the bf16 GEMM's workspace: the K slices' fp32 partials
-    (one (gemm_rows, tile columns) tile per slice, row block and column
-    tile; none without a split), the tickets (one per row block and column
-    tile, one more for the EPI_ROWS pass) and, with ``rows`` (the EPI_ROWS
-    epilogue), the bf16 product a row consumer reads; all 0 when the launch
-    needs none."""
+    """Elements of the GEMM's workspace: the K slices' fp32 partials (bf16:
+    one (gemm_rows, tile columns) tile per slice, row block and column
+    tile; fp32: one (M, N) product per slice; none without a split), the
+    tickets (one per row block and column tile, one more for the EPI_ROWS
+    pass) and, with ``rows`` (the EPI_ROWS epilogue), the product a row
+    consumer reads, in the GEMM's dtype; all 0 when the launch needs
+    none."""
     tiles = g.col_tiles * g.row_blocks
-    parts = (g.k_slices * tiles * gemm_rows(g.M) * GEMM_BN
-             if g.k_slices > 1 else 0)
+    per_slice = g.M * g.N if g.fp32 else tiles * gemm_rows(g.M) * GEMM_BN
+    parts = g.k_slices * per_slice if g.k_slices > 1 else 0
     if not parts and not rows:
         return 0, 0, 0
     return parts, tiles + 1, g.M * g.N if rows else 0
@@ -300,25 +302,17 @@ def gemm_workspace_sizes(g: RowMember, rows: bool) -> tuple[int, int, int]:
 
 def _workspace(md, g: RowMember, dev, rows: bool):
     """The GEMM's workspace (out[1..3]); returns it (alive until the launch
-    is queued), or None when the launch needs none.  The fp32 GEMM's is
-    allocated per launch: its K-slice partials, with ``rows`` the product
-    behind them, and zeroed tickets.  The bf16 GEMM's persists per device,
-    stream and shape (``cuda.workspace``): its tickets are zeroed once and
-    reset by the CTA that draws the last, so a launch allocates nothing."""
-    M, N = g.M, g.N
-    if g.fp32:
-        ws = torch.empty((g.k_slices + rows) * M * N, dtype=torch.float32,
-                         device=dev)
-        held = (ws, torch.zeros(math.ceil(N / GEMM_TN) + rows,
-                                dtype=torch.int32, device=dev))
-        md.out[1], md.out[2] = held[0].data_ptr(), held[1].data_ptr()
-        return held
+    is queued), or None when the launch needs none.  It persists per
+    device, stream and shape (``cuda.workspace``): its tickets are zeroed
+    once and reset by the CTA that draws the last, so a launch allocates
+    nothing."""
     parts, tickets, prod = gemm_workspace_sizes(g, rows)
     if not tickets:
         return None
-    held = cuda.workspace(dev, ("row_gemm", M, g.K, N, rows),
+    held = cuda.workspace(dev, ("row_gemm_f32" if g.fp32 else "row_gemm",
+                               g.M, g.K, g.N, rows),
                           ((parts, torch.float32), (tickets, torch.int32),
-                           (prod, torch.bfloat16)))
+                           (prod, g.dtype)))
     md.out[1], md.out[2], md.out[3] = (t.data_ptr() for t in held)
     return held
 

@@ -808,6 +808,109 @@ def test_fp32_router_gemm(cuda_dev, M, K, N):
     _close_f32(got, want)
 
 
+# (M, K, N): the fp32 row GEMM at its split, stage, tile and pass edges:
+# W_o at decode (5 slices of 448 rows, the last one part), the router's
+# narrow N 16 (64 one-stage slices), N 12 (a 16-column tile, 4 masked), M
+# 40 in one pass (5 row groups of 8, 3 k residues) with a part tile (N 72)
+# and K off the stage, an odd K (333), two passes (M 136: 128 rows, then 8)
+# and three (M 300) over split K, K whole in one slice (132 tiles, K 520
+# off the stage), and the stacked norm scales' dW (40 x 8192 @ 8192 x 2048)
+F32_GEMM_EDGES = [(8, 2048, 2048), (8, 4096, 16), (3, 200, 12),
+                  (40, 1000, 72), (72, 333, 200), (136, 520, 128),
+                  (300, 1000, 64), (8, 520, 8448), (40, 8192, 2048)]
+
+
+def _f32_workspaces(M, K, N, rows=False):
+    return [ws for k, ws in cuda._WORKSPACES.items()
+            if k[2][0] == ("row_gemm_f32", M, K, N, rows)]
+
+
+@pytest.mark.parametrize("M,K,N", F32_GEMM_EDGES)
+def test_row_gemm_f32_edges(cuda_dev, M, K, N):
+    """The fp32 GEMM alone within fp32 tolerance of plain and bitwise equal
+    across two launches (its workspace reused, every ticket back at zero);
+    its chains bitwise equal to their separate members: the norm prologue
+    (x staged by the producer), the residual add epilogue, the EPI_ROWS
+    route into an RMSNorm of N columns and, where M x N fills 128-wide
+    rows, the AdamW update."""
+    from repro_torch.kernels import adam, row
+    g = _gen(36)
+    x = _randn((M, K), g, F32)
+    w = _randn((K, N), g, F32, K ** -0.5)
+    mm = matmul_1d_op(M, K, N, F32, bm=M)
+    before = row.ROW.launches
+    (got,), (want,) = _kernel_vs_plain(mm, x, w)
+    assert row.ROW.launches == before + 1
+    _close_f32(got, want)
+    held = _f32_workspaces(M, K, N)
+    (again,) = hfuse.run_single(mm)(x, w)
+    assert torch.equal(got, again)
+    if mm.member.k_slices > 1:
+        assert len(held) == 1 and all(
+            a is b for a, b in zip(held[0], _f32_workspaces(M, K, N)[0]))
+        torch.cuda.synchronize()
+        assert int(held[0][1].abs().sum()) == 0   # every ticket reset
+    else:
+        assert held == []                         # no split, no workspace
+    scale = _randn((1, K), g, F32, 0.1)
+    norm = rmsnorm_op(M, K, F32, bm=M)
+    (mid,) = hfuse.run_single(norm)(x, scale)
+    (sep,) = hfuse.run_single(mm)(mid, w)
+    (chain,) = hfuse.run_single(stitch.stitch(norm, mm, "x"))(x, scale, w)
+    assert torch.equal(chain, sep)
+    res = _randn((M, N), g, F32)
+    add = elementwise.residual_add_op(M, N, F32, bm=M)
+    (sep,) = hfuse.run_single(add)(got, res)
+    (chain,) = hfuse.run_single(stitch.stitch(mm, add, "h"))(x, w, res)
+    assert torch.equal(chain, sep)
+    nscale = _randn((1, N), g, F32, 0.1)
+    norm_n = rmsnorm_op(M, N, F32, bm=M)
+    (sep,) = hfuse.run_single(norm_n)(got, nscale)
+    (chain,) = hfuse.run_single(stitch.stitch(mm, norm_n, "x"))(x, w, nscale)
+    assert torch.equal(chain, sep)
+    torch.cuda.synchronize()
+    assert all(int(ws[1].abs().sum()) == 0
+               for ws in _f32_workspaces(M, K, N, rows=True))
+    if M * N % 128:
+        return
+    R = M * N // 128
+    upd = adam.adamw_op(R, F32, bm=R)
+    sc, p, _g, m, v = _adam_state(R, F32, g)
+    a = [t.clone() for t in (p, m, v)]
+    hfuse.run_single(stitch.stitch(mm, upd, "g"))(x, w, sc, *a)
+    b = [t.clone() for t in (p, m, v)]
+    hfuse.run_single(upd)(sc, b[0], got.reshape(R, 128), b[1], b[2])
+    assert all(torch.equal(s, t) for s, t in zip(a, b))
+
+
+@pytest.mark.parametrize("M,K,N", [(8, 2048, 2048), (8, 4096, 16),
+                                   (40, 8192, 2048)])
+def test_row_gemm_f32_allocates_nothing(cuda_dev, M, K, N):
+    """W_o at decode, the router and the dW fill the card (the router as
+    far as its 64 stages of K allow) and a launch after the first takes no
+    new workspace: the persistent one, every ticket back at zero."""
+    mm = matmul_1d_op(M, K, N, F32, bm=M)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert mm.member.ctas >= min(sms, -(-K // 64)), mm.member.ctas
+    g = _gen(37)
+    x, w = _randn((M, K), g, F32), _randn((K, N), g, F32, K ** -0.5)
+    run = hfuse.run_single(mm)
+    (first,) = run(x, w)
+    kept = dict(cuda._WORKSPACES)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    for _ in range(3):
+        (out,) = run(x, w)
+    torch.cuda.synchronize()
+    assert cuda._WORKSPACES.keys() == kept.keys() and all(
+        a is b for k in kept for a, b in zip(kept[k], cuda._WORKSPACES[k]))
+    # the only new memory is the last output, the earlier ones freed
+    assert torch.cuda.memory_allocated() - before <= out.numel() * 4 + 512
+    assert torch.equal(out, first)
+    assert all(int(ws[1].abs().sum()) == 0
+               for ws in _f32_workspaces(M, K, N))
+
+
 @pytest.mark.parametrize("ratios", [(1, 1), (1, 8), (8, 1), (2, 3)])
 def test_moe_gmm_bundle_with_prefill_bitwise_equals_native(cuda_dev, ratios):
     """The grouped expert FFN (decode capacity, phi3.5-moe widths) and a
@@ -1121,6 +1224,42 @@ def test_flash_attention_kernel(cuda_dev, B, S, H, Hkv, D, causal, dtype):
         B * H, S, D).contiguous()
     flat = fa.flash_attention(qf, kf, vf, causal=causal)
     _close(flat, fa.plain_flash_attention(qf, kf, vf, causal=causal))
+
+
+def _rel_l2(got, want):
+    """Relative L2 of got against want over the whole output and the worst
+    of it over the rows of the last dim."""
+    diff = (got - want).double()
+    whole = (diff.norm() / want.double().norm()).item()
+    rows = (diff.norm(dim=-1)
+            / want.double().norm(dim=-1).clamp_min(1e-30)).max().item()
+    return whole, rows
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [8, 72, 128])
+@pytest.mark.parametrize("B,S,H,Hkv", [(2, 200, 4, 4), (1, 300, 8, 2),
+                                       (1, 77, 264, 1)])
+def test_flash_attention_f32_edges(cuda_dev, B, S, H, Hkv, D, causal):
+    """The fp32 kernel at its edges: head dims 8, 72 (a part second column
+    group) and 128; S off the row and 64-key tiles; GQA rep 1, 4 and 264
+    (more heads in a group than a CTA's 256 or 128 rows); causal, where at
+    rep 1 a CTA's rows span several key tiles, so its earlier rows meet a
+    tile whose keys are all masked.  Within chip_smoke's fp32 limits of the plain
+    version by relative L2 (5e-6 whole, 1e-5 worst row) and fp32
+    tolerance; two launches bitwise equal."""
+    from repro_torch.kernels import flash_attention as fa
+    g = _gen(38)
+    q = _randn((B, S, H, D), g, F32)
+    k, v = _randn((B, S, Hkv, D), g, F32), _randn((B, S, Hkv, D), g, F32)
+    before = fa.FLASH.launches
+    got = fa.flash_attention_bshd(q, k, v, causal=causal)
+    assert fa.FLASH.launches == before + 1
+    want = fa.plain_flash_attention_bshd(q, k, v, causal=causal)
+    whole, worst = _rel_l2(got, want)
+    assert whole <= 5e-6 and worst <= 1e-5, (whole, worst)
+    _close_f32(got, want)
+    assert torch.equal(got, fa.flash_attention_bshd(q, k, v, causal=causal))
 
 
 def test_flash_attention_full_width(cuda_dev):

@@ -11,7 +11,9 @@ the combine's arithmetic, done in PyTorch on the plain version's per-range
 results exactly as the kernel orders it, against the reference's
 ``decode_attention_op`` in interpret mode on the same numpy inputs; the
 FFN's f-tiles, passes and CTA counts; the GEMM's slices, CTAs and
-workspace, and its slice sum against the reference's ``matmul_1d_op``.
+workspace, and its slice sum against the reference's ``matmul_1d_op``, in
+both its bf16 and its fp32 form (slices of whole 64-row stages, one (M, N)
+fp32 partial per slice).
 
 Tolerances are ``tests/test_torch_kernels.py``'s: fp32 inputs 1e-5
 relative and absolute, bf16 inputs 2e-2 of the largest reference value.
@@ -255,3 +257,75 @@ def test_row_gemm_slice_sum_matches_reference(MKN):
     got = total.to(torch.bfloat16).float().numpy()
     ref = np.asarray(want, np.float32)
     assert np.abs(got - ref).max() <= 2e-2 * np.abs(ref).max()
+
+
+# (M, K, N) -> (K slice, slices, CTAs) of the fp32 row GEMM: W_o and down
+# at decode, the router, gate+up at decode (K whole: its 256 tiles fill the
+# card), the stacked norm scales' dW, a narrow N under one tile, a part
+# tile with K off the stage, K whole at exactly 132 tiles, and rows past
+# one pass
+F32_GEMM_GEOMETRY = {
+    (8, 2048, 2048): (448, 5, 160),
+    (8, 8192, 2048): (1664, 5, 160),
+    (8, 4096, 16): (64, 64, 64),
+    (8, 2048, 16384): (2048, 1, 256),
+    (40, 8192, 2048): (1664, 5, 160),
+    (3, 200, 12): (64, 4, 4),
+    (40, 1000, 72): (64, 16, 32),
+    (8, 520, 8448): (576, 1, 132),
+    (136, 520, 128): (64, 9, 18),
+}
+
+
+@pytest.mark.parametrize("MKN", sorted(F32_GEMM_GEOMETRY))
+def test_row_gemm_f32_slices_ctas_and_workspace(MKN):
+    """The fp32 row GEMM's geometry: slices of whole 64-row ring stages
+    that cover K (the last one part), the fewest that bring 64-column tiles
+    x slices to the H100's 132 SMs where K has stages enough, K whole where
+    the tiles alone reach 132; CTAs = tiles x slices; the descriptor's
+    slice fields; and the persistent workspace: one fp32 (M, N) partial per
+    slice (none unsplit), a ticket per tile and one more, the EPI_ROWS
+    product M x N in fp32."""
+    M, K, N = MKN
+    ksl, ks, ctas = F32_GEMM_GEOMETRY[MKN]
+    g = matmul_1d_op(M, K, N, torch.float32, bm=M).member
+    assert (g.row_blocks, g.k_slice, g.k_slices, g.ctas) == (1, ksl, ks,
+                                                             ctas)
+    kt = row.F32_KT
+    assert ksl % kt == 0 and (ks - 1) * ksl < K <= ks * ksl
+    tiles = -(-N // row.GEMM_TN)
+    assert ctas == tiles * ks
+    assert ctas >= row.GEMM_MIN_CTAS or ksl == kt
+    assert (ks == 1) == (tiles >= row.GEMM_MIN_CTAS or K <= kt)
+    md = cuda.MemberDesc()
+    row._gemm_fields(md, g)
+    assert (md.i[4], md.i[6], md.i[7]) == (ksl, 1, ks)
+    parts = ks * M * N if ks > 1 else 0
+    assert row.gemm_workspace_sizes(g, False) == (
+        (parts, tiles + 1, 0) if ks > 1 else (0, 0, 0))
+    assert row.gemm_workspace_sizes(g, True) == (parts, tiles + 1, M * N)
+
+
+@pytest.mark.parametrize("MKN", [(8, 2048, 64), (3, 200, 12),
+                                 (40, 1000, 72), (8, 4096, 16)])
+def test_row_gemm_f32_slice_sum_matches_reference(MKN):
+    """The fp32 split's arithmetic in PyTorch as the kernel orders it: each
+    K slice's product in fp32, the slices summed in slice order, against
+    the reference's matmul_1d_op(dtype=float32) in interpret mode on the
+    same numpy inputs (fp32 tolerance; the weight at 1/sqrt(K), as the
+    card tests draw it)."""
+    M, K, N = MKN
+    g = matmul_1d_op(M, K, N, torch.float32, bm=M).member
+    assert g.k_slices > 1
+    rng = np.random.default_rng(11)
+    jx, tx = _both(rng, (M, K), np.float32)
+    w = (rng.normal(size=(K, N)) * K ** -0.5).astype(np.float32)
+    jw, tw = jnp.asarray(w), torch.from_numpy(w.copy())
+    (want,) = jhfuse.run_single(jmatmul_1d(M, K, N, jnp.float32, bm=M),
+                                interpret=True)(jx, jw)
+    total = None
+    for k in range(0, K, g.k_slice):
+        part = tx[:, k:k + g.k_slice] @ tw[k:k + g.k_slice]
+        total = part if total is None else total + part
+    ref = np.asarray(want, np.float32)
+    np.testing.assert_allclose(total.numpy(), ref, rtol=1e-5, atol=1e-5)
