@@ -10,14 +10,15 @@ non-zero exit code and no result line.
   2. build   nvcc the kernel library from ``src/repro_torch/csrc`` for
              sm_90a (keyed by a hash of the sources, under ``build/``);
              ptxas's registers, stack and spills of the bundle kernel's five
-             instances, the tiled matmul and flash kernels and the
-             non-inlined member bodies (prefill, moe_gmm, the bf16 row
-             GEMM, decode, RMSNorm's row_norm per type, which must not
-             spill), the tiled matmul's shared memory a
+             instances, the tiled matmul and flash kernels and the non-inlined member
+             bodies (prefill, moe_gmm, the bf16 row GEMM, decode, RMSNorm's
+             row_norm per type and the hash body hash_member, which must
+             not spill), the tiled matmul's shared memory a
              CTA, and the HMMA (mma.sync) instructions in their
              SASS (cuobjdump; a body's span inside a bundle instance from
              the ELF symbol table): the bf16 flash kernels, the prefill,
-             moe_gmm and row GEMM bodies must hold some; and the HGMMA
+             moe_gmm and row GEMM bodies must hold some, the hash body and
+             hf_paper (ethash_like inlined) none; and the HGMMA
              (wgmma) instructions of the bf16 tiled matmul, which must hold
              some.
   2b. paper  the paper suite (``kernels/paper_suite.py``) at the
@@ -25,7 +26,8 @@ non-zero exit code and no result line.
              and at ``SMALL_KW`` (and the bf16 forms of maxpool, upsample,
              im2col, bnstats) against its plain version, bitwise or within
              ``paper_suite.TOLERANCE``, timed beside its plain version, its
-             bound and, for maxpool and upsample, one PyTorch call.  Then,
+             bound and, for maxpool and upsample, one PyTorch call; each
+             hash variant's time a round and share of its bound.  Then,
              with every launch counter reset, the path itself:
              ``launch/paper.py``'s main over the 16 pairs and 4 triples with
              ``--measure gpu`` (plan, cost-model and measured search; native,
@@ -144,7 +146,11 @@ non-zero exit code and no result line.
              and not, bf16 and fp32; head dim 128 at phi3.5-moe's 32/8
              heads), the standalone rmsnorm and the residual add (bf16 and
              fp32), each against its plain version and timed beside it, its
-             bound and one PyTorch call; the matmul->residual_add chain at
+             bound and one PyTorch call (the residual add also bitwise
+             against ``torch.add``, with the instance its launch runs and
+             that instance's CTAs an SM, alone and fused with another row
+             member); the matmul->residual_add
+             chain at
              decode (W_o, 8 rows) bitwise against its two members, bf16 and
              fp32.  Then, with the counters reset, the path: a granite-3-2b
              layer built from the ops (rmsnorm -> QKV -> flash attention ->
@@ -356,14 +362,16 @@ def sdpa_prefill(torch, q, k, v, off):
 def build_report() -> None:
     """Registers, stack and spills (ptxas, from the build) of the bundle
     kernel's five instances, the tiled matmul and attention kernels and the
-    members' non-inlined bodies (the fp32 row GEMM's and RMSNorm's among
-    them; a spill in RMSNorm's or in the fp32 flash kernel fails the run),
+    members' non-inlined bodies (the fp32 row GEMM's, RMSNorm's and the
+    hash body among them; a spill in RMSNorm's, the hash body or the fp32
+    flash kernel fails the run),
     the tiled matmul's shared memory a CTA; the count of HMMA (mma.sync)
     instructions in each kernel's SASS and in each body inside the bundle
     instances, and of HGMMA (wgmma) in the tiled matmul's, where the
     toolkit has cuobjdump.  Fails if a tensor-core route (bf16 flash, the
     prefill, moe_gmm and bf16 row GEMM bodies; wgmma in the bf16 tiled
-    matmul) holds none, or if the fp32 flash kernel holds any."""
+    matmul) holds none, or if the fp32 flash kernel, the hash body or
+    hf_paper (ethash_like's body inlined) holds any."""
     from repro_torch.kernels import cuda
     use = cuda.ptxas_usage()
     keys = {"hf_bundle<false>": "hf_bundleILb0E",
@@ -389,7 +397,9 @@ def build_report() -> None:
     # the fp32 row GEMM's bodies (CUDA cores: no HMMA expected)
     f32 = {"row_gemm_f32<false>": "row_gemm_f32ILb0E",
            "row_gemm_f32<true>": "row_gemm_f32ILb1E"}
-    for label, key in {**keys, **bodies, **norms, **f32}.items():
+    # the hash body (w in registers, CUDA cores): no spill, no HMMA
+    hashes = {"hash_member": "11hash_member"}
+    for label, key in {**keys, **bodies, **norms, **f32, **hashes}.items():
         hits = [v for k, v in use.items() if key in k]
         check(len(hits) <= 1, f"ptxas report: {len(hits)} {label}")
         check(bool(hits), f"ptxas report has no {label}")
@@ -397,7 +407,7 @@ def build_report() -> None:
         print(f"[build] ptxas {label}: registers {u.get('registers', '-')}, "
               f"stack {u['stack']} B, spill stores {u['spill_stores']} B, "
               f"spill loads {u['spill_loads']} B", flush=True)
-        if label in norms or label == "flash_f32_kernel":
+        if label in norms or label in hashes or label == "flash_f32_kernel":
             check(u["spill_stores"] == 0 and u["spill_loads"] == 0,
                   f"{label} spills")
     print(f"[build] mm_f32_kernel: {cuda.matmul_smem(True)} B of dynamic "
@@ -410,8 +420,8 @@ def build_report() -> None:
     # kernels by their own entry; a body by its entries inside the two
     # bundle instances ("kernel$body")
     shown = {label: sum(n for f, n in hmma.items()
-                        if key in f and ("$" in f) == (label in bodies))
-             for label, key in {**keys, **bodies}.items()}
+                        if key in f and ("$" in f) == (label not in keys))
+             for label, key in {**keys, **bodies, **hashes}.items()}
     print("[build] SASS HMMA instructions: " + ", ".join(
         f"{k} {v}" for k, v in shown.items()), flush=True)
     check(shown["flash_mma_kernel<64>"] > 0
@@ -421,6 +431,8 @@ def build_report() -> None:
           "the bundle instances' SASS holds no HMMA")
     check(shown["flash_f32_kernel"] == 0,
           "the fp32 flash kernel's SASS holds HMMA (it multiplies in fp32)")
+    check(shown["hash_member"] == 0 and shown["hf_paper"] == 0,
+          "the hash or ethash body's SASS holds HMMA (they multiply in fp32)")
     for body in bodies:
         if body != "decode_split":
             check(shown[body] > 0, f"the {body} body's SASS holds no HMMA")
@@ -515,6 +527,11 @@ def phase_paper(torch, dev) -> tuple[list[dict], dict]:
                median_ms(lambda: plain(*ins), flush),
                (op.hbm_bytes, op.member.ops), FP32_FLOPS,
                None if lib is None else median_ms(lib, flush))
+        if op.member.body == "hash_like":
+            r, rounds = rows[-1], op.member.param
+            print(f"[paper] {name}: {r['ms'] / rounds * 1e3:.3f} us a round "
+                  f"({rounds} rounds), {r['bound_ms'] / r['ms']:.1%} of its "
+                  f"bound", flush=True)
     first = timed[0]
     del timed
     print("[paper] 9 atoms at the defaults and SMALL_KW (fp32; bf16 where "
@@ -2088,6 +2105,7 @@ def phase_ops(torch, dev, cfg) -> tuple[list[dict], dict]:
     from repro_torch.kernels import row
     from repro_torch.kernels.matmul import matmul_1d_op
     from repro_torch.kernels.moe_gmm import plain_moe_gmm
+    from repro_torch.kernels.rmsnorm import rmsnorm_op
 
     d, H, Hkv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
     D, f = cfg.resolved_head_dim, cfg.d_ff
@@ -2181,7 +2199,23 @@ def phase_ops(torch, dev, cfg) -> tuple[list[dict], dict]:
              lambda: run_add(x, res)[0], lambda: plain_add(x, res)[0],
              (3 * R * d * isz, 1.0 * R * d), FP32_FLOPS,
              lambda: torch.add(x, res))
-        del x, res
+        check(torch.equal(run_add(x, res)[0], torch.add(x, res)),
+              f"residual_add ({dt}) differs from torch.add")
+        # the instance the launch runs and its CTAs an SM, alone and fused
+        # with another row member
+        out = torch.empty_like(x)
+        alone = cuda.launch_instance([add.member], [(x, res)], [(out,)])
+        norm_op = rmsnorm_op(R, d, dt)
+        fused = cuda.launch_instance([add.member, norm_op.member],
+                                     [(x, res), (x, scale.reshape(1, d))],
+                                     [(out,), (torch.empty_like(x),)])
+        r = rows[-1]
+        print(f"[ops] residual_add {str(dt)[6:]}: {add.ctas} CTAs in "
+              f"{alone[0]} at {alone[1]} CTAs/SM, {r['ms']:.4f} ms against "
+              f"torch.add {r['library_ms']:.4f} ms "
+              f"({r['library_ms'] / r['ms'] - 1:+.2%}); fused with a row "
+              f"member it runs {fused[0]} at {fused[1]} CTAs/SM", flush=True)
+        del x, res, out
 
     # i: matmul -> residual_add at decode (W_o, 8 rows): bitwise against
     # the GEMM and residual-add members launched separately

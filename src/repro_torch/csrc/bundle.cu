@@ -123,6 +123,9 @@ enum { HF_I_MIXED, HF_I_MIXED_CHAINS, HF_I_ROWS, HF_I_ROWS_CHAINS, HF_I_PAPER,
 static const HfKernel hf_instances[HF_INSTANCES] = {
     hf_bundle<false>, hf_bundle<true>, hf_rows<false>, hf_rows<true>,
     hf_paper};
+static const char* const hf_instance_names[HF_INSTANCES] = {
+    "hf_bundle<false>", "hf_bundle<true>", "hf_rows<false>", "hf_rows<true>",
+    "hf_paper"};
 
 // Allow `smem` bytes of dynamic shared memory per CTA of instance `inst`
 // (0 = allowed).
@@ -182,21 +185,36 @@ int hf_launch(const BundleDesc* b, int grid, int smem, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// CTAs of a launch with `smem` bytes of dynamic shared memory that fit on
-// one SM at once (registers, shared memory and threads counted; the fewest
-// of the instances); returns the cudaError_t.
+// CTAs of instance `inst` with `smem` bytes of dynamic shared memory that
+// fit on one SM at once (registers, shared memory and threads counted);
+// returns the cudaError_t.
+static int hf_instance_occupancy(int inst, int smem, int* ctas_per_sm) {
+  int e = hf_allow_smem(inst, smem);
+  if (!e)
+    e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        ctas_per_sm, hf_instances[inst], HF_THREADS, smem);
+  return e;
+}
+
+// The same for a launch with `smem` bytes: the fewest of the instances.
 int hf_occupancy(int smem, int* ctas_per_sm) {
   int fewest = 1 << 30;
   for (int inst = 0; inst < HF_INSTANCES; ++inst) {
-    int e = hf_allow_smem(inst, smem), n = 0;
-    if (!e)
-      e = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &n, hf_instances[inst], HF_THREADS, smem);
+    int n = 0, e = hf_instance_occupancy(inst, smem, &n);
     if (e) return e;
     fewest = n < fewest ? n : fewest;
   }
   *ctas_per_sm = fewest;
   return 0;
+}
+
+// The instance hf_launch runs for `b` (its name into `name`), and its CTAs
+// an SM at `smem` bytes; returns the cudaError_t.
+int hf_launch_instance(const BundleDesc* b, int smem, const char** name,
+                       int* ctas_per_sm) {
+  const int inst = hf_instance(*b);
+  *name = hf_instance_names[inst];
+  return hf_instance_occupancy(inst, smem, ctas_per_sm);
 }
 
 // The grouped expert FFN's two TMA tensor maps (CUtensorMap, 128 bytes

@@ -19,10 +19,11 @@
 // Bounds on the card (H100 SXM: 3.35 TB/s, 67 TFLOP/s fp32): maxpool,
 // upsample, im2col, bnstats and hist by bytes; ethash_like (34 MB and 2.17
 // GFLOP at the defaults) and hash_like by fp32 operations.  The streaming
-// bodies move 16-byte vectors; the two matmul bodies keep w (64 KB) and a
-// 32 x 128 fp32 tile in shared memory, each thread owns a 4 x 4 output block
-// and walks k in order with explicit fmaf (the build uses -fmad=false, so
-// nothing else is contracted).  tanh is tanhf.
+// bodies move 16-byte vectors; ethash_like keeps w (64 KB) and a 32 x 128
+// fp32 tile in shared memory, each thread owns a 4 x 4 output block and
+// walks k in order; hash_like keeps w in registers and the state in shared
+// memory (see its body).  Both use explicit fmaf (the build uses -fmad=false,
+// so nothing else is contracted).  tanh is tanhf.
 //
 // Carries.  bnstats, hist and ethash_like accumulate across TPU grid steps.
 // Here every CTA writes a partial into a workspace its member owns (the
@@ -306,33 +307,132 @@ __device__ __forceinline__ void ps_load_rows(float* dst, const float* src,
 }
 
 // ---------------------------------------------------------------------------
-// hash_like: (R, 128) fp32, `rounds` x s = tanh(s @ w).  A CTA owns 32 rows
-// for all rounds; the state stays in shared memory between rounds.
+// hash_like: (R, 128) fp32, `rounds` x s = tanh(s @ w).  A CTA owns 32 rows for
+// all rounds; the state S stays in shared memory between rounds and w stays in
+// registers, 64 a lane, loaded once a CTA (w is L2-resident after the first
+// CTAs), so the loop reads no w from shared memory.  The k rows are cut into G
+// = 128 / KG groups of KG; warp w is k group g = w / (8 / G) and lane l of its
+// column group owns NC = 64 / KG adjacent columns.  For HS_RG rows at a time
+// the lane reads S[r, g KG + k] as broadcast 16-byte loads (every lane of the
+// warp the same address: one wavefront) and sums its NC columns over its KG k
+// in k order (fmaf from 0): HS_RG x NC independent chains.  The groups'
+// partials go to shared memory ([G][RS][128] fp32, 64 KB at RS = 128 / G rows a
+// step, so the member keeps the 80 KB a CTA of ethash_like), and the 256
+// threads add each output's G partials in group order, apply tanhf and write S:
+// two barriers a step, 32 / RS steps a round.  The member runs KG = 32
+// (quarters: 2 columns a lane, all 32 rows in one step) and HS_RG = 8.  On the
+// H100 the loop alone reaches about 55% of the fp32 FMA rate and the combine,
+// tanhf and barriers add a fifth (scripts/member_variants.py: loop_only,
+// no_combine, no_tanh); 16-deep groups (half the state bytes a fmaf) and 4 rows
+// at once were slower, and two hash CTAs on one SM (a fused hash pair) run no
+// faster than in turn, so a rate of the SM, not the latency of one CTA's 8
+// warps, holds it there (PERF.md).  Each output's order is fixed, so a fused
+// launch is bitwise equal to the member alone.  Not inlined, so the bundle
+// instances keep the allocation they have without it; w's 64 registers, the
+// HS_RG x NC sums and their HS_RG x 4 state values fit the 128 that
+// __launch_bounds__(256, 2) leaves, unspilled.
 // ---------------------------------------------------------------------------
-__device__ void hash_member(const MemberDesc& m, int cta) {
+#define HS_KG 32           // k rows of a lane's slice of w (the member's KG)
+#define HS_RG 8            // rows a lane sums at once (HS_RG x NC fmaf chains)
+
+// NC adjacent floats (2 or 4, 8- or 16-byte aligned) as one access
+template <int NC>
+__device__ __forceinline__ void ps_load_nc(const float* p, float* v) {
+  if constexpr (NC == 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else {
+    const float2 t = __ldg(reinterpret_cast<const float2*>(p));
+    v[0] = t.x; v[1] = t.y;
+  }
+}
+template <int NC>
+__device__ __forceinline__ void ps_store_nc(float* p, const float* v) {
+  if constexpr (NC == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+}
+
+template <int KG>
+__device__ __forceinline__ void hash_rounds(const MemberDesc& m, int cta) {
+  constexpr int G = PS_TILE_C / KG;      // k groups
+  constexpr int NC = 64 / KG;            // columns a lane
+  constexpr int CG = HF_WARPS / G;       // column groups (warps a k group)
+  constexpr int RS = 128 / G;            // rows a step (partials: 64 KB)
+  constexpr int RV = RS * PS_TILE_C / 4; // 16-byte vectors of a step's rows
+  static_assert(CG * 32 * NC == PS_TILE_C && PS_TILE_R % RS == 0 &&
+                RV % HF_THREADS == 0, "hash geometry");
   extern __shared__ __align__(16) unsigned char smem[];
-  float* W = reinterpret_cast<float*>(smem);
-  float* S = W + PS_TILE_C * PS_TILE_C;
+  float* P = reinterpret_cast<float*>(smem);              // [G][RS][128]
+  float* S = P + G * RS * PS_TILE_C;                      // [32][128]
   const int rounds = m.i[4];
   const size_t row0 = (size_t)cta * PS_TILE_R;
-  ps_load_rows(W, static_cast<const float*>(m.in[1]), PS_TILE_C);
-  ps_load_rows(S, static_cast<const float*>(m.in[0]) + row0 * PS_TILE_C, PS_TILE_R);
-  __syncthreads();
-  const int r0 = (threadIdx.x >> 5) * 4, c0 = (threadIdx.x & 31) * 4;
-  float acc[4][4];
-  for (int round = 0; round < rounds; ++round) {
-    ps_tile_matmul(S, W, acc);
-    __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = warp / CG, c = (warp % CG) * 32 * NC + NC * lane;
+  const float* w = static_cast<const float*>(m.in[1]) +
+                   (size_t)g * KG * PS_TILE_C + c;
+  float wr[KG][NC];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float4 t = make_float4(tanhf(acc[i][0]), tanhf(acc[i][1]),
-                                   tanhf(acc[i][2]), tanhf(acc[i][3]));
-      *reinterpret_cast<float4*>(S + (r0 + i) * PS_TILE_C + c0) = t;
+  for (int k = 0; k < KG; ++k) ps_load_nc<NC>(w + k * PS_TILE_C, wr[k]);
+  ps_load_rows(S, static_cast<const float*>(m.in[0]) + row0 * PS_TILE_C,
+               PS_TILE_R);
+  __syncthreads();
+  const float* Sg = S + g * KG;
+  float* Pg = P + g * RS * PS_TILE_C + c;
+  for (int round = 0; round < rounds; ++round) {
+    for (int r0 = 0; r0 < PS_TILE_R; r0 += RS) {
+      for (int rg = 0; rg < RS; rg += HS_RG) {
+        float acc[HS_RG][NC];
+#pragma unroll
+        for (int i = 0; i < HS_RG; ++i)
+#pragma unroll
+          for (int j = 0; j < NC; ++j) acc[i][j] = 0.f;
+#pragma unroll
+        for (int k = 0; k < KG; k += 4) {
+          float4 sv[HS_RG];
+#pragma unroll
+          for (int i = 0; i < HS_RG; ++i)
+            sv[i] = *reinterpret_cast<const float4*>(
+                Sg + (r0 + rg + i) * PS_TILE_C + k);
+#pragma unroll
+          for (int i = 0; i < HS_RG; ++i) {
+            const float e[4] = {sv[i].x, sv[i].y, sv[i].z, sv[i].w};
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+              for (int j = 0; j < NC; ++j)
+                acc[i][j] = fmaf(e[kk], wr[k + kk][j], acc[i][j]);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < HS_RG; ++i)
+          ps_store_nc<NC>(Pg + (rg + i) * PS_TILE_C, acc[i]);
+      }
+      __syncthreads();
+      // the step's rows: each output's G partials in group order, tanhf
+      const float4* P4 = reinterpret_cast<const float4*>(P);
+#pragma unroll
+      for (int u = 0; u < RV / HF_THREADS; ++u) {
+        const int v = threadIdx.x + u * HF_THREADS;
+        float4 a = P4[v];
+#pragma unroll
+        for (int gg = 1; gg < G; ++gg) {
+          const float4 b = P4[gg * RV + v];
+          a.x += b.x; a.y += b.y; a.z += b.z; a.w += b.w;
+        }
+        reinterpret_cast<float4*>(S + r0 * PS_TILE_C)[v] =
+            make_float4(tanhf(a.x), tanhf(a.y), tanhf(a.z), tanhf(a.w));
+      }
+      __syncthreads();
     }
-    __syncthreads();
   }
   float* out = static_cast<float*>(m.out[0]) + row0 * PS_TILE_C;
   ps_load_rows(out, S, PS_TILE_R);   // shared -> device (same copy loop)
+}
+
+__device__ __noinline__ void hash_member(const MemberDesc& m, int cta) {
+  hash_rounds<HS_KG>(m, cta);
 }
 
 // ---------------------------------------------------------------------------

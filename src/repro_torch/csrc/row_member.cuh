@@ -1372,6 +1372,10 @@ __device__ __noinline__ void row_act_f32(const MemberDesc& m, int cta) {
 // residual add and the fp32 norm moved ptxas's allocation of the whole
 // bundle kernel and slowed the grouped expert FFN member by 5% on the
 // H100; as calls the kernel keeps the allocation it had without them.
+// It runs at torch.add's DRAM rate on the H100 (within 1%); a narrow
+// bundle instance at 4 CTAs an SM (the row family's holds 2), fewer CTAs
+// looping over the chunks, other chunk sizes and evict-first or evict-last
+// hints were no faster (PERF.md).
 template <typename T>
 __device__ __noinline__ void row_resadd(const MemberDesc& m, int cta) {
   constexpr int VEC = 16 / (int)sizeof(T);

@@ -8,7 +8,7 @@ each with its own C launcher (``matmul``, ``flash_attention`` below).
 The bundle kernel itself has five instances (row members only, with and
 without the row family's chain bodies; the paper members only; any mix,
 with and without the chain bodies); ``hf_launch`` picks the narrowest one
-that holds the members a launch carries.
+that holds the members a launch carries (``launch_instance`` names it).
 The library is compiled with ``nvcc`` for ``sm_90a`` at first use, into
 ``build/repro_torch/<hash of the sources>/`` at the root of the checkout,
 bound with ``ctypes`` (plain C interface, no PyTorch headers: seconds to
@@ -234,6 +234,10 @@ def library():
         lib.hf_occupancy.argtypes = [ctypes.c_int,
                                      ctypes.POINTER(ctypes.c_int)]
         lib.hf_occupancy.restype = ctypes.c_int
+        lib.hf_launch_instance.argtypes = [
+            ctypes.POINTER(BundleDesc), ctypes.c_int,
+            ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_int)]
+        lib.hf_launch_instance.restype = ctypes.c_int
         lib.hf_error_string.argtypes = [ctypes.c_int]
         lib.hf_error_string.restype = ctypes.c_char_p
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
@@ -450,6 +454,22 @@ def member_smem(member) -> int:
     if need < 0:
         raise ValueError(f"unknown member kind {md.kind}")
     return need
+
+
+def launch_instance(members: Sequence,
+                    ins: Sequence[Sequence[torch.Tensor]],
+                    outs: Sequence[Sequence[torch.Tensor]]) -> tuple[str, int]:
+    """(name of the bundle kernel instance a launch carrying ``members``
+    with these operands runs, its CTAs resident on one SM at the launch's
+    shared memory), from the library; nothing is launched."""
+    desc, smem, _held = _describe(members, ins, outs, [1] * len(members))
+    inst, n = ctypes.c_char_p(), ctypes.c_int()
+    err = library().hf_launch_instance(ctypes.byref(desc), smem,
+                                       ctypes.byref(inst), ctypes.byref(n))
+    if err:
+        raise RuntimeError("occupancy query failed: "
+                           + library().hf_error_string(err).decode())
+    return inst.value.decode(), n.value
 
 
 def occupancy(smem: int) -> int:

@@ -690,6 +690,39 @@ def test_paper_launch_beyond_resident_capacity_finishes(cuda_dev):
     assert _same(out, hfuse.run_native(ops)(*ins))
 
 
+@pytest.mark.parametrize("rounds", [1, 24])
+@pytest.mark.parametrize("R,bm", [(32, 32), (4096, 512), (4096, 256)])
+def test_hash_member_w_in_registers(cuda_dev, R, bm, rounds):
+    """hash_like with w held in registers (csrc/paper_member.cuh): one CTA
+    (R 32), the defaults and a non-default block, x scaled x10 so that the
+    first round's tanh saturates; within paper_suite.TOLERANCE of the plain
+    version, two launches bitwise equal, 16 CTAs a grid step of 32 rows."""
+    from repro_torch.kernels import paper_suite as ps
+    op, mk, plain = ps._make_hash_like("sha_like", rounds, R=R, bm=bm)
+    assert op.ctas == R // ps.TILE_R
+    x, w = mk(_gen(40 + rounds), "cuda")
+    x = x * 10.0
+    (got,) = hfuse.run_single(op)(x, w)
+    torch.cuda.synchronize()
+    want = plain(x, w)
+    ps.max_error(got, want, "hash_like")
+    if rounds == 1:
+        assert float(want.abs().max()) > 0.99
+    assert torch.equal(got, hfuse.run_single(op)(x, w)[0])
+
+
+@pytest.mark.parametrize("ratios", [(1, 1), (4, 1), (1, 3)])
+@pytest.mark.parametrize("partner", ["maxpool", "ethash_like"])
+@pytest.mark.parametrize("name", ["sha_like", "blake_like", "blake2b_like"])
+def test_hash_fused_bitwise_equal_alone(cuda_dev, name, partner, ratios):
+    """Each hash variant fused beside a streaming member (maxpool) and
+    beside ethash_like, at three ratios: every output bitwise equal to the
+    members launched alone."""
+    ops, ins = _paper_bundle((partner, name))
+    fused = hfuse.generate(ops, Schedule(ratios))(*ins)
+    assert _same(fused, hfuse.run_native(ops)(*ins))
+
+
 # ---------------------------------------------------------------------------
 # Paged attention: bitwise against the contiguous members
 # ---------------------------------------------------------------------------
@@ -1167,15 +1200,42 @@ def test_rmsnorm_widths_and_rows_per_cta(cuda_dev, d, dtype):
 
 
 @pytest.mark.parametrize("dtype", [BF, F32])
-@pytest.mark.parametrize("R,F", [(8, 64), (37, 100), (8192, 2048)])
+@pytest.mark.parametrize("R,F", [(8, 64), (37, 100), (1000, 100),
+                                 (8192, 2048)])
 def test_residual_add_member(cuda_dev, R, F, dtype):
     """Both rounded operands summed in fp32 and rounded once, as the plain
-    version does: bitwise; (37, 100) ends in a part vector."""
+    version does: bitwise, and bitwise equal to torch.add; (37, 100) ends
+    in a part vector, (1000, 100) mid-chunk in its last CTA.  A launch of
+    the member alone runs hf_rows<false>, at least 2 CTAs an SM."""
     g = _gen(32)
     h, res = _randn((R, F), g, dtype), _randn((R, F), g, dtype)
-    op = elementwise.residual_add_op(R, F, dtype)
+    op = elementwise.residual_add_op(R, F, dtype, bm=R)
     (got,), (want,) = _kernel_vs_plain(op, h, res)
     assert torch.equal(got, want)
+    assert torch.equal(got, torch.add(h, res))
+    out = torch.empty_like(h)
+    name, per_sm = cuda.launch_instance([op.member], [(h, res)], [(out,)])
+    assert name == "hf_rows<false>" and per_sm >= 2
+
+
+@pytest.mark.parametrize("ratios", [(1, 1), (3, 1)])
+@pytest.mark.parametrize("dtype", [BF, F32])
+def test_residual_add_fused_bitwise_equal_alone(cuda_dev, dtype, ratios):
+    """The residual add fused with another row member (rmsnorm) runs in
+    hf_rows<false>, as it does alone; both outputs are bitwise equal to the
+    members launched alone."""
+    g = _gen(34)
+    R, d = 1000, 2048
+    h, res = _randn((R, d), g, dtype), _randn((R, d), g, dtype)
+    x, scale = _randn((64, d), g, dtype), _randn((1, d), g, F32, 0.1)
+    ops = (elementwise.residual_add_op(R, d, dtype, bm=R),
+           rmsnorm_op(64, d, dtype, bm=64))
+    outs = [(torch.empty_like(h),), (torch.empty_like(x),)]
+    assert cuda.launch_instance([op.member for op in ops],
+                                [(h, res), (x, scale)],
+                                outs)[0] == "hf_rows<false>"
+    fused = hfuse.generate(ops, Schedule(ratios))(h, res, x, scale)
+    assert _same(fused, hfuse.run_native(ops)(h, res, x, scale))
 
 
 @pytest.mark.parametrize("dtype", [BF, F32])
