@@ -12,13 +12,14 @@ non-zero exit code and no result line.
              ptxas's registers, stack and spills of the bundle kernel's five
              instances, the tiled matmul and flash kernels and the non-inlined member
              bodies (prefill, moe_gmm, the bf16 row GEMM, decode, RMSNorm's
-             row_norm per type and the hash body hash_member, which must
-             not spill), the tiled matmul's shared memory a
-             CTA, and the HMMA (mma.sync) instructions in their
-             SASS (cuobjdump; a body's span inside a bundle instance from
-             the ELF symbol table): the bf16 flash kernels, the prefill,
-             moe_gmm and row GEMM bodies must hold some, the hash body and
-             hf_paper (ethash_like inlined) none; and the HGMMA
+             row_norm per type, the hash body hash_member and the ethash
+             body ethash_member, which must not spill), the tiled matmul's
+             shared memory a CTA, and the HMMA (mma.sync) instructions in
+             their SASS (cuobjdump; a body's span inside a bundle instance
+             from the ELF symbol table): the bf16 flash kernels, the
+             prefill, moe_gmm, row GEMM and ethash (3xTF32) bodies must hold
+             some, the hash body and hf_paper outside its bodies none; and
+             the HGMMA
              (wgmma) instructions of the bf16 tiled matmul, which must hold
              some.
   2b. paper  the paper suite (``kernels/paper_suite.py``) at the
@@ -26,8 +27,11 @@ non-zero exit code and no result line.
              and at ``SMALL_KW`` (and the bf16 forms of maxpool, upsample,
              im2col, bnstats) against its plain version, bitwise or within
              ``paper_suite.TOLERANCE``, timed beside its plain version, its
-             bound and, for maxpool and upsample, one PyTorch call; each
-             hash variant's time a round and share of its bound.  Then,
+             bound and, for maxpool and upsample, one PyTorch call (bnstats
+             in bf16 too, beside ``torch.var_mean`` as a same-bytes
+             yardstick); each hash variant's time a round and share of its
+             bound; ethash_like's share of its 3xTF32, byte and fp32 FMA
+             bounds.  Then,
              with every launch counter reset, the path itself:
              ``launch/paper.py``'s main over the 16 pairs and 4 triples with
              ``--measure gpu`` (plan, cost-model and measured search; native,
@@ -162,7 +166,9 @@ non-zero exit code and no result line.
 
 Each main path (paper, update_dw, train, serve, paged, moe, ops) runs with
 every launch counter reset just before it and read just after; each of
-its kernels must have launched.
+its kernels must have launched.  Serve, moe and ops also count the
+activation members their launches carried, alone and as a chain's
+consumer (the row family shares one counter).
 
 Exits with code 1 and no result when no CUDA device is visible, and with
 code 2 when the port's sources are not beside it.
@@ -179,10 +185,11 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# Data-sheet rates of one H100 SXM (dense): device memory bytes/s, bf16
-# tensor-core FLOP/s, fp32 FLOP/s outside the tensor cores.
+# Data-sheet rates of one H100 SXM (dense): device memory bytes/s, bf16 and
+# TF32 tensor-core FLOP/s, fp32 FLOP/s outside the tensor cores.
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS = 989e12
+TF32_FLOPS = 495e12
 FP32_FLOPS = 67e12
 
 # Full-width granite-3-2b serve shapes of the main path.
@@ -362,16 +369,16 @@ def sdpa_prefill(torch, q, k, v, off):
 def build_report() -> None:
     """Registers, stack and spills (ptxas, from the build) of the bundle
     kernel's five instances, the tiled matmul and attention kernels and the
-    members' non-inlined bodies (the fp32 row GEMM's, RMSNorm's and the
-    hash body among them; a spill in RMSNorm's, the hash body or the fp32
-    flash kernel fails the run),
+    members' non-inlined bodies (the fp32 row GEMM's, RMSNorm's, the hash
+    and the ethash body among them; a spill in RMSNorm's, the hash or ethash
+    body or the fp32 flash kernel fails the run),
     the tiled matmul's shared memory a CTA; the count of HMMA (mma.sync)
     instructions in each kernel's SASS and in each body inside the bundle
     instances, and of HGMMA (wgmma) in the tiled matmul's, where the
     toolkit has cuobjdump.  Fails if a tensor-core route (bf16 flash, the
-    prefill, moe_gmm and bf16 row GEMM bodies; wgmma in the bf16 tiled
-    matmul) holds none, or if the fp32 flash kernel, the hash body or
-    hf_paper (ethash_like's body inlined) holds any."""
+    prefill, moe_gmm, bf16 row GEMM and ethash bodies; wgmma in the bf16
+    tiled matmul) holds none, or if the fp32 flash kernel, the hash body or
+    hf_paper outside its bodies holds any."""
     from repro_torch.kernels import cuda
     use = cuda.ptxas_usage()
     keys = {"hf_bundle<false>": "hf_bundleILb0E",
@@ -397,8 +404,10 @@ def build_report() -> None:
     # the fp32 row GEMM's bodies (CUDA cores: no HMMA expected)
     f32 = {"row_gemm_f32<false>": "row_gemm_f32ILb0E",
            "row_gemm_f32<true>": "row_gemm_f32ILb1E"}
-    # the hash body (w in registers, CUDA cores): no spill, no HMMA
-    hashes = {"hash_member": "11hash_member"}
+    # the paper suite's matmul bodies: the hash body (w in registers, CUDA
+    # cores: no HMMA) and the ethash body (3xTF32 on mma.sync); no spill
+    hashes = {"hash_member": "11hash_member",
+              "ethash_member": "13ethash_member"}
     for label, key in {**keys, **bodies, **norms, **f32, **hashes}.items():
         hits = [v for k, v in use.items() if key in k]
         check(len(hits) <= 1, f"ptxas report: {len(hits)} {label}")
@@ -422,8 +431,13 @@ def build_report() -> None:
     shown = {label: sum(n for f, n in hmma.items()
                         if key in f and ("$" in f) == (label not in keys))
              for label, key in {**keys, **bodies, **hashes}.items()}
+    # a kernel's own count includes its non-inlined bodies: hf_paper's
+    # outside them is its count less theirs
+    paper_out = shown["hf_paper"] - sum(
+        n for f, n in hmma.items() if "$" in f and "hf_paper" in f)
     print("[build] SASS HMMA instructions: " + ", ".join(
-        f"{k} {v}" for k, v in shown.items()), flush=True)
+        f"{k} {v}" for k, v in shown.items())
+        + f"; hf_paper outside its bodies {paper_out}", flush=True)
     check(shown["flash_mma_kernel<64>"] > 0
           and shown["flash_mma_kernel<128>"] > 0,
           "the bf16 flash kernels' SASS holds no HMMA")
@@ -431,8 +445,11 @@ def build_report() -> None:
           "the bundle instances' SASS holds no HMMA")
     check(shown["flash_f32_kernel"] == 0,
           "the fp32 flash kernel's SASS holds HMMA (it multiplies in fp32)")
-    check(shown["hash_member"] == 0 and shown["hf_paper"] == 0,
-          "the hash or ethash body's SASS holds HMMA (they multiply in fp32)")
+    check(shown["hash_member"] == 0,
+          "the hash body's SASS holds HMMA (it multiplies in fp32)")
+    check(paper_out == 0, "hf_paper outside its bodies holds HMMA")
+    check(shown["ethash_member"] > 0,
+          "the ethash body's SASS holds no HMMA (3xTF32 on mma.sync)")
     for body in bodies:
         if body != "decode_split":
             check(shown[body] > 0, f"the {body} body's SASS holds no HMMA")
@@ -443,6 +460,38 @@ def build_report() -> None:
         f"{k} {v}" for k, v in wg.items()), flush=True)
     check(wg["mm_bf16_kernel"] > 0,
           "the bf16 tiled matmul's SASS holds no HGMMA")
+
+
+class ActTally:
+    """While active, counts the activation members (``RowMember`` of sub
+    "act", decode_act on the serve paths) that the bundle launches queued,
+    alone and as the consumer of a chain (ffn_proj->decode_act): the row
+    family shares one launch counter, so these say where the activation
+    ran.  Wraps ``cuda.launch``, counting after it returns."""
+
+    def __init__(self, what: str):
+        self.what, self.alone, self.chained = what, 0, 0
+
+    def __enter__(self):
+        from repro_torch.kernels import cuda, row
+        self._cuda, self._launch = cuda, cuda.launch
+
+        def launch(members, *args):
+            self._launch(members, *args)
+            for m in members:
+                if isinstance(m, row.RowMember) and m.sub == "act":
+                    self.alone += 1
+                elif isinstance(m, row.RowChain) and getattr(
+                        m.consumer, "sub", None) == "act":
+                    self.chained += 1
+        cuda.launch = launch
+        return self
+
+    def __exit__(self, *exc):
+        self._cuda.launch = self._launch
+        print(f"[{self.what}] activation members launched: alone "
+              f"{self.alone}, as a chain's consumer {self.chained}",
+              flush=True)
 
 
 def device_profile(torch, run, what: str) -> None:
@@ -512,23 +561,46 @@ def phase_paper(torch, dev) -> tuple[list[dict], dict]:
                 err = paper_error(ps, got, plain(*ins), op.member.body)
                 check(torch.equal(got, hfuse.run_single(op)(*ins)[0]),
                       f"{name} differs between two launches")
-                if not kw and dtype == torch.float32:
+                if not kw and (dtype == torch.float32 or name == "bnstats"):
                     timed.append((name, op, ins, plain, err))
     for name, op, ins, plain, err in timed:
         run = hfuse.run_single(op)
-        x = ins[0]
+        x, m = ins[0], op.member
         lib = {"maxpool": lambda: torch.amax(
                    x.view(x.shape[0] // 2, 2, x.shape[1]), dim=1),
                "upsample": lambda: torch.repeat_interleave(x, 2, dim=0)
                }.get(name)
-        record(f"{op.member.body}:{name} ({op.ctas} CTAs)", op.member.kernel,
-               "paper_member.cuh", op.member.kernel.replaces, err,
+        # ethash_like runs its product as three TF32 products on the
+        # tensor cores: its bound is theirs (the fp32 FMA bound is printed)
+        cost, peak = (op.hbm_bytes, m.ops), FP32_FLOPS
+        if m.body == "ethash_like":
+            cost, peak = (op.hbm_bytes, 3 * 2.0 * m.R * m.C * m.C), TF32_FLOPS
+        dt = " bf16" if m.dtype == torch.bfloat16 else ""
+        record(f"{m.body}:{name}{dt} ({op.ctas} CTAs)", m.kernel,
+               "paper_member.cuh", m.kernel.replaces, err,
                median_ms(lambda: run(*ins), flush),
-               median_ms(lambda: plain(*ins), flush),
-               (op.hbm_bytes, op.member.ops), FP32_FLOPS,
+               median_ms(lambda: plain(*ins), flush), cost, peak,
                None if lib is None else median_ms(lib, flush))
-        if op.member.body == "hash_like":
-            r, rounds = rows[-1], op.member.param
+        r = rows[-1]
+        if m.body == "bnstats":
+            # one PyTorch call reading x once for per-column moments: the
+            # same bytes, other outputs (variance and mean, not the sums of
+            # x and x*x), so it is no library_ms
+            vm = median_ms(lambda: torch.var_mean(x, 0, correction=0), flush)
+            print(f"[paper] bnstats{dt}: {r['ms']:.4f} ms, "
+                  f"{r['bound_ms'] / r['ms']:.1%} of its bound "
+                  f"{r['bound_ms']:.4f} ms; same-bytes yardstick "
+                  f"torch.var_mean(x, 0, correction=0) {vm:.4f} ms (other "
+                  f"outputs, not a library time)", flush=True)
+        if m.body == "ethash_like":
+            by_bytes = op.hbm_bytes / HBM_BYTES_S * 1e3
+            fma = m.ops / FP32_FLOPS * 1e3
+            print(f"[paper] ethash_like: {r['ms']:.4f} ms; 3xTF32 bound "
+                  f"{r['bound_ms']:.4f} ms ({r['bound_ms'] / r['ms']:.1%}), "
+                  f"bytes {by_bytes:.4f} ms ({by_bytes / r['ms']:.1%}), fp32 "
+                  f"FMA {fma:.4f} ms ({fma / r['ms']:.1%})", flush=True)
+        if m.body == "hash_like":
+            rounds = m.param
             print(f"[paper] {name}: {r['ms'] / rounds * 1e3:.3f} us a round "
                   f"({rounds} rounds), {r['bound_ms'] / r['ms']:.1%} of its "
                   f"bound", flush=True)
@@ -570,7 +642,13 @@ def phase_paper(torch, dev) -> tuple[list[dict], dict]:
     planned = autotuner.search(tuple(ops)).build()
     plain = hfuse.run_native(ops, plain=True)
     want, out_n = plain(*ins), native(*ins)
-    cost = (sum(op.hbm_bytes for op in ops), sum(op.member.ops for op in ops))
+    # ethash_like's products run on the tensor cores, blake_like's on the
+    # fp32 pipe: the launch takes at least the longer of the two, expressed
+    # in fp32 operations for bound()
+    eth, hsh = (op.member for op in ops)
+    tensor = 3 * 2.0 * eth.R * eth.C * eth.C / TF32_FLOPS
+    cost = (sum(op.hbm_bytes for op in ops),
+            max(hsh.ops, tensor * FP32_FLOPS))
     for what, fused, replaces in (
             ("generate_vfused", vf, "src/repro/core/hfuse.py:152"),
             (f"generate {planned.schedule.label()}", planned,
@@ -1606,7 +1684,8 @@ def phase_serve(torch, dev, cfg) -> dict:
     kernels = registry()
     cuda.reset_counts(kernels)
     t0 = time.perf_counter()
-    eng.run(reqs)
+    with ActTally("serve"):
+        eng.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {k.name: k.launches for k in kernels}
@@ -2038,7 +2117,8 @@ def phase_moe(torch, dev) -> tuple[list[dict], dict]:
     kernels = registry()
     cuda.reset_counts(kernels)
     t0 = time.perf_counter()
-    eng.run(reqs)
+    with ActTally("moe"):
+        eng.run(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = {k.name: k.launches for k in kernels}
@@ -2270,15 +2350,16 @@ def phase_ops(torch, dev, cfg) -> tuple[list[dict], dict]:
     kernels = registry()
     torch.cuda.synchronize()
     cuda.reset_counts(kernels)
-    t0 = time.perf_counter()
-    out = ops_layer(ops.matmul, ops.rmsnorm,
-                    lambda q, k, v: ops.flash_attention(q, k, v),
-                    kernel_resadd, x, p, dims)
-    torch.cuda.synchronize()
-    layer_s = time.perf_counter() - t0
-    ye = ops.moe_gmm(xe, w_in_e, w_out_e)
-    ops.hfused_adamw(p, grads, *moments, **upd)
-    torch.cuda.synchronize()
+    with ActTally("ops"):
+        t0 = time.perf_counter()
+        out = ops_layer(ops.matmul, ops.rmsnorm,
+                        lambda q, k, v: ops.flash_attention(q, k, v),
+                        kernel_resadd, x, p, dims)
+        torch.cuda.synchronize()
+        layer_s = time.perf_counter() - t0
+        ye = ops.moe_gmm(xe, w_in_e, w_out_e)
+        ops.hfused_adamw(p, grads, *moments, **upd)
+        torch.cuda.synchronize()
     counts = {k.name: k.launches for k in kernels}
     print(f"[ops] launches {counts}")
     check(all(counts[k] > 0 for k in ("bundle_launcher", "row_member",

@@ -8,9 +8,10 @@ order parent, change, change, parent).
 
 Prints, for every kernel row of the runs' ``{"kernels": ...}`` line, its
 time in each run and the change of the mean of each label against the
-first label's; then, for each of the paper path's 20 bundles, the native
-and fused (vertical, naive 1:1, planned, measured) times, their gains, the
-launch's shared memory and CTAs an SM, per run.  Rows whose means moved by
+first label's (a row's " (N CTAs)" is dropped from its name, so a change of
+geometry keeps it on one line); then, for each of the paper path's 20
+bundles, the native and fused (vertical, naive 1:1, planned, measured)
+times, their gains, the launch's shared memory and CTAs an SM, per run.  Rows whose means moved by
 more than ``--threshold`` percent are marked ``*``.  Reads logs only:
 needs no card.
 """
@@ -28,6 +29,7 @@ _CARD = re.compile(
     r"([\d.]+) \(([-+\d.]+)%\), planned ([\d.]+) \(([-+\d.]+)%\), measured "
     r"([\d.]+) \(([-+\d.]+)%\); launch smem (\d+) B, (\d+) CTAs/SM")
 _BUNDLE = re.compile(r"^\[paper\] ([\w+]+): plan ")
+_CTAS = re.compile(r" \(\d+ CTAs\)")   # a geometry change keeps the row
 
 
 def parse(text: str) -> tuple[dict[str, float], dict[str, dict]]:
@@ -38,7 +40,8 @@ def parse(text: str) -> tuple[dict[str, float], dict[str, dict]]:
     current = None
     for line in text.splitlines():
         if line.startswith('{"kernels"'):
-            kernels = {r["name"]: r["ms"] for r in json.loads(line)["kernels"]}
+            kernels = {_CTAS.sub("", r["name"]): r["ms"]
+                       for r in json.loads(line)["kernels"]}
             continue
         m = _BUNDLE.match(line)
         if m:

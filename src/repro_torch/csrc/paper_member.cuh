@@ -12,48 +12,52 @@
 // where the block divides (descriptor i[3] rows per CTA), so the planner's
 // ratios keep their proportions when bundle.cu applies them to CTAs:
 // maxpool 512 CTAs of 16 rows, upsample 256 of 16, im2col 256 of 16, hist
-// 512 of 4, bnstats 512 of (128 rows x 128 columns), hash_like 128 of 32
-// rows.  ethash_like departs: 16 slices of 32 output rows x 8 runs of 16 DAG
+// 512 of 4, hash_like 128 of 32 rows.  bnstats departs: 8 CTAs a step, 256
+// of 64 rows x all columns at the defaults, one wave at two CTAs an SM.
+// ethash_like departs too: 16 slices of 32 output rows x 8 runs of 16 DAG
 // blocks = 128 CTAs (one per grid step), which keeps its partials at 2 MB.
 //
-// Bounds on the card (H100 SXM: 3.35 TB/s, 67 TFLOP/s fp32): maxpool,
-// upsample, im2col, bnstats and hist by bytes; ethash_like (34 MB and 2.17
-// GFLOP at the defaults) and hash_like by fp32 operations.  The streaming
-// bodies move 16-byte vectors; ethash_like keeps w (64 KB) and a 32 x 128
-// fp32 tile in shared memory, each thread owns a 4 x 4 output block and
-// walks k in order; hash_like keeps w in registers and the state in shared
-// memory (see its body).  Both use explicit fmaf (the build uses -fmad=false,
-// so nothing else is contracted).  tanh is tanhf.
+// Bounds on the card (H100 SXM: 3.35 TB/s, 67 TFLOP/s fp32, 495 TFLOP/s
+// TF32): maxpool, upsample, im2col, bnstats and hist by bytes; hash_like by
+// fp32 operations; ethash_like (34 MB and 2.17 GFLOP at the defaults) by its
+// three TF32 products on the tensor cores.  The streaming bodies move
+// 16-byte vectors; hash_like keeps w in registers and the state in shared
+// memory, ethash_like w and a ring of DAG blocks in shared memory (see the
+// bodies).  Products are explicit fmaf or mma.sync (the build uses
+// -fmad=false, so nothing else is contracted).  tanh is tanhf.
 //
 // Carries.  bnstats, hist and ethash_like accumulate across TPU grid steps.
-// Here every CTA writes a partial into a workspace its member owns (the
-// wrapper allocates it per launch, the tickets zeroed), calls
+// Here every CTA writes a partial into a workspace its member owns, calls
 // __threadfence(), and takes an atomic ticket of its group; the CTA that draws
 // the group's last ticket sums the group's partials in CTA order, writes the
-// output and resets the ticket.  No CTA waits for another, so a launch with
-// more CTAs than fit on the card cannot deadlock, and no float atomic touches
-// an output, so the result is the same whatever order the CTAs run in: a
-// fused launch is bitwise equal to the member launched alone.  hist's
-// partials are integer counts, summed with integer atomics (exact in any
-// order).
+// output (or, for bnstats, the group's partial, summed in group order by the
+// last group's last CTA) and resets the ticket.  No CTA waits for another, so
+// a launch with more CTAs than fit on the card cannot deadlock, and no float
+// atomic touches an output, so the result is the same whatever order the
+// CTAs run in: a fused launch is bitwise equal to the member launched alone.
+// hist's partials are integer counts, summed with integer atomics (exact in
+// any order).  The workspace persists across launches (kernels/cuda.py
+// workspace, zeroed once when it is made): each body leaves its tickets,
+// and hist its counts, at zero when it ends, so a launch allocates nothing.
 //
 // Descriptor: i[0] = R (input rows; the DAG's for ethash_like), i[1] = C,
 // i[2] = dtype (0 bf16, 1 fp32), i[3] = rows per CTA, then per body:
 //   im2col   i[4] = K
-//   bnstats  i[4] = row chunks (CTAs per 128-column slice)
 //   hist     i[4] = bins, f[0] = bins / 8
 //   ethash   i[4] = seed rows (bm), i[5] = runs per slice
 //   hash     i[4] = rounds
 // in = the op's inputs; out[0] = the output; out[1] = workspace (partials,
-// or hist's counts), out[2] = tickets (int, zeroed).
+// or hist's counts), out[2] = tickets (int, zero between launches).
 #pragma once
 
 #include "common.cuh"
 
 #define PS_TILE_C 128      // matmul bodies: columns (= the reference's LANES)
 #define PS_TILE_R 32       // matmul bodies: rows of a tile
-#define PS_SLICE_C 128     // bnstats: columns per CTA
 #define PS_UNROLL 4        // streaming bodies: 16-byte loads in flight per thread
+#define BN_UNROLL 8        // bnstats: 16-byte loads in flight per thread
+#define BN_GROUP 16        // bnstats: CTAs whose partials one CTA sums first
+#define ET_SLOTS 2         // ethash_like: DAG blocks in the cp.async ring
 
 // ---------------------------------------------------------------------------
 // maxpool: (R, C) -> (R/2, C), the max of each row pair
@@ -165,63 +169,113 @@ __device__ void im2col_member(const MemberDesc& m, int cta) {
 }
 
 // ---------------------------------------------------------------------------
-// bnstats: (R, C) -> (2, C) fp32 column sums of x and x*x.  CTA = (row chunk,
-// 128-column slice), local = chunk * n_slices + slice; a lane owns 4
-// columns, a warp every 8th row; the 8 warps' sums are added in warp order,
-// the chunks' partials in chunk order by the slice's last CTA.
+// bnstats: (R, C) -> (2, C) fp32 column sums of x and x*x, one wave of CTAs
+// streaming contiguous rows.  CTA = a run of i[3] rows x all C columns (64
+// rows, 128 KB fp32 at the defaults: 256 CTAs, 2 an SM).  Thread t owns the
+// 16-byte column vector t % nv (nv = C / VEC vectors a row) of the row group
+// t / nv (G = 256 / nv groups; threads past G * nv only combine): it sums the
+// rows g, g + G, ... in row order, BN_UNROLL loads in flight.  The G row
+// groups' sums are added in group order through shared memory ([G][2][C]
+// fp32, 8 KB fp32 / 16 KB bf16), the CTA's partial (2 x C) goes to the
+// workspace, and the combine is two fixed-order levels: the last CTA of each
+// group of BN_GROUP CTAs sums their partials in CTA order, then the last
+// group's last CTA sums the groups' partials in group order into the output.
+// Bound by bytes (32 MB fp32 at the defaults): each thread keeps 8 16-byte
+// loads in flight, so one wave holds 8 MB in flight, and the serial tail is
+// two short sums instead of one CTA's walk through 128 partials.  On the
+// H100 a launch costs ~10 us before its bytes (a 32-CTA one: 6.7 us without
+// the combine, 10 with it), which leaves fp32 at ~0.025 ms; 16 loads in
+// flight, 16 in the combine's sums, 4 or 16 CTAs a step were no faster
+// (scripts/member_variants.py).
+// Workspace: out[1] = [ctas + groups][2][C] fp32, out[2] = groups + 1
+// tickets, reset by the CTAs that draw the last.
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ void ps_ld4(const float* p, float* v) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+template <typename T>
+__device__ __forceinline__ void bn_unpack(const uint4& v, float* f) {
+  if constexpr (sizeof(T) == 4) {
+    const float4 a = *reinterpret_cast<const float4*>(&v);
+    f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+  } else {
+    unpack8(v, f);
+  }
 }
 
-__device__ __forceinline__ void ps_ld4(const bf16* p, float* v) {
-  const uint2 a = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&a.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&a.y));
-  v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
+// out[4 o .. 4 o + 3] = the sum over k < n of src[k * stride + 4 o ...], in
+// k order, for every float4 o < n4 of the CTA
+__device__ __forceinline__ void bn_sum_parts(float* out, const float* src,
+                                             int n, size_t stride, int n4) {
+  for (int o = threadIdx.x; o < n4; o += HF_THREADS) {
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
+    for (int k = 0; k < n; ++k) {
+      const float4 p = __ldcg(reinterpret_cast<const float4*>(src + k * stride) + o);
+      s.x += p.x; s.y += p.y; s.z += p.z; s.w += p.w;
+    }
+    reinterpret_cast<float4*>(out)[o] = s;
+  }
 }
 
 template <typename T>
 __device__ void bnstats_cta(const MemberDesc& m, int cta) {
+  constexpr int VEC = 16 / sizeof(T);
   extern __shared__ __align__(16) unsigned char smem[];
-  float* red = reinterpret_cast<float*>(smem);   // [HF_WARPS][2][128]
-  const int C = m.i[1], rows = m.i[3], chunks = m.i[4];
-  const int n_sl = C / PS_SLICE_C;
-  const int slice = cta % n_sl, chunk = cta / n_sl;
-  const T* x = static_cast<const T*>(m.in[0]);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int c0 = slice * PS_SLICE_C + lane * 4;
-  float s[4] = {0.f, 0.f, 0.f, 0.f}, q[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
-  for (int r = warp; r < rows; r += HF_WARPS) {
-    float v[4];
-    ps_ld4(x + ((size_t)chunk * rows + r) * C + c0, v);
+  float* red = reinterpret_cast<float*>(smem);   // [G][2][C]
+  const int C = m.i[1], rows = m.i[3];
+  const int nv = C / VEC, G = HF_THREADS / nv;
+  const int g = threadIdx.x / nv, cv = threadIdx.x % nv;
+  float s[VEC], q[VEC];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      s[j] += v[j];
-      q[j] += v[j] * v[j];
+  for (int j = 0; j < VEC; ++j) s[j] = q[j] = 0.f;
+  if (g < G) {
+    const uint4* x = reinterpret_cast<const uint4*>(
+        static_cast<const T*>(m.in[0]) + (size_t)cta * rows * C) + cv;
+    for (int r0 = g; r0 < rows; r0 += BN_UNROLL * G) {
+      uint4 v[BN_UNROLL];                        // all loads first
+#pragma unroll
+      for (int u = 0; u < BN_UNROLL; ++u)
+        if (r0 + u * G < rows) v[u] = x[(size_t)(r0 + u * G) * nv];
+#pragma unroll
+      for (int u = 0; u < BN_UNROLL; ++u) {
+        if (r0 + u * G >= rows) break;
+        float f[VEC];
+        bn_unpack<T>(v[u], f);
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          s[j] += f[j];
+          q[j] += f[j] * f[j];
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < VEC; j += 4) {
+      *reinterpret_cast<float4*>(red + (g * 2 + 0) * C + cv * VEC + j) =
+          make_float4(s[j], s[j + 1], s[j + 2], s[j + 3]);
+      *reinterpret_cast<float4*>(red + (g * 2 + 1) * C + cv * VEC + j) =
+          make_float4(q[j], q[j + 1], q[j + 2], q[j + 3]);
     }
   }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    red[(warp * 2 + 0) * PS_SLICE_C + lane * 4 + j] = s[j];
-    red[(warp * 2 + 1) * PS_SLICE_C + lane * 4 + j] = q[j];
-  }
   __syncthreads();
-  // thread t -> (stat t / 128, column t % 128) of this slice
-  const int st = threadIdx.x / PS_SLICE_C, col = threadIdx.x % PS_SLICE_C;
-  float acc = 0.f;
-  for (int w = 0; w < HF_WARPS; ++w) acc += red[(w * 2 + st) * PS_SLICE_C + col];
-  float* part = static_cast<float*>(m.out[1]);   // [cta][2][128]
-  part[(size_t)cta * 2 * PS_SLICE_C + threadIdx.x] = acc;
-  if (!hf_last_of_group(static_cast<int*>(m.out[2]), slice, chunks)) return;
-  float tot = 0.f;
-#pragma unroll 8
-  for (int k = 0; k < chunks; ++k)
-    tot += __ldcg(part + ((size_t)k * n_sl + slice) * 2 * PS_SLICE_C + threadIdx.x);
-  static_cast<float*>(m.out[0])[st * C + slice * PS_SLICE_C + col] = tot;
-  if (threadIdx.x == 0) static_cast<int*>(m.out[2])[slice] = 0;
+  const int n4 = 2 * C / 4, groups = (m.ctas + BN_GROUP - 1) / BN_GROUP;
+  float* part = static_cast<float*>(m.out[1]);   // [ctas + groups][2][C]
+  for (int o = threadIdx.x; o < n4; o += HF_THREADS) {
+    float4 a = reinterpret_cast<const float4*>(red)[o];
+    for (int k = 1; k < G; ++k) {
+      const float4 b = reinterpret_cast<const float4*>(red + k * 2 * C)[o];
+      a.x += b.x; a.y += b.y; a.z += b.z; a.w += b.w;
+    }
+    reinterpret_cast<float4*>(part + (size_t)cta * 2 * C)[o] = a;
+  }
+  int* tickets = static_cast<int*>(m.out[2]);
+  const int grp = cta / BN_GROUP;
+  const int in_grp = min(BN_GROUP, m.ctas - grp * BN_GROUP);
+  if (!hf_last_of_group(tickets, grp, in_grp)) return;
+  float* gpart = part + (size_t)m.ctas * 2 * C;
+  bn_sum_parts(gpart + (size_t)grp * 2 * C, part + (size_t)grp * BN_GROUP * 2 * C,
+               in_grp, 2 * C, n4);
+  if (threadIdx.x == 0) tickets[grp] = 0;
+  if (!hf_last_of_group(tickets, groups, groups)) return;
+  bn_sum_parts(static_cast<float*>(m.out[0]), gpart, groups, 2 * C, n4);
+  if (threadIdx.x == 0) tickets[groups] = 0;
 }
 
 __device__ void bnstats_member(const MemberDesc& m, int cta) {
@@ -232,7 +286,8 @@ __device__ void bnstats_member(const MemberDesc& m, int cta) {
 // hist: (R, C) fp32 -> (1, bins) fp32 counts of trunc(clip((x+4)*bins/8,
 // 0, bins-1)), the reference's binning in fp32.  A CTA counts its rows in
 // shared memory, adds its counts to the int workspace, and the last CTA
-// writes them out as floats.
+// writes them out as floats.  Workspace: out[1] = the bins' int counts,
+// out[2] = one ticket; the last CTA zeroes both, as a launch finds them.
 // ---------------------------------------------------------------------------
 __device__ void hist_member(const MemberDesc& m, int cta) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -264,40 +319,6 @@ __device__ void hist_member(const MemberDesc& m, int cta) {
   if (threadIdx.x == 0) static_cast<int*>(m.out[2])[0] = 0;
 }
 
-// ---------------------------------------------------------------------------
-// The matmul tile: acc (4 x 4 per thread) = A (32 x 128, shared) @ W (128 x
-// 128, shared), k in order.  Warp w owns rows 4w..4w+3, lane l columns
-// 4l..4l+3: the A reads are broadcasts, the W reads one 512-byte row.
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ void ps_tile_matmul(const float* A, const float* W,
-                                               float acc[4][4]) {
-  const int r0 = (threadIdx.x >> 5) * 4, c0 = (threadIdx.x & 31) * 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-#pragma unroll 2
-  for (int k = 0; k < PS_TILE_C; k += 4) {
-    float a[4][4], b[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float4 t = *reinterpret_cast<const float4*>(A + (r0 + i) * PS_TILE_C + k);
-      a[i][0] = t.x; a[i][1] = t.y; a[i][2] = t.z; a[i][3] = t.w;
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const float4 t = *reinterpret_cast<const float4*>(W + (k + kk) * PS_TILE_C + c0);
-      b[kk][0] = t.x; b[kk][1] = t.y; b[kk][2] = t.z; b[kk][3] = t.w;
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i][kk], b[kk][j], acc[i][j]);
-  }
-}
-
 // copy a (rows x 128) fp32 matrix from device memory into shared memory
 __device__ __forceinline__ void ps_load_rows(float* dst, const float* src,
                                              int rows) {
@@ -317,7 +338,7 @@ __device__ __forceinline__ void ps_load_rows(float* dst, const float* src,
 // warp the same address: one wavefront) and sums its NC columns over its KG k
 // in k order (fmaf from 0): HS_RG x NC independent chains.  The groups'
 // partials go to shared memory ([G][RS][128] fp32, 64 KB at RS = 128 / G rows a
-// step, so the member keeps the 80 KB a CTA of ethash_like), and the 256
+// step, so the member keeps its 80 KB a CTA), and the 256
 // threads add each output's G partials in group order, apply tanhf and write S:
 // two barriers a step, 32 / RS steps a round.  The member runs KG = 32
 // (quarters: 2 columns a lane, all 32 rows in one step) and HS_RG = 8.  On the
@@ -436,70 +457,196 @@ __device__ __noinline__ void hash_member(const MemberDesc& m, int cta) {
 }
 
 // ---------------------------------------------------------------------------
-// ethash_like: out (bm, 128) = sum over DAG blocks s of tanh((x + dag_s) @ w).
+// ethash_like: out (bm, 128) = sum over DAG blocks s of tanh((x + dag_s) @ w),
+// the product in 3xTF32 on the tensor cores.
+//
 // CTA local = run * n_slices + slice owns output rows [32 slice, +32) over
-// the run's DAG blocks, in order; the next block's rows are loaded into
-// registers while this block's product runs.  The slice's last CTA adds the
-// runs' partials in run order.
+// the run's DAG blocks, in order.  w (64 KB) is copied once a CTA into shared
+// memory, row-major; the run's 32-row slices of the DAG blocks stream through
+// a ring of ET_SLOTS slots by cp.async (block b + 1 lands while block b is
+// multiplied), and each thread adds x to the 16-byte chunks it copied, so
+// A = x + dag forms in place.  Warp w owns output rows 16 (w / 4) .. +16 and
+// columns 32 (w % 4) .. +32: one m16 tile x four n8 tiles of
+// mma.sync.m16n8k8 TF32.  Each fp32 operand is split at its fragment load
+// into hi = rna(v) and lo = rna(v - hi) (rna: cvt.rna.tf32.f32's rounding,
+// done by integer operations; see tf32_rna), and three
+// products run into one fp32 accumulator: lo.hi, hi.lo, then hi.hi.  That
+// keeps about fp32's accuracy (a scratch emulation at the defaults: 1.8e-6 of
+// 1 + |want| against fp64, fp32 7.8e-7; one TF32 product 8.3e-3, over the
+// 1e-4 tolerance).  tanhf and the sum over the run's blocks stay in
+// registers; the order of every output is fixed, so a fused launch is
+// bitwise equal to the member alone.
+//
+// Fragments.  k runs in groups of 16: mma step s of group p takes as lane
+// t's (t = lane % 4) logical k = t and t + 4 the k rows 16 p + 4 t + 2 s and
+// + 1, so a lane's A values for both steps are one 16-byte load of its row.
+// n tile j holds the warp's columns 4 n' + j (n' = 0..7), so lane g's (g =
+// lane / 4) w values are four 16-byte loads, columns 4 g .. 4 g + 3 of the
+// rows 16 p + 4 t .. + 3, and a row's accumulators are 8 adjacent columns,
+// 8 t .. 8 t + 7.  Both tiles XOR their 16-byte chunks (A by the row's
+// parity, w by (k / 4) % 4) so each 8 lanes of a load hit 32 distinct banks.
+//
+// Bound by the tensor cores (3 x 2.17 GFLOP at 495 TFLOP/s: 0.0130 ms at the
+// defaults; 34 MB at 3.35 TB/s: 0.0102 ms).  On the H100 mma.sync reaches
+// about 200 TFLOP/s of TF32, so the three products alone take ~33 us of the
+// body's ~0.065 ms; the fragments' shared-memory loads (192 KB a block a
+// CTA), tanhf (~5 us) and the launch fill the rest.  Neither twice the CTAs
+// (two an SM), a second accumulator, the k loop unrolled whole nor the split
+// left out moved it by more than 2% (scripts/member_variants.py).  hf_paper's
+// __launch_bounds__(256, 2) holds the body to 128 registers (not inlined, so
+// the bundle instances keep their allocation) and it takes 96 KB of shared
+// memory (w 64 KB + two 16 KB slots), so two CTAs of any paper launch still
+// fit an SM.  Workspace: out[1] = [ctas][32][128] fp32 partials, out[2] =
+// a ticket per slice; the slice's last CTA adds the runs' partials in run
+// order and resets its ticket.
 // ---------------------------------------------------------------------------
-__device__ void ethash_member(const MemberDesc& m, int cta) {
+// float offset of 16-byte chunk c of row r of the A tile / of w's row k
+__device__ __forceinline__ int et_a_at(int r, int c) {
+  return r * PS_TILE_C + ((c ^ ((r & 1) << 2)) << 2);
+}
+__device__ __forceinline__ int et_w_at(int k, int c) {
+  return k * PS_TILE_C + ((c ^ (((k >> 2) & 3) << 1)) << 2);
+}
+
+// fp32 -> TF32 as cvt.rna.tf32.f32 (round to nearest, ties away from zero),
+// by integer operations on the bits: add half of TF32's last place to the
+// magnitude (a carry moves into the exponent), clear the 13 bits TF32 drops.
+// The same result for every finite value short of overflow, in two
+// full-rate integer instructions: the conversion itself issues at a
+// fraction of their rate and held the body at 0.0786 ms
+// (scripts/member_variants.py ethash_cvt).
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+// v = hi + lo, both TF32: hi = v rounded, lo = the (exact) rest rounded
+__device__ __forceinline__ void tf32_split(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(v);
+  lo = tf32_rna(v - __uint_as_float(hi));
+}
+
+// d += a (16x8, row) * b (8x8, col), TF32 in, fp32 accumulate
+__device__ __forceinline__ void mma_tf32_1688(float* d, const uint32_t* a,
+                                              const uint32_t* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// this thread's chunks (row idx / 32, chunk idx % 32, idx = thread + 256 u)
+// of a 32-row DAG slice into a ring slot
+__device__ __forceinline__ void et_copy_block(float* slot, const float* src) {
+#pragma unroll
+  for (int u = 0; u < PS_TILE_R * PS_TILE_C / 4 / HF_THREADS; ++u) {
+    const int idx = threadIdx.x + u * HF_THREADS, r = idx >> 5, c = idx & 31;
+    cp_async16(slot + et_a_at(r, c), src + r * PS_TILE_C + 4 * c, true);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __noinline__ void ethash_member(const MemberDesc& m, int cta) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* W = reinterpret_cast<float*>(smem);
-  float* A = W + PS_TILE_C * PS_TILE_C;
+  float* ring = W + PS_TILE_C * PS_TILE_C;            // [ET_SLOTS][32][128]
   const int R = m.i[0], bm = m.i[4], runs = m.i[5];
   const int n_sl = bm / PS_TILE_R, per_run = R / bm / runs;
   const int slice = cta % n_sl, run = cta / n_sl;
-  const float4* dag = static_cast<const float4*>(m.in[0]);
-  const float4* xs = static_cast<const float4*>(m.in[1]);
-  constexpr int NV = PS_TILE_R * PS_TILE_C / 4 / HF_THREADS;   // 4 vectors
-  constexpr int RV = PS_TILE_C / 4;                            // per row
-  const size_t base = (size_t)slice * PS_TILE_R * RV;          // in a block
-  float4 x[NV], d[NV];
-#pragma unroll
-  for (int j = 0; j < NV; ++j) {
-    x[j] = xs[base + threadIdx.x + j * HF_THREADS];
-    d[j] = dag[(size_t)run * per_run * bm * RV + base + threadIdx.x + j * HF_THREADS];
+  const float* dag = static_cast<const float*>(m.in[0]) +
+                     ((size_t)run * per_run * bm + slice * PS_TILE_R) * PS_TILE_C;
+  const float* xs = static_cast<const float*>(m.in[1]) +
+                    (size_t)slice * PS_TILE_R * PS_TILE_C;
+  const float* w = static_cast<const float*>(m.in[2]);
+  for (int idx = threadIdx.x; idx < PS_TILE_C * PS_TILE_C / 4; idx += HF_THREADS) {
+    const int k = idx >> 5, c = idx & 31;
+    cp_async16(W + et_w_at(k, c), w + k * PS_TILE_C + 4 * c, true);
   }
-  ps_load_rows(W, static_cast<const float*>(m.in[2]), PS_TILE_C);
-  float tot[4][4], acc[4][4];
+  et_copy_block(ring, dag);                 // w and block 0: one group
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int m0 = (warp >> 2) * 16, n0 = (warp & 3) * 32;
+  float tot[4][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < 4; ++j)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) tot[i][j] = 0.f;
+    for (int i = 0; i < 4; ++i) tot[j][i] = 0.f;
   for (int b = 0; b < per_run; ++b) {
-    float4* a4 = reinterpret_cast<float4*>(A);
+    float* A = ring + (b % ET_SLOTS) * PS_TILE_R * PS_TILE_C;
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 #pragma unroll
-    for (int j = 0; j < NV; ++j)
-      a4[threadIdx.x + j * HF_THREADS] =
-          make_float4(x[j].x + d[j].x, x[j].y + d[j].y, x[j].z + d[j].z,
-                      x[j].w + d[j].w);
-    __syncthreads();
-    if (b + 1 < per_run) {
-      const size_t blk = (size_t)(run * per_run + b + 1) * bm * RV + base;
-#pragma unroll
-      for (int j = 0; j < NV; ++j) d[j] = dag[blk + threadIdx.x + j * HF_THREADS];
+    for (int u = 0; u < PS_TILE_R * PS_TILE_C / 4 / HF_THREADS; ++u) {
+      const int idx = threadIdx.x + u * HF_THREADS, r = idx >> 5, c = idx & 31;
+      float4* a = reinterpret_cast<float4*>(A + et_a_at(r, c));
+      const float4 x = __ldg(reinterpret_cast<const float4*>(xs + r * PS_TILE_C) + c);
+      const float4 d = *a;
+      *a = make_float4(x.x + d.x, x.y + d.y, x.z + d.z, x.w + d.w);
     }
-    ps_tile_matmul(A, W, acc);
+    __syncthreads();        // A visible; every warp is past block b - 1
+    if (b + 1 < per_run)
+      et_copy_block(ring + ((b + 1) % ET_SLOTS) * PS_TILE_R * PS_TILE_C,
+                    dag + (size_t)(b + 1) * bm * PS_TILE_C);
+    float acc[4][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int j = 0; j < 4; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) tot[i][j] += tanhf(acc[i][j]);
-    __syncthreads();
+      for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+#pragma unroll 2
+    for (int p = 0; p < PS_TILE_C / 16; ++p) {
+      const float4 v0 = *reinterpret_cast<const float4*>(A + et_a_at(m0 + g, 4 * p + t));
+      const float4 v1 = *reinterpret_cast<const float4*>(A + et_a_at(m0 + g + 8, 4 * p + t));
+      float4 wv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        wv[i] = *reinterpret_cast<const float4*>(
+            W + et_w_at(16 * p + 4 * t + i, (n0 >> 2) + g));
+      const float a0[4] = {v0.x, v1.x, v0.y, v1.y}, a1[4] = {v0.z, v1.z, v0.w, v1.w};
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        uint32_t ah[4], al[4], bh[4][2], bl[4][2];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) tf32_split(s ? a1[i] : a0[i], ah[i], al[i]);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float4 v = wv[2 * s + i];
+          const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j) tf32_split(e[j], bh[j][i], bl[j][i]);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_tf32_1688(acc[j], al, bh[j]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_tf32_1688(acc[j], ah, bl[j]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_tf32_1688(acc[j], ah, bh[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) tot[j][i] += tanhf(acc[j][i]);
   }
-  const int r0 = (threadIdx.x >> 5) * 4, c0 = (threadIdx.x & 31) * 4;
-  float* part = static_cast<float*>(m.out[1]) + (size_t)cta * PS_TILE_R * PS_TILE_C;
+  float* part = static_cast<float*>(m.out[1]) + (size_t)cta * PS_TILE_R * PS_TILE_C +
+                (m0 + g) * PS_TILE_C + n0 + 8 * t;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-    *reinterpret_cast<float4*>(part + (r0 + i) * PS_TILE_C + c0) =
-        make_float4(tot[i][0], tot[i][1], tot[i][2], tot[i][3]);
+  for (int h = 0; h < 2; ++h) {             // rows g and g + 8 of the tile
+    float* row = part + h * 8 * PS_TILE_C;
+    *reinterpret_cast<float4*>(row) =
+        make_float4(tot[0][2 * h], tot[1][2 * h], tot[2][2 * h], tot[3][2 * h]);
+    *reinterpret_cast<float4*>(row + 4) = make_float4(
+        tot[0][2 * h + 1], tot[1][2 * h + 1], tot[2][2 * h + 1], tot[3][2 * h + 1]);
+  }
   if (!hf_last_of_group(static_cast<int*>(m.out[2]), slice, runs)) return;
-  const float* parts = static_cast<const float*>(m.out[1]);
-  float* out = static_cast<float*>(m.out[0]) + (size_t)slice * PS_TILE_R * PS_TILE_C;
-  for (int e = threadIdx.x; e < PS_TILE_R * PS_TILE_C; e += HF_THREADS) {
-    float s = 0.f;
+  const float4* parts = static_cast<const float4*>(m.out[1]);
+  float4* out = static_cast<float4*>(m.out[0]) + (size_t)slice * PS_TILE_R * PS_TILE_C / 4;
+  constexpr int TV = PS_TILE_R * PS_TILE_C / 4;      // float4s of a tile
+  for (int e = threadIdx.x; e < TV; e += HF_THREADS) {
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll 8
-    for (int k = 0; k < runs; ++k)
-      s += __ldcg(parts + ((size_t)k * n_sl + slice) * PS_TILE_R * PS_TILE_C + e);
+    for (int k = 0; k < runs; ++k) {
+      const float4 p = __ldcg(parts + ((size_t)k * n_sl + slice) * TV + e);
+      s.x += p.x; s.y += p.y; s.z += p.z; s.w += p.w;
+    }
     out[e] = s;
   }
   if (threadIdx.x == 0) static_cast<int*>(m.out[2])[slice] = 0;
@@ -510,9 +657,12 @@ __device__ void ethash_member(const MemberDesc& m, int cta) {
 // ---------------------------------------------------------------------------
 __host__ __device__ inline int paper_smem_bytes(const MemberDesc& m) {
   switch (m.kind) {
-    case HF_BNSTATS: return HF_WARPS * 2 * PS_SLICE_C * 4;
+    case HF_BNSTATS: {               // [G][2][C] fp32, G = 256 / (C / VEC)
+      const int nv = m.i[1] / (m.i[2] ? 4 : 8);
+      return HF_THREADS / nv * 2 * m.i[1] * 4;
+    }
     case HF_HIST: return hf_align16(m.i[4] * 4);
-    case HF_ETHASH:
+    case HF_ETHASH: return (PS_TILE_C + ET_SLOTS * PS_TILE_R) * PS_TILE_C * 4;
     case HF_HASH: return (PS_TILE_C + PS_TILE_R) * PS_TILE_C * 4;
     default: return 0;     // maxpool, upsample, im2col
   }

@@ -16,9 +16,12 @@ launcher (sha, blake and blake2b are one body with a ``rounds``
 parameter).  They replace the TPU kernels ``src/repro/kernels/
 paper_suite.py:49`` (maxpool), ``:67`` (upsample), ``:86`` (bnstats),
 ``:108`` (im2col), ``:159`` (hist), ``:129`` (ethash_like) and ``:186``
-(hash_like).  Bounds on the card: the five DL atoms by bytes, ethash_like and
-the hash kernels by fp32 operations (see the source's header for the CTA
-geometry and the carries).
+(hash_like).  Bounds on the card: the five DL atoms by bytes, the hash
+kernels by fp32 operations, ethash_like by its three TF32 products on the
+tensor cores (see the source's header for the CTA geometry and the carries).
+The carries' partials and tickets live in workspaces that persist across
+launches (``cuda.workspace``); each kernel leaves its tickets (and hist its
+counts) at zero, so a launch allocates nothing.
 
 Beside the kernels: one launch record per body and the plain PyTorch
 versions (``maxpool`` ... ``hash_like``, the port of
@@ -31,7 +34,6 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional
 
 import numpy as np
 import torch
@@ -42,8 +44,10 @@ from repro_torch.kernels import cuda
 
 LANES = 128
 CTAS_PER_STEP = 16          # CTAs per TPU grid step of a streaming member
+BN_CTAS_PER_STEP = 8        # bnstats: CTAs per grid step (one wave)
+BN_GROUP = 16               # bnstats: CTAs a first-level combine sums
 TILE_R = 32                 # rows of a matmul tile (csrc/paper_member.cuh)
-SLICE_C = 128               # bnstats columns per CTA
+THREADS = 256               # threads of a CTA (csrc/common.cuh HF_THREADS)
 
 _SRC = "src/repro_torch/csrc/paper_member.cuh"
 _REF = "src/repro/kernels/paper_suite.py"
@@ -160,10 +164,11 @@ def hash_like(x: torch.Tensor, w: torch.Tensor, rounds: int = 16
 @dataclass(frozen=True)
 class PaperMember:
     """One paper body at the op's whole shape: ``R`` input rows (the DAG's
-    for ethash_like) of ``C`` columns, ``rows`` rows per CTA (a row chunk
-    for bnstats, the 32-row tile for the matmul bodies) and ``param`` (im2col
-    K, hist bins, hash rounds, ethash seed rows).  ``ctas`` is the card's
-    launch geometry, separate from the op's TPU ``grid``."""
+    for ethash_like) of ``C`` columns, ``rows`` rows per CTA (all C columns
+    of them for bnstats, the 32-row tile for the matmul bodies) and
+    ``param`` (im2col K, hist bins, hash rounds, ethash seed rows).
+    ``ctas`` is the card's launch geometry, separate from the op's TPU
+    ``grid``."""
     body: str
     R: int
     C: int
@@ -178,8 +183,6 @@ class PaperMember:
 
     @property
     def ctas(self) -> int:
-        if self.body == "bnstats":
-            return self.R // self.rows * (self.C // SLICE_C)
         if self.body == "ethash_like":
             return self.param // TILE_R * self.runs
         return self.R // self.rows
@@ -196,23 +199,30 @@ class PaperMember:
                 "ethash_like": 2.0 * R * C * C + 3.0 * R * C,
                 "hash_like": p * (2.0 * R * C * C + 2.0 * R * C)}[self.body]
 
-    def workspace(self, device) -> tuple[Optional[torch.Tensor],
-                                         Optional[torch.Tensor]]:
-        """(partials, zeroed tickets) of one launch, on ``device``."""
+    def workspace_sizes(self) -> tuple[tuple[int, torch.dtype], ...]:
+        """(elements, dtype) of the carry's workspace: bnstats the CTAs' and
+        the groups' (2, C) partials and a ticket per group plus the last
+        level's; ethash_like a 32 x 128 partial per CTA and a ticket per
+        slice; hist its int counts and one ticket; () for the others."""
         f32, i32 = torch.float32, torch.int32
         if self.body == "bnstats":
-            return (torch.empty(self.ctas * 2 * SLICE_C, dtype=f32,
-                                device=device),
-                    torch.zeros(self.C // SLICE_C, dtype=i32, device=device))
+            groups = -(-self.ctas // BN_GROUP)
+            return (((self.ctas + groups) * 2 * self.C, f32),
+                    (groups + 1, i32))
         if self.body == "ethash_like":
-            return (torch.empty(self.ctas * TILE_R * LANES, dtype=f32,
-                                device=device),
-                    torch.zeros(self.param // TILE_R, dtype=i32,
-                                device=device))
+            return ((self.ctas * TILE_R * LANES, f32),
+                    (self.param // TILE_R, i32))
         if self.body == "hist":
-            ws = torch.zeros(self.param + 1, dtype=i32, device=device)
-            return ws[:self.param], ws[self.param:]
-        return None, None
+            return ((self.param, i32), (1, i32))
+        return ()
+
+    def workspace(self, device) -> tuple[torch.Tensor, ...]:
+        """The carry's workspace on ``device``, kept across launches
+        (``cuda.workspace``: made zeroed once; the kernel leaves its tickets,
+        and hist its counts, at zero), or () for the bodies without one."""
+        sizes = self.workspace_sizes()
+        return cuda.workspace(device, ("paper", self.body), sizes) \
+            if sizes else ()
 
     def io(self) -> tuple[list, list]:
         """((shape, dtype) of each input, of each output) the kernel takes."""
@@ -238,8 +248,8 @@ class PaperMember:
                              f"{self.dtype}")
         R, C = self.R, self.C
         bad = C % (16 // itemsize(self.dtype)) or R % self.rows
-        if self.body == "bnstats":
-            bad = bad or C % SLICE_C
+        if self.body == "bnstats":        # a 16-byte vector a thread a row
+            bad = bad or C // (16 // itemsize(self.dtype)) > THREADS
         elif self.body == "hash_like":
             bad = bad or C != LANES
         elif self.body == "ethash_like":
@@ -254,9 +264,7 @@ class PaperMember:
         md.kind = _KIND[self.body]
         md.i[0], md.i[1], md.i[2] = R, C, _DTYPES[self.dtype]
         md.i[3], md.i[4] = self.rows, self.param
-        if self.body == "bnstats":
-            md.i[4] = R // self.rows
-        elif self.body == "ethash_like":
+        if self.body == "ethash_like":
             md.i[5] = self.runs
         elif self.body == "hist":
             md.f[0] = self.param / 8.0
@@ -272,8 +280,7 @@ class PaperMember:
         md.out[0] = cuda.check(outs[0], f"{self.body} out", shape, dt)
         ws = self.workspace(outs[0].device)
         for j, t in enumerate(ws, start=1):
-            if t is not None:
-                md.out[j] = t.data_ptr()
+            md.out[j] = t.data_ptr()
         return ws
 
 
@@ -334,9 +341,9 @@ def make_upsample(R=4096, C=512, dtype=torch.float32, bm=256):
 def make_bnstats(R=16384, C=512, dtype=torch.float32, bm=512):
     if R % bm:
         raise ValueError(f"bnstats: R={R}, bm={bm}")
-    chunks = _per_step(bm, max(1, CTAS_PER_STEP // max(1, C // SLICE_C)))
+    rows = bm // _per_step(bm, BN_CTAS_PER_STEP)
     op = _op("bnstats", R // bm,
-             PaperMember("bnstats", R, C, dtype, bm // chunks), bnstats,
+             PaperMember("bnstats", R, C, dtype, rows), bnstats,
              (Operand((R, C), dtype, (bm, C), _blk),),
              (Operand((2, C), torch.float32, (2, C), _const),),
              3.0 * R * C, _bytes(((R, C), dtype), ((2, C), torch.float32)),

@@ -723,6 +723,102 @@ def test_hash_fused_bitwise_equal_alone(cuda_dev, name, partner, ratios):
     assert _same(fused, hfuse.run_native(ops)(*ins))
 
 
+def _paper_workspaces(member):
+    """The persistent workspaces (``cuda.workspace``) of a paper member's
+    shape."""
+    return [ws for k, ws in cuda._WORKSPACES.items()
+            if k[2][0] == ("paper", member.body)
+            and k[2][1] == member.workspace_sizes()]
+
+
+# (R_dag, bm, runs (None: the member's), DAG scale)
+ETHASH_CASES = [(512, 128, None, 1.0), (65536, 512, None, 1.0),
+                (4096, 256, 1, 1.0), (4096, 256, 8, 1.0),
+                (65536, 512, None, 10.0)]
+
+
+@pytest.mark.parametrize("R_dag,bm,runs,scale", ETHASH_CASES,
+                         ids=lambda v: str(v))
+def test_ethash_3xtf32(cuda_dev, R_dag, bm, runs, scale):
+    """ethash_like on 3xTF32 tensor cores (csrc/paper_member.cuh
+    ethash_member): SMALL_KW, the defaults, R_dag 4096 / bm 256 at 1 and 8
+    runs a slice and the DAG scaled x10 (tanh near saturation), within
+    paper_suite.TOLERANCE of the plain version; two launches bitwise equal,
+    the persistent workspace reused and its tickets back at zero."""
+    from repro_torch.kernels import paper_suite as ps
+    op, mk, plain = ps.make_ethash_like(R_dag=R_dag, bm=bm)
+    if runs is not None:
+        op = dataclasses.replace(op, member=dataclasses.replace(
+            op.member, runs=runs))
+    dag, x, w = mk(_gen(50 + R_dag // bm), "cuda")
+    dag = dag * scale
+    run = hfuse.run_single(op)
+    (got,) = run(dag, x, w)
+    torch.cuda.synchronize()
+    want = plain(dag, x, w)
+    ps.max_error(got, want, "ethash_like")
+    if scale > 1.0:     # tanh pushed toward +-1: sums of a third of +-blocks
+        assert float(want.abs().max()) > (R_dag // bm) / 4
+    (again,) = run(dag, x, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    (ws,) = _paper_workspaces(op.member)
+    assert int(ws[1].abs().sum()) == 0
+
+
+BNSTATS_SHAPES = [(256, 128, 64), (1024, 256, 128), (4096, 512, 512),
+                  (16384, 512, 512), (2048, 384, 256), (1024, 1024, 128)]
+
+
+@pytest.mark.parametrize("dtype", [F32, BF])
+@pytest.mark.parametrize("R,C,bm", BNSTATS_SHAPES, ids=str)
+def test_bnstats_one_wave(cuda_dev, R, C, bm, dtype):
+    """bnstats as one wave of row-run CTAs with a two-level combine: every
+    tested shape (and C 384, 1024: row groups of 2 and 1) in both dtypes
+    within paper_suite.TOLERANCE of the plain version, BN_CTAS_PER_STEP
+    CTAs a grid step; two launches bitwise equal, every ticket back at
+    zero."""
+    from repro_torch.kernels import paper_suite as ps
+    op, mk, plain = ps.make_bnstats(R=R, C=C, bm=bm, dtype=dtype)
+    assert op.ctas == op.grid * ps.BN_CTAS_PER_STEP
+    (x,) = mk(_gen(60 + C), "cuda")
+    run = hfuse.run_single(op)
+    (got,) = run(x)
+    torch.cuda.synchronize()
+    ps.max_error(got, plain(x), "bnstats")
+    assert torch.equal(got, run(x)[0])
+    torch.cuda.synchronize()
+    (ws,) = _paper_workspaces(op.member)
+    assert int(ws[1].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("name", ["bnstats", "ethash_like", "hist"])
+def test_paper_carries_allocate_nothing(cuda_dev, name):
+    """The carries' workspaces persist: launches after the first take no
+    new workspace and no memory beyond their output, are bitwise equal, and
+    leave every ticket (and hist's counts) at zero."""
+    from repro_torch.kernels import paper_suite as ps
+    op, mk, _plain = ps.ALL_KERNELS[name]()
+    ins = mk(_gen(70), "cuda")
+    run = hfuse.run_single(op)
+    (first,) = run(*ins)
+    kept = dict(cuda._WORKSPACES)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    for _ in range(3):
+        (out,) = run(*ins)
+    torch.cuda.synchronize()
+    assert cuda._WORKSPACES.keys() == kept.keys() and all(
+        a is b for k in kept for a, b in zip(kept[k], cuda._WORKSPACES[k]))
+    assert torch.cuda.memory_allocated() - before <= \
+        out.numel() * out.element_size() + 512
+    assert torch.equal(out, first)
+    (ws,) = _paper_workspaces(op.member)
+    assert int(ws[-1].abs().sum()) == 0
+    if name == "hist":
+        assert int(ws[0].abs().sum()) == 0
+
+
 # ---------------------------------------------------------------------------
 # Paged attention: bitwise against the contiguous members
 # ---------------------------------------------------------------------------

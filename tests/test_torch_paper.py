@@ -16,6 +16,8 @@ must be equal.
 from __future__ import annotations
 
 import math
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -117,15 +119,83 @@ def test_registry_and_bundles_match_reference():
             assert len(tmks) == len(tplains) == len(names)
 
 
+def _defines(name: str) -> dict[str, int]:
+    """The integer ``#define``s of a kernel source."""
+    text = (Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+            / "csrc" / name).read_text()
+    return {k: int(v) for k, v in
+            re.findall(r"^#define (\w+) (\d+)\b", text, re.M)}
+
+
+CUH = {**_defines("common.cuh"), **_defines("paper_member.cuh")}
+
+
 def test_member_geometry():
-    """16 CTAs per grid step for the streaming members at the defaults,
-    ethash_like one per step (16 slices x 8 runs)."""
-    ctas = {n: ps.ALL_KERNELS[n]()[0] for n in NAMES}
-    for n, op in ctas.items():
-        want = op.grid * (1 if n == "ethash_like" else ps.CTAS_PER_STEP)
+    """At the defaults: the streaming members CTAS_PER_STEP CTAs per grid
+    step, bnstats BN_CTAS_PER_STEP (256 CTAs of 64 rows x all columns: one
+    wave at two CTAs an SM of the card's 132), ethash_like one per step (16
+    slices x 8 runs); the wrapper's constants are the kernel source's, and
+    the carries' workspaces have a partial per CTA (bnstats: and per group
+    of BN_GROUP CTAs) and a ticket per group."""
+    assert (ps.TILE_R, ps.THREADS, ps.BN_GROUP) == (
+        CUH["PS_TILE_R"], CUH["HF_THREADS"], CUH["BN_GROUP"])
+    ops = {n: ps.ALL_KERNELS[n]()[0] for n in NAMES}
+    per_step = {"ethash_like": 1, "bnstats": ps.BN_CTAS_PER_STEP}
+    for n, op in ops.items():
+        want = op.grid * per_step.get(n, ps.CTAS_PER_STEP)
         assert op.ctas == want, (n, op.ctas, op.grid)
-    eth = ctas["ethash_like"].member
+    bn = ops["bnstats"].member
+    assert bn.rows * bn.ctas == bn.R and bn.ctas <= 2 * 132
+    groups = -(-bn.ctas // ps.BN_GROUP)
+    assert bn.workspace_sizes() == (
+        ((bn.ctas + groups) * 2 * bn.C, torch.float32),
+        (groups + 1, torch.int32))
+    eth = ops["ethash_like"].member
     assert (eth.param // ps.TILE_R, eth.runs) == (16, 8)
+    assert eth.workspace_sizes() == (
+        (eth.ctas * ps.TILE_R * ps.LANES, torch.float32),
+        (eth.param // ps.TILE_R, torch.int32))
+    assert ops["hist"].member.workspace_sizes() == (
+        (ops["hist"].member.param, torch.int32), (1, torch.int32))
+    assert ops["maxpool"].member.workspace_sizes() == ()
+
+
+# (body, R, C, dtype, rows, param, runs): what the kernels do not take
+REFUSED = [
+    ("bnstats", 256, 130, torch.float32, 8, 0, 1),     # not 16-byte vectors
+    ("bnstats", 256, 2048, torch.float32, 8, 0, 1),    # > 256 vectors a row
+    ("bnstats", 256, 4096, torch.bfloat16, 8, 0, 1),
+    ("bnstats", 250, 128, torch.float32, 8, 0, 1),     # rows per CTA
+    ("ethash_like", 512, 64, torch.float32, 32, 128, 1),    # C != 128
+    ("ethash_like", 480, 128, torch.float32, 32, 48, 1),    # bm % 32
+    ("ethash_like", 520, 128, torch.float32, 32, 128, 1),   # R % bm
+    ("ethash_like", 512, 128, torch.float32, 32, 128, 3),   # runs
+    ("hash_like", 256, 256, torch.float32, 32, 16, 1),      # C != 128
+    ("maxpool", 256, 128, torch.float32, 3, 0, 1),          # odd rows
+]
+# ... and the widths the new bnstats geometry takes beyond the tested ones
+TAKEN = [
+    ("bnstats", 256, 384, torch.float32, 8, 0, 1),     # 96 vectors, G 2
+    ("bnstats", 256, 1024, torch.float32, 8, 0, 1),
+    ("bnstats", 256, 2048, torch.bfloat16, 8, 0, 1),
+    ("ethash_like", 512, 128, torch.float32, 32, 128, 4),
+]
+
+
+@pytest.mark.parametrize("case", REFUSED, ids=lambda c: f"{c[0]}-C{c[2]}")
+def test_member_describe_refuses(case):
+    body, R, C, dt, rows, param, runs = case
+    with pytest.raises(ValueError, match="unsupported"):
+        ps.PaperMember(body, R, C, dt, rows, param, runs).describe(
+            cuda.MemberDesc())
+
+
+@pytest.mark.parametrize("case", TAKEN, ids=lambda c: f"{c[0]}-C{c[2]}")
+def test_member_describe_takes(case):
+    body, R, C, dt, rows, param, runs = case
+    md = cuda.MemberDesc()
+    ps.PaperMember(body, R, C, dt, rows, param, runs).describe(md)
+    assert (md.i[0], md.i[1], md.i[3]) == (R, C, rows)
 
 
 @pytest.mark.parametrize("name,kw", META_CASES,
@@ -139,8 +209,7 @@ def test_member_describes_every_tested_shape(name, kw):
     op.member.describe(md)
     m = op.member
     assert md.kind and md.i[0] == m.R and md.i[1] == m.C
-    rows = {"bnstats": m.rows * m.ctas // (m.C // ps.SLICE_C),
-            "ethash_like": m.R}.get(m.body, m.rows * m.ctas)
+    rows = m.R if m.body == "ethash_like" else m.rows * m.ctas
     assert rows == m.R
     want_in, want_out = m.io()
     assert [(o.shape, o.dtype) for o in op.inputs] == want_in
@@ -258,11 +327,13 @@ def test_quickstart_pair_plans_like_the_example():
 # (d) measured search with the step-count proxy
 # ---------------------------------------------------------------------------
 # The proxy charges the launch's CTA count.  The streaming and hash members
-# launch 16 CTAs per grid step, ethash_like one: where ethash_like shares a
-# bundle, or where a ratio does not divide 16 x grid as it divides the grid,
-# the proxy is no longer proportional to the reference's, and the measured
-# schedule may differ.  These are the triples where it does (ROADMAP §3).
-PROXY_DIFFERS = {("ethash_like", "hist", "blake_like")}
+# launch 16 CTAs per grid step, bnstats 8 and ethash_like one: where bnstats
+# or ethash_like shares a bundle, or where a ratio does not divide 16 x grid
+# as it divides the grid, the proxy is no longer proportional to the
+# reference's, and the measured schedule may differ.  These are the triples
+# where it does (ROADMAP §3).
+PROXY_DIFFERS = {("ethash_like", "hist", "blake_like"),
+                 ("bnstats", "im2col", "blake2b_like")}
 
 
 @pytest.mark.parametrize("names", jps.paper_triples(), ids="+".join)
