@@ -9,29 +9,39 @@ non-zero exit code and no result line.
   1. card    the card's name and power limit (nvidia-smi).
   2. build   nvcc the kernel library from ``src/repro_torch/csrc`` for
              sm_90a (keyed by a hash of the sources, under ``build/``);
-             ptxas's registers, stack and spills of the bundle kernel's five
+             ptxas's registers, stack and spills of the bundle kernel's six
              instances, the tiled matmul and flash kernels and the non-inlined member
              bodies (prefill, moe_gmm, the bf16 row GEMM, decode, RMSNorm's
              row_norm per type, the hash body hash_member and the ethash
-             body ethash_member, which must not spill), the tiled matmul's
+             body ethash_member, which must not spill, nor may hf_paper,
+             which holds the maxpool and hist bodies inlined, and hf_stream,
+             which holds maxpool's), the
+             tiled matmul's
              shared memory a CTA, and the HMMA (mma.sync) instructions in
              their SASS (cuobjdump; a body's span inside a bundle instance
              from the ELF symbol table): the bf16 flash kernels, the
              prefill, moe_gmm, row GEMM and ethash (3xTF32) bodies must hold
-             some, the hash body and hf_paper outside its bodies none; and
+             some, the hash body, hf_stream and hf_paper outside its bodies
+             none; and
              the HGMMA
              (wgmma) instructions of the bf16 tiled matmul, which must hold
              some.
   2b. paper  the paper suite (``kernels/paper_suite.py``) at the
              reference's default sizes: each of the 9 atoms at its defaults
              and at ``SMALL_KW`` (and the bf16 forms of maxpool, upsample,
-             im2col, bnstats) against its plain version, bitwise or within
-             ``paper_suite.TOLERANCE``, timed beside its plain version, its
+             im2col, bnstats, hist) against its plain version, bitwise or
+             within ``paper_suite.TOLERANCE``; maxpool with NaN and +-inf in
+             either row of a pair and hist with NaN, +-inf and values past
+             +-4, fp32 and bf16, against their plain versions (NaN compared
+             equal); each timed beside its plain version, its
              bound and, for maxpool and upsample, one PyTorch call (bnstats
              in bf16 too, beside ``torch.var_mean`` as a same-bytes
-             yardstick); each hash variant's time a round and share of its
-             bound; ethash_like's share of its 3xTF32, byte and fp32 FMA
-             bounds.  Then,
+             yardstick; maxpool and hist in bf16 too, with their share of
+             the bound, their time after a flush that reads instead of
+             zeroing, the instance a launch runs, and for hist
+             ``torch.histc`` as a same-bytes yardstick); each hash variant's
+             time a round and share of its bound; ethash_like's share of its
+             3xTF32, byte and fp32 FMA bounds.  Then,
              with every launch counter reset, the path itself:
              ``launch/paper.py``'s main over the 16 pairs and 4 triples with
              ``--measure gpu`` (plan, cost-model and measured search; native,
@@ -316,6 +326,29 @@ def host_us(torch, fn, n: int = 200, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def flushed_ms(torch, fn, flush, reps: int = 20) -> float:
+    """Median ms of ``fn`` (CUDA events) after a flush that reads the
+    ``flush`` buffer instead of zeroing it (``core/timing.py`` median_ms):
+    L2 then holds clean lines, so the kernel's misses write nothing back;
+    warm, with no flush at all, when ``flush`` is None.  A spin first keeps
+    the queue ahead of the events, as in ``median_ms``."""
+    from repro_torch.core.timing import SLEEP_CYCLES
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    torch.cuda._sleep(SLEEP_CYCLES)
+    for _ in range(reps):
+        if flush is not None:
+            flush.sum()
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        fn()
+        e.record()
+        times.append((s, e))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in times)
+
+
 def ulps(torch, a, b) -> int:
     """Largest distance in units in the last place between two tensors of
     one float dtype (0 when bitwise equal)."""
@@ -368,17 +401,18 @@ def sdpa_prefill(torch, q, k, v, off):
 
 def build_report() -> None:
     """Registers, stack and spills (ptxas, from the build) of the bundle
-    kernel's five instances, the tiled matmul and attention kernels and the
+    kernel's six instances, the tiled matmul and attention kernels and the
     members' non-inlined bodies (the fp32 row GEMM's, RMSNorm's, the hash
     and the ethash body among them; a spill in RMSNorm's, the hash or ethash
-    body or the fp32 flash kernel fails the run),
+    body, hf_paper (the maxpool and hist bodies are inlined there) or
+    hf_stream (maxpool's) or the fp32 flash kernel fails the run),
     the tiled matmul's shared memory a CTA; the count of HMMA (mma.sync)
     instructions in each kernel's SASS and in each body inside the bundle
     instances, and of HGMMA (wgmma) in the tiled matmul's, where the
     toolkit has cuobjdump.  Fails if a tensor-core route (bf16 flash, the
     prefill, moe_gmm, bf16 row GEMM and ethash bodies; wgmma in the bf16
-    tiled matmul) holds none, or if the fp32 flash kernel, the hash body or
-    hf_paper outside its bodies holds any."""
+    tiled matmul) holds none, or if the fp32 flash kernel, the hash body,
+    hf_stream or hf_paper outside its bodies holds any."""
     from repro_torch.kernels import cuda
     use = cuda.ptxas_usage()
     keys = {"hf_bundle<false>": "hf_bundleILb0E",
@@ -386,6 +420,7 @@ def build_report() -> None:
             "hf_rows<false>": "hf_rowsILb0E",
             "hf_rows<true>": "hf_rowsILb1E",
             "hf_paper": "hf_paper",
+            "hf_stream": "hf_stream",
             "mm_bf16_kernel": "mm_bf16_kernel",
             "mm_f32_kernel": "mm_f32_kernel",
             "flash_mma_kernel<64>": "flash_mma_kernelILi64E",
@@ -416,7 +451,8 @@ def build_report() -> None:
         print(f"[build] ptxas {label}: registers {u.get('registers', '-')}, "
               f"stack {u['stack']} B, spill stores {u['spill_stores']} B, "
               f"spill loads {u['spill_loads']} B", flush=True)
-        if label in norms or label in hashes or label == "flash_f32_kernel":
+        if label in norms or label in hashes or label in (
+                "flash_f32_kernel", "hf_paper", "hf_stream"):
             check(u["spill_stores"] == 0 and u["spill_loads"] == 0,
                   f"{label} spills")
     print(f"[build] mm_f32_kernel: {cuda.matmul_smem(True)} B of dynamic "
@@ -448,6 +484,7 @@ def build_report() -> None:
     check(shown["hash_member"] == 0,
           "the hash body's SASS holds HMMA (it multiplies in fp32)")
     check(paper_out == 0, "hf_paper outside its bodies holds HMMA")
+    check(shown["hf_stream"] == 0, "hf_stream holds HMMA")
     check(shown["ethash_member"] > 0,
           "the ethash body's SASS holds no HMMA (3xTF32 on mma.sync)")
     for body in bodies:
@@ -532,6 +569,36 @@ def paper_error(ps, got, want, body) -> float:
         raise PhaseError(str(e)) from e
 
 
+def paper_specials(torch, ps, hfuse, g, dev) -> None:
+    """maxpool with NaN and +-inf in either row of a pair, hist with NaN,
+    +-inf and values past +-4, fp32 and bf16, at their defaults: equal to
+    their plain versions, NaN compared equal; a NaN in either row of a pair
+    comes out of maxpool, and hist counts every value."""
+    nan, inf = float("nan"), float("inf")
+    for name in ("maxpool", "hist"):
+        for dtype in (torch.float32, torch.bfloat16):
+            op, mk, plain = ps.ALL_KERNELS[name](dtype=dtype)
+            (x,) = mk(g, dev)
+            x[0, 0], x[1, 1], x[2, 2], x[3, 2] = nan, nan, nan, nan
+            x[4, 3], x[5, 4], x[6, 5], x[7, 6] = inf, -inf, 9.0, -9.0
+            (got,) = hfuse.run_single(op)(x)
+            want = plain(x)
+            check(got.shape == want.shape and got.dtype == want.dtype
+                  and torch.equal(got.isnan(), want.isnan())
+                  and torch.equal(got.nan_to_num(), want.nan_to_num()),
+                  f"{name} {dtype} with NaN and inf differs from plain")
+            if name == "maxpool":
+                check(bool(got[0, :2].isnan().all())
+                      and bool(got[1, 2].isnan()),
+                      f"maxpool {dtype} drops a NaN")
+            else:
+                check(float(got.sum()) == x.numel(),
+                      f"hist {dtype} does not count every value")
+    print("[paper] maxpool (NaN, +-inf in either row) and hist (NaN, +-inf, "
+          "+-9) in fp32 and bf16 equal to their plain versions, NaN "
+          "compared equal", flush=True)
+
+
 def phase_paper(torch, dev) -> tuple[list[dict], dict]:
     from repro_torch.core import autotuner, hfuse
     from repro_torch.kernels import cuda, registry
@@ -552,7 +619,7 @@ def phase_paper(torch, dev) -> tuple[list[dict], dict]:
     timed = []
     for name, make in ps.ALL_KERNELS.items():
         dtypes = [torch.float32] + ([torch.bfloat16] if name in (
-            "maxpool", "upsample", "im2col", "bnstats") else [])
+            "maxpool", "upsample", "im2col", "bnstats", "hist") else [])
         for kw in ({}, ps.SMALL_KW[name]):
             for dtype in dtypes:
                 op, mk, plain = make(**kw, dtype=dtype)
@@ -561,8 +628,10 @@ def phase_paper(torch, dev) -> tuple[list[dict], dict]:
                 err = paper_error(ps, got, plain(*ins), op.member.body)
                 check(torch.equal(got, hfuse.run_single(op)(*ins)[0]),
                       f"{name} differs between two launches")
-                if not kw and (dtype == torch.float32 or name == "bnstats"):
+                if not kw and (dtype == torch.float32 or name in (
+                        "bnstats", "maxpool", "hist")):
                     timed.append((name, op, ins, plain, err))
+    paper_specials(torch, ps, hfuse, g, dev)
     for name, op, ins, plain, err in timed:
         run = hfuse.run_single(op)
         x, m = ins[0], op.member
@@ -592,6 +661,25 @@ def phase_paper(torch, dev) -> tuple[list[dict], dict]:
                   f"{r['bound_ms']:.4f} ms; same-bytes yardstick "
                   f"torch.var_mean(x, 0, correction=0) {vm:.4f} ms (other "
                   f"outputs, not a library time)", flush=True)
+        if m.body in ("maxpool", "hist"):
+            read = flushed_ms(torch, lambda: run(*ins), flush)
+            out = torch.empty(op.outputs[0].shape, dtype=op.outputs[0].dtype,
+                              device=dev)
+            inst, per_sm = cuda.launch_instance([m], [ins], [(out,)])
+            extra = ""
+            if m.body == "hist" and m.dtype == torch.float32:
+                # one PyTorch call reading x once for counts of 128 bins:
+                # the same bytes, but it drops values outside [-4, 4] where
+                # hist clips them into its end bins, so it is no library_ms
+                hc = median_ms(lambda: torch.histc(x, m.param, -4, 4), flush)
+                extra = (f"; same-bytes yardstick torch.histc(x, {m.param}, "
+                         f"-4, 4) {hc:.4f} ms (drops values outside [-4, 4]: "
+                         f"not a library time)")
+            print(f"[paper] {m.body}{dt}: {r['ms']:.4f} ms, "
+                  f"{r['bound_ms'] / r['ms']:.1%} of its bound "
+                  f"{r['bound_ms']:.4f} ms; after a reading flush "
+                  f"{read:.4f} ms; launch runs {inst}, {per_sm} CTAs an SM"
+                  f"{extra}", flush=True)
         if m.body == "ethash_like":
             by_bytes = op.hbm_bytes / HBM_BYTES_S * 1e3
             fma = m.ops / FP32_FLOPS * 1e3

@@ -47,8 +47,7 @@ PATCHES = {
     "tkw32": ("csrc/attention_mma.cuh", (
         ("return D <= 64 ? 64 : 32;", "return 32;"),)),
     "no_prefill": ("csrc/bundle.cu", (
-        ("      case HF_PREFILL_ATTN: prefill_attn_member(m, local); break;\n",
-         ""),)),
+        ("      HF_CASE(HF_PREFILL_ATTN, prefill_attn_member);\n", ""),)),
 }
 
 

@@ -1,25 +1,33 @@
 #!/usr/bin/env python3
-"""The paper suite's matmul and reduction members on the card, as they are
-and in source variants, at the paper suite's defaults.
+"""The paper suite's members on the card, as they are and in source
+variants, at the paper suite's defaults.
 
   python3 scripts/member_variants.py [--variants loop_only,no_tanh,...]
+      [--cases hist,maxpool_bf16,maxpool_produced,launch,...] [--rounds N]
 
 For the tree as it is (first and last) and for each variant built from a
 patched copy of ``src/repro_torch`` under ``build/member_variants/<name>/``
-(all libraries built at once, then one process each, in turn): ptxas's
-registers and spills of the hash and ethash bodies and ``hf_paper``; sha,
-blake and blake2b (4096 x 128 fp32, 16 / 24 / 20 rounds), ethash_like,
-bnstats (fp32 and bf16) and hist at their defaults, and bnstats at SMALL_KW
-(its fixed cost): time (median of 20, CUDA events, L2 flushed by zeroing
-a 256 MB buffer as ``core/timing.py`` does, and again after a flush that
-reads it, which leaves L2 full of clean lines instead of dirty ones),
-microseconds a round, share of the bound (the hash kernels' fp32
+(all libraries built at once, then one process each, in turn; with
+``--rounds N`` the tree and the variants take N turns each, interleaved,
+before the tree's last): ptxas's
+registers and spills of the hash and ethash bodies, ``hf_paper`` and
+``hf_stream``; sha, blake and blake2b (4096 x 128 fp32, 16 / 24 / 20
+rounds), ethash_like, bnstats, hist and maxpool (fp32 and bf16) at their
+defaults, and bnstats at SMALL_KW (its fixed cost): time (median of 20,
+CUDA events, L2 flushed by zeroing a 256 MB buffer as ``core/timing.py``
+does; again after a flush that reads it, which leaves L2 full of clean
+lines instead of dirty ones, and warm, with no flush; a case ending in
+``_produced`` times the member after a producer, ``x.copy_(src)``, that
+writes its input just before it, as a layer's output is written before the
+next layer reads it: the pair and the copy alone, after a zeroing flush and
+warm, and their difference), microseconds a round, share of the bound (the hash kernels' fp32
 operations, ethash_like's three TF32 products, bnstats' and hist's bytes)
 and max |err| against the plain version; the SM clock and power draw under
 blake_like.
 
-Variants (no_tanh, no_combine, loop_only, ethash_no_tanh and
-bnstats_no_combine give wrong outputs: they time what a part costs):
+Variants (no_tanh, no_combine, loop_only, ethash_no_tanh,
+bnstats_no_combine, hist_no_combine and empty_body give wrong outputs: they
+time what a part costs):
   eighths      the hash body with 16-deep k groups (eighths), 4 columns a
                lane, 16 rows a step, 4 rows at once: half the state bytes a
                fmaf, twice the partials
@@ -44,6 +52,36 @@ bnstats_no_combine give wrong outputs: they time what a part costs):
   bnstats_tail16  bnstats' combine levels with 16 loads in flight a thread
   bnstats_4    bnstats at 4 CTAs a grid step (128 CTAs of 128 rows)
   bnstats_16   bnstats at 16 CTAs a grid step (512 CTAs of 32 rows)
+  maxpool_cached  maxpool's loads and stores without the streaming hint
+               (ld.global.cs / st.global.cs: evict first)
+  maxpool_ld_cs  maxpool's loads with the streaming hint, its stores without
+  maxpool_st_cs  maxpool's stores with the streaming hint, its loads without
+  hist_cached  hist's loads without the streaming hint
+  maxpool_policy  maxpool's loads evict-first in L2 by an access policy
+               (createpolicy + ld.global.L2::cache_hint) instead of
+               ld.global.cs
+  hist_no_combine  hist without its last-CTA combine (wrong output: what
+               the ticket and the combine cost)
+  hist_2 / hist_8  hist at 2 / 8 CTAs a grid step (64 / 256 CTAs)
+  no_stream    one-member maxpool launches in hf_paper instead of the
+               narrow instance hf_stream
+  hist_stream  one-member hist launches in hf_stream too
+  maxpool_8    maxpool at 8 CTAs a grid step (256 CTAs of 32 rows: one
+               wave at two CTAs an SM)
+  empty_body   the maxpool body returns at once: what an hf_paper launch
+               costs with its dispatch and no work (the launch cases'
+               maxpool at 512 and 64 CTAs)
+  own_kernels  beside hf_paper, kernels of the script's own (built only in
+               this copy): an empty __global__ without parameters and one
+               taking the bundle's 1.5 KB descriptor, at 512 and 64 CTAs,
+               and the maxpool and hist bodies each in a __global__ of its
+               own (their own register allocation, no member dispatch)
+
+The launch cases (``--cases launch``) take a paper launch's fixed cost
+apart: maxpool at its defaults (512 CTAs) and at 1024 rows (64 CTAs), hist
+at its defaults, an empty event window, and in ``own_kernels`` its kernels;
+each timed after a zeroing flush (``core/timing.py``), after a reading
+flush and warm (no flush: code, descriptor and data may sit in L2).
 
 Needs the card and the CUDA toolkit.
 """
@@ -58,11 +96,54 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+from chip_smoke import flushed_ms  # noqa: E402  (the reading-flush timer)
 _PM = "csrc/paper_member.cuh"
 _TANH4 = ("            make_float4(tanhf(a.x), tanhf(a.y), tanhf(a.z), "
           "tanhf(a.w));")
 _NO_COMBINE = ("      for (int u = 0; u < RV / HF_THREADS; ++u) {",
                "      for (int u = 0; u < 0; ++u) {")
+
+
+# own_kernels: kernels of this script's own, appended to csrc/bundle.cu
+_OWN = """
+__global__ void mv_empty() {}
+__global__ void mv_empty_desc(const __grid_constant__ BundleDesc b) {}
+__global__ void __launch_bounds__(HF_THREADS, 2)
+    mv_maxpool(const __grid_constant__ MemberDesc m) {
+  maxpool_member(m, blockIdx.x);
+}
+__global__ void __launch_bounds__(HF_THREADS, 2)
+    mv_hist(const __grid_constant__ MemberDesc m) {
+  hist_member(m, blockIdx.x);
+}
+extern "C" int mv_launch(int which, const BundleDesc* b, int grid, int smem,
+                         void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (which) {
+    case 0: mv_empty<<<grid, HF_THREADS, 0, s>>>(); break;
+    case 1: mv_empty_desc<<<grid, HF_THREADS, 0, s>>>(*b); break;
+    case 2: mv_maxpool<<<grid, HF_THREADS, smem, s>>>(b->m[0]); break;
+    default: mv_hist<<<grid, HF_THREADS, smem, s>>>(b->m[0]); break;
+  }
+  return (int)cudaGetLastError();
+}
+"""
+
+
+# maxpool_policy: a 16-byte load whose L2 line is evict-first by an access
+# policy (createpolicy), leaving L1 and the hit path as they are
+_POLICY_LD = """__device__ __forceinline__ uint4 ps_ld_ef(const uint4* p) {
+  uint4 r;
+  asm volatile(
+      "{\\n .reg .b64 pol;\\n"
+      " createpolicy.fractional.L2::evict_first.b64 pol, 1.0;\\n"
+      " ld.global.L2::cache_hint.v4.u32 {%0,%1,%2,%3}, [%4], pol;\\n}\\n"
+      : "=r"(r.x), "=r"(r.y), "=r"(r.z), "=r"(r.w) : "l"(p));
+  return r;
+}
+
+"""
 
 
 # variant -> ((file under src/repro_torch, ((old, new), ...)), ...)
@@ -120,9 +201,68 @@ PATCHES = {
                           "BN_CTAS_PER_STEP = 4 "),)),),
     "bnstats_16": ((_WS, (("BN_CTAS_PER_STEP = 8 ",
                            "BN_CTAS_PER_STEP = 16 "),)),),
+    "maxpool_cached": ((_PM, (
+        ("        a[u] = __ldcs(x + (2 * r) * cv + c);\n        b[u] = "
+         "__ldcs(x + (2 * r + 1) * cv + c);",
+         "        a[u] = x[(2 * r) * cv + c];\n        b[u] = x[(2 * r + 1) * "
+         "cv + c];"),
+        ("      __stcs(out + v, ", "      *(out + v) = ("))),),
+    "maxpool_ld_cs": ((_PM, (("      __stcs(out + v, ",
+                              "      *(out + v) = ("),)),),
+    "maxpool_st_cs": ((_PM, (
+        ("        a[u] = __ldcs(x + (2 * r) * cv + c);\n        b[u] = "
+         "__ldcs(x + (2 * r + 1) * cv + c);",
+         "        a[u] = x[(2 * r) * cv + c];\n        b[u] = x[(2 * r + 1) * "
+         "cv + c];"),)),),
+    "hist_cached": ((_PM, (("    if (v < n) a[u] = __ldcs(x + v);",
+                            "    if (v < n) a[u] = x[v];"),)),),
+    "maxpool_policy": ((_PM, (
+        ("__device__ __forceinline__ float ps_max(float a, float b) {",
+         _POLICY_LD + "__device__ __forceinline__ float ps_max(float a, "
+         "float b) {"),
+        ("        a[u] = __ldcs(x + (2 * r) * cv + c);\n        b[u] = "
+         "__ldcs(x + (2 * r + 1) * cv + c);",
+         "        a[u] = ps_ld_ef(x + (2 * r) * cv + c);\n        b[u] = "
+         "ps_ld_ef(x + (2 * r + 1) * cv + c);"))),),
+    "hist_no_combine": ((_PM, (("  if (!hf_last_of_group(ticket, 0, m.ctas)) "
+                                "return;", "  return;"),)),),
+    "hist_2": ((_WS, (("HIST_CTAS_PER_STEP = 4 ",
+                       "HIST_CTAS_PER_STEP = 2 "),)),),
+    "hist_8": ((_WS, (("HIST_CTAS_PER_STEP = 4 ",
+                       "HIST_CTAS_PER_STEP = 8 "),)),),
+    "no_stream": (("csrc/bundle.cu", (
+        ("  if (b.n == 1 && !(kinds & ~HF_KINDS_STREAM)) return HF_I_STREAM;\n",
+         ""),)),),
+    "hist_stream": (("csrc/bundle.cu", (
+        ("#define HF_KINDS_STREAM HF_KIND(HF_MAXPOOL)",
+         "#define HF_KINDS_STREAM (HF_KIND(HF_MAXPOOL) | HF_KIND(HF_HIST))"),
+        )),),
+    "maxpool_8": ((_WS, (("rows = bm // _per_step(bm, CTAS_PER_STEP, 2)",
+                          "rows = bm // _per_step(bm, 8, 2)"),)),),
+    "empty_body": ((_PM, (("__device__ void maxpool_member(const MemberDesc& "
+                           "m, int cta) {\n",
+                           "__device__ void maxpool_member(const MemberDesc& "
+                           "m, int cta) {\n  if (cta >= 0) return;\n"),)),),
+    "own_kernels": (("csrc/bundle.cu", (("}  // extern \"C\"\n",
+                                         "}  // extern \"C\"\n" + _OWN),)),),
 }
 PTXAS = {"hash_member": "11hash_member",
-         "ethash_member": "13ethash_member", "hf_paper": "hf_paper"}
+         "ethash_member": "13ethash_member", "hf_paper": "hf_paper",
+         "hf_stream": "hf_stream",
+         "mv_maxpool": "mv_maxpool", "mv_hist": "mv_hist"}
+# --cases: name -> (factory, bf16, at SMALL_KW); "launch" is the launch cases
+MEMBER_CASES = {
+    "sha_like": ("sha_like", False, False),
+    "blake_like": ("blake_like", False, False),
+    "blake2b_like": ("blake2b_like", False, False),
+    "ethash_like": ("ethash_like", False, False),
+    "bnstats": ("bnstats", False, False),
+    "bnstats_bf16": ("bnstats", True, False),
+    "hist": ("hist", False, False), "hist_bf16": ("hist", True, False),
+    "maxpool": ("maxpool", False, False),
+    "maxpool_bf16": ("maxpool", True, False),
+    "bnstats_small": ("bnstats", False, True),
+}
 
 
 def variant_root(name: str) -> Path:
@@ -144,7 +284,7 @@ def variant_root(name: str) -> Path:
     return root
 
 
-def probe(root: Path, label: str) -> None:
+def probe(root: Path, label: str, cases: list[str]) -> None:
     sys.path.insert(0, str(root / "src"))
     import torch
 
@@ -164,18 +304,35 @@ def probe(root: Path, label: str) -> None:
     g = torch.Generator(device=dev)
     g.manual_seed(2222)
     flush = flush_buffer(dev)
-    cases = [(n, {}) for n in ("sha_like", "blake_like", "blake2b_like",
-                               "ethash_like", "bnstats")]
-    cases += [("bnstats", {"dtype": torch.bfloat16}), ("hist", {}),
-              ("bnstats", ps.SMALL_KW["bnstats"])]
-    for name, kw in cases:
+    # a second of matrix products first, so the first case does not find
+    # the card at its idle clocks
+    a = torch.randn(4096, 4096, device=dev)
+    t_end = time.perf_counter() + 1.0
+    while time.perf_counter() < t_end:
+        for _ in range(20):
+            a @ a
+        torch.cuda.synchronize()
+    del a
+    for case in cases:
+        if case == "launch":
+            launch_cases(torch, label, g, flush)
+            continue
+        produced = case.endswith("_produced")
+        name, bf16, small = MEMBER_CASES[case.removesuffix("_produced")]
+        kw = dict(ps.SMALL_KW[name]) if small else {}
+        if bf16:
+            kw["dtype"] = torch.bfloat16
         op, mk, plain = ps.ALL_KERNELS[name](**kw)
         m = op.member
         ins = mk(g, dev)
         run = hfuse.run_single(op)
-        err = (run(*ins)[0] - plain(*ins)).abs().max().item()
+        if produced:
+            produced_case(torch, label, case, run, ins, flush)
+            continue
+        err = (run(*ins)[0].float() - plain(*ins).float()).abs().max().item()
         ms = median_ms(lambda: run(*ins), flush)
-        clean = clean_ms(torch, lambda: run(*ins), flush)
+        clean = flushed_ms(torch, lambda: run(*ins), flush)
+        warm = flushed_ms(torch, lambda: run(*ins), None)
         if m.body == "ethash_like":      # three TF32 products
             b = max(3 * 2.0 * m.R * m.C * m.C / 495e12,
                     op.hbm_bytes / 3.35e12) * 1e3
@@ -185,34 +342,93 @@ def probe(root: Path, label: str) -> None:
             b = op.hbm_bytes / 3.35e12 * 1e3
         rnd = (f", {ms / m.param * 1e3:.3f} us a round"
                if m.body == "hash_like" else "")
-        what = name + "".join(f" {k}={v}" for k, v in kw.items())
-        print(f"[{label}] {what} ({op.ctas} CTAs): {ms:.4f} ms{rnd}, "
+        print(f"[{label}] {case} ({op.ctas} CTAs): {ms:.4f} ms{rnd}, "
               f"{b / ms:.1%} of its bound {b:.4f} ms, max|err| {err:.3g} "
               f"(tolerance {ps.TOLERANCE[m.body]:g}); after a reading flush "
-              f"{clean:.4f} ms", flush=True)
+              f"{clean:.4f} ms, warm {warm:.4f} ms", flush=True)
         if name == "blake_like":
             clocks(label, lambda: run(*ins))
 
 
-def clean_ms(torch, fn, flush, reps: int = 20) -> float:
-    """Median ms of ``fn`` (CUDA events) after a flush that reads the
-    buffer: L2 then holds clean lines, so the kernel's misses write nothing
-    back (``median_ms`` zeroes it, leaving 50 MB of dirty lines).  A spin
-    first keeps the queue ahead of the events, as in ``median_ms``."""
-    from repro_torch.core.timing import SLEEP_CYCLES
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    torch.cuda._sleep(SLEEP_CYCLES)
-    for _ in range(reps):
-        flush.sum()
-        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        s.record()
-        fn()
-        e.record()
-        times.append((s, e))
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in times)
+def produced_case(torch, label, case, run, ins, flush) -> None:
+    """The member right after a producer that writes its first input
+    (``x.copy_(src)``, src a copy of x): the pair and the producer alone,
+    after a zeroing flush and warm, and the member's share (their
+    difference)."""
+    from repro_torch.core.timing import median_ms
+    src = ins[0].clone()
+
+    def copy():
+        ins[0].copy_(src)
+
+    def pair():
+        ins[0].copy_(src)
+        run(*ins)
+    parts = []
+    for what, timer in (("zeroing flush", lambda f: median_ms(f, flush)),
+                        ("warm", lambda f: flushed_ms(torch, f, None))):
+        both, alone = timer(pair), timer(copy)
+        parts.append(f"{what}: producer + member {both:.4f} ms, producer "
+                     f"{alone:.4f} ms, member {both - alone:.4f} ms")
+    print(f"[{label}] {case}: " + "; ".join(parts), flush=True)
+
+
+def launch_cases(torch, label, g, flush) -> None:
+    """A paper launch's fixed cost taken apart: each case after a zeroing
+    flush, after a reading flush and warm (see the module's docstring)."""
+    import ctypes
+
+    from repro_torch.core import hfuse
+    from repro_torch.core.timing import median_ms
+    from repro_torch.kernels import cuda
+    from repro_torch.kernels import paper_suite as ps
+
+    dev = flush.device
+    lib = cuda.library()
+    own = hasattr(lib, "mv_launch")
+    if own:
+        lib.mv_launch.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                                  ctypes.c_int, ctypes.c_void_p]
+        lib.mv_launch.restype = ctypes.c_int
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    kept = []                       # descriptors, operands, workspaces
+
+    def mv(which, desc, grid, smem):
+        def call():
+            err = lib.mv_launch(which, ctypes.byref(desc), grid, smem, stream)
+            if err:
+                raise RuntimeError(f"mv_launch {which}: error {err}")
+        return call
+
+    timed = [("empty event window", lambda: None)]
+    for name, kw in (("maxpool", {}), ("maxpool", {"R": 1024}),
+                     ("hist", {})):
+        op, mk, _plain = ps.ALL_KERNELS[name](**kw)
+        ins = mk(g, dev)
+        run = hfuse.run_single(op)
+        outs = [torch.empty(o.shape, dtype=o.dtype, device=dev)
+                for o in op.outputs]
+        inst = cuda.launch_instance([op.member], [ins], [outs])[0]
+        timed.append((f"{name} {inst} {op.ctas} CTAs",
+                      lambda run=run, ins=ins: run(*ins)))
+        if not own or kw:
+            continue
+        desc, smem, held = cuda._describe([op.member], [ins], [outs], [1])
+        kept.append((desc, ins, outs, held))
+        timed.append((f"{name} body in its own kernel {op.ctas} CTAs",
+                      mv(2 if name == "maxpool" else 3, desc, op.ctas, smem)))
+    if own:
+        desc = kept[0][0]
+        for grid in (512, 64):
+            timed += [(f"empty __global__ {grid} CTAs", mv(0, desc, grid, 0)),
+                      (f"empty __global__ with the descriptor {grid} CTAs",
+                       mv(1, desc, grid, 0))]
+    for what, fn in timed:
+        zero = median_ms(fn, flush)
+        read = flushed_ms(torch, fn, flush)
+        warm = flushed_ms(torch, fn, None)
+        print(f"[{label}] launch {what}: zeroing flush {zero:.4f} ms, "
+              f"reading flush {read:.4f} ms, warm {warm:.4f} ms", flush=True)
 
 
 def clocks(label: str, fn, seconds: float = 2.0) -> None:
@@ -242,11 +458,15 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         description="The hash members and their variants, on the card.")
     ap.add_argument("--variants", default=",".join(PATCHES))
+    ap.add_argument("--cases", default=",".join([*MEMBER_CASES, "launch"]),
+                    help="member cases and/or 'launch' (default: all)")
+    ap.add_argument("--rounds", type=int, default=1,
+                    help="turns of the tree and the variants, interleaved")
     ap.add_argument("--probe", help=argparse.SUPPRESS)
     ap.add_argument("--label", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.probe:
-        probe(Path(args.probe), args.label)
+        probe(Path(args.probe), args.label, args.cases.split(","))
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -266,10 +486,11 @@ def main(argv=None) -> int:
             if label == "as is":
                 return 1
             del roots[label]
-    order = list(roots) + ["as is"]
+    order = list(roots) * args.rounds + ["as is"]
     for label in order:
         subprocess.run([sys.executable, __file__, "--probe",
-                        str(roots[label]), "--label", label], check=True)
+                        str(roots[label]), "--label", label, "--cases",
+                        args.cases], check=True)
     return 0
 
 

@@ -39,6 +39,12 @@
 //                    (csrc/row_member.cuh row_chain_kernel: ROW_CHAIN, the
 //                    GEMM's EPI_* epilogues, the fp32 GEMM's staged producer),
 //   hf_paper         the paper suite's members only,
+//   hf_stream        one maxpool member alone: its body only, up to 64
+//                    registers (4 CTAs an SM, so maxpool's 512 CTAs run in
+//                    one wave; hf_paper's 127 registers hold a launch to two
+//                    CTAs an SM).  On the H100 maxpool runs 0.6 us faster
+//                    here than in hf_paper in fp32, 1.0-1.9 us in bf16
+//                    (scripts/member_variants.py no_stream; PERF.md §6),
 //   hf_bundle<false> / <true>  any other mix (every member kind; <true>
 //                    when a row member needs a chain body).
 //
@@ -61,6 +67,7 @@
   (HF_KIND(HF_MAXPOOL) | HF_KIND(HF_UPSAMPLE) | HF_KIND(HF_BNSTATS) |    \
    HF_KIND(HF_IM2COL) | HF_KIND(HF_HIST) | HF_KIND(HF_ETHASH) |          \
    HF_KIND(HF_HASH))
+#define HF_KINDS_STREAM HF_KIND(HF_MAXPOOL)
 #define HF_KINDS_ALL                                                     \
   (HF_KINDS_ROW | HF_KINDS_PAPER | HF_KIND(HF_DECODE_ATTN) |             \
    HF_KIND(HF_PREFILL_ATTN) | HF_KIND(HF_ADAMW) | HF_KIND(HF_MOE_GMM))
@@ -116,26 +123,31 @@ __global__ void __launch_bounds__(HF_THREADS, 2)
     hf_paper(const __grid_constant__ BundleDesc b) {
   hf_run<false, HF_KINDS_PAPER>(b);
 }
+__global__ void __launch_bounds__(HF_THREADS, 4)
+    hf_stream(const __grid_constant__ BundleDesc b) {
+  hf_run<false, HF_KINDS_STREAM>(b);
+}
 
 typedef void (*HfKernel)(BundleDesc);
 enum { HF_I_MIXED, HF_I_MIXED_CHAINS, HF_I_ROWS, HF_I_ROWS_CHAINS, HF_I_PAPER,
-       HF_INSTANCES };
+       HF_I_STREAM, HF_INSTANCES };
 static const HfKernel hf_instances[HF_INSTANCES] = {
     hf_bundle<false>, hf_bundle<true>, hf_rows<false>, hf_rows<true>,
-    hf_paper};
+    hf_paper, hf_stream};
 static const char* const hf_instance_names[HF_INSTANCES] = {
     "hf_bundle<false>", "hf_bundle<true>", "hf_rows<false>", "hf_rows<true>",
-    "hf_paper"};
+    "hf_paper", "hf_stream"};
 
 // Allow `smem` bytes of dynamic shared memory per CTA of instance `inst`
 // (0 = allowed).
 static int hf_allow_smem(int inst, int smem) {
   static int granted[HF_INSTANCES] = {48 * 1024, 48 * 1024, 48 * 1024,
-                                      48 * 1024, 48 * 1024};
+                                      48 * 1024, 48 * 1024, 48 * 1024};
   return hf_allow_kernel_smem(hf_instances[inst], smem, &granted[inst]);
 }
 
-// The narrowest instance that holds every member of the launch.
+// The narrowest instance that holds every member of the launch (a fused
+// paper launch stays in hf_paper).
 static int hf_instance(const BundleDesc& b) {
   unsigned kinds = 0;
   bool chains = false;
@@ -145,6 +157,7 @@ static int hf_instance(const BundleDesc& b) {
   }
   if (!(kinds & ~HF_KINDS_ROW))
     return chains ? HF_I_ROWS_CHAINS : HF_I_ROWS;
+  if (b.n == 1 && !(kinds & ~HF_KINDS_STREAM)) return HF_I_STREAM;
   if (!(kinds & ~HF_KINDS_PAPER)) return HF_I_PAPER;
   return chains ? HF_I_MIXED_CHAINS : HF_I_MIXED;
 }

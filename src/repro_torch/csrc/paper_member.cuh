@@ -11,9 +11,10 @@
 // plans on the grid).  The streaming bodies take 16 CTAs per TPU grid step
 // where the block divides (descriptor i[3] rows per CTA), so the planner's
 // ratios keep their proportions when bundle.cu applies them to CTAs:
-// maxpool 512 CTAs of 16 rows, upsample 256 of 16, im2col 256 of 16, hist
-// 512 of 4, hash_like 128 of 32 rows.  bnstats departs: 8 CTAs a step, 256
-// of 64 rows x all columns at the defaults, one wave at two CTAs an SM.
+// maxpool 512 CTAs of 16 rows, upsample 256 of 16, im2col 256 of 16,
+// hash_like 128 of 32 rows.  bnstats departs: 8 CTAs a step, 256 of 64 rows
+// x all columns at the defaults, one wave at two CTAs an SM; so does hist:
+// 4 a step, 128 CTAs of 16 rows, one wave.
 // ethash_like departs too: 16 slices of 32 output rows x 8 runs of 16 DAG
 // blocks = 128 CTAs (one per grid step), which keeps its partials at 2 MB.
 //
@@ -35,8 +36,8 @@
 // a launch with more CTAs than fit on the card cannot deadlock, and no float
 // atomic touches an output, so the result is the same whatever order the
 // CTAs run in: a fused launch is bitwise equal to the member launched alone.
-// hist's partials are integer counts, summed with integer atomics (exact in
-// any order).  The workspace persists across launches (kernels/cuda.py
+// hist's partials are integer counts, summed with integer atomics (exact
+// in any order).  The workspace persists across launches (kernels/cuda.py
 // workspace, zeroed once when it is made): each body leaves its tickets,
 // and hist its counts, at zero when it ends, so a launch allocates nothing.
 //
@@ -60,11 +61,32 @@
 #define ET_SLOTS 2         // ethash_like: DAG blocks in the cp.async ring
 
 // ---------------------------------------------------------------------------
-// maxpool: (R, C) -> (R/2, C), the max of each row pair
+// maxpool: (R, C) -> (R/2, C), the max of each row pair.  CTA = i[3] rows
+// (16 at the defaults: 512 CTAs, 16 a grid step); a thread issues all its
+// 16-byte loads of both rows of its pairs (8 fp32, 4 bf16 at the defaults)
+// before its first max, with the streaming hint (ld.global.cs: evict first
+// in L2), and stores with st.global.cs.  The max is torch.amax's and the
+// reference's: a NaN in either row propagates (a when a is NaN or a > b,
+// else b: the combine ATen's amax applies to the pair, bit for bit, signed
+// zeros included).  Bound by bytes (16 + 8 MB fp32 at the defaults: 0.0075
+// ms).  On the H100 the hints take 1.4 us off when a producer has just
+// written the input (0.0082 against 0.0096 ms with neither, no flush) and
+// cost 3 us when maxpool runs back to back on one input, which the load
+// hint evicts for the next run (0.0125 against 0.0093 ms) (scripts/
+// member_variants.py maxpool_produced, maxpool_cached).  One-member
+// launches run in bundle.cu's hf_stream: 4 CTAs an SM, so the 512 CTAs are
+// one wave.
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ float4 ps_max4(float4 a, float4 b) {
-  return make_float4(fmaxf(a.x, b.x), fmaxf(a.y, b.y), fmaxf(a.z, b.z),
-                     fmaxf(a.w, b.w));
+__device__ __forceinline__ float ps_max(float a, float b) {
+  return (a != a || a > b) ? a : b;
+}
+
+__device__ __forceinline__ uint4 ps_max4(uint4 a, uint4 b) {
+  const float4 x = *reinterpret_cast<const float4*>(&a);
+  const float4 y = *reinterpret_cast<const float4*>(&b);
+  const float4 r = make_float4(ps_max(x.x, y.x), ps_max(x.y, y.y),
+                               ps_max(x.z, y.z), ps_max(x.w, y.w));
+  return *reinterpret_cast<const uint4*>(&r);
 }
 
 __device__ __forceinline__ uint4 ps_max8(uint4 a, uint4 b) {
@@ -73,7 +95,10 @@ __device__ __forceinline__ uint4 ps_max8(uint4 a, uint4 b) {
   uint4 r;
   bf16* o = reinterpret_cast<bf16*>(&r);
 #pragma unroll
-  for (int j = 0; j < 8; ++j) o[j] = bf2f(x[j]) >= bf2f(y[j]) ? x[j] : y[j];
+  for (int j = 0; j < 8; ++j) {
+    const float fx = bf2f(x[j]);
+    o[j] = (fx != fx || fx > bf2f(y[j])) ? x[j] : y[j];
+  }
   return r;
 }
 
@@ -90,23 +115,15 @@ __device__ void maxpool_member(const MemberDesc& m, int cta) {
       const int v = v0 + u * HF_THREADS;
       if (v < n) {
         const int r = v / cv, c = v % cv;
-        a[u] = x[(2 * r) * cv + c];
-        b[u] = x[(2 * r + 1) * cv + c];
+        a[u] = __ldcs(x + (2 * r) * cv + c);
+        b[u] = __ldcs(x + (2 * r + 1) * cv + c);
       }
     }
 #pragma unroll
     for (int u = 0; u < PS_UNROLL; ++u) {
       const int v = v0 + u * HF_THREADS;
       if (v >= n) break;
-      uint4 o;
-      if (m.i[2]) {
-        const float4 y = ps_max4(*reinterpret_cast<const float4*>(&a[u]),
-                                 *reinterpret_cast<const float4*>(&b[u]));
-        o = *reinterpret_cast<const uint4*>(&y);
-      } else {
-        o = ps_max8(a[u], b[u]);
-      }
-      out[v] = o;
+      __stcs(out + v, m.i[2] ? ps_max4(a[u], b[u]) : ps_max8(a[u], b[u]));
     }
   }
 }
@@ -283,40 +300,86 @@ __device__ void bnstats_member(const MemberDesc& m, int cta) {
 }
 
 // ---------------------------------------------------------------------------
-// hist: (R, C) fp32 -> (1, bins) fp32 counts of trunc(clip((x+4)*bins/8,
-// 0, bins-1)), the reference's binning in fp32.  A CTA counts its rows in
-// shared memory, adds its counts to the int workspace, and the last CTA
-// writes them out as floats.  Workspace: out[1] = the bins' int counts,
-// out[2] = one ticket; the last CTA zeroes both, as a launch finds them.
+// hist: (R, C) fp32 or bf16 -> (1, bins) fp32 counts of trunc(clip((x+4) *
+// bins/8, 0, bins-1)), the reference's binning in fp32 (x cast to fp32 first;
+// a NaN counts in bin 0, as the reference's cast of it to int32 gives).
+// CTA = i[3] rows (16 at the defaults: 128 CTAs, 4 a grid step, one wave at
+// one CTA an SM).  A thread issues up to HI_UNROLL 16-byte loads (the
+// streaming hint: evict first in L2) before the CTA zeroes its counts, then
+// counts each value in its warp's copy of the bins in shared memory
+// ([HF_WARPS][bins] ints), so only lanes of one warp contend for a bin.  The
+// warp copies are summed in warp order, and the CTA adds each nonzero bin
+// with one atomic (no return: a reduction in L2) into the global counts.
+// The CTA that draws the last ticket writes the output and zeroes the counts
+// and the ticket, as a launch finds them.  Integer counts: exact in any
+// order, so a fused launch is bitwise equal to the member alone.  Bound by
+// bytes (2 MB at the defaults: 0.0006 ms); on the H100 a launch's fixed cost
+// is most of its ~9 us and the combine's serial tail (fence, ticket, the
+// last CTA's pass) 1.5 us; 64 or 256 CTAs were no faster, nor were 16
+// striped copies of the global counts (scripts/member_variants.py).
+// Workspace: out[1] = bins ints, out[2] = one ticket.
 // ---------------------------------------------------------------------------
-__device__ void hist_member(const MemberDesc& m, int cta) {
+#define HI_UNROLL 8        // hist: 16-byte loads in flight per thread
+
+__device__ __forceinline__ void hist_load(uint4* a, const uint4* x, int v0,
+                                          int n) {
+#pragma unroll
+  for (int u = 0; u < HI_UNROLL; ++u) {
+    const int v = v0 + u * HF_THREADS;
+    if (v < n) a[u] = __ldcs(x + v);
+  }
+}
+
+template <typename T>
+__device__ void hist_cta(const MemberDesc& m, int cta) {
+  constexpr int VEC = 16 / sizeof(T);
   extern __shared__ __align__(16) unsigned char smem[];
-  int* cnt = reinterpret_cast<int*>(smem);
+  int* wcnt = reinterpret_cast<int*>(smem);            // [HF_WARPS][bins]
   const int C = m.i[1], rows = m.i[3], bins = m.i[4];
   const float scale = m.f[0], top = (float)(bins - 1);
-  for (int b = threadIdx.x; b < bins; b += HF_THREADS) cnt[b] = 0;
+  const int n = rows * C / VEC;                        // the CTA's vectors
+  const uint4* x = reinterpret_cast<const uint4*>(
+      static_cast<const T*>(m.in[0]) + (size_t)cta * rows * C);
+  uint4 a[HI_UNROLL];
+  hist_load(a, x, threadIdx.x, n);                  // in flight while
+  for (int b = threadIdx.x; b < HF_WARPS * bins; b += HF_THREADS)  // zeroing
+    wcnt[b] = 0;
   __syncthreads();
-  const float4* x = static_cast<const float4*>(m.in[0]) + (size_t)cta * rows * C / 4;
-  for (int v = threadIdx.x; v < rows * C / 4; v += HF_THREADS) {
-    const float4 a = x[v];
-    const float e[4] = {a.x, a.y, a.z, a.w};
+  int* cnt = wcnt + (threadIdx.x >> 5) * bins;
+  for (int v0 = threadIdx.x; v0 < n; v0 += HI_UNROLL * HF_THREADS) {
+    if (v0 != threadIdx.x) hist_load(a, x, v0, n);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float t = __fmul_rn(__fadd_rn(e[j], 4.0f), scale);
-      atomicAdd(cnt + (int)fminf(fmaxf(t, 0.0f), top), 1);
+    for (int u = 0; u < HI_UNROLL; ++u) {
+      if (v0 + u * HF_THREADS >= n) break;
+      float f[VEC];
+      bn_unpack<T>(a[u], f);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        const float t = __fmul_rn(__fadd_rn(f[j], 4.0f), scale);
+        atomicAdd(cnt + (int)fminf(fmaxf(t, 0.0f), top), 1);
+      }
     }
   }
   __syncthreads();
   int* tot = static_cast<int*>(m.out[1]);
-  for (int b = threadIdx.x; b < bins; b += HF_THREADS)
-    if (cnt[b]) atomicAdd(tot + b, cnt[b]);
-  if (!hf_last_of_group(static_cast<int*>(m.out[2]), 0, m.ctas)) return;
+  for (int b = threadIdx.x; b < bins; b += HF_THREADS) {
+    int s = 0;
+#pragma unroll
+    for (int w = 0; w < HF_WARPS; ++w) s += wcnt[w * bins + b];
+    if (s) atomicAdd(tot + b, s);
+  }
+  int* ticket = static_cast<int*>(m.out[2]);
+  if (!hf_last_of_group(ticket, 0, m.ctas)) return;
   float* out = static_cast<float*>(m.out[0]);
   for (int b = threadIdx.x; b < bins; b += HF_THREADS) {
     out[b] = (float)__ldcg(tot + b);
     tot[b] = 0;
   }
-  if (threadIdx.x == 0) static_cast<int*>(m.out[2])[0] = 0;
+  if (threadIdx.x == 0) ticket[0] = 0;
+}
+
+__device__ void hist_member(const MemberDesc& m, int cta) {
+  if (m.i[2]) hist_cta<float>(m, cta); else hist_cta<bf16>(m, cta);
 }
 
 // copy a (rows x 128) fp32 matrix from device memory into shared memory
@@ -661,7 +724,7 @@ __host__ __device__ inline int paper_smem_bytes(const MemberDesc& m) {
       const int nv = m.i[1] / (m.i[2] ? 4 : 8);
       return HF_THREADS / nv * 2 * m.i[1] * 4;
     }
-    case HF_HIST: return hf_align16(m.i[4] * 4);
+    case HF_HIST: return HF_WARPS * m.i[4] * 4;     // the warps' bins
     case HF_ETHASH: return (PS_TILE_C + ET_SLOTS * PS_TILE_R) * PS_TILE_C * 4;
     case HF_HASH: return (PS_TILE_C + PS_TILE_R) * PS_TILE_C * 4;
     default: return 0;     // maxpool, upsample, im2col

@@ -5,10 +5,11 @@ headers) because any member must be able to share a launch with any other;
 the two standalone kernels the reference never fuses, the tiled matmul and
 flash attention, are their own ``__global__`` kernels in the same library,
 each with its own C launcher (``matmul``, ``flash_attention`` below).
-The bundle kernel itself has five instances (row members only, with and
-without the row family's chain bodies; the paper members only; any mix,
-with and without the chain bodies); ``hf_launch`` picks the narrowest one
-that holds the members a launch carries (``launch_instance`` names it).
+The bundle kernel itself has six instances (row members only, with and
+without the row family's chain bodies; the paper members only; maxpool
+alone; any mix, with and without the chain bodies); ``hf_launch``
+picks the narrowest one that holds the members a launch carries
+(``launch_instance`` names it).
 The library is compiled with ``nvcc`` for ``sm_90a`` at first use, into
 ``build/repro_torch/<hash of the sources>/`` at the root of the checkout,
 bound with ``ctypes`` (plain C interface, no PyTorch headers: seconds to

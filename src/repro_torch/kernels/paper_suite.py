@@ -27,8 +27,8 @@ Beside the kernels: one launch record per body and the plain PyTorch
 versions (``maxpool`` ... ``hash_like``, the port of
 ``src/repro/kernels/ref.py:16-57``, in the reference's operation order),
 which run for CPU tensors and are the reference on the card.  Only the
-members of fp32 and, for maxpool, upsample, im2col and bnstats, bf16 have a
-kernel; the others raise on bf16 when launched.
+members of fp32 and, for maxpool, upsample, im2col, bnstats and hist, bf16
+have a kernel; the others raise on bf16 when launched.
 """
 from __future__ import annotations
 
@@ -46,6 +46,11 @@ LANES = 128
 CTAS_PER_STEP = 16          # CTAs per TPU grid step of a streaming member
 BN_CTAS_PER_STEP = 8        # bnstats: CTAs per grid step (one wave)
 BN_GROUP = 16               # bnstats: CTAs a first-level combine sums
+HIST_CTAS_PER_STEP = 4      # hist: CTAs per grid step (one wave)
+WARPS = 8                   # warps of a CTA (csrc/common.cuh HF_WARPS)
+# hist keeps a copy of the bins per warp in shared memory: at most 96 KB a
+# CTA (ethash_like's), so a paper launch still fits two CTAs an SM
+HIST_MAX_BINS = 96 * 1024 // (WARPS * 4)
 TILE_R = 32                 # rows of a matmul tile (csrc/paper_member.cuh)
 THREADS = 256               # threads of a CTA (csrc/common.cuh HF_THREADS)
 
@@ -60,7 +65,7 @@ _KIND = {"maxpool": cuda.MAXPOOL, "upsample": cuda.UPSAMPLE,
          "bnstats": cuda.BNSTATS, "im2col": cuda.IM2COL, "hist": cuda.HIST,
          "ethash_like": cuda.ETHASH, "hash_like": cuda.HASH}
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
-_BF16_BODIES = ("maxpool", "upsample", "im2col", "bnstats")
+_BF16_BODIES = ("maxpool", "upsample", "im2col", "bnstats", "hist")
 
 # Kernel vs plain version, |got - want| <= tol * (1 + |want|) (the
 # reference's assert_allclose with rtol = atol = tol).  0: bitwise (data
@@ -130,8 +135,10 @@ def im2col(x: torch.Tensor, K: int = 4) -> torch.Tensor:
 
 
 def hist(x: torch.Tensor, bins: int = LANES) -> torch.Tensor:
-    """Counts of trunc(clip((x + 4) * bins/8, 0, bins-1)), binned in fp32."""
+    """Counts of trunc(clip((x + 4) * bins/8, 0, bins-1)), binned in fp32;
+    a NaN counts in bin 0, as the reference's cast of it to int32 gives."""
     b = torch.clip((x.float() + 4.0) * (bins / 8.0), 0, bins - 1)
+    b = torch.nan_to_num(b, nan=0.0)
     counts = torch.bincount(b.to(torch.int32).reshape(-1), minlength=bins)
     return counts.to(torch.float32).reshape(1, bins)
 
@@ -257,6 +264,8 @@ class PaperMember:
                    or (R // self.param) % self.runs)
         elif self.body == "maxpool":
             bad = bad or self.rows % 2
+        elif self.body == "hist":         # a copy of the bins a warp
+            bad = bad or not 1 <= self.param <= HIST_MAX_BINS
         if bad:
             raise ValueError(f"{self.body} member: shape R={R} C={C} "
                              f"rows={self.rows} param={self.param} "
@@ -402,7 +411,7 @@ def make_ethash_like(R_dag=65536, C=LANES, dtype=torch.float32, bm=512,
 def make_hist(R=2048, C=256, dtype=torch.float32, bm=64, bins=LANES):
     if R % bm:
         raise ValueError(f"hist: R={R}, bm={bm}")
-    rows = bm // _per_step(bm, CTAS_PER_STEP)
+    rows = bm // _per_step(bm, HIST_CTAS_PER_STEP)
 
     def plain(x):
         return hist(x, bins=bins)

@@ -619,7 +619,7 @@ def test_paper_member(cuda_dev, name, size, dtype):
     op, mk, plain = ps.ALL_KERNELS[name](**kw, dtype=dtype)
     ins = _paper_inputs([op], [mk], 20)
     if dtype == BF and name not in ("maxpool", "upsample", "bnstats",
-                                    "im2col"):
+                                    "im2col", "hist"):
         with pytest.raises(ValueError, match="takes"):
             hfuse.run_single(op)(*ins)
         return
@@ -721,6 +721,103 @@ def test_hash_fused_bitwise_equal_alone(cuda_dev, name, partner, ratios):
     ops, ins = _paper_bundle((partner, name))
     fused = hfuse.generate(ops, Schedule(ratios))(*ins)
     assert _same(fused, hfuse.run_native(ops)(*ins))
+
+
+@pytest.mark.parametrize("names", [("ethash_like", "hist", "blake_like"),
+                                   ("maxpool", "upsample", "sha_like")],
+                         ids="+".join)
+@pytest.mark.parametrize("ratios", [None, (1, 1, 1), (3, 1, 2)])
+def test_paper_triples_bitwise_equal_native(cuda_dev, names, ratios):
+    """The triples holding hist or maxpool, at the planner's schedule and
+    at two fixed ones: every output bitwise equal to the members launched
+    alone."""
+    from repro_torch.core import autotuner
+    ops, ins = _paper_bundle(names)
+    fused = (autotuner.search(ops).build() if ratios is None
+             else hfuse.generate(ops, Schedule(ratios)))
+    assert _same(fused(*ins), hfuse.run_native(ops)(*ins))
+
+
+# (kw of make_hist, data): defaults, SMALL_KW, odd rows a CTA and bins,
+# every value in one bin, every value clipped, NaN and +-inf
+HIST_CASES = [({}, "normal"), ("small", "normal"),
+              (dict(R=192, C=264, bm=48, bins=100), "normal"),
+              (dict(R=120, C=8, bm=24, bins=7), "normal"),
+              ({}, "one_bin"), ({}, "clipped"), ("small", "special")]
+
+
+def _hist_data(x, data):
+    if data == "one_bin":
+        return torch.full_like(x, 0.1)
+    if data == "clipped":
+        return torch.where(x > 0, 40.0, -40.0).to(x.dtype)
+    if data == "special":
+        x = x.clone()
+        flat = x.view(-1)
+        for j, v in enumerate([float("nan"), float("inf"), -float("inf"),
+                               4.0, -4.0, 7.5, -12.0] * 9):
+            flat[(j * 97 + 13) % flat.numel()] = v
+    return x
+
+
+@pytest.mark.parametrize("dtype", [F32, BF])
+@pytest.mark.parametrize("kw,data", HIST_CASES,
+                         ids=lambda v: v if isinstance(v, str) else
+                         "-".join(f"{k}{x}" for k, x in v.items())
+                         or "default")
+def test_hist_one_wave(cuda_dev, kw, data, dtype):
+    """hist redesigned (csrc/paper_member.cuh hist_cta): HIST_CTAS_PER_STEP
+    CTAs a grid step, per-warp counts, one global copy of the counts;
+    bitwise equal to the plain version in both dtypes, two launches equal,
+    the counts and the ticket back at zero; a one-member launch runs
+    hf_paper."""
+    from repro_torch.kernels import paper_suite as ps
+    kw = dict(ps.SMALL_KW["hist"]) if kw == "small" else dict(kw)
+    op, mk, plain = ps.make_hist(**kw, dtype=dtype)
+    assert op.ctas == op.grid * ps.HIST_CTAS_PER_STEP
+    (x,) = mk(_gen(80), "cuda")
+    x = _hist_data(x, data)
+    run = hfuse.run_single(op)
+    (got,) = run(x)
+    torch.cuda.synchronize()
+    want = plain(x)
+    assert torch.equal(got, want)
+    assert float(got.sum()) == x.numel()
+    assert torch.equal(run(x)[0], got)
+    torch.cuda.synchronize()
+    (ws,) = _paper_workspaces(op.member)
+    assert int(ws[0].abs().sum()) == 0 and int(ws[1].abs().sum()) == 0
+    out = torch.empty(op.outputs[0].shape, device="cuda")
+    assert cuda.launch_instance([op.member], [(x,)], [(out,)])[0] == \
+        "hf_paper"
+
+
+# (R, C, bm) of make_maxpool: SMALL_KW, the defaults, 24 CTAs of 4 rows at
+# C 136 (17 bf16 vectors a row), 2 rows a CTA at C 8
+MAXPOOL_SHAPES = [(256, 128, 64), (8192, 512, 256), (96, 136, 48),
+                  (64, 8, 4)]
+
+
+@pytest.mark.parametrize("dtype", [F32, BF])
+@pytest.mark.parametrize("R,C,bm", MAXPOOL_SHAPES, ids=str)
+def test_maxpool_propagates_nan(cuda_dev, R, C, bm, dtype):
+    """maxpool with NaN in the first row of a pair, in the second, in both,
+    and +-inf: bitwise equal to the plain version (torch.amax) with NaN
+    compared equal, in both dtypes."""
+    from repro_torch.kernels import paper_suite as ps
+    op, mk, plain = ps.make_maxpool(R=R, C=C, bm=bm, dtype=dtype)
+    (x,) = mk(_gen(90 + C), "cuda")
+    nan, inf = float("nan"), float("inf")
+    x[0, 0], x[1, 1], x[2, 2], x[3, 2] = nan, nan, nan, nan
+    x[0, 3], x[1, 4], x[3, 5] = -inf, inf, nan
+    x[R - 1, C - 1], x[R - 4, 0], x[R - 3, 0] = nan, inf, -inf
+    (got,) = hfuse.run_single(op)(x)
+    torch.cuda.synchronize()
+    want = plain(x)
+    assert bool(got[0, :2].isnan().all()) and bool(got[1, 2].isnan())
+    assert bool(got[1, 5].isnan()) and bool(got[R // 2 - 1, C - 1].isnan())
+    assert torch.equal(got.isnan(), want.isnan())
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
 
 
 def _paper_workspaces(member):

@@ -6,8 +6,9 @@ each CTA ``row.RESADD_BYTES`` of each operand, so ``RowMember.ctas`` is the
 operands' bytes over that, rounded up; the last CTA takes what is left.
 A launch runs the narrowest instance of the bundle kernel that holds its
 members (``csrc/bundle.cu`` hf_instance): ``hf_rows<...>`` for the row
-family (the residual add alone among them), ``hf_paper`` for the paper
-suite, ``hf_bundle<...>`` for any other mix; ``<true>`` when a row member
+family (the residual add alone among them), ``hf_stream`` for one maxpool
+member alone, ``hf_paper`` for the paper suite, ``hf_bundle<...>`` for any
+other mix; ``<true>`` when a row member
 needs a chain body (``csrc/row_member.cuh`` row_chain_kernel).  ``instance``
 and ``chain_body`` below restate that rule in Python; the port itself asks
 the library (``cuda.launch_instance``), and the card test
@@ -73,6 +74,8 @@ def instance(members) -> str:
                      if r)).lower()
     if all(rows):
         return f"hf_rows<{chains}>"
+    if len(members) == 1 and getattr(members[0], "body", None) == "maxpool":
+        return "hf_stream"
     if all(isinstance(m, paper_suite.PaperMember) for m in members):
         return "hf_paper"
     return f"hf_bundle<{chains}>"
@@ -89,6 +92,9 @@ def _members():
     norm8 = rmsnorm_op(8, 256, BF, bm=8)
     norm8_32 = rmsnorm_op(8, 256, F32, bm=8)
     paper = paper_suite.make_sha_like(**paper_suite.SMALL_KW["sha_like"])[0]
+    pool = paper_suite.make_maxpool(**paper_suite.SMALL_KW["maxpool"])[0]
+    hist = paper_suite.make_hist(**paper_suite.SMALL_KW["hist"],
+                                 dtype=BF)[0]
     dec = decode_attention_op(2, 128, 4, 4, 16, ck=128,
                               dynamic_length=True)
     return {
@@ -99,7 +105,7 @@ def _members():
         "rmsnorm->gemm": stitch.stitch(norm8, mm, "x"),
         "rmsnorm_f32->gemm": stitch.stitch(norm8_32, mm32, "x"),
         "resadd->rmsnorm": stitch.stitch(add, norm, "x"),
-        "sha_like": paper, "decode": dec,
+        "sha_like": paper, "decode": dec, "maxpool": pool, "hist": hist,
     }
 
 
@@ -119,6 +125,11 @@ LAUNCHES = [
     (("resadd->rmsnorm",), "hf_rows<true>"),
     (("resadd", "gemm->rmsnorm"), "hf_rows<true>"),
     (("sha_like",), "hf_paper"),
+    (("maxpool",), "hf_stream"),
+    (("hist",), "hf_paper"),
+    (("maxpool", "hist"), "hf_paper"),
+    (("hist", "sha_like"), "hf_paper"),
+    (("maxpool", "resadd"), "hf_bundle<false>"),
     (("resadd", "sha_like"), "hf_bundle<false>"),
     (("resadd", "decode"), "hf_bundle<false>"),
     (("resadd->rmsnorm", "decode"), "hf_bundle<true>"),

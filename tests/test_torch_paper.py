@@ -133,14 +133,18 @@ CUH = {**_defines("common.cuh"), **_defines("paper_member.cuh")}
 def test_member_geometry():
     """At the defaults: the streaming members CTAS_PER_STEP CTAs per grid
     step, bnstats BN_CTAS_PER_STEP (256 CTAs of 64 rows x all columns: one
-    wave at two CTAs an SM of the card's 132), ethash_like one per step (16
-    slices x 8 runs); the wrapper's constants are the kernel source's, and
-    the carries' workspaces have a partial per CTA (bnstats: and per group
-    of BN_GROUP CTAs) and a ticket per group."""
+    wave at two CTAs an SM of the card's 132), hist HIST_CTAS_PER_STEP (128
+    CTAs of 16 rows: one wave at one CTA an SM), ethash_like one per step
+    (16 slices x 8 runs); the wrapper's constants are the kernel source's,
+    and the carries' workspaces have a partial per CTA (bnstats: and per
+    group of BN_GROUP CTAs) and a ticket per group, hist its counts and
+    one ticket."""
     assert (ps.TILE_R, ps.THREADS, ps.BN_GROUP) == (
         CUH["PS_TILE_R"], CUH["HF_THREADS"], CUH["BN_GROUP"])
+    assert ps.WARPS == CUH["HF_THREADS"] // 32
     ops = {n: ps.ALL_KERNELS[n]()[0] for n in NAMES}
-    per_step = {"ethash_like": 1, "bnstats": ps.BN_CTAS_PER_STEP}
+    per_step = {"ethash_like": 1, "bnstats": ps.BN_CTAS_PER_STEP,
+                "hist": ps.HIST_CTAS_PER_STEP}
     for n, op in ops.items():
         want = op.grid * per_step.get(n, ps.CTAS_PER_STEP)
         assert op.ctas == want, (n, op.ctas, op.grid)
@@ -155,8 +159,9 @@ def test_member_geometry():
     assert eth.workspace_sizes() == (
         (eth.ctas * ps.TILE_R * ps.LANES, torch.float32),
         (eth.param // ps.TILE_R, torch.int32))
-    assert ops["hist"].member.workspace_sizes() == (
-        (ops["hist"].member.param, torch.int32), (1, torch.int32))
+    hi = ops["hist"].member
+    assert (hi.rows, hi.ctas) == (16, 128)
+    assert hi.workspace_sizes() == ((hi.param, torch.int32), (1, torch.int32))
     assert ops["maxpool"].member.workspace_sizes() == ()
 
 
@@ -172,6 +177,9 @@ REFUSED = [
     ("ethash_like", 512, 128, torch.float32, 32, 128, 3),   # runs
     ("hash_like", 256, 256, torch.float32, 32, 16, 1),      # C != 128
     ("maxpool", 256, 128, torch.float32, 3, 0, 1),          # odd rows
+    ("hist", 256, 132, torch.bfloat16, 8, 128, 1),  # not 16-byte vectors
+    ("hist", 256, 128, torch.float32, 8, 0, 1),             # no bins
+    ("hist", 256, 256, torch.float32, 8, ps.HIST_MAX_BINS + 1, 1),
 ]
 # ... and the widths the new bnstats geometry takes beyond the tested ones
 TAKEN = [
@@ -179,6 +187,8 @@ TAKEN = [
     ("bnstats", 256, 1024, torch.float32, 8, 0, 1),
     ("bnstats", 256, 2048, torch.bfloat16, 8, 0, 1),
     ("ethash_like", 512, 128, torch.float32, 32, 128, 4),
+    ("hist", 256, 8, torch.bfloat16, 8, ps.HIST_MAX_BINS, 1),
+    ("hist", 24, 132, torch.float32, 3, 1, 1),      # odd rows, one bin
 ]
 
 
@@ -257,9 +267,14 @@ def test_max_error_raises_outside_tolerance():
 
 @pytest.mark.parametrize("name", ["ethash_like", "hist", "sha_like"])
 def test_bf16_only_where_the_kernel_has_it(name):
-    """bf16 plans like the reference, runs its plain version on the CPU, and
-    the member refuses to describe itself."""
+    """bf16 plans like the reference; the matmul bodies' members refuse to
+    describe themselves, hist's takes it (the reference casts x to fp32)."""
     op = ps.ALL_KERNELS[name](**jps.SMALL_KW[name], dtype=torch.bfloat16)[0]
+    if name == "hist":
+        md = cuda.MemberDesc()
+        op.member.describe(md)
+        assert (md.kind, md.i[2]) == (cuda.HIST, 0)
+        return
     with pytest.raises(ValueError, match="takes"):
         op.member.describe(cuda.MemberDesc())
 
@@ -327,11 +342,12 @@ def test_quickstart_pair_plans_like_the_example():
 # (d) measured search with the step-count proxy
 # ---------------------------------------------------------------------------
 # The proxy charges the launch's CTA count.  The streaming and hash members
-# launch 16 CTAs per grid step, bnstats 8 and ethash_like one: where bnstats
-# or ethash_like shares a bundle, or where a ratio does not divide 16 x grid
-# as it divides the grid, the proxy is no longer proportional to the
-# reference's, and the measured schedule may differ.  These are the triples
-# where it does (ROADMAP §3).
+# launch 16 CTAs per grid step, bnstats 8, hist 4 and ethash_like one: where
+# bnstats, hist or ethash_like shares a bundle, or where a ratio does not
+# divide 16 x grid as it divides the grid, the proxy is no longer
+# proportional to the reference's, and the measured schedule may differ.
+# These are the triples where it does (ROADMAP §3); hist's 4 a step adds
+# none (its one triple already differs through ethash_like).
 PROXY_DIFFERS = {("ethash_like", "hist", "blake_like"),
                  ("bnstats", "im2col", "blake2b_like")}
 
@@ -396,3 +412,57 @@ def test_paper_launcher_quickstart_and_no_device(capsys, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         paper_launch.main(["--small"])
+
+
+# ---------------------------------------------------------------------------
+# (g) non-finite and out-of-range values
+# ---------------------------------------------------------------------------
+def _special(shape, seed):
+    """Normals with NaN, +-inf and values outside [-4, 4] spread over both
+    rows of the pairs and both ends of the bins."""
+    x = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    flat = x.reshape(-1)
+    vals = [np.nan, np.inf, -np.inf, 4.0, -4.0, 3.9999998, 7.5, -12.0, 1e30,
+            -1e30]
+    for j, v in enumerate(vals * 7):
+        flat[(j * 97 + 13) % flat.size] = v
+    return x
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_hist_counts_nan_as_the_reference(dtype):
+    """A NaN counts in bin 0 (the reference's cast of it to int32 gives 0),
+    +inf and values past 4 in the top bin, -inf and values below -4 in bin
+    0: the plain hist bitwise against ``repro.kernels.ref.hist``."""
+    from repro.kernels import ref as jref
+    kw = dict(jps.SMALL_KW["hist"])
+    x = _special((kw["R"], kw["C"]), 3)
+    jx = jnp.asarray(x).astype(jnp.dtype(dtype))
+    tx = ps.inputs_from_numpy("hist", [x], "cpu", **kw,
+                              dtype=getattr(torch, dtype))[0]
+    want = torch.from_numpy(np.array(jref.hist(jx)))
+    got = ps.hist(tx)
+    assert torch.equal(got, want)
+    assert float(got.sum()) == x.size and float(got[0, 0]) > 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_maxpool_select_propagates_nan_as_the_reference(dtype):
+    """The maxpool kernel's select (``csrc/paper_member.cuh`` ps_max: a when
+    a is NaN or a > b, else b), done in PyTorch, and the plain maxpool are
+    bitwise equal to ``repro.kernels.ref.maxpool`` with NaN and +-inf in
+    either row of a pair."""
+    from repro.kernels import ref as jref
+    x = _special((64, 128), 4)
+    x[0, :2] = [np.nan, 1.0]
+    x[1, :2] = [2.0, np.nan]
+    jx = jnp.asarray(x).astype(jnp.dtype(dtype))
+    tx = ps.inputs_from_numpy("maxpool", [x], "cpu", R=64, C=128, bm=64,
+                              dtype=getattr(torch, dtype))[0]
+    want = torch.from_numpy(np.array(jref.maxpool(jx).astype(jnp.float32)))
+    a, b = tx[0::2], tx[1::2]
+    select = torch.where(a.isnan() | (a > b), a, b)
+    for got in (select, ps.maxpool(tx)):
+        assert torch.equal(got.float().isnan(), want.isnan())
+        assert torch.equal(got.float().nan_to_num(), want.nan_to_num())
+    assert bool(select[0, :2].isnan().all())
