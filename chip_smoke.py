@@ -33,12 +33,15 @@ non-zero exit code and no result line.
              within ``paper_suite.TOLERANCE``; maxpool with NaN and +-inf in
              either row of a pair and hist with NaN, +-inf and values past
              +-4, fp32 and bf16, against their plain versions (NaN compared
-             equal); each timed beside its plain version, its
-             bound and, for maxpool and upsample, one PyTorch call (bnstats
-             in bf16 too, beside ``torch.var_mean`` as a same-bytes
-             yardstick; maxpool and hist in bf16 too, with their share of
-             the bound, their time after a flush that reads instead of
-             zeroing, the instance a launch runs, and for hist
+             equal); im2col at K = C - 1, C, C + 1 and 2C + 3 (C 4 fp32, C 8
+             bf16) bitwise against its plain version; each timed beside its
+             plain version, its bound and, for maxpool, upsample and im2col,
+             one PyTorch call (``torch.amax``, ``torch.repeat_interleave``,
+             ``torch.index_select`` with the rotations' index made once;
+             bnstats in bf16 too, beside ``torch.var_mean`` as a same-bytes
+             yardstick; maxpool, upsample, im2col and hist in bf16 too, with
+             their share of the bound, their time after a flush that reads
+             instead of zeroing, the instance a launch runs, and for hist
              ``torch.histc`` as a same-bytes yardstick); each hash variant's
              time a round and share of its bound; ethash_like's share of its
              3xTF32, byte and fp32 FMA bounds.  Then,
@@ -594,9 +597,17 @@ def paper_specials(torch, ps, hfuse, g, dev) -> None:
             else:
                 check(float(got.sum()) == x.numel(),
                       f"hist {dtype} does not count every value")
+    for C, dtype in ((4, torch.float32), (8, torch.bfloat16)):
+        for K in (C - 1, C, C + 1, 2 * C + 3):
+            op, mk, plain = ps.make_im2col(R=64, C=C, bm=64, K=K,
+                                           dtype=dtype)
+            (x,) = mk(g, dev)
+            check(torch.equal(hfuse.run_single(op)(x)[0], plain(x)),
+                  f"im2col C={C} K={K} {dtype} differs from plain")
     print("[paper] maxpool (NaN, +-inf in either row) and hist (NaN, +-inf, "
           "+-9) in fp32 and bf16 equal to their plain versions, NaN "
-          "compared equal", flush=True)
+          "compared equal; im2col at K = C - 1 .. 2C + 3 (C 4 fp32, C 8 "
+          "bf16) bitwise equal to its plain version", flush=True)
 
 
 def phase_paper(torch, dev) -> tuple[list[dict], dict]:
@@ -629,7 +640,7 @@ def phase_paper(torch, dev) -> tuple[list[dict], dict]:
                 check(torch.equal(got, hfuse.run_single(op)(*ins)[0]),
                       f"{name} differs between two launches")
                 if not kw and (dtype == torch.float32 or name in (
-                        "bnstats", "maxpool", "hist")):
+                        "bnstats", "maxpool", "hist", "upsample", "im2col")):
                     timed.append((name, op, ins, plain, err))
     paper_specials(torch, ps, hfuse, g, dev)
     for name, op, ins, plain, err in timed:
@@ -639,6 +650,17 @@ def phase_paper(torch, dev) -> tuple[list[dict], dict]:
                    x.view(x.shape[0] // 2, 2, x.shape[1]), dim=1),
                "upsample": lambda: torch.repeat_interleave(x, 2, dim=0)
                }.get(name)
+        if name == "im2col":
+            # block k is the row rotated left by k (by 0 from k = C on):
+            # one gather of K * C columns, its index made outside the call
+            C = m.C
+            idx = torch.cat([(torch.arange(C, device=dev) + (k if k < C
+                              else 0)) % C for k in range(m.param)])
+            check(torch.equal(torch.index_select(x, 1, idx), plain(x)),
+                  "torch.index_select differs from the plain im2col")
+
+            def lib():
+                return torch.index_select(x, 1, idx)
         # ethash_like runs its product as three TF32 products on the
         # tensor cores: its bound is theirs (the fp32 FMA bound is printed)
         cost, peak = (op.hbm_bytes, m.ops), FP32_FLOPS
@@ -661,7 +683,7 @@ def phase_paper(torch, dev) -> tuple[list[dict], dict]:
                   f"{r['bound_ms']:.4f} ms; same-bytes yardstick "
                   f"torch.var_mean(x, 0, correction=0) {vm:.4f} ms (other "
                   f"outputs, not a library time)", flush=True)
-        if m.body in ("maxpool", "hist"):
+        if m.body in ("maxpool", "upsample", "im2col", "hist"):
             read = flushed_ms(torch, lambda: run(*ins), flush)
             out = torch.empty(op.outputs[0].shape, dtype=op.outputs[0].dtype,
                               device=dev)
@@ -675,6 +697,11 @@ def phase_paper(torch, dev) -> tuple[list[dict], dict]:
                 extra = (f"; same-bytes yardstick torch.histc(x, {m.param}, "
                          f"-4, 4) {hc:.4f} ms (drops values outside [-4, 4]: "
                          f"not a library time)")
+            elif r["library_ms"] is not None:
+                call = {"maxpool": "torch.amax",
+                        "upsample": "torch.repeat_interleave",
+                        "im2col": "torch.index_select"}[m.body]
+                extra = f"; {call} {r['library_ms']:.4f} ms"
             print(f"[paper] {m.body}{dt}: {r['ms']:.4f} ms, "
                   f"{r['bound_ms'] / r['ms']:.1%} of its bound "
                   f"{r['bound_ms']:.4f} ms; after a reading flush "

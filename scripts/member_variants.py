@@ -3,7 +3,8 @@
 variants, at the paper suite's defaults.
 
   python3 scripts/member_variants.py [--variants loop_only,no_tanh,...]
-      [--cases hist,maxpool_bf16,maxpool_produced,launch,...] [--rounds N]
+      [--cases hist,maxpool_bf16,maxpool_produced,upsample_consumed,launch,...]
+      [--rounds N]
 
 For the tree as it is (first and last) and for each variant built from a
 patched copy of ``src/repro_torch`` under ``build/member_variants/<name>/``
@@ -12,15 +13,19 @@ patched copy of ``src/repro_torch`` under ``build/member_variants/<name>/``
 before the tree's last): ptxas's
 registers and spills of the hash and ethash bodies, ``hf_paper`` and
 ``hf_stream``; sha, blake and blake2b (4096 x 128 fp32, 16 / 24 / 20
-rounds), ethash_like, bnstats, hist and maxpool (fp32 and bf16) at their
-defaults, and bnstats at SMALL_KW (its fixed cost): time (median of 20,
+rounds), ethash_like, bnstats, hist, maxpool, upsample and im2col (fp32 and
+bf16) at their defaults, and bnstats at SMALL_KW (its fixed cost): time
+(median of 20,
 CUDA events, L2 flushed by zeroing a 256 MB buffer as ``core/timing.py``
 does; again after a flush that reads it, which leaves L2 full of clean
 lines instead of dirty ones, and warm, with no flush; a case ending in
 ``_produced`` times the member after a producer, ``x.copy_(src)``, that
 writes its input just before it, as a layer's output is written before the
 next layer reads it: the pair and the copy alone, after a zeroing flush and
-warm, and their difference), microseconds a round, share of the bound (the hash kernels' fp32
+warm, and their difference; ``upsample_consumed`` times upsample followed by
+maxpool on its output, as a next layer reads it (maxpool(upsample(x)) is x:
+checked): the pair and maxpool alone on a stored output, after a zeroing
+flush and warm), microseconds a round, share of the bound (the hash kernels' fp32
 operations, ethash_like's three TF32 products, bnstats' and hist's bytes)
 and max |err| against the plain version; the SM clock and power draw under
 blake_like.
@@ -76,6 +81,19 @@ time what a part costs):
                taking the bundle's 1.5 KB descriptor, at 512 and 64 CTAs,
                and the maxpool and hist bodies each in a __global__ of its
                own (their own register allocation, no member dispatch)
+  upsample_tma upsample by the TMA unit: one cp.async.bulk brings the CTA's
+               rows (32 KB fp32) into shared memory on an mbarrier, and bulk
+               stores (cp.async.bulk.global.shared::cta) write each row
+               twice; one warp issues them, the others exit
+  upsample_ld_cs / upsample_st_cs  upsample's loads / stores with the
+               streaming hint (ld.global.cs / st.global.cs: evict first)
+  upsample_stream  one-member upsample launches in the narrow instance
+               hf_stream (64 registers, 4 CTAs an SM) instead of hf_paper
+  im2col_staged  im2col with its CTA's rows staged in shared memory once
+               (cp.async), each 16-byte output vector assembled from two
+               aligned shared loads by funnel shifts, block by block, 8
+               stores a thread at once (the redesign the ranking did not
+               take: torch.index_select is slower than im2col as it is)
 
 The launch cases (``--cases launch``) take a paper launch's fixed cost
 apart: maxpool at its defaults (512 CTAs) and at 1024 rows (64 CTAs), hist
@@ -246,6 +264,127 @@ PATCHES = {
     "own_kernels": (("csrc/bundle.cu", (("}  // extern \"C\"\n",
                                          "}  // extern \"C\"\n" + _OWN),)),),
 }
+_UP_TMA = """__device__ void upsample_member(const MemberDesc& m, int cta) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int rows = m.i[3];
+  const unsigned rb = m.i[1] * (m.i[2] ? 4 : 2);        // bytes a row
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + rows * rb);
+  if (threadIdx.x >= 32) return;
+  const char* x = static_cast<const char*>(m.in[0]) + (size_t)cta * rows * rb;
+  char* out = static_cast<char*>(m.out[0]) + (size_t)cta * 2 * rows * rb;
+  if (threadIdx.x == 0) {
+    hf_bar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\\n" ::: "memory");
+    hf_bar_expect(bar, rows * rb);
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1], %2, [%3];\\n" ::"r"(hf_saddr(smem)), "l"(x),
+        "r"(rows * rb), "r"(hf_saddr(bar)) : "memory");
+  }
+  __syncwarp();
+  hf_bar_wait(bar, 0);
+  for (int r = threadIdx.x; r < 2 * rows; r += 32)
+    asm volatile(
+        "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\\n"
+        ::"l"(out + (size_t)r * rb), "r"(hf_saddr(smem + (r / 2) * rb)),
+        "r"(rb) : "memory");
+  asm volatile("cp.async.bulk.commit_group;\\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\\n" ::: "memory");
+}
+
+"""
+_IM_STAGED = r'''// im2col_staged: the CTA's rows staged in shared memory (cp.async); block
+// by block, 16-byte output vectors from two aligned shared loads merged by
+// funnel shifts (one load where s_k is a multiple of VEC), s_k = k < C ? k : 0
+#define IM_UNROLL 8        // im2col: 16-byte stores a thread issues at once
+
+// bytes [o, o + 16) of the 32 bytes a:b (little-endian; o even, < 16)
+__device__ __forceinline__ uint4 ps_bytes16(uint4 a, uint4 b, int o) {
+  if (o & 8) {
+    a = make_uint4(a.z, a.w, b.x, b.y);
+    b.x = b.z;
+    b.y = b.w;
+  }
+  if (o & 4) {
+    a = make_uint4(a.y, a.z, a.w, b.x);
+    b.x = b.y;
+  }
+  const unsigned s = (o & 3) * 8;
+  return make_uint4(__funnelshift_r(a.x, a.y, s), __funnelshift_r(a.y, a.z, s),
+                    __funnelshift_r(a.z, a.w, s), __funnelshift_r(a.w, b.x, s));
+}
+
+template <typename T>
+__device__ void im2col_staged(const MemberDesc& m, int cta) {
+  constexpr int VEC = 16 / sizeof(T);
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint4* xs = reinterpret_cast<uint4*>(smem);        // [rows][cv]
+  const int C = m.i[1], rows = m.i[3], K = m.i[4];
+  const int cv = C / VEC, n = rows * cv;             // vectors: a row, a block
+  const uint4* x = static_cast<const uint4*>(m.in[0]) + (size_t)cta * n;
+  uint4* out = static_cast<uint4*>(m.out[0]) + (size_t)cta * n * K;
+  for (int v = threadIdx.x; v < n; v += HF_THREADS) cp_async16(xs + v, x + v, true);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  const int dr = HF_THREADS / cv, dc = HF_THREADS % cv;
+  for (int k = 0; k < K; ++k) {
+    const int s = k < C ? k : 0;
+    const int q = s / VEC, o = s % VEC * (int)sizeof(T);
+    int r = threadIdx.x / cv, c = threadIdx.x % cv;
+    for (int v0 = threadIdx.x; v0 < n; v0 += IM_UNROLL * HF_THREADS) {
+      uint4 val[IM_UNROLL];
+      int at[IM_UNROLL];                 // offsets in the CTA's output
+#pragma unroll
+      for (int u = 0; u < IM_UNROLL; ++u) {
+        if (v0 + u * HF_THREADS >= n) break;
+        const uint4* row = xs + r * cv;
+        const int a = c + q < cv ? c + q : c + q - cv;
+        val[u] = row[a];
+        if (o) val[u] = ps_bytes16(val[u], row[a + 1 < cv ? a + 1 : 0], o);
+        at[u] = (r * K + k) * cv + c;
+        r += dr;
+        c += dc;
+        if (c >= cv) { c -= cv; ++r; }
+      }
+#pragma unroll
+      for (int u = 0; u < IM_UNROLL; ++u) {
+        if (v0 + u * HF_THREADS >= n) break;
+        out[at[u]] = val[u];
+      }
+    }
+  }
+}
+
+__device__ void im2col_member(const MemberDesc& m, int cta) {
+  if (m.i[2]) im2col_staged<float>(m, cta); else im2col_staged<bf16>(m, cta);
+}
+
+'''
+_IM_MEMBER = ("__device__ void im2col_member(const MemberDesc& m, int cta) {\n"
+              "  if (m.i[2]) im2col_rows<float>(m, cta); else "
+              "im2col_rows<bf16>(m, cta);\n}")
+_IM_SMEM = "    default: return 0;     // maxpool, upsample, im2col\n"
+_UP_MEMBER = "__device__ void upsample_member(const MemberDesc& m, int cta) {\n"
+_STREAM = "#define HF_KINDS_STREAM HF_KIND(HF_MAXPOOL)"
+PATCHES.update({
+    "upsample_tma": ((_PM, (
+        (_UP_MEMBER, _UP_TMA + "__device__ void upsample_member_regs("
+         "const MemberDesc& m, int cta) {\n"),
+        (_IM_SMEM, "    case HF_UPSAMPLE: return m.i[3] * m.i[1] "
+         "* (m.i[2] ? 4 : 2) + 16;\n" + _IM_SMEM))),),
+    "upsample_ld_cs": ((_PM, (("      if (v < n) a[u] = x[v];",
+                               "      if (v < n) a[u] = __ldcs(x + v);"),)),),
+    "upsample_st_cs": ((_PM, (("      o[0] = a[u];\n      o[cv] = a[u];",
+                               "      __stcs(o, a[u]);\n      __stcs(o + cv, "
+                               "a[u]);"),)),),
+    "upsample_stream": (("csrc/bundle.cu", ((
+        _STREAM, "#define HF_KINDS_STREAM (HF_KIND(HF_MAXPOOL) | "
+        "HF_KIND(HF_UPSAMPLE))"),)),),
+    "im2col_staged": ((_PM, (
+        (_IM_MEMBER, _IM_STAGED.rstrip("\n")),
+        (_IM_SMEM, "    case HF_IM2COL: return m.i[3] * m.i[1] * (m.i[2] ? 4 "
+         ": 2);\n" + _IM_SMEM))),),
+})
 PTXAS = {"hash_member": "11hash_member",
          "ethash_member": "13ethash_member", "hf_paper": "hf_paper",
          "hf_stream": "hf_stream",
@@ -261,6 +400,10 @@ MEMBER_CASES = {
     "hist": ("hist", False, False), "hist_bf16": ("hist", True, False),
     "maxpool": ("maxpool", False, False),
     "maxpool_bf16": ("maxpool", True, False),
+    "upsample": ("upsample", False, False),
+    "upsample_bf16": ("upsample", True, False),
+    "im2col": ("im2col", False, False),
+    "im2col_bf16": ("im2col", True, False),
     "bnstats_small": ("bnstats", False, True),
 }
 
@@ -318,7 +461,9 @@ def probe(root: Path, label: str, cases: list[str]) -> None:
             launch_cases(torch, label, g, flush)
             continue
         produced = case.endswith("_produced")
-        name, bf16, small = MEMBER_CASES[case.removesuffix("_produced")]
+        consumed = case.endswith("_consumed")
+        name, bf16, small = MEMBER_CASES[
+            case.removesuffix("_produced").removesuffix("_consumed")]
         kw = dict(ps.SMALL_KW[name]) if small else {}
         if bf16:
             kw["dtype"] = torch.bfloat16
@@ -328,6 +473,9 @@ def probe(root: Path, label: str, cases: list[str]) -> None:
         run = hfuse.run_single(op)
         if produced:
             produced_case(torch, label, case, run, ins, flush)
+            continue
+        if consumed:
+            consumed_case(torch, label, case, op, run, ins, flush)
             continue
         err = (run(*ins)[0].float() - plain(*ins).float()).abs().max().item()
         ms = median_ms(lambda: run(*ins), flush)
@@ -370,6 +518,34 @@ def produced_case(torch, label, case, run, ins, flush) -> None:
         both, alone = timer(pair), timer(copy)
         parts.append(f"{what}: producer + member {both:.4f} ms, producer "
                      f"{alone:.4f} ms, member {both - alone:.4f} ms")
+    print(f"[{label}] {case}: " + "; ".join(parts), flush=True)
+
+
+def consumed_case(torch, label, case, op, run, ins, flush) -> None:
+    """upsample right before maxpool on its output, as a next layer reads
+    it (maxpool(upsample(x)) is x: checked): the pair and maxpool alone (on
+    a stored output), after a zeroing flush and warm."""
+    from repro_torch.core import hfuse
+    from repro_torch.core.timing import median_ms
+    from repro_torch.kernels import paper_suite as ps
+    m = op.member
+    pool = hfuse.run_single(ps.make_maxpool(R=2 * m.R, C=m.C,
+                                            dtype=m.dtype)[0])
+
+    def consume(y):
+        return pool(y)[0]
+    if not torch.equal(consume(run(*ins)[0]), ins[0]):
+        raise RuntimeError("maxpool(upsample(x)) is not x")
+    stored = run(*ins)[0]
+
+    def pair():
+        consume(run(*ins)[0])
+    parts = []
+    for what, timer in (("zeroing flush", lambda f: median_ms(f, flush)),
+                        ("warm", lambda f: flushed_ms(torch, f, None))):
+        both, alone = timer(pair), timer(lambda: consume(stored))
+        parts.append(f"{what}: member + consumer {both:.4f} ms, consumer "
+                     f"alone {alone:.4f} ms")
     print(f"[{label}] {case}: " + "; ".join(parts), flush=True)
 
 

@@ -129,34 +129,57 @@ __device__ void maxpool_member(const MemberDesc& m, int cta) {
 }
 
 // ---------------------------------------------------------------------------
-// upsample: (R, C) -> (2R, C), every row twice
+// upsample: (R, C) -> (2R, C), every row twice.  CTA = i[3] rows (16 at the
+// defaults: 256 CTAs, 16 a grid step, one wave at two CTAs an SM).  Thread t
+// owns the CTA's 16-byte vectors t, t + 256, ...: it issues up to UP_UNROLL
+// loads (all of its vectors at the defaults: 8 fp32, 4 bf16) before its first
+// store, then stores each vector into both output rows, back to back.  The
+// row of its next vector moves by HF_THREADS / cv (and one more where the
+// column wraps), so the loop divides once a trip.  Bound by bytes (8 + 16 MB
+// fp32 at the defaults: 0.0075 ms).  On the H100 a TMA bulk copy was slower,
+// hf_stream no faster, and the streaming hints slowed a consumer of the
+// output or a repeat on one input (scripts/member_variants.py; PERF.md §6).
 // ---------------------------------------------------------------------------
+#define UP_UNROLL 8        // upsample: 16-byte loads in flight per thread
+
 __device__ void upsample_member(const MemberDesc& m, int cta) {
   const int C = m.i[1], rows = m.i[3];
-  const int cv = C * (m.i[2] ? 4 : 2) / 16;
+  const int cv = C * (m.i[2] ? 4 : 2) / 16;     // 16-byte vectors per row
   const uint4* x = static_cast<const uint4*>(m.in[0]) + (size_t)cta * rows * cv;
   uint4* out = static_cast<uint4*>(m.out[0]) + (size_t)cta * 2 * rows * cv;
   const int n = rows * cv;
-  for (int v0 = threadIdx.x; v0 < n; v0 += PS_UNROLL * HF_THREADS) {
-    uint4 a[PS_UNROLL];
+  const int dr = HF_THREADS / cv, dc = HF_THREADS % cv;
+  for (int v0 = threadIdx.x; v0 < n; v0 += UP_UNROLL * HF_THREADS) {
+    uint4 a[UP_UNROLL];                         // all loads first
 #pragma unroll
-    for (int u = 0; u < PS_UNROLL; ++u) {
+    for (int u = 0; u < UP_UNROLL; ++u) {
       const int v = v0 + u * HF_THREADS;
       if (v < n) a[u] = x[v];
     }
+    int r = v0 / cv, c = v0 % cv;
 #pragma unroll
-    for (int u = 0; u < PS_UNROLL; ++u) {
-      const int v = v0 + u * HF_THREADS;
-      if (v >= n) break;
-      const int r = v / cv, c = v % cv;
-      out[(2 * r) * cv + c] = a[u];
-      out[(2 * r + 1) * cv + c] = a[u];
+    for (int u = 0; u < UP_UNROLL; ++u) {
+      if (v0 + u * HF_THREADS >= n) break;
+      uint4* o = out + (size_t)(2 * r) * cv + c;  // rows 2r and 2r + 1
+      o[0] = a[u];
+      o[cv] = a[u];
+      r += dr;
+      c += dc;
+      if (c >= cv) { c -= cv; ++r; }
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// im2col: (R, C) -> (R, K*C), block k of a row is the row rotated left by k
+// im2col: (R, C) -> (R, K*C); block k of a row is the row rotated left by
+// s_k = k < C ? k : 0 (the reference concatenates x[:, k:] and x[:, :k], so a
+// block with k >= C is the row itself).  CTA = i[3] rows (16 at the defaults:
+// 256 CTAs, 16 a grid step); thread t builds the 16-byte output vectors t, t +
+// 256, ... of the CTA's rows from VEC scalar loads of the row: c + s_k + j <
+// 2C, so one wrap at most and no read leaves the row.  Bound by bytes (8 MB
+// read, 32 MB written fp32 at the defaults: 0.0125 ms).  Kept at half its
+// bound: one PyTorch call of the same function, torch.index_select of the
+// rotations' columns, is slower on the H100 (PERF.md §6).
 // ---------------------------------------------------------------------------
 template <typename T>
 __device__ void im2col_rows(const MemberDesc& m, int cta) {
@@ -174,7 +197,7 @@ __device__ void im2col_rows(const MemberDesc& m, int cta) {
     T* ot = reinterpret_cast<T*>(&o);
 #pragma unroll
     for (int j = 0; j < VEC; ++j) {
-      const int src = c + k + j;                 // < 2C: one wrap at most
+      const int src = c + (k < C ? k : 0) + j;
       ot[j] = row[src < C ? src : src - C];
     }
     *reinterpret_cast<uint4*>(out + (r0 + r) * K * C + e) = o;

@@ -820,6 +820,62 @@ def test_maxpool_propagates_nan(cuda_dev, R, C, bm, dtype):
     torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
 
 
+# (R, C, bm) of upsample and im2col: SMALL_KW, the defaults, 3 rows a CTA
+# at C 136 (34 fp32 / 17 bf16 vectors a row), one row a CTA at C 8
+STREAM_SHAPES = [(256, 128, 64), (4096, 512, 256), (96, 136, 48),
+                 (32, 8, 16)]
+
+
+@pytest.mark.parametrize("dtype", [F32, BF])
+@pytest.mark.parametrize("R,C,bm", STREAM_SHAPES, ids=str)
+@pytest.mark.parametrize("name", ["upsample", "im2col"])
+def test_stream_members_bitwise(cuda_dev, name, R, C, bm, dtype):
+    """upsample and im2col (csrc/paper_member.cuh upsample_member,
+    im2col_rows) bitwise equal to their plain versions in both dtypes, two
+    launches equal; a one-member launch runs hf_paper at two CTAs an SM or
+    more and reserves no shared memory."""
+    from repro_torch.kernels import paper_suite as ps
+    op, mk, plain = ps.ALL_KERNELS[name](R=R, C=C, bm=bm, dtype=dtype)
+    (x,) = mk(_gen(100 + C), "cuda")
+    run = hfuse.run_single(op)
+    (got,) = run(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, plain(x))
+    assert torch.equal(run(x)[0], got)
+    out = torch.empty(op.outputs[0].shape, dtype=dtype, device="cuda")
+    inst, per_sm = cuda.launch_instance([op.member], [(x,)], [(out,)])
+    assert inst == "hf_paper" and per_sm >= 2
+    assert cuda.member_smem(op.member) == 0
+
+
+@pytest.mark.parametrize("K", ["C-1", "C", "C+1", "2C+3"])
+@pytest.mark.parametrize("C,dtype", [(4, F32), (8, BF)], ids=str)
+def test_im2col_blocks_past_c(cuda_dev, C, dtype, K):
+    """Blocks k >= C of im2col are the row itself, as the reference's
+    x[:, k:] ++ x[:, :k] gives: bitwise equal to the plain version at K = C
+    - 1, C, C + 1 and 2C + 3 (3 rows a CTA), and at the defaults.  A
+    rotation by k wrapped once gives block k - C for C < k < 2C and reads
+    past the row from 2C on."""
+    from repro_torch.kernels import paper_suite as ps
+    K = {"C-1": C - 1, "C": C, "C+1": C + 1, "2C+3": 2 * C + 3}[K]
+    for kw in (dict(R=96, C=C, bm=48, K=K), {}):
+        op, mk, plain = ps.make_im2col(**kw, dtype=dtype)
+        (x,) = mk(_gen(110 + K), "cuda")
+        (got,) = hfuse.run_single(op)(x)
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain(x)), kw
+
+
+def test_paper_instances_do_not_spill(cuda_dev):
+    """hf_paper (every paper body; upsample, im2col, maxpool and hist
+    inlined) and hf_stream (maxpool) spill nothing (ptxas's report of the
+    build)."""
+    use = cuda.ptxas_usage()
+    for key in ("hf_paper", "hf_stream"):
+        (u,) = [v for k, v in use.items() if key in k]
+        assert u["spill_stores"] == 0 and u["spill_loads"] == 0, (key, u)
+
+
 def _paper_workspaces(member):
     """The persistent workspaces (``cuda.workspace``) of a paper member's
     shape."""

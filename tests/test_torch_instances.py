@@ -95,6 +95,9 @@ def _members():
     pool = paper_suite.make_maxpool(**paper_suite.SMALL_KW["maxpool"])[0]
     hist = paper_suite.make_hist(**paper_suite.SMALL_KW["hist"],
                                  dtype=BF)[0]
+    up = paper_suite.make_upsample(**paper_suite.SMALL_KW["upsample"])[0]
+    im = paper_suite.make_im2col(**paper_suite.SMALL_KW["im2col"],
+                                 dtype=BF)[0]
     dec = decode_attention_op(2, 128, 4, 4, 16, ck=128,
                               dynamic_length=True)
     return {
@@ -106,6 +109,7 @@ def _members():
         "rmsnorm_f32->gemm": stitch.stitch(norm8_32, mm32, "x"),
         "resadd->rmsnorm": stitch.stitch(add, norm, "x"),
         "sha_like": paper, "decode": dec, "maxpool": pool, "hist": hist,
+        "upsample": up, "im2col": im,
     }
 
 
@@ -129,6 +133,11 @@ LAUNCHES = [
     (("hist",), "hf_paper"),
     (("maxpool", "hist"), "hf_paper"),
     (("hist", "sha_like"), "hf_paper"),
+    (("upsample",), "hf_paper"),
+    (("im2col",), "hf_paper"),
+    (("maxpool", "upsample"), "hf_paper"),
+    (("im2col", "hist"), "hf_paper"),
+    (("upsample", "resadd"), "hf_bundle<false>"),
     (("maxpool", "resadd"), "hf_bundle<false>"),
     (("resadd", "sha_like"), "hf_bundle<false>"),
     (("resadd", "decode"), "hf_bundle<false>"),

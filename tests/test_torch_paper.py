@@ -163,6 +163,9 @@ def test_member_geometry():
     assert (hi.rows, hi.ctas) == (16, 128)
     assert hi.workspace_sizes() == ((hi.param, torch.int32), (1, torch.int32))
     assert ops["maxpool"].member.workspace_sizes() == ()
+    for n in ("upsample", "im2col"):        # 16 rows, one wave at 2 an SM
+        m = ops[n].member
+        assert (m.rows, m.ctas) == (16, 256) and m.workspace_sizes() == ()
 
 
 # (body, R, C, dtype, rows, param, runs): what the kernels do not take
@@ -189,6 +192,8 @@ TAKEN = [
     ("ethash_like", 512, 128, torch.float32, 32, 128, 4),
     ("hist", 256, 8, torch.bfloat16, 8, ps.HIST_MAX_BINS, 1),
     ("hist", 24, 132, torch.float32, 3, 1, 1),      # odd rows, one bin
+    ("im2col", 64, 4, torch.float32, 4, 11, 1),     # K past 2C
+    ("im2col", 64, 8, torch.bfloat16, 4, 19, 1),
 ]
 
 
@@ -466,3 +471,38 @@ def test_maxpool_select_propagates_nan_as_the_reference(dtype):
         assert torch.equal(got.float().isnan(), want.isnan())
         assert torch.equal(got.float().nan_to_num(), want.nan_to_num())
     assert bool(select[0, :2].isnan().all())
+
+
+@pytest.mark.parametrize("C,dtype", [(4, "float32"), (8, "bfloat16")])
+def test_im2col_blocks_past_c_match_the_reference(C, dtype):
+    """Block k of im2col is the row rotated left by s = k if k < C else 0
+    (the reference concatenates x[:, k:] and x[:, :k], so a block with k >=
+    C is the row itself).  The plain im2col and that rule as one gather
+    (``torch.index_select`` by the index (arange(C) + s) % C of each block,
+    the card's yardstick) are bitwise equal to ``repro.kernels.ref.im2col``
+    and to the reference's kernel in interpret mode at K = C - 1, C, C + 1
+    and 2C + 3; a rotation by k with one wrap, the index rule the kernel
+    had before this was repaired, differs once K > C + 1."""
+    from repro.kernels import ref as jref
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    x = np.random.default_rng(11).standard_normal((64, C)).astype(np.float32)
+    for K in (C - 1, C, C + 1, 2 * C + 3):
+        kw = dict(R=64, C=C, bm=64, K=K)
+        jx = jnp.asarray(x).astype(jdt)
+        tx = ps.inputs_from_numpy("im2col", [x], "cpu", **kw, dtype=tdt)[0]
+        want = torch.from_numpy(np.array(
+            jref.im2col(jx, K=K).astype(jnp.float32))).to(tdt)
+        (kern,) = jhfuse.run_single(jps.make_im2col(**kw, dtype=jdt)[0],
+                                    interpret=True)(jx)
+        assert torch.equal(torch.from_numpy(np.array(
+            kern.astype(jnp.float32))).to(tdt), want)
+        idx = torch.cat([(torch.arange(C) + (k if k < C else 0)) % C
+                         for k in range(K)])
+        assert torch.equal(ps.im2col(tx, K=K), want)
+        assert torch.equal(torch.index_select(tx, 1, idx), want)
+        # the rule without the repair: c + k + j wrapped once (C <= k < 2C
+        # rotates by k - C; from 2C on it reads past the row: cut off here)
+        old = torch.cat([(torch.arange(C) + k) % (2 * C) % C
+                         for k in range(K)])
+        assert torch.equal(torch.index_select(tx, 1, old), want) == (
+            K <= C + 1)
