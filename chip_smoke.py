@@ -175,13 +175,45 @@ non-zero exit code and no result line.
              residual add) held against the same layer of plain versions
              within LOGITS_REL_L2, ``ops.moe_gmm`` at phi3.5-moe's decode
              shape and ``ops.hfused_adamw`` over the layer's six leaves.
+  8e. wavefront  granite-3-2b at full width cut to 1 layer (the reference
+             executes the wavefront step only on a single-layer run),
+             ``scheduling="wavefront"``, B 8, max_len 2048: 16 requests in
+             two waves (8 prompts of 256 tokens, 8 of 512), 8 new tokens
+             each, with the counters reset: the first wave's first step
+             carries the second wave's FFN in-projection (prefill_ffn, M
+             4096).  The engine executes, a mixed step ran, the bundle
+             launcher, the row member and decode attention launched, the
+             mixed step's decode and co-prefill logits are within
+             LOGITS_REL_L2 of the same step from the plain versions, and,
+             without the executor, every executed step's decode logits
+             (the mixed step's too) within LOGITS_REL_L2 of
+             ``lm.decode_step`` on a copy of its cache and tokens, the
+             co-prefill's within LOGITS_REL_L2 of ``lm.prefill`` of the
+             riding prompts; the share of tokens agreeing with the
+             hand-wired wavefront engine is printed.  prefill_ffn at M 4096 alone (row e) against its
+             plain version, timed beside ``torch.matmul`` and its bound, and
+             in one launch with decode attention at the search's schedule,
+             bitwise against run_native and timed beside it (row a).
+  8f. fallback  full-depth granite-3-2b, ``plan_fusion=False`` (the
+             hand-wired continuous fallback: ``lm.prefill`` and
+             ``lm.decode_step``, one slot at a time): 4 requests with
+             prompts of 64..512 tokens, 4 new tokens each, with the counters
+             reset: no kernel of the port may launch (the executor-free
+             oracle), every request completes, and each prompt's first-token
+             logits are within LOGITS_REL_L2 of the executed engine's
+             final-chunk logits for it, and each decoding step of the
+             executed engine is within LOGITS_REL_L2 of the fallback's
+             decode (``lm.decode_step`` a slot) on a copy of its cache, over
+             the decoding slots; the share of tokens agreeing with the
+             executed engine is printed.
   9. report  one JSON line of kernels, then the result line.
 
-Each main path (paper, update_dw, train, serve, paged, moe, ops) runs with
-every launch counter reset just before it and read just after; each of
-its kernels must have launched.  Serve, moe and ops also count the
-activation members their launches carried, alone and as a chain's
-consumer (the row family shares one counter).
+Each main path (paper, update_dw, train, serve, paged, moe, ops, wavefront,
+fallback) runs with every launch counter reset just before it and read
+just after; each of its kernels must have launched (the fallback's: none
+may).  Serve, moe and ops also count the activation members their
+launches carried, alone and as a chain's consumer (the row family shares
+one counter).
 
 Exits with code 1 and no result when no CUDA device is visible, and with
 code 2 when the port's sources are not beside it.
@@ -245,6 +277,14 @@ MOE_LAYERS = 8
 # expert shape (16 experts, capacity 8, d 4096, d_ff_expert 6400).
 PHI_HEADS, PHI_HEAD_DIM = (32, 8), 128
 PHI_GMM = (16, 8, 4096, 6400)
+
+# Phase 8e: the executed wavefront step on granite-3-2b cut to 1 layer (the
+# reference executes wavefront only on a single-layer run): two waves of 8
+# prompts, the second wave's 8 x 512 rows riding the first wave's first
+# step as prefill_ffn (M 4096).
+WAVE_LAYERS, WAVE_PROMPTS, WAVE_NEW = 1, (256, 512), 8
+# Phase 8f: the hand-wired continuous fallback at full depth.
+FALLBACK_PROMPTS, FALLBACK_NEW = (64, 200, 350, 512), 4
 
 # Full-width granite-3-2b train shapes.
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 4
@@ -388,6 +428,16 @@ def sdpa_decode(torch, q, k, v):
     mask = (kpos[None, :] < lens[:, None]).reshape(B, 1, 1, -1)
     qh, kh, vh = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
     return lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                                  enable_gqa=True)
+
+
+def sdpa_static(torch, q, k, v):
+    """SDPA of one query a slot over the whole of k, v (the static forms'
+    yardstick): q (B,H,D), k, v (B,L,Hkv,D), copies outside the call."""
+    import torch.nn.functional as F
+    qh, kh = q[:, :, None, :], k.transpose(1, 2).contiguous()
+    vh = v.transpose(1, 2).contiguous()
+    return lambda: F.scaled_dot_product_attention(qh, kh, vh,
                                                   enable_gqa=True)
 
 
@@ -597,6 +647,21 @@ def paper_specials(torch, ps, hfuse, g, dev) -> None:
             else:
                 check(float(got.sum()) == x.numel(),
                       f"hist {dtype} does not count every value")
+    # zeros of both signs in both orders of a pair: +0 wins, bit for bit
+    for dtype, bits in ((torch.float32, torch.int32),
+                        (torch.bfloat16, torch.int16)):
+        op, mk, plain = ps.make_maxpool(dtype=dtype)
+        (x,) = mk(g, dev)
+        half = x.shape[1] // 2
+        x[0::2, :half], x[1::2, :half] = 0.0, -0.0
+        x[0::2, half:], x[1::2, half:] = -0.0, 0.0
+        x[2, 0], x[3, 0], x[4, 1], x[5, 1] = nan, -0.0, 0.0, -inf
+        (got,) = hfuse.run_single(op)(x)
+        want = plain(x)
+        check(torch.equal(got.view(bits), want.view(bits)),
+              f"maxpool {dtype} signed zeros differ from plain in their bits")
+        check(not bool((want.signbit() & (want == 0)).any()),
+              f"maxpool {dtype} plain version keeps a -0")
     for C, dtype in ((4, torch.float32), (8, torch.bfloat16)):
         for K in (C - 1, C, C + 1, 2 * C + 3):
             op, mk, plain = ps.make_im2col(R=64, C=C, bm=64, K=K,
@@ -606,8 +671,10 @@ def paper_specials(torch, ps, hfuse, g, dev) -> None:
                   f"im2col C={C} K={K} {dtype} differs from plain")
     print("[paper] maxpool (NaN, +-inf in either row) and hist (NaN, +-inf, "
           "+-9) in fp32 and bf16 equal to their plain versions, NaN "
-          "compared equal; im2col at K = C - 1 .. 2C + 3 (C 4 fp32, C 8 "
-          "bf16) bitwise equal to its plain version", flush=True)
+          "compared equal; maxpool's signed zeros (both orders) bit for bit "
+          "the plain version's, fp32 and bf16, no -0 left; im2col at K = "
+          "C - 1 .. 2C + 3 (C 4 fp32, C 8 bf16) bitwise equal to its plain "
+          "version", flush=True)
 
 
 def phase_paper(torch, dev) -> tuple[list[dict], dict]:
@@ -799,6 +866,7 @@ def phase_kernels(torch, dev, cfg) -> list[dict]:
     from repro_torch.core.cost_model import Schedule
     from repro_torch.core.timing import flush_buffer, median_ms
     from repro_torch.kernels import cuda, registry
+    from repro_torch.kernels.decode_attention import decode_attention_op
     from repro_torch.serve.engine import PrefillBudget, ServeEngine
 
     by_name = {k.name: k for k in registry()}
@@ -878,6 +946,26 @@ def phase_kernels(torch, dev, cfg) -> list[dict]:
          decode_cost(H, Hkv, D), BF16_FLOPS,
          sdpa_decode(torch, q_dec, k_cache, v_cache)),
     ]
+    # decode attention's static forms: every slot's valid length a launch
+    # constant (a fixed length, or the whole cache), no "len" operand
+    for length in (555, None):
+        L = length or S
+        st_op = decode_attention_op(B, S, H, Hkv, D, ck=1024, length=length)
+        st_in = (q_dec, k_cache, v_cache)
+        dyn = hfuse.run_single(att)(torch.full((B, 1), L, dtype=torch.int32,
+                                               device=dev), *st_in)
+        check(all(torch.equal(a, b) for a, b in zip(
+            hfuse.run_single(st_op)(*st_in), dyn)),
+            f"static decode attention (length {L}) differs from the "
+            f"dynamic form at that length")
+        kv_b = 2 * B * L * Hkv * D * 2
+        io_b = B * H * D * 2 + B * H * D * 4 + 2 * B * H * 4
+        cases.append((
+            f"decode_attention:static length={L}", dec_k,
+            "decode_attention.cuh",
+            "src/repro/kernels/decode_attention.py:44", st_op, st_in,
+            (kv_b + io_b, 4.0 * B * H * D * L), BF16_FLOPS,
+            sdpa_static(torch, q_dec, k_cache[:, :L], v_cache[:, :L])))
     for off in PREFILL_OFFS:
         cases.append((f"prefill_attention:off={off}", pf_k,
                       "prefill_attention.cuh",
@@ -2506,6 +2594,385 @@ def phase_ops(torch, dev, cfg) -> tuple[list[dict], dict]:
                   "layer_rel_l2": rel}
 
 
+# ---------------------------------------------------------------------------
+# Phase 8e: the executed wavefront step, 1-layer full-width granite-3-2b
+# ---------------------------------------------------------------------------
+def clone_cache(cache: dict) -> dict:
+    """A copy of a serve cache: ``pos`` and each run's k/v leaves."""
+    return {k: v.clone() if k == "pos" else
+            {kk: vv.clone() for kk, vv in v.items()}
+            for k, v in cache.items()}
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm()).item()
+
+
+def written_rows(torch, cache: dict, pos, slots) -> dict:
+    """The k/v rows a decode step wrote, every layer: slot b's row at its
+    position before the step, for each b in ``slots`` (``pos`` by slot)."""
+    run = next(k for k in cache if k != "pos")
+    out = {}
+    for name, t in cache[run].items():
+        ax = t.dim() - 4                     # 1 for a stacked (L, B, ...)
+        out[name] = torch.stack([t.select(ax, b).select(ax, p)
+                                 for b, p in zip(slots, pos)])
+    return out
+
+
+def step_rel(got_logits, got_rows, want_logits, want_rows, slots) -> dict:
+    """Relative L2 of a decode step against another over the decoding
+    slots: its logits and the k/v rows it wrote."""
+    return {"logits": rel_l2(got_logits[slots], want_logits[slots]),
+            **{k: rel_l2(got_rows[k], want_rows[k]) for k in got_rows}}
+
+
+def worst(rels) -> dict:
+    return {k: max(r[k] for r in rels) for k in rels[0]}
+
+
+def capture_first_coprefill(torch, eng) -> dict:
+    """Wrap ``eng``'s mixed-step factory so the first wavefront step that
+    carries the next wave's prompt keeps a copy of its inputs, its decode
+    logits, the k/v rows it wrote and its co-prefill logits:
+    ``captured["inputs"]``, ``captured["out"]``."""
+    captured = {}
+    make_step = eng._mixed_step
+
+    def mixed_step(P):
+        step = make_step(P)
+
+        def wrapped(params_, cache, tokens, pf_tokens):
+            first = "inputs" not in captured
+            if first:
+                captured["inputs"] = (P, clone_cache(cache), tokens.clone(),
+                                      pf_tokens.clone())
+            out = step(params_, cache, tokens, pf_tokens)
+            if first:
+                pos = [int(captured["inputs"][1]["pos"])] * eng.batch
+                captured["out"] = (out[0].clone(), written_rows(
+                    torch, out[1], pos, range(eng.batch)), out[3].clone())
+            return out
+        return wrapped
+
+    eng._mixed_step = mixed_step
+    return captured
+
+
+def capture_decode_steps(torch, eng) -> list:
+    """Wrap the executed wavefront engine's decode step so each call keeps
+    a copy of its cache and tokens, its logits and the k/v rows it
+    wrote."""
+    steps = []
+    step = eng._decode
+
+    def wrapped(params_, cache, tokens):
+        kept = clone_cache(cache), tokens.clone()
+        out = step(params_, cache, tokens)
+        pos = [int(kept[0]["pos"])] * eng.batch
+        steps.append((*kept, out[0].clone(), written_rows(
+            torch, out[1], pos, range(eng.batch))))
+        return out
+
+    eng._decode = wrapped
+    return steps
+
+
+def beside_plain_decode(torch, eng) -> list:
+    """Wrap the executed continuous engine's step factory so each step that
+    decodes first runs the fallback's decode (``lm.decode_step`` a slot,
+    no kernel of the port) on a copy of its cache; keeps ``step_rel`` of
+    the two a step."""
+    rels = []
+    make_step = eng._cb_step
+    plain_decode = eng._cb_plain_decode()
+
+    def cb_step(n):
+        step = make_step(n)
+
+        def wrapped(params_, cache, tokens, active, **kw):
+            slots = active.nonzero().flatten().tolist()
+            if slots:
+                pos = [int(cache["pos"][b]) for b in slots]
+                want, ref = plain_decode(params_, clone_cache(cache), tokens,
+                                         active)
+                want_rows = written_rows(torch, ref, pos, slots)
+            out = step(params_, cache, tokens, active, **kw)
+            if slots:
+                rels.append(step_rel(out[0], written_rows(
+                    torch, out[1], pos, slots), want, want_rows, slots))
+            return out
+        return wrapped
+
+    eng._cb_step = cb_step
+    return rels
+
+
+def token_agreement(a, b) -> float:
+    """Share of positions at which two runs of the same requests gave the
+    same token."""
+    pairs = [(x, y) for ra, rb in zip(a, b)
+             for x, y in zip(ra.out_tokens, rb.out_tokens)]
+    return sum(x == y for x, y in pairs) / max(len(pairs), 1)
+
+
+def phase_wavefront(torch, dev, cfg) -> tuple[list[dict], dict]:
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.core import autotuner, hfuse
+    from repro_torch.core.timing import flush_buffer, median_ms
+    from repro_torch.kernels import cuda, registry
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg1 = dataclasses.replace(cfg, num_layers=WAVE_LAYERS,
+                               block_pattern=None)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = lm.init(cfg1, gen, device=dev)
+    eng = ServeEngine(cfg1, params, batch=B, max_len=S,
+                      scheduling="wavefront", device=dev)
+    check(eng.executed, "the wavefront engine does not execute its step")
+    prog = eng.build_decode_program(ffn_rows=B * max(WAVE_PROMPTS))
+    print(f"[wavefront] mixed program {prog.describe()}", flush=True)
+
+    def requests():
+        rng = np.random.default_rng(3)
+        return [Request(rid=i, prompt=rng.integers(
+                    0, cfg.vocab_size, WAVE_PROMPTS[i // B]).astype(np.int32),
+                        max_new_tokens=WAVE_NEW)
+                for i in range(B * len(WAVE_PROMPTS))]
+
+    reqs = requests()
+    captured = capture_first_coprefill(torch, eng)
+    decoded = capture_decode_steps(torch, eng)
+    kernels = registry()
+    cuda.reset_counts(kernels)
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k.name: k.launches for k in kernels}
+    tokens = sum(len(r.out_tokens) for r in reqs)
+    print(f"[wavefront] {len(reqs)} requests in {len(WAVE_PROMPTS)} waves, "
+          f"{tokens} tokens in {wall:.3f}s ({tokens / wall:.2f} tok/s); "
+          f"mixed steps for prompt lengths {sorted(eng._mixed_steps)}")
+    print(f"[wavefront] launches {counts}", flush=True)
+    check(bool(eng._mixed_steps), "no wavefront step carried a prompt")
+    check(all(counts[k] > 0 for k in ("bundle_launcher", "row_member",
+                                      "decode_attention")),
+          f"a kernel of the wavefront path never launched: {counts}")
+    check(all(len(r.out_tokens) == WAVE_NEW for r in reqs),
+          "a wavefront request stopped early")
+    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens),
+          "token out of the vocabulary")
+
+    # without the executor: each executed step against lm.decode_step on a
+    # copy of its cache and tokens (logits and the k/v rows written), the
+    # mixed step's decode likewise and its co-prefill logits against
+    # lm.prefill of the riding prompts
+    check("out" in captured, "no mixed step ran")
+    P, cache, toks, pf_toks = captured["inputs"]
+    logits_m, rows_m, pf_logits = captured["out"]
+    steps = decoded + [(clone_cache(cache), toks, logits_m, rows_m)]
+    every = list(range(B))
+    rels = []
+    for c, t, lg, rows in steps:
+        pos = [int(c["pos"])] * B
+        want, c2 = lm.decode_step(cfg1, params, c, t)
+        rels.append(step_rel(lg, rows, want, written_rows(torch, c2, pos,
+                                                           every), every))
+    hand = {**worst(rels), "co-prefill": rel_l2(pf_logits, lm.prefill(
+        cfg1, params, {"tokens": pf_toks}, max_len=eng.cache_len)[1])}
+    print(f"[wavefront] against lm.decode_step / lm.prefill (no executor), "
+          f"{len(steps)} executed steps (the mixed one and {len(decoded)} "
+          f"decode), worst rel L2: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in hand.items())
+          + f" (limit {LOGITS_REL_L2})", flush=True)
+    check(max(hand.values()) <= LOGITS_REL_L2,
+          f"wavefront steps off lm.decode_step / lm.prefill: {hand}")
+    del steps, decoded
+
+    # the first mixed step again, from the plain versions on the card
+    ref = ServeEngine(cfg1, params, batch=B, max_len=S,
+                      scheduling="wavefront", device=dev, plain=True)
+    out = ref._mixed_step(P)(params, cache, toks, pf_toks)
+    rel = {}
+    for name, a, b in (("decode", logits_m, out[0]),
+                       ("co-prefill", pf_logits, out[3])):
+        check(bool(torch.isfinite(a).all()) and a.shape == b.shape,
+              f"wavefront {name} logits non-finite or misshapen")
+        rel[name] = ((a - b).norm() / b.norm()).item()
+        print(f"[wavefront] first mixed step (P {P}, prefill_ffn M "
+              f"{B * P}) {name} logits: rel L2 {rel[name]:.3e} (limit "
+              f"{LOGITS_REL_L2}), argmax agreement "
+              f"{(a.argmax(-1) == b.argmax(-1)).float().mean().item():.3f}",
+              flush=True)
+        check(rel[name] <= LOGITS_REL_L2,
+              f"wavefront {name} logits off the plain step: {rel[name]}")
+
+    # the hand-wired wavefront engine (lm.prefill + lm.decode_step) on the
+    # same requests
+    hand = ServeEngine(cfg1, params, batch=B, max_len=S,
+                       scheduling="wavefront", plan_fusion=False, device=dev)
+    hreqs = requests()
+    hand.run(hreqs)
+    agree = token_agreement(reqs, hreqs)
+    print(f"[wavefront] tokens agreeing with the hand-wired wavefront "
+          f"engine: {agree:.3f}", flush=True)
+
+    # the partner at M 4096 alone (row e) and fused with decode attention
+    # (row a), bitwise against the native launches
+    by_name = {k.name: k for k in kernels}
+    d, f = cfg.d_model, cfg.d_ff
+    M = B * max(WAVE_PROMPTS)
+    graph = {g_.op.name: g_.op for g_ in eng.decode_graph(ffn_rows=M)}
+    pf = graph["prefill_ffn"]
+    att = next(o for n, o in graph.items() if n.startswith("decode_attn"))
+    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    g = torch.Generator(device=dev)
+    g.manual_seed(77)
+
+    def randn(shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(
+            torch.bfloat16)
+
+    pf_in = (randn((M, d)), randn((d, 2 * f), d ** -0.5))
+    dec_in = (torch.tensor(DECODE_LENS, dtype=torch.int32,
+                           device=dev).reshape(B, 1),
+              randn((B, H, D)), randn((B, S, Hkv, D)), randn((B, S, Hkv, D)))
+    flush = flush_buffer(dev)
+    rows = []
+    run, run_plain = hfuse.run_single(pf), hfuse.run_single(pf, plain=True)
+    err = compare(torch, run(*pf_in), run_plain(*pf_in))
+    pf_cost = (d * 2 * f * 2 + M * d * 2 + M * 2 * f * 2, 2.0 * M * d * 2 * f)
+    x_, w_ = pf_in
+    rows.append(kernel_row(
+        "wavefront", f"row_member:prefill_ffn (M {M})", by_name["row_member"],
+        "row_member.cuh", "src/repro/kernels/matmul.py:64", err,
+        median_ms(lambda: run(*pf_in), flush),
+        median_ms(lambda: run_plain(*pf_in), flush), pf_cost, BF16_FLOPS,
+        median_ms(lambda: x_ @ w_, flush), ctas=pf.ctas))
+    res = autotuner.search([pf, att])
+    ops, sched = tuple(res.ops), res.best.sched
+    ins = tuple(t for op in ops
+                for t in (pf_in if op.name == pf.name else dec_in))
+    fused = hfuse.generate(ops, sched)
+    native = hfuse.run_native(ops)
+    plain = hfuse.generate(ops, sched, plain=True)
+    out_f = fused(*ins)
+    check(all(torch.equal(a, b) for a, b in zip(out_f, native(*ins))),
+          "prefill_ffn + decode attention differs from run_native")
+    err = compare(torch, out_f, plain(*ins))
+    cost = tuple(pf_cost[i] + decode_cost(H, Hkv, D)[i] for i in (0, 1))
+    rows.append(kernel_row(
+        "wavefront", f"bundle_launcher:prefill_ffn+decode_attn "
+        f"({sched.label()})", by_name["bundle_launcher"], "bundle.cu",
+        "src/repro/core/hfuse.py:87", err,
+        median_ms(lambda: fused(*ins), flush),
+        median_ms(lambda: plain(*ins), flush), cost, BF16_FLOPS, None,
+        native_ms=median_ms(lambda: native(*ins), flush),
+        predicted_gain_pct=res.best.est.speedup_pct()))
+    print("[wavefront] prefill_ffn + decode attention fused bitwise equal "
+          "to run_native", flush=True)
+    return rows, {"counts": counts, "tokens": tokens, "seconds": wall,
+                  "tokens_per_s": tokens / wall, "logits_rel_l2": rel,
+                  "hand_wired_rel_l2": hand, "agreement": agree}
+
+
+# ---------------------------------------------------------------------------
+# Phase 8f: the hand-wired continuous fallback, full-depth granite-3-2b
+# ---------------------------------------------------------------------------
+def record_first_logits(eng) -> dict:
+    """Keep each admitted request's first-token logits, by rid."""
+    first = {}
+    admit = eng._admit
+
+    def wrapped(req, slot, pf_logits, *rest):
+        first[req.rid] = pf_logits.float().clone()
+        return admit(req, slot, pf_logits, *rest)
+
+    eng._admit = wrapped
+    return first
+
+
+def phase_fallback(torch, dev, cfg) -> dict:
+    import numpy as np
+
+    from repro_torch.kernels import cuda, registry
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import PrefillBudget, Request, ServeEngine
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = lm.init(cfg, gen, device=dev)
+
+    def requests():
+        rng = np.random.default_rng(5)
+        return [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                                   L).astype(np.int32),
+                        max_new_tokens=FALLBACK_NEW)
+                for i, L in enumerate(FALLBACK_PROMPTS)]
+
+    fb = ServeEngine(cfg, params, batch=B, max_len=S, plan_fusion=False,
+                     device=dev)
+    check(not fb.executed, "the fallback engine executes a program")
+    fb_first = record_first_logits(fb)
+    reqs = requests()
+    kernels = registry()
+    cuda.reset_counts(kernels)
+    t0 = time.perf_counter()
+    fb.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k.name: k.launches for k in kernels}
+    tokens = sum(len(r.out_tokens) for r in reqs)
+    print(f"[fallback] {len(reqs)} requests, {tokens} tokens in {wall:.3f}s "
+          f"({tokens / wall:.2f} tok/s); stats {fb.stats.describe()}")
+    print(f"[fallback] launches {counts}", flush=True)
+    check(not any(counts.values()),
+          f"the fallback launched a kernel of the port: {counts}")
+    check(all(r.done and len(r.out_tokens) == FALLBACK_NEW for r in reqs),
+          "a fallback request did not complete")
+
+    exe = ServeEngine(cfg, params, batch=B, max_len=S, device=dev,
+                      prefill_budget=PrefillBudget(chunk_rows=C))
+    exe_first = record_first_logits(exe)
+    exe_steps = beside_plain_decode(torch, exe)
+    ereqs = requests()
+    exe.run(ereqs)
+    check(bool(exe_steps), "the executed engine never decoded")
+    dec = worst(exe_steps)
+    print(f"[fallback] the executed engine's {len(exe_steps)} decoding steps "
+          f"against the fallback's decode (lm.decode_step a slot, no "
+          f"executor) over the decoding slots, worst rel L2: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in dec.items())
+          + f" (limit {LOGITS_REL_L2})", flush=True)
+    check(max(dec.values()) <= LOGITS_REL_L2,
+          f"executed decode steps off lm.decode_step: {dec}")
+    rel = {}
+    for r in reqs:
+        a, b = fb_first[r.rid], exe_first[r.rid]
+        check(bool(torch.isfinite(a).all()) and a.shape == b.shape,
+              f"fallback first logits of request {r.rid} non-finite")
+        rel[r.rid] = ((a - b).norm() / b.norm()).item()
+    print(f"[fallback] first-token logits (lm.prefill) against the executed "
+          f"engine's final chunk, rel L2 by prompt length: "
+          + ", ".join(f"{len(r.prompt)}: {rel[r.rid]:.3e}" for r in reqs)
+          + f" (limit {LOGITS_REL_L2})", flush=True)
+    check(max(rel.values()) <= LOGITS_REL_L2,
+          f"fallback first-token logits off the executed engine: {rel}")
+    agree = token_agreement(reqs, ereqs)
+    print(f"[fallback] tokens agreeing with the executed engine: "
+          f"{agree:.3f}", flush=True)
+    return {"counts": counts, "tokens": tokens, "seconds": wall,
+            "tokens_per_s": tokens / wall, "logits_rel_l2": rel,
+            "decode_rel_l2": dec, "agreement": agree}
+
+
 def main() -> int:
     import torch
 
@@ -2567,7 +3034,11 @@ def main() -> int:
     paged_rows, paged = timed("paged", phase_paged, torch, dev, cfg)
     moe_rows, moe_run = timed("moe", phase_moe, torch, dev)
     ops_rows, ops_run = timed("ops", phase_ops, torch, dev, cfg)
-    rows += paged_rows + moe_rows + ops_rows
+    free_card(torch)
+    wave_rows, wave = timed("wavefront", phase_wavefront, torch, dev, cfg)
+    free_card(torch)
+    fallback = timed("fallback", phase_fallback, torch, dev, cfg)
+    rows += paged_rows + moe_rows + ops_rows + wave_rows
     print("[phases] wall s: " + ", ".join(f"{k} {v:.1f}"
                                          for k, v in walls.items()))
 
@@ -2576,7 +3047,8 @@ def main() -> int:
     runs = {"serve": serve["counts"], "train": train["counts"],
             "update_dw": update_dw["counts"],
             "paper": paper_run["counts"], "paged": paged["counts"],
-            "moe": moe_run["counts"], "ops": ops_run["counts"]}
+            "moe": moe_run["counts"], "ops": ops_run["counts"],
+            "wavefront": wave["counts"], "fallback": fallback["counts"]}
     for r in rows:
         r["launches"] = runs[r.pop("path")][r.pop("kernel").name]
     check(all(set(c) == set(names) for c in runs.values()),
@@ -2602,6 +3074,10 @@ def main() -> int:
           f"{moe_run['load_shed_steps']} ({smi})")
     print(f"[ops] granite layer {ops_run['layer_ms']:.1f} ms, rel L2 "
           f"{ops_run['layer_rel_l2']:.3g} ({smi})")
+    print(f"[wavefront] tokens/s {wave['tokens_per_s']:.3f}, agreement with "
+          f"the hand-wired engine {wave['agreement']:.3f} ({smi})")
+    print(f"[fallback] tokens/s {fallback['tokens_per_s']:.3f}, agreement "
+          f"with the executed engine {fallback['agreement']:.3f} ({smi})")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -107,6 +107,15 @@ class ModelConfig:
             return False
         return self.moe_layer_overrides.get(idx, "moe") == "moe"
 
+    # ------------- parameter counting (for 6ND model flops) -------------
+    def param_count(self) -> int:
+        from repro_torch.models import lm  # local import to avoid cycles
+        return lm.count_params(self)
+
+    def active_param_count(self) -> int:
+        from repro_torch.models import lm
+        return lm.count_params(self, active_only=True)
+
     # ------------- smoke-size derivation -------------
     def reduced(self) -> "ModelConfig":
         """A tiny config of the same family: keeps one run of every distinct

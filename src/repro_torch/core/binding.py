@@ -19,6 +19,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, Mapping, Optional, Sequence
 
+import torch
+
 from repro_torch.core.op_spec import OpSpec
 
 State = dict
@@ -116,3 +118,24 @@ def default_bindings(ops: Sequence[OpSpec]) -> BindingRegistry:
         reg.bind(op.name, **{n: f"{op.name}.{n}"
                              for n in (*op.in_names, *op.out_names)})
     return reg
+
+
+def synth_state(ops: Sequence[OpSpec], seed: int = 0) -> State:
+    """Operands for every *input* of ``ops`` under ``default_bindings``'
+    keys, on the CPU from a seeded generator: small normals for floats,
+    zeros otherwise (``core/timing.py`` ``synth_inputs``, keyed for the
+    executor)."""
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    state: State = {}
+    for op in ops:
+        for name, o in zip(op.in_names, op.inputs):
+            k = f"{op.name}.{name}"
+            if k in state:
+                continue
+            if o.dtype.is_floating_point:
+                state[k] = (torch.randn(o.shape, generator=gen)
+                            * 0.1).to(o.dtype)
+            else:
+                state[k] = torch.zeros(o.shape, dtype=o.dtype)
+    return state

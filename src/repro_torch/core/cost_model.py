@@ -10,12 +10,16 @@ cliff.  The constants are the planning profile (``core/profile.py``): the
 reference's v5e numbers, so the port's plans can be held against the
 reference's.  Its microseconds are model numbers, never card times.
 
-The per-op-class correction table is kept and inert: with no table
-installed every factor is exactly 1.0, as in the reference.
+The per-op-class correction table is the reference's: installed by
+``set_corrections`` or read once from the JSON file named by
+``$REPRO_COST_CORRECTIONS`` (an unreadable file is no table); with no table
+every factor is exactly 1.0.
 """
 from __future__ import annotations
 
+import json
 import math
+import os
 import re
 from dataclasses import dataclass
 from typing import Optional, Sequence
@@ -32,6 +36,7 @@ _PARAM_SEG = re.compile(r"^[A-Za-z]{0,3}\d")
 _CHAIN_SEP = "→"
 
 _corrections: Optional[dict] = None
+_corrections_env_loaded = False
 
 
 def op_class(name: str) -> str:
@@ -47,19 +52,42 @@ def op_class(name: str) -> str:
 
 
 def set_corrections(table: Optional[dict]) -> None:
-    """Install (or clear, with None) the per-op-class correction table."""
-    global _corrections
+    """Install (or clear, with None) the per-op-class correction table:
+    ``{class: factor}`` or the fit-cost file schema ``{"classes": {class:
+    {"correction": factor, ...}}}``.  An explicit call wins over the
+    environment's file."""
+    global _corrections, _corrections_env_loaded
     if table is not None and "classes" in table:
         table = {k: float(v["correction"] if isinstance(v, dict) else v)
                  for k, v in table["classes"].items()}
     _corrections = table
+    _corrections_env_loaded = True
+
+
+def _correction_table() -> Optional[dict]:
+    """The installed table, reading ``$REPRO_COST_CORRECTIONS`` the first
+    time no table was installed."""
+    global _corrections_env_loaded
+    if not _corrections_env_loaded:
+        _corrections_env_loaded = True
+        path = os.environ.get("REPRO_COST_CORRECTIONS")
+        if path:
+            try:
+                with open(path) as fh:
+                    set_corrections(json.load(fh))
+            except (OSError, json.JSONDecodeError, KeyError, TypeError,
+                    ValueError):
+                pass                        # unreadable table == no table
+    return _corrections
 
 
 def correction_for(name: str) -> float:
-    if not _corrections:
+    """Fitted factor of this op's class (1.0 without a table or class)."""
+    table = _correction_table()
+    if not table:
         return 1.0
     lo, hi = CORRECTION_CLAMP
-    return min(hi, max(lo, float(_corrections.get(op_class(name), 1.0))))
+    return min(hi, max(lo, float(table.get(op_class(name), 1.0))))
 
 
 def native_time(op: OpSpec) -> float:
@@ -89,6 +117,14 @@ class Schedule:
     @property
     def n_ops(self) -> int:
         return len(self.ratios)
+
+    @property
+    def ra(self) -> int:
+        return self.ratios[0]
+
+    @property
+    def rb(self) -> int:
+        return self.ratios[1]
 
     @property
     def period(self) -> int:
@@ -172,6 +208,17 @@ def hfused_cost(ops: Sequence[OpSpec], sched: Schedule, *,
         t_native=t_native, t_vfused=t_vfused, t_hfused=t_h,
         gain_vs_native=t_native - t_h, gain_vs_vfused=t_vfused - t_h,
         vmem_bytes=vmem, vmem_ok=vmem_ok, overlap_eff=eff)
+
+
+def fusion_profitable(a: OpSpec, b: OpSpec) -> bool:
+    """The paper's scenario test: different bound kinds => profitable."""
+    return a.bound != b.bound
+
+
+def bundle_profitable(ops: Sequence[OpSpec]) -> bool:
+    """N-way scenario test: the bundle must mix bound kinds (an all-compute
+    or all-memory bundle only saves launches)."""
+    return len({op.bound for op in ops}) > 1
 
 
 def ratio_candidates(ops: Sequence[OpSpec], *,

@@ -131,6 +131,27 @@ class OpSpec:
     def t_native(self) -> float:
         return max(self.t_compute, self.t_memory)
 
+    def step_costs(self) -> tuple[float, float]:
+        """(compute, memory) seconds per grid step (uniform steps)."""
+        return self.t_compute / self.grid, self.t_memory / self.grid
+
+    def describe(self) -> dict:
+        return {
+            "name": self.name, "grid": self.grid, "flops": self.flops,
+            "hbm_bytes": self.hbm_bytes, "vmem_bytes": self.vmem_bytes,
+            "arithmetic_intensity": round(self.arithmetic_intensity, 2),
+            "bound": self.bound,
+            "t_compute_us": self.t_compute * 1e6,
+            "t_memory_us": self.t_memory * 1e6,
+            "t_native_us": self.t_native * 1e6,
+        }
+
+
+def make_operand(t, block_shape, index_map) -> Operand:
+    """An Operand of the shape and dtype of ``t`` (a tensor, or anything
+    with ``shape`` and a torch ``dtype``)."""
+    return Operand(tuple(t.shape), t.dtype, tuple(block_shape), index_map)
+
 
 # ---------------------------------------------------------------------------
 # Automatic block shrinking (the paper's register-cap analogue)

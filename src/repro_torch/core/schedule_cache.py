@@ -4,7 +4,7 @@ The port's own copy of the reference's ``src/repro/core/schedule_cache.py``:
 entries keyed by an exact *bundle signature* (op names, grids, operand
 shapes/dtypes/block shapes, FLOP/byte counts, the working-set budget and
 the scoring mode; the reference's mesh tag comes with tensor parallelism,
-ROADMAP item 9), an LRU side table (``meta``/``clock``)
+ROADMAP item 5), an LRU side table (``meta``/``clock``)
 bounded by ``max_entries``, ``batched()`` to defer disk writes over a whole
 plan, a merge of concurrent writers on save, and a corrupt or stale file
 read as an empty cache.

@@ -1,8 +1,11 @@
 """Measurement harness — the profiler inside the paper's Main() loop (Fig. 6).
 
-``make_measure(backend)`` builds the ``measure(fused, *ops) -> seconds``
-callable that ``autotuner.search(measure=)`` and ``planner.plan(measure=)``
-take (the reference's ``src/repro/core/timing.py``):
+``make_measure(backend="auto")`` builds the ``measure(fused, *ops) ->
+seconds`` callable that ``autotuner.search(measure=)`` and
+``planner.plan(measure=)`` take (the reference's
+``src/repro/core/timing.py``); ``resolve_backend`` maps "auto" to "gpu"
+with a card and to "interpret" on the CPU, as the reference maps it to
+"tpu" or "interpret":
 
   gpu        — device time on the card: synthesize the operands from the
                OpSpecs, ``warmup`` runs, then ``repeats`` runs each between
@@ -15,6 +18,9 @@ take (the reference's ``src/repro/core/timing.py``):
                per-step roofline work.  It ranks schedules on any machine and
                gives the reference's measured plans on the CPU; its absolute
                gains are only launch amortization (``rank_only``).
+               ``execute=True`` also runs each candidate on synthesized
+               operands (the plain versions on the CPU): the numerics path
+               exercised, for reduced-size ops only.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ from repro_torch.core.op_spec import OpSpec
 from repro_torch.core.profile import LAUNCH_S
 
 BACKENDS = ("gpu", "interpret")
+
 # Device timing (``device_times``): a queued GPU sleep (~50 ms) before the
 # timed runs, so the host has enqueued them all before the device reaches
 # them and the events bracket device time only, not the host's launch
@@ -36,6 +43,16 @@ BACKENDS = ("gpu", "interpret")
 FLUSH_FLOATS = 64 * 2 ** 20
 SLEEP_CYCLES = 100_000_000
 REPS = 20
+
+
+def resolve_backend(backend: str = "auto", device=None) -> str:
+    """"auto" -> "gpu" where the operands live on a card (``device``, else
+    a card being present), "interpret" on the CPU; other names pass."""
+    if backend != "auto":
+        return backend
+    if device is not None:
+        return "gpu" if torch.device(device).type == "cuda" else "interpret"
+    return "gpu" if torch.cuda.is_available() else "interpret"
 
 
 def synth_inputs(ops: Sequence[OpSpec], seed: int = 0,
@@ -108,15 +125,21 @@ def _trimmed_mean(ts: list[float], trim: int) -> float:
     return sum(kept) / len(kept)
 
 
-def make_measure(backend: str, *, warmup: int = 2, repeats: int = 5,
-                 trim: int = 1, seed: int = 0) -> Callable:
+def make_measure(backend: str = "auto", *, warmup: int = 2, repeats: int = 5,
+                 trim: int = 1, execute: bool = False, seed: int = 0,
+                 device=None) -> Callable:
     """The ``measure(fused, *ops) -> seconds`` callable of ``backend``
-    (``"gpu"`` or ``"interpret"``)."""
+    (``"gpu"``, ``"interpret"``, or ``"auto"``: ``resolve_backend``)."""
+    backend = resolve_backend(backend, device)
     if backend not in BACKENDS:
         raise ValueError(f"measure backend {backend!r}: one of {BACKENDS}")
 
     if backend == "interpret":
         def measure(fused, *ops):
+            if execute and hasattr(fused, "schedule"):
+                from repro_torch.core import hfuse
+                hfuse.generate(ops, fused.schedule, plain=True)(
+                    *synth_inputs(ops, seed))
             return step_time_proxy(fused, ops)
         measure.backend = "interpret"
         # the proxy RANKS schedules; its native-vs-fused difference is only

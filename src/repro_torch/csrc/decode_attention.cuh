@@ -4,7 +4,9 @@
 // are cut into fixed ranges, one CTA each, combined by the slot's last CTA.
 //
 // Replaces the TPU kernel src/repro/kernels/decode_attention.py:44
-// (decode_attention_op, dynamic_length=True, contiguous and block_table=
+// (decode_attention_op: the per-slot dynamic_length=True form, and the
+// static forms, a fixed `length` or the whole cache, where every slot's
+// valid length is the launch constant i[8]; contiguous and block_table=
 // forms; :35 gather_pages becomes the row lookup of the staging loop).
 //
 // Bound on the card: bytes.  It streams each slot's valid cache prefix
@@ -49,7 +51,8 @@
 // The body is a non-inlined call: code inlined into hf_bundle moves every
 // other member's register allocation (PERF.md).
 //
-// Operands: len (B,1) i32; q (B,H,D) bf16; k, v (B,S,Hkv,D) bf16 ->
+// Operands: len (B,1) i32 (in[0]; null in the static forms, which read
+// the length from i[8]); q (B,H,D) bf16; k, v (B,S,Hkv,D) bf16 ->
 // o (B,H,D) f32 normalised, m, l (B,H,1) f32.  Paged (i[5] = bs > 0): k, v
 // are the arena (num_blocks, bs, Hkv, D) and in[4] is bt (B, i[6]) i32, slot
 // b's page -> arena block.  Blocks 0..B-1 are the slots' sentinels: an idle
@@ -86,7 +89,7 @@ __device__ __noinline__ void decode_split(const MemberDesc& md, int cta) {
   const float scale = md.f[0];
   const int rep = H / Hkv, nsp = (S + KS - 1) / KS;
   const int sp = cta % nsp, grp = cta / nsp, b = grp / Hkv, g = grp % Hkv;
-  const int L = static_cast<const int*>(md.in[0])[b];
+  const int L = md.in[0] ? static_cast<const int*>(md.in[0])[b] : md.i[8];
   const int n_kv = L <= 0 ? S : min(L, S);
   const int live = (n_kv + KS - 1) / KS;
   if (sp >= live) return;                   // wholly past the slot's length

@@ -3,8 +3,10 @@ cache, GQA, per-slot valid length; the cache either contiguous per slot or
 paged in a block arena shared by the slots.
 
 CUDA source: ``csrc/decode_attention.cuh``.  It replaces the TPU kernel
-``src/repro/kernels/decode_attention.py:44`` (decode_attention_op with
-``dynamic_length=True``, contiguous and ``block_table=`` forms; the paged
+``src/repro/kernels/decode_attention.py:44`` (decode_attention_op: the
+per-slot ``dynamic_length=True`` form and the static forms, a fixed
+``length`` or the whole cache, whose valid length is a launch constant;
+contiguous and ``block_table=`` forms; the paged
 form's page gather, ``:35`` ``gather_pages``, becomes a table lookup per kv
 row inside the staging loop).  Bound on the card: bytes — it streams each
 slot's valid cache prefix and does O(D) flops per byte.  Design: split-KV.
@@ -53,18 +55,19 @@ def n_splits(S: int, bs: int = 0) -> int:
     return -(-S // kv_split(bs))
 
 
-def plain_decode_attention(length: torch.Tensor, q: torch.Tensor,
-                           k: torch.Tensor, v: torch.Tensor):
-    """length (B,1) i32; q (B,H,D); k, v (B,S,Hkv,D) -> o (B,H,D) fp32
-    normalised, m, l (B,H,1) fp32; position p of slot b is valid iff
-    p < length[b]."""
+def plain_decode_attention(length, q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor):
+    """length (B,1) i32, or one int for every slot; q (B,H,D); k, v
+    (B,S,Hkv,D) -> o (B,H,D) fp32 normalised, m, l (B,H,1) fp32; position
+    p of slot b is valid iff p < length[b]."""
     B, H, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     rep = H // Hkv
     qg = (q.float() * (1.0 / math.sqrt(D))).reshape(B, Hkv, rep, D)
     s = torch.einsum("bhrd,bkhd->bhrk", qg, k.float())
     kpos = torch.arange(S, device=q.device)
-    valid = kpos.view(1, 1, 1, S) < length.view(B, 1, 1, 1)
+    lim = length.view(B, 1, 1, 1) if torch.is_tensor(length) else length
+    valid = kpos.view(1, 1, 1, S) < lim
     s = torch.where(valid, s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
@@ -80,14 +83,26 @@ def gather_pages(arena: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
     return arena[bt.long()].reshape(R, nb * arena.shape[1], *arena.shape[2:])
 
 
-def plain_paged_decode_attention(bt: torch.Tensor, length: torch.Tensor,
+def plain_paged_decode_attention(bt: torch.Tensor, length,
                                  q: torch.Tensor, k: torch.Tensor,
                                  v: torch.Tensor):
-    """bt (B, max_blocks) i32; length (B,1); q (B,H,D); k, v the arena
+    """bt (B, max_blocks) i32; length (B,1) or an int; q (B,H,D); k, v the
+    arena
     (num_blocks, bs, Hkv, D): gather the pages, then the contiguous plain
     version."""
     return plain_decode_attention(length, q, gather_pages(k, bt),
                                   gather_pages(v, bt))
+
+
+def _static_plain(length: int, paged: bool):
+    """The plain version of a static form: the operands without "len"."""
+    if paged:
+        def plain(bt, q, k, v):
+            return plain_paged_decode_attention(bt, length, q, k, v)
+    else:
+        def plain(q, k, v):
+            return plain_decode_attention(length, q, k, v)
+    return plain
 
 
 @dataclass(frozen=True)
@@ -99,6 +114,8 @@ class DecodeAttentionMember:
     D: int
     bs: int = 0                 # page rows (0: contiguous cache)
     num_blocks: int = 0         # arena blocks (paged)
+    length: int = 0             # static forms: every slot's valid length
+    #                             (0: the per-slot "len" operand)
     kernel: ClassVar[cuda.Kernel] = DECODE
 
     @property
@@ -125,8 +142,12 @@ class DecodeAttentionMember:
             md.inp[4] = cuda.check(bt, "decode bt", (B, S // self.bs),
                                    torch.int32)
             kv_shape = (self.num_blocks, self.bs, Hkv, D)
-        length, q, k, v = ins
-        md.inp[0] = cuda.check(length, "decode len", (B, 1), torch.int32)
+        if self.length:
+            q, k, v = ins
+            md.inp[0], md.i[8] = None, self.length
+        else:
+            length, q, k, v = ins
+            md.inp[0] = cuda.check(length, "decode len", (B, 1), torch.int32)
         md.inp[1] = cuda.check(q, "decode q", (B, H, D), bf)
         md.inp[2] = cuda.check(k, "decode k", kv_shape, bf)
         md.inp[3] = cuda.check(v, "decode v", kv_shape, bf)
@@ -154,22 +175,29 @@ def decode_attention_op(B: int, S: int, H: int, Hkv: int, D: int,
                         dtype=torch.bfloat16, ck: int = 1024,
                         length=None, dynamic_length: bool = False,
                         block_table=None) -> OpSpec:
-    """q (B,H,D); cache k, v (B,S,Hkv,D); len (B,1) i32 -> o (B,H,D) fp32,
-    m, l (B,H,1) fp32.  Grid, blocks, names, costs and operand order are
-    the reference's (``B * S // ck`` batch-major steps).  The port's member
-    takes the per-slot length operand only.
+    """q (B,H,D); cache k, v (B,S,Hkv,D) -> o (B,H,D) fp32, m, l (B,H,1)
+    fp32.  Grid, blocks, names, costs and operand order are the
+    reference's (``B * S // ck`` batch-major steps).  ``length`` (static)
+    masks the valid cache prefix of every slot, None the whole cache; both
+    static forms are a launch constant of the member.
+    ``dynamic_length=True`` instead adds the (B, 1) int32 operand "len"
+    (before q) holding each slot's valid prefix.
 
     ``block_table=(num_blocks, block_size)``: the paged form.  k, v are the
     shared arena (num_blocks, block_size, Hkv, D), ``S`` is a slot's
     logical capacity, and a (B, S // block_size) int32 operand "bt" (first)
     maps each slot's pages to arena blocks; ``ck % block_size == 0``."""
-    if not dynamic_length or length is not None:
-        raise NotImplementedError("the decode attention member takes the "
-                                  "per-slot (B, 1) length operand: pass "
-                                  "dynamic_length=True")
+    if dynamic_length and length is not None:
+        raise ValueError("decode_attention_op: pass length or "
+                         "dynamic_length=True, not both")
     if S % ck or H % Hkv:
         raise ValueError(f"decode_attention_op: S={S} % ck={ck} and "
                          f"H={H} % Hkv={Hkv} must be 0")
+    valid_len = S if length is None else int(length)
+    if not dynamic_length and not 1 <= valid_len <= S:
+        raise ValueError(f"decode_attention_op: length {valid_len} must "
+                         f"lie in [1, S={S}]")
+    static = 0 if dynamic_length else valid_len
     nk = S // ck
     isz = itemsize(dtype)
     f32 = torch.float32
@@ -185,14 +213,16 @@ def decode_attention_op(B: int, S: int, H: int, Hkv: int, D: int,
                    for _ in range(2))
         suffix, bt_name, plain = f"_pg{bs}", ("bt",), \
             plain_paged_decode_attention
-        member = DecodeAttentionMember(B, S, H, Hkv, D, bs, num_blocks)
+        member = DecodeAttentionMember(B, S, H, Hkv, D, bs, num_blocks,
+                                       static)
 
         def shrink(factor: int):
             sck = ck // factor
             if ck % factor or sck % bs or sck < MIN_BLOCK_ROWS:
                 return None
             return decode_attention_op(B, S, H, Hkv, D, dtype=dtype, ck=sck,
-                                       dynamic_length=True,
+                                       length=length,
+                                       dynamic_length=dynamic_length,
                                        block_table=block_table)
     else:
         bt_in, suffix, bt_name, shrink = (), "", (), None
@@ -200,22 +230,27 @@ def decode_attention_op(B: int, S: int, H: int, Hkv: int, D: int,
                            lambda s: (s // nk, s % nk, 0, 0))
                    for _ in range(2))
         plain, member = plain_decode_attention, \
-            DecodeAttentionMember(B, S, H, Hkv, D)
+            DecodeAttentionMember(B, S, H, Hkv, D, length=static)
+    len_in = ((Operand((B, 1), torch.int32, (1, 1), lambda s: (s // nk, 0)),)
+              if dynamic_length else ())
+    if not dynamic_length:
+        plain = _static_plain(valid_len, block_table is not None)
     return OpSpec(
         name=f"decode_attn_B{B}_S{S}_H{H}kv{Hkv}{suffix}",
         grid=B * nk,
         member=member,
         plain=plain,
-        inputs=bt_in
-        + (Operand((B, 1), torch.int32, (1, 1), lambda s: (s // nk, 0)),
-           Operand((B, H, D), dtype, (1, H, D), lambda s: (s // nk, 0, 0)))
+        inputs=bt_in + len_in
+        + (Operand((B, H, D), dtype, (1, H, D), lambda s: (s // nk, 0, 0)),)
         + kv,
         outputs=(Operand((B, H, D), f32, (1, H, D), lambda s: (s // nk, 0, 0)),
                  Operand((B, H, 1), f32, (1, H, 1), lambda s: (s // nk, 0, 0)),
                  Operand((B, H, 1), f32, (1, H, 1),
                          lambda s: (s // nk, 0, 0))),
-        flops=2.0 * B * H * S * D * 2,
-        hbm_bytes=2.0 * B * S * Hkv * D * isz + 2.0 * B * H * D * isz,
+        flops=2.0 * B * H * valid_len * D * 2,
+        hbm_bytes=2.0 * B * valid_len * Hkv * D * isz + 2.0 * B * H * D * isz,
         shrink=shrink,
         tag="framework:decode_attention",
-        in_names=bt_name + ("len", "q", "k", "v"), out_names=("o", "m", "l"))
+        in_names=bt_name + (("len",) if dynamic_length else ())
+        + ("q", "k", "v"),
+        out_names=("o", "m", "l"))

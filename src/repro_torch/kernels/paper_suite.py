@@ -115,8 +115,12 @@ def _per_step(bm: int, want: int, multiple: int = 1) -> int:
 # Plain versions (the reference's ref.py, in its operation order)
 # ---------------------------------------------------------------------------
 def maxpool(x: torch.Tensor) -> torch.Tensor:
+    """The max of each row pair as the reference computes it: a NaN in
+    either row propagates, and +0 wins over -0 in either order
+    (``torch.amax`` keeps -0 for some orders and widths)."""
     R, C = x.shape
-    return x.reshape(R // 2, 2, C).amax(dim=1)
+    a, b = x[0::2], x[1::2]
+    return torch.where(a.isnan() | (a > b) | ((a == b) & b.signbit()), a, b)
 
 
 def upsample(x: torch.Tensor) -> torch.Tensor:

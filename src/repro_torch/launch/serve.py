@@ -11,8 +11,14 @@ the plain PyTorch versions of the kernels instead of the CUDA ones.
 ``--kv-block-size 16 --shared-prefix 1024`` serves from the paged arena
 with the prefix cache (one-layer configs: ``--layers 1``);
 ``--arch phi3.5-moe-rms --layers 8 --prefill-policy eload`` serves the MoE
-path with its depth cut to 8 layers.  The flags keep the reference
-launcher's names and checks.
+path with its depth cut to 8 layers.  ``--scheduling wavefront`` runs the
+lock-step wavefront scheduler (executed on a single-layer dense config; on
+a stacked or MoE config it stays hand-wired with a notice on the CPU and
+refuses on the card); ``--hand-wired`` serves through ``lm.prefill`` and
+``lm.decode_step`` instead of the planned program (the fallback, no kernel
+of the port launched).  The flags keep the reference launcher's names and
+checks; the port plans by default, and ``--plan-fusion`` names that
+default.
 """
 from __future__ import annotations
 
@@ -33,8 +39,12 @@ from repro_torch.serve.engine import PrefillBudget, Request, ServeEngine
 def build_requests(cfg, args) -> list[Request]:
     """Deterministic request trace: ``--stagger`` spreads prompt lengths
     (+i %% N) and token budgets (-i %% N) so slots retire and refill
-    mid-batch."""
+    mid-batch; ``--arrival-rate`` > 0 draws exponential-gap arrivals."""
     rng = np.random.default_rng(args.seed)
+    arrivals = np.zeros(args.requests)
+    if args.arrival_rate > 0:
+        arrivals = np.floor(np.cumsum(
+            rng.exponential(1.0 / args.arrival_rate, args.requests)))
     shared = None
     if args.shared_prefix > 0:
         # one prefix drawn once, common to every request: the paged prefix
@@ -49,7 +59,8 @@ def build_requests(cfg, args) -> list[Request]:
         reqs.append(Request(
             rid=i,
             prompt=tail if shared is None else np.concatenate([shared, tail]),
-            max_new_tokens=max(1, args.max_new - spread)))
+            max_new_tokens=max(1, args.max_new - spread),
+            temperature=args.temperature, arrival=int(arrivals[i])))
     return reqs
 
 
@@ -61,9 +72,18 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--scheduling", choices=["continuous", "wavefront"],
+                    default="continuous",
+                    help="continuous = per-slot cache positions with "
+                         "iteration-level refill (default); wavefront = "
+                         "lock-step waves")
     ap.add_argument("--stagger", type=int, default=1,
                     help="spread request i's prompt length by +(i %% N) and "
                          "its budget by -(i %% N)")
+    ap.add_argument("--arrival-rate", type=float, default=0.0,
+                    help="mean request arrivals per engine step (0 = all "
+                         "requests queued at step 0)")
     ap.add_argument("--chunk-rows", type=int, default=2048,
                     help="prompt rows one slot prefills per iteration")
     ap.add_argument("--coresident-chunks", type=int, default=2,
@@ -78,6 +98,9 @@ def main(argv=None):
                          "of admitting them across iterations")
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the config's depth to N layers (0: as is)")
+    ap.add_argument("--expect-stitched", action="store_true",
+                    help="fail unless the executed decode program carries "
+                         ">=1 epilogue chain inside a fused launch")
     ap.add_argument("--expect-moe-fused", action="store_true",
                     help="fail unless the decode program puts the grouped "
                          "expert FFN in a fused launch with a partner")
@@ -97,9 +120,27 @@ def main(argv=None):
     ap.add_argument("--kv-snapshot", default=None, metavar="PATH",
                     help="write the final KVPool snapshot as JSON")
     ap.add_argument("--seed", type=int, default=0)
+    path = ap.add_mutually_exclusive_group()
+    path.add_argument("--plan-fusion", dest="plan_fusion",
+                      action="store_true", default=True,
+                      help="serve through the planned decode program (the "
+                           "default; the reference's spelling)")
+    path.add_argument("--hand-wired", dest="plan_fusion",
+                      action="store_false",
+                      help="serve through lm.prefill and lm.decode_step "
+                           "(plan_fusion=False): no kernel of the port runs")
+    ap.add_argument("--measure", choices=["auto", "interpret", "gpu"],
+                    default=None,
+                    help="pick planned schedules by measurement "
+                         "(core/timing.make_measure backend)")
     ap.add_argument("--device", default=None,
                     help="cuda (default when a card is present) or cpu")
     args = ap.parse_args(argv)
+    if args.measure and not args.plan_fusion:
+        ap.error("--measure only applies to planned schedule selection")
+    if args.kv_block_size > 0 and not args.plan_fusion:
+        ap.error("--kv-block-size requires the planned path (paged KV runs "
+                 "only on the executed continuous path)")
     if args.kv_block_size <= 0 and (
             args.kv_blocks is not None or args.kv_slot_blocks is not None
             or args.expect_prefix_hits or args.kv_snapshot):
@@ -116,6 +157,12 @@ def main(argv=None):
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     params = lm.init(cfg, gen, device=dev)
+    measure = schedule_cache = None
+    if args.measure:
+        from repro_torch.core.schedule_cache import default_cache
+        from repro_torch.core.timing import make_measure
+        measure = make_measure(args.measure, device=dev)
+        schedule_cache = default_cache()
     budget = PrefillBudget(chunk_rows=args.chunk_rows,
                            max_coresident_chunks=args.coresident_chunks,
                            policy=args.prefill_policy)
@@ -123,18 +170,41 @@ def main(argv=None):
                          max_len=args.prompt_len + args.shared_prefix
                          + args.stagger + args.max_new + 8,
                          prefill_budget=budget, device=dev,
+                         plan_fusion=args.plan_fusion, measure=measure,
+                         schedule_cache=schedule_cache,
+                         scheduling=args.scheduling,
                          reject_overlong=args.reject_overlong,
                          paged_kv=args.kv_block_size > 0,
                          kv_block_size=args.kv_block_size or 16,
                          kv_blocks=args.kv_blocks,
                          kv_slot_blocks=args.kv_slot_blocks)
-    print("[plan-fusion] decode-step bundles:")
-    for row in engine.fusion_plan.summary():
-        print(f"  {row}")
+    if engine.fusion_plan is not None:
+        print("[plan-fusion] decode-step bundles:")
+        for row in engine.fusion_plan.summary():
+            print(f"  {row}")
+    print("[plan-fusion] decode step "
+          + ("EXECUTES through the plan->program executor (core/executor)"
+             if engine.executed else "is hand-wired (lm.decode_step)"))
+    if args.expect_stitched:
+        from repro_torch.core.stitch import CHAIN_SEP
+        if not engine.executed:
+            raise SystemExit("[stitch] FAIL: decode step is not executed "
+                             "through the program executor")
+        prog = engine.build_decode_program(
+            prefill_chunks=args.coresident_chunks)
+        chains = sorted({m for ms in prog.fused_members for m in ms
+                         if CHAIN_SEP in m})
+        if not chains:
+            raise SystemExit("[stitch] FAIL: no epilogue chain in any "
+                             "fused launch of the decode program")
+        print(f"[stitch] chains in fused launches: {', '.join(chains)}")
     if args.expect_moe_fused:
         if cfg.moe is None:
             raise SystemExit("[moe] FAIL: --expect-moe-fused on a dense "
                              f"config ({cfg.name})")
+        if not engine.executed:
+            raise SystemExit("[moe] FAIL: MoE decode step is not executed "
+                             "through the program executor")
         prog = engine.build_decode_program(
             prefill_chunks=args.coresident_chunks)
         bundles = [sorted(ms) for ms in prog.fused_members
@@ -155,7 +225,8 @@ def main(argv=None):
     print(f"served {len(reqs)} requests, {total_new} tokens in {dt:.2f}s "
           f"({total_new / dt:.1f} tok/s) on {dev}")
     st = engine.stats
-    print(f"[slots] {st.describe()}")
+    if args.scheduling == "continuous":
+        print(f"[slots] {st.describe()}")
     if cfg.moe is not None and st.expert_hits:
         print(f"[moe] expert hits {st.expert_hits} "
               f"(skew {st.expert_skew:.2f}), "

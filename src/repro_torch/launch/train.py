@@ -8,7 +8,7 @@
 
 ``--scale smoke`` trains the reduced config; ``--scale full`` trains the
 full-width, full-depth model on one card with remat (the port has no
-production mesh: tensor parallelism is ROADMAP item 9).  Weights are random,
+production mesh: tensor parallelism is ROADMAP item 5).  Weights are random,
 drawn on the device from a ``torch.Generator`` seeded with 0; data comes from
 ``TokenPipeline``.  ``--plan-fusion`` plans the optimizer step
 (``train_loop.plan_update_fusion``, the planning view with the dW GEMMs)
@@ -98,7 +98,7 @@ def main(argv=None):
         cfg = cfg.reduced()
     else:
         print("[scale full] one card, full width and depth; the port has no "
-              "production mesh (ROADMAP item 9)")
+              "production mesh (ROADMAP item 5)")
     ocfg = AdamWConfig(lr=args.lr, total_steps=args.steps,
                        warmup_steps=max(1, args.steps // 10),
                        hfused=args.hfused_optimizer)

@@ -147,6 +147,24 @@ def blockwise_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
     return out.to(q.dtype)
 
 
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cur_len) -> torch.Tensor:
+    """One new token per row against its cache: q (B,1,H,D); k_cache,
+    v_cache (B,Smax,Hkv,D); ``cur_len`` the valid prefix, an int or a
+    0-d tensor.  Scores in fp32, softmax weights cast to the cache's dtype
+    for the value product (the reference's plain ``jnp`` order)."""
+    B, _, H, D = q.shape
+    Smax, Hkv = k_cache.shape[1], k_cache.shape[2]
+    qg = q.reshape(B, Hkv, H // Hkv, D)
+    s = torch.einsum("bhrd,bkhd->bhrk", qg.float(),
+                     k_cache.float()) / math.sqrt(D)
+    valid = torch.arange(Smax, device=q.device) < cur_len
+    s = torch.where(valid, s, torch.full((), NEG_INF, device=q.device))
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhrk,bkhd->bhrd", w.to(v_cache.dtype), v_cache)
+    return o.reshape(B, 1, H, D).to(q.dtype)
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask=None,
                   z_loss: float = 1e-4) -> torch.Tensor:
     """Mean token cross entropy in fp32 with z-loss; labels < 0 are

@@ -1,5 +1,8 @@
 """LM assembly for the global-attention subset the port serves and trains:
-one run of layers, each with a dense FFN or an MoE FFN (``models/moe.py``).
+one run of layers, each with a dense FFN or an MoE FFN (``models/moe.py``):
+the train forward and loss, and the hand-wired serve entry points
+``prefill`` and ``decode_step`` (the reference's oracle for the executed
+decode program).
 
 Parameters are plain nested dicts of tensors with the JAX package's tree
 and layouts: weights stay ``(K, N)``, a run of ``count > 1`` identical
@@ -208,6 +211,21 @@ def _embed_inputs(cfg: ModelConfig, params: dict,
     return layers.embed(params["embed"], tokens, cfg.d_model)
 
 
+def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Parameters of the model; ``active_only`` leaves out the experts a
+    token does not reach (E - top_k of every MoE layer's E)."""
+    layout = param_layout(cfg)
+    total = sum(math.prod(shape) for _path, (shape, _k, _d)
+                in _leaves(layout))
+    if active_only and cfg.is_moe:
+        m, spec = cfg.moe, moe_mod.spec(cfg)
+        per_layer = sum(math.prod(spec[k][0]) for k in ("w_in", "w_out"))
+        n_moe = sum(1 for i in range(cfg.num_layers) if cfg.moe_layer(i))
+        total -= n_moe * per_layer * (m.num_experts - m.top_k) \
+            // m.num_experts
+    return total
+
+
 def _head(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     """x (B, S, d) -> fp32 logits (B, S, V)."""
     if cfg.tie_embeddings:
@@ -230,9 +248,18 @@ def _apply_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor):
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 
-def block_apply_seq(cfg: ModelConfig, p: dict, x: torch.Tensor):
-    """One global-attention block over a whole sequence: (B, S, d) ->
-    (B, S, d), and its auxiliary loss (0 for a dense FFN)."""
+def cache_rows(t: torch.Tensor, max_len: int) -> torch.Tensor:
+    """A sequence's k or v (B, S, Hkv, D) as a cache leaf of ``max_len``
+    rows: its rows first, zeros after."""
+    c = t.new_zeros((t.shape[0], max_len) + tuple(t.shape[2:]))
+    c[:, :t.shape[1]] = t
+    return c
+
+
+def block_attention_seq(cfg: ModelConfig, p: dict, x: torch.Tensor):
+    """The attention half of a global-attention block over a whole
+    sequence: x (B, S, d) -> (x after attention and its residual, that
+    x's norm2 (the FFN's input), k, v (B, S, Hkv, D) after rope)."""
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :]
     h = layers.apply_norm(cfg, p["norm1"], x)
@@ -241,8 +268,21 @@ def block_apply_seq(cfg: ModelConfig, p: dict, x: torch.Tensor):
     k = layers.rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
     o = layers.blockwise_attention(q, k, v, causal=True)
     x = x + o.reshape(B, S, -1) @ p["attn"]["w_o"]
-    ff, aux = _apply_ffn(cfg, p, layers.apply_norm(cfg, p["norm2"], x))
-    return x + ff, aux
+    return x, layers.apply_norm(cfg, p["norm2"], x), k, v
+
+
+def block_apply_seq(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
+                    want_cache: bool = False, max_len: int = 0):
+    """One global-attention block over a whole sequence: (B, S, d) ->
+    (B, S, d), its auxiliary loss (0 for a dense FFN) and, with
+    ``want_cache``, its KV cache leaves ``{"k", "v"}`` (B, max_len or S,
+    Hkv, D), the sequence's rows first and zeros after (else None)."""
+    x, h2, k, v = block_attention_seq(cfg, p, x)
+    Smax = max_len or x.shape[1]
+    cache = ({"k": cache_rows(k, Smax), "v": cache_rows(v, Smax)}
+             if want_cache else None)
+    ff, aux = _apply_ffn(cfg, p, h2)
+    return x + ff, aux, cache
 
 
 def forward(cfg: ModelConfig, params: dict, batch: dict, *,
@@ -256,10 +296,10 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in layer_params(cfg, params):
         if remat:
-            x, a = checkpoint(block_apply_seq, cfg, lp, x,
-                              use_reentrant=False)
+            x, a, _ = checkpoint(block_apply_seq, cfg, lp, x,
+                                 use_reentrant=False)
         else:
-            x, a = block_apply_seq(cfg, lp, x)
+            x, a, _ = block_apply_seq(cfg, lp, x)
         aux = aux + a
     x = layers.apply_norm(cfg, params["final_norm"], x)
     return _head(cfg, params, x), aux, None
@@ -272,3 +312,79 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *,
     logits, aux, mask = forward(cfg, params, batch, remat=remat)
     loss = layers.cross_entropy(logits, batch["labels"], mask=mask)
     return loss + 0.01 * aux, {"ce": loss, "aux": aux}
+
+
+# ---------------------------------------------------------------------------
+# Hand-wired serve path: prefill and single-token decode
+# ---------------------------------------------------------------------------
+def block_apply_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                       cache: dict, pos):
+    """One block for one new token a row: x (B, 1, d); ``cache`` the
+    layer's ``{"k", "v"}`` (B, S, Hkv, D), written in place at row ``pos``
+    (an int or a 0-d tensor: the index of the token; past the cache end
+    it lands on the last row, as the reference's clamped update does).
+    Returns (x_out, cache)."""
+    B = x.shape[0]
+    positions = torch.as_tensor(pos, device=x.device).reshape(1, 1) \
+        .expand(B, 1)
+    h = layers.apply_norm(cfg, p["norm1"], x)
+    q, k, v = layers.qkv_project(cfg, p["attn"], h)
+    q = layers.rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
+    k = layers.rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
+    kc, vc = cache["k"], cache["v"]
+    row = positions[:1, 0].long().clamp(max=kc.shape[1] - 1)
+    kc.index_copy_(1, row, k.to(kc.dtype))
+    vc.index_copy_(1, row, v.to(vc.dtype))
+    o = layers.decode_attention(q, kc, vc, positions[0, 0] + 1)
+    x = x + o.reshape(B, 1, -1) @ p["attn"]["w_o"]
+    ff, _aux = _apply_ffn(cfg, p, layers.apply_norm(cfg, p["norm2"], x))
+    return x + ff, cache
+
+
+def prefill(cfg: ModelConfig, params: dict, batch: dict, max_len: int):
+    """Whole prompts ``batch["tokens"]`` (B, S) -> (cache, the last
+    position's fp32 logits (B, V)); the cache is ``init_cache``'s layout at
+    ``max_len`` rows with the prompts' k/v first and ``pos`` = S."""
+    x = _embed_inputs(cfg, params, batch["tokens"])
+    S = x.shape[1]
+    run = layer_runs(cfg)[0]
+    caches = []
+    for lp in layer_params(cfg, params):
+        x, _a, c = block_apply_seq(cfg, lp, x, want_cache=True,
+                                   max_len=max_len)
+        caches.append(c)
+    kv = caches[0] if run.count == 1 else \
+        {k: torch.stack([c[k] for c in caches]) for k in ("k", "v")}
+    cache = {"pos": torch.tensor(S, dtype=torch.int32, device=x.device),
+             run.name: kv}
+    x = layers.apply_norm(cfg, params["final_norm"], x[:, -1:])
+    return cache, _head(cfg, params, x)[:, 0]
+
+
+def greedy_sample(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
+    """The greedy token of each row: (B, V) -> (B,) int32."""
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def serve_step_greedy(cfg: ModelConfig, params: dict, cache: dict,
+                      tokens_t: torch.Tensor):
+    """``decode_step`` and the greedy token: ((B,) int32, cache)."""
+    logits, new_cache = decode_step(cfg, params, cache, tokens_t)
+    return greedy_sample(cfg, logits), new_cache
+
+
+def decode_step(cfg: ModelConfig, params: dict, cache: dict,
+                tokens_t: torch.Tensor):
+    """One decode step of every row at the cache's position ``pos`` (a 0-d
+    int tensor): tokens_t (B,) -> (fp32 logits (B, V), cache with pos + 1).
+    The k/v leaves are written in place (the returned cache shares
+    them)."""
+    x = layers.embed_onehot(params["embed"], tokens_t[:, None], cfg.d_model)
+    pos = cache["pos"]
+    run = layer_runs(cfg)[0]
+    kv = cache[run.name]
+    for li, lp in enumerate(layer_params(cfg, params)):
+        kv_l = kv if run.count == 1 else {k: t[li] for k, t in kv.items()}
+        x, _ = block_apply_decode(cfg, lp, x, kv_l, pos)
+    x = layers.apply_norm(cfg, params["final_norm"], x)
+    return _head(cfg, params, x)[:, 0], {"pos": pos + 1, run.name: kv}

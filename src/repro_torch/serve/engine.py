@@ -1,8 +1,10 @@
-"""Batched serving engine: executed continuous batching with chunked prefill.
+"""Batched serving engine: executed continuous batching with chunked prefill,
+the wavefront scheduler and the hand-wired fallback decode.
 
-The port of the JAX package's ``serve/engine.py`` executed continuous path
-(``ServeEngine(plan_fusion=True, scheduling="continuous")`` ->
-``_run_continuous_chunked``).  Every slot keeps its own cache position
+The port of the JAX package's ``serve/engine.py``.  Its main path is the
+executed continuous path (``ServeEngine(plan_fusion=True,
+scheduling="continuous")`` -> ``_run_continuous_chunked``).  Every slot
+keeps its own cache position
 ``(B,)`` and advances, finishes (EOS / token budget / cache-full) and is
 refilled independently.  A waiting prompt is admitted in chunks of
 ``PrefillBudget.chunk_rows`` tokens: each iteration scatters one chunk's k/v
@@ -29,6 +31,20 @@ loop.  Two forms of the same path:
     the softmax / top-k / dispatch / combine glue in the binding slots and
     per-expert hit counts for the ``eload`` admission policy.
 
+Two oracles beside it, as in the reference:
+
+  * **wavefront** (``scheduling="wavefront"``): requests grouped by prompt
+    length into lock-step waves, the batch refilled only when a whole wave
+    finishes.  Hand-wired (``lm.prefill`` + ``lm.decode_step``), or, with
+    ``plan_fusion=True`` on a single-layer dense config, through the
+    executed decode program, whose first step of a wave carries the next
+    wave's FFN in-projection (``prefill_ffn``) in its fused launch;
+  * **the hand-wired continuous fallback** (``plan_fusion=False``): the
+    continuous slot manager over ``lm.decode_step``, one slot at a time at
+    its own position (the reference vmaps it over the slots), with whole
+    prompts prefilled by ``lm.prefill`` beside the decode.  It launches no
+    kernel of the port, so on the card it is the executor-free oracle.
+
 Differences from the reference, by design:
   * the KV cache (contiguous or arena) is updated IN PLACE (the reference
     rebuilds it functionally each step); ``_init_slot_cache`` owns it;
@@ -36,14 +52,16 @@ Differences from the reference, by design:
     later work);
   * sampling with ``temperature > 0`` draws from a ``torch.Generator``
     seeded by ``rng_seed``, so only greedy decoding matches the reference
-    token for token.
+    token for token;
+  * ``plan_fusion`` defaults to True: the port's engine plans and executes
+    unless the hand-wired path is asked for.
 
-Tensor parallelism, wavefront scheduling and the vmapped fallback decode
-are not ported yet: asking for any of them raises with the reason.
+Tensor parallelism is not ported yet: asking for it raises with the reason.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -241,8 +259,8 @@ class ServeStats:
 
 def executable_decode_supported(cfg: ModelConfig) -> Optional[str]:
     """None when the planned decode program serves this config; otherwise
-    the reason it cannot (the reference's fallback paths are not ported, so
-    the port raises with it)."""
+    the reason it cannot.  The port builds only the configs the program
+    serves (``lm.supported``), so it raises with the reason."""
     return lm.supported(cfg)
 
 
@@ -250,6 +268,13 @@ def _ffn_in_width(cfg: ModelConfig) -> int:
     """Width of the decode step's FFN in-projection: gated activations fuse
     gate and up into one (d, 2f) weight."""
     return 2 * cfg.d_ff if cfg.activation in ("silu", "gelu") else cfg.d_ff
+
+
+def pad_prefill_rows(rows: int) -> int:
+    """Deprecated: use ``PrefillBudget.pad_rows``."""
+    warnings.warn("pad_prefill_rows is deprecated — use "
+                  "PrefillBudget.pad_rows", DeprecationWarning, stacklevel=2)
+    return PrefillBudget().pad_rows(rows)
 
 
 def _mlp_from_h(cfg: ModelConfig, h: torch.Tensor,
@@ -270,12 +295,31 @@ def _mlp_from_h(cfg: ModelConfig, h: torch.Tensor,
     return h @ w_out
 
 
+def _hand_wired_reason(cfg: ModelConfig, scheduling: str) -> Optional[str]:
+    """Why a planned engine keeps the hand-wired decode step, or None."""
+    if scheduling != "wavefront":
+        return None
+    if lm.layer_runs(cfg)[0].count > 1:
+        return ("stacked layer runs execute on the continuous path only "
+                "(wavefront keeps the hand-wired step)")
+    if cfg.is_moe:
+        return ("MoE decode executes on the continuous path only (the "
+                "wavefront co-prefill glue is dense-FFN shaped)")
+    return None
+
+
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP)")
 
 
 class ServeEngine:
-    """Continuous-batching server over the executed, planned decode step.
+    """Continuous-batching server over the executed, planned decode step
+    (``scheduling="continuous"``, ``plan_fusion=True``: the default), or
+    the wavefront scheduler (``scheduling="wavefront"``), or the
+    hand-wired fallback (``plan_fusion=False``).  ``executed`` says
+    whether the decode step runs through the planned program.  A planned
+    wavefront engine over a stacked or MoE config keeps the hand-wired step
+    with the reference's notice on the CPU, and refuses on the card.
 
     ``device``: where the engine runs — the card unless ``"cpu"`` is
     passed; with no device and no CUDA present the constructor raises.
@@ -303,20 +347,24 @@ class ServeEngine:
                  kv_slot_blocks: Optional[int] = None,
                  kv_blocks: Optional[int] = None,
                  mesh=None, device=None, plain: bool = False):
-        if scheduling != "continuous":
-            raise _not_ported(f"scheduling {scheduling!r} (the port serves "
-                              "continuous batching)")
-        if not plan_fusion:
-            raise _not_ported("the hand-wired (vmapped) fallback decode")
+        if scheduling not in ("continuous", "wavefront"):
+            raise ValueError(f"scheduling {scheduling!r} "
+                             "(continuous or wavefront)")
         if mesh is not None:
             raise _not_ported("tensor-parallel serve (mesh=)")
         self.cfg = cfg
         self.batch = batch
         self.max_len = max_len
+        self.scheduling = scheduling
+        self.executed = False
         self.paged_kv = paged_kv
         self.kv_pool = None
         if paged_kv:
             # the reference's refusals, with its texts
+            if scheduling != "continuous" or not plan_fusion:
+                raise ValueError("paged_kv requires scheduling='continuous' "
+                                 "and plan_fusion=True (the paged kernels "
+                                 "run only on the executed chunked path)")
             reason = executable_decode_supported(cfg)
             if reason is None and lm.layer_runs(cfg)[0].count > 1:
                 reason = ("the paged arena is single-layer — stacked runs "
@@ -352,6 +400,14 @@ class ServeEngine:
             raise NotImplementedError(f"{cfg.name}: the executed decode step "
                                       f"does not serve it: {reason}")
         self.device = resolve_device(device)
+        hand_reason = (_hand_wired_reason(cfg, scheduling) if plan_fusion
+                       else None)
+        if hand_reason is not None and self.device.type != "cpu":
+            # on the card a planned engine runs its kernels or refuses: the
+            # hand-wired step is reached only by asking for it
+            raise ValueError(f"plan_fusion: {hand_reason} — pass "
+                             "plan_fusion=False (serve CLI: --hand-wired) to "
+                             "serve through lm.decode_step")
         self.params = params
         self.stitch_epilogues = stitch_epilogues
         self.prefill_budget = prefill_budget or PrefillBudget()
@@ -360,14 +416,30 @@ class ServeEngine:
         self.dtype = lm.torch_dtype(cfg.dtype)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(rng_seed)
+        self._decode = lambda p, c, t: lm.decode_step(cfg, p, c, t)
+        self._prefill = lambda p, b: lm.prefill(cfg, p, b,
+                                                max_len=self.cache_len)
+        self._mixed_steps: dict[int, object] = {}    # prompt len -> step
+        #                                              (wavefront co-prefill)
         self._cb_steps: dict[int, object] = {}       # n chunks -> step fn
         self._cb_fused_chunks: dict[int, frozenset] = {}
         self.cb_program_info: dict[int, dict] = {}   # n chunks -> launch table
         self.stats = ServeStats(batch=batch)
         self._measure = measure
         self._schedule_cache = schedule_cache
-        self.fusion_plan = self.plan_decode_fusion(measure=measure,
-                                                   cache=schedule_cache)
+        self.fusion_plan = None
+        if plan_fusion:
+            if hand_reason is None:
+                if scheduling == "wavefront":
+                    # the continuous path builds its own per-chunk-count
+                    # steps; only wavefront decodes through this program
+                    self._decode = self._make_decode_step(prefill_len=0)
+                self.executed = True
+            else:
+                print(f"[plan-fusion] decode step stays hand-wired: "
+                      f"{hand_reason}")
+            self.fusion_plan = self.plan_decode_fusion(measure=measure,
+                                                       cache=schedule_cache)
 
     # ------------------------------------------------------------------
     def _aligned_len(self) -> int:
@@ -376,17 +448,21 @@ class ServeEngine:
     @property
     def cache_len(self) -> int:
         """Rows of cache a slot can hold, the admission and retirement
-        limit: ``max_len`` rounded up to 128, or with paged KV the slot's
-        table span ``kv_slot_blocks * kv_block_size`` (which may exceed
-        ``max_len``)."""
+        limit: on the executed paths ``max_len`` rounded up to 128, or with
+        paged KV the slot's table span ``kv_slot_blocks * kv_block_size``
+        (which may exceed ``max_len``); on the hand-wired paths
+        ``max_len``."""
         if self.paged_kv:
             return self.kv_slot_blocks * self.kv_block_size
-        return self._aligned_len()
+        if self.executed:
+            return self._aligned_len()
+        return self.max_len
 
     def _chunk(self, budget: PrefillBudget) -> int:
-        """Rows of one prefill chunk (paged: a whole number of pages)."""
+        """Rows of one prefill chunk against the 128-aligned cache (paged:
+        the table span, and a whole number of pages)."""
         return budget.effective_chunk(
-            self.cache_len,
+            self.cache_len if self.paged_kv else self._aligned_len(),
             multiple=self.kv_block_size if self.paged_kv else 1)
 
     @property
@@ -394,22 +470,37 @@ class ServeEngine:
         return self._chunk(self.prefill_budget)
 
     def decode_graph(self, *, budget: Optional[PrefillBudget] = None,
-                     prefill_chunks: int = 0):
+                     prefill_chunks: int = 0, ffn_rows: int = 0,
+                     dynamic_length: bool = True,
+                     prefill_rows: Optional[int] = None):
         """The serving step as a planner graph with stable operand
         signatures: decode_norm1 -> qkv_proj -> decode attention (per-slot
-        valid prefixes in a (B, 1) int32 operand) -> decode_norm2 -> the FFN
-        side, with the epilogue declaration norm1 -> qkv unless
+        valid prefixes in a (B, 1) int32 operand; ``dynamic_length=False``
+        takes the whole cache instead) -> decode_norm2 -> the FFN side,
+        with the epilogue declaration norm1 -> qkv unless
         ``stitch_epilogues=False``; plus ``prefill_chunks`` independent
         prefill-attention ops.  Dense FFN side: ffn_proj -> decode_act
         (stitched likewise).  MoE: moe_router (fp32, B x d @ d x E) ->
         moe_gmm at capacity(cfg, B).  Paged: both attention ops take the
-        block table and the arena, and a chunk is whole pages."""
+        block table and the arena, and a chunk is whole pages.
+
+        ``ffn_rows > 0`` adds the wavefront co-prefill partner
+        ``prefill_ffn``: the riding prompt's FFN in-projection, ``ffn_rows``
+        x d @ d x the FFN width (MoE: the expert FFN's).  ``prefill_rows``
+        is its deprecated alias."""
+        if prefill_rows is not None:
+            warnings.warn("decode_graph(prefill_rows=) is deprecated — use "
+                          "ffn_rows (wavefront FFN partner) or "
+                          "prefill_chunks + PrefillBudget (chunked prefill)",
+                          DeprecationWarning, stacklevel=2)
+            ffn_rows = prefill_rows
         budget = budget or self.prefill_budget
         cfg = self.cfg
         d, H, Hkv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
         D = cfg.resolved_head_dim
         dt = self.dtype
-        S, B = self.cache_len, self.batch
+        S = self.cache_len if self.paged_kv else self._aligned_len()
+        B = self.batch
         bt = (self.kv_blocks, self.kv_block_size) if self.paged_kv else None
 
         norm1 = dataclasses.replace(rmsnorm_op(R=B, d=d, dtype=dt, bm=B),
@@ -421,7 +512,8 @@ class ServeEngine:
         # block size divides 128, so a paged chunk is whole pages)
         ck = next(c for c in range(min(1024, S), 0, -128) if S % c == 0)
         att = decode_attention_op(B=B, S=S, H=H, Hkv=Hkv, D=D, dtype=dt,
-                                  ck=ck, dynamic_length=True, block_table=bt)
+                                  ck=ck, dynamic_length=dynamic_length,
+                                  block_table=bt)
         qkv = dataclasses.replace(
             matmul_1d_op(M=B, K=d, N=(H + 2 * Hkv) * D, dtype=dt, bm=B),
             name="qkv_proj")
@@ -461,6 +553,16 @@ class ServeEngine:
                  planner.GraphOp(norm2, deps=frozenset({att.name})),
                  planner.GraphOp(proj, deps=frozenset({norm2.name})),
                  planner.GraphOp(tail, deps=frozenset({proj.name}))]
+        if ffn_rows:
+            # the co-prefill partner is a full-FFN-width product (MoE: the
+            # expert FFN's in-projection, gate and up fused when gated)
+            gated = cfg.activation in ("silu", "gelu")
+            pf_n = ((2 if gated else 1) * cfg.moe.d_ff_expert
+                    if cfg.moe is not None else _ffn_in_width(cfg))
+            graph.append(planner.GraphOp(dataclasses.replace(
+                matmul_1d_op(M=ffn_rows, K=d, N=pf_n, dtype=dt,
+                             bm=min(128, ffn_rows)),
+                name="prefill_ffn")))
         if prefill_chunks:
             C = self._chunk(budget)
             sfx = f"_pg{self.kv_block_size}" if self.paged_kv else ""
@@ -472,11 +574,19 @@ class ServeEngine:
 
     def plan_decode_fusion(self, *, max_ways: Optional[int] = None,
                            budget: Optional[PrefillBudget] = None,
-                           measure=None, cache=None):
+                           measure=None, cache=None,
+                           prefill_chunk: Optional[int] = None):
         """Plan the steady mixed iteration (the budget's full chunk
         complement) — the plan shown at engine start.  With ``measure`` the
         schedules are profiled; ``cache`` makes a later start search
-        nothing."""
+        nothing.  ``prefill_chunk`` is the deprecated form of
+        ``budget=PrefillBudget(chunk_rows=...)``."""
+        if prefill_chunk is not None:
+            warnings.warn("plan_decode_fusion(prefill_chunk=) is deprecated "
+                          "— pass budget=PrefillBudget(chunk_rows=...)",
+                          DeprecationWarning, stacklevel=2)
+            budget = dataclasses.replace(budget or self.prefill_budget,
+                                         chunk_rows=prefill_chunk)
         budget = budget or self.prefill_budget
         n = budget.max_coresident_chunks
         if max_ways is None:
@@ -487,7 +597,9 @@ class ServeEngine:
     # ------------------------------------------------------------------
     # Executed decode step: plan -> program -> live slot state
     # ------------------------------------------------------------------
-    def build_decode_program(self, *, prefill_chunks: int = 0):
+    def build_decode_program(self, *, prefill_chunks: int = 0,
+                             ffn_rows: int = 0,
+                             prefill_rows: Optional[int] = None):
         """Compile the planned decode step into an executor Program bound
         to one layer's slot state.  The norm's output slot projects QKV,
         applies RoPE at each slot's own position and scatters k/v into
@@ -498,7 +610,15 @@ class ServeEngine:
         residual.  Each prefill chunk ``i`` reads its own slot's cache rows
         (paged: the arena through its table row) at its own offset
         (``pf{i}_slot``, ``pf{i}_off``); the step scatters the chunk's k/v
-        before the program runs."""
+        before the program runs.  ``ffn_rows`` adds the wavefront
+        co-prefill partner ``prefill_ffn`` (state ``pf_h2`` @ ``w_in`` ->
+        ``pf_ffn``); ``prefill_rows`` is its deprecated alias."""
+        if prefill_rows is not None:
+            warnings.warn("build_decode_program(prefill_rows=) is "
+                          "deprecated — use ffn_rows (wavefront FFN "
+                          "partner) or prefill_chunks (chunked prefill)",
+                          DeprecationWarning, stacklevel=2)
+            ffn_rows = prefill_rows
         cfg = self.cfg
         H, Hkv = cfg.num_heads, cfg.num_kv_heads
         D = cfg.resolved_head_dim
@@ -507,7 +627,8 @@ class ServeEngine:
         paged = self.paged_kv
         bs = self.kv_block_size if paged else 0
 
-        graph = self.decode_graph(prefill_chunks=prefill_chunks)
+        graph = self.decode_graph(prefill_chunks=prefill_chunks,
+                                  ffn_rows=ffn_rows)
         plan = planner.plan(graph, max_ways=max(3, 2 + prefill_chunks),
                             allow_same_bound=True, measure=self._measure,
                             cache=self._schedule_cache)
@@ -621,6 +742,9 @@ class ServeEngine:
                          outputs={"out": "h_ffn"})
                 reg.bind("decode_act", h="h_ffn",
                          outputs={"out": Slot(put=act_put)})
+        if ffn_rows:
+            reg.bind("prefill_ffn", x="pf_h2", w="w_in",
+                     outputs={"out": "pf_ffn"})
         for g in graph:
             if not g.op.name.startswith("prefill_attn"):
                 continue
@@ -669,6 +793,89 @@ class ServeEngine:
             state["w_in"] = p["mlp"]["w_in"]
             state["w_out"] = p["mlp"]["w_out"]
         return state
+
+    # ------------------------------------------------------------------
+    # Executed wavefront step
+    # ------------------------------------------------------------------
+    def _wave_state(self, params, cache, x) -> dict:
+        """Wavefront form of ``_layer_state``: the wave's scalar position
+        broadcast into the per-slot (B,) vector, every slot decoding."""
+        B = self.batch
+        run = lm.layer_runs(self.cfg)[0]
+        pos = cache["pos"].reshape(1).expand(B).to(torch.int32)
+        act = torch.ones(B, dtype=torch.bool, device=x.device)
+        return self._layer_state(params[run.name], cache[run.name], x, pos,
+                                 act)
+
+    def _coprefill_to_ffn_in(self, params, pf_tokens, P: int, pf_rows: int):
+        """A riding prompt's prefill up to the FFN in-projection's input,
+        the part before the fused launch.  pf_tokens (Bp, P) -> (pf_h2
+        (pf_rows, d) zero-padded, the post-attention hidden xm (Bp, P, d),
+        kp, vp (Bp, P, Hkv, D))."""
+        cfg = self.cfg
+        p = params[lm.layer_runs(cfg)[0].name]
+        xp = lm._embed_inputs(cfg, params, pf_tokens)
+        Bp = xp.shape[0]
+        xm, h2p, kp, vp = lm.block_attention_seq(cfg, p, xp)
+        pf_x = h2p.reshape(Bp * P, cfg.d_model)
+        if pf_rows != Bp * P:
+            pf_x = torch.cat([pf_x, pf_x.new_zeros(pf_rows - Bp * P,
+                                                   cfg.d_model)])
+        return pf_x.to(self.dtype).contiguous(), xm, kp, vp
+
+    def _make_decode_step(self, prefill_len: int):
+        """The executed decode step of wavefront scheduling:
+        ``step(params, cache, tokens)`` -> (logits, cache with pos + 1),
+        the cache's k/v written in place.  ``prefill_len`` P > 0 is the
+        mixed form ``step(params, cache, tokens, pf_tokens)``: the pending
+        wave's (B, P) prompt rides along, its FFN in-projection
+        (``prefill_ffn``, B * P rows padded by the budget's ``pad_rows``)
+        joins the fused launch, the rest of its prefill runs here, and
+        (logits, cache, pf_cache, pf_logits) seed that wave's decode without
+        ``lm.prefill``."""
+        cfg = self.cfg
+        B, d, dt = self.batch, cfg.d_model, self.dtype
+        run = lm.layer_runs(cfg)[0]
+        S = self._aligned_len()
+        P = prefill_len
+        rows = B * P
+        pf_rows = self.prefill_budget.pad_rows(rows)
+        program = self.build_decode_program(ffn_rows=pf_rows if P else 0)
+
+        def step(params, cache, tokens, pf_tokens=None):
+            p = params[run.name]
+            x = layers.embed_onehot(params["embed"], tokens, d)  # (B, d)
+            state = self._wave_state(params, cache, x)
+            if P:
+                state["pf_h2"], xm, kp, vp = self._coprefill_to_ffn_in(
+                    params, pf_tokens, P, pf_rows)
+            state = program(state)
+            xf = layers.apply_norm(cfg, params["final_norm"],
+                                   state["x_out"][:, None, :].to(dt))
+            logits = lm._head(cfg, params, xf)[:, 0]
+            new_cache = {"pos": cache["pos"] + 1,
+                         run.name: {"k": state["k_cache"],
+                                    "v": state["v_cache"]}}
+            if not P:
+                return logits, new_cache
+            ff = _mlp_from_h(cfg, state["pf_ffn"][:rows].to(dt)
+                             .reshape(B, P, -1), p["mlp"]["w_out"])
+            xop = xm + ff
+            pf_cache = {"pos": torch.tensor(P, dtype=torch.int32,
+                                            device=x.device),
+                        run.name: {"k": lm.cache_rows(kp, S),
+                                   "v": lm.cache_rows(vp, S)}}
+            xfp = layers.apply_norm(cfg, params["final_norm"], xop[:, -1:])
+            pf_logits = lm._head(cfg, params, xfp)[:, 0]
+            return logits, new_cache, pf_cache, pf_logits
+
+        return step
+
+    def _mixed_step(self, prefill_len: int):
+        if prefill_len not in self._mixed_steps:
+            self._mixed_steps[prefill_len] = self._make_decode_step(
+                prefill_len)
+        return self._mixed_steps[prefill_len]
 
     # ------------------------------------------------------------------
     # Continuous batching
@@ -831,6 +1038,55 @@ class ServeEngine:
             self._cb_steps[n_chunks] = self._make_cb_step(n_chunks)
         return self._cb_steps[n_chunks]
 
+    def _slot_view(self, cache: dict, b: int) -> dict:
+        """Slot b's rows of the slot cache as a one-row cache (views: a
+        write lands in the slot cache) at its own position."""
+        run = lm.layer_runs(self.cfg)[0]
+        ax = 1 if run.count > 1 else 0
+        return {"pos": cache["pos"][b],
+                run.name: {k: t.narrow(ax, b, 1)
+                           for k, t in cache[run.name].items()}}
+
+    def _cb_plain_decode(self):
+        """The fallback continuous decode: ``lm.decode_step`` for each
+        decoding slot at its own cache position (the reference vmaps it over
+        every slot), writing the slot's rows in place; an inactive slot
+        holds its position, and its logits row is zeros.
+        ``step(params, cache, tokens, active)`` -> (logits (B, V), cache)."""
+        cfg = self.cfg
+
+        def step(params, cache, tokens, active):
+            rows = []
+            for b in range(self.batch):
+                if not bool(active[b]):
+                    rows.append(None)
+                    continue
+                lg, _ = lm.decode_step(cfg, params, self._slot_view(cache, b),
+                                       tokens[b:b + 1])
+                rows.append(lg[0])
+            like = next(r for r in rows if r is not None)
+            logits = torch.stack([torch.zeros_like(like) if r is None else r
+                                  for r in rows])
+            pos = cache["pos"]
+            cache["pos"] = torch.where(active.to(pos.device), pos + 1, pos)
+            return logits, cache
+
+        return step
+
+    def _cb_refill(self, cache: dict, slot: int, prompt):
+        """Admit one prompt into a free slot: ``lm.prefill`` of (1, P), its
+        cache rows written into the slot's, the slot's position set to P.
+        Returns (cache, the last position's logits (V,))."""
+        toks = torch.from_numpy(np.asarray(prompt, np.int32)[None]) \
+            .to(self.device)
+        c1, logits = self._prefill(self.params, {"tokens": toks})
+        run = lm.layer_runs(self.cfg)[0]
+        view = self._slot_view(cache, slot)
+        for k, t in view[run.name].items():
+            t.copy_(c1[run.name][k])
+        cache["pos"][slot] = c1["pos"]
+        return cache, logits[0]
+
     # ------------------------------------------------------------------
     def _sample(self, logits: torch.Tensor, greedy: int,
                 req: Request) -> int:
@@ -840,7 +1096,29 @@ class ServeEngine:
                                          generator=self.generator))
         return greedy
 
+    def _wave_tokens(self, wave: list[Request]) -> torch.Tensor:
+        S = len(wave[0].prompt)
+        toks = np.zeros((self.batch, S), np.int32)
+        for i, r in enumerate(wave):
+            toks[i] = r.prompt
+        return torch.from_numpy(toks).to(self.device)
+
+    def _prefill_wave(self, wave: list[Request]):
+        """A wave's prompts (one length; rows past the wave are zeros and
+        ignored) -> (cache, last-position logits)."""
+        return self._prefill(self.params, {"tokens": self._wave_tokens(wave)})
+
     def run(self, requests: list[Request]) -> list[Request]:
+        if self.scheduling == "continuous":
+            return self._run_continuous(requests)
+        return self._run_wavefront(requests)
+
+    def _run_continuous(self, requests: list[Request]) -> list[Request]:
+        """Iteration-level continuous batching: prompts longer than the
+        cache are refused (with ``reject_overlong``, also those longer than
+        one iteration's chunk); the executed path admits by chunks
+        (``_run_continuous_chunked``), the fallback whole prompts beside
+        the decode (``_run_continuous_plain``)."""
         for r in requests:
             if len(r.prompt) > self.cache_len:
                 raise ValueError(
@@ -858,7 +1136,9 @@ class ServeEngine:
         self.stats = ServeStats(batch=self.batch)
         # FIFO by arrival step, submission order breaking ties
         waiting = sorted(requests, key=lambda r: r.arrival)
-        return self._run_continuous_chunked(requests, waiting)
+        if self.executed:
+            return self._run_continuous_chunked(requests, waiting)
+        return self._run_continuous_plain(requests, waiting)
 
     # ------------------------------------------------------------------
     def _retire_reason(self, req: Request, tok: int, n_out: int, pos: int, *,
@@ -1095,4 +1375,135 @@ class ServeEngine:
             stats.prefix_hits = pool.prefix_hits - pool_base[1]
             stats.prefix_tokens_reused = (pool.prefix_tokens_reused
                                           - pool_base[2])
+        return requests
+
+    def _run_continuous_plain(self, requests, waiting) -> list[Request]:
+        """Fallback continuous batching (hand-wired decode): every step
+        decodes all active slots, retires finished ones, and refills every
+        free slot from the arrival queue (lowest free slot, arrival order
+        first).  Whole prompts prefill beside the decode in the same
+        iteration; a slot whose request retires deterministically this step
+        (budget or cache-full) refills in that same iteration."""
+        B = self.batch
+        dev = self.device
+        stats = self.stats
+        slots: list[Optional[Request]] = [None] * B
+        pos_h = [0] * B                               # host mirror of pos
+        last = np.zeros(B, np.int32)
+        cache = self._init_slot_cache()
+        decode = self._cb_plain_decode()
+
+        def refill(cache, slot, req):
+            cache, pf_logits = self._cb_refill(cache, slot, req.prompt)
+            return cache, pf_logits, int(pf_logits.argmax())
+
+        while waiting or any(s is not None for s in slots):
+            step_i = stats.steps
+            # refillable: empty, or retiring deterministically this step
+            # (the retiree's last decode reads the cache before the
+            # refill's rows land; EOS retirements refill a step later)
+            free = [i for i, s in enumerate(slots)
+                    if s is None or self._will_retire_this_step(s, pos_h[i])]
+            arrived = [r for r in waiting if r.arrival <= step_i]
+            refills = list(zip(free, arrived))
+            for _slot, r in refills:
+                waiting.remove(r)
+            active = np.array([s is not None for s in slots])
+            n_active = int(active.sum())
+
+            if n_active == 0:
+                stats.steps += 1
+                if not refills:
+                    continue                          # idle: future arrivals
+                stats.prefill_only_steps += 1
+                for slot, req in refills:
+                    cache, pf_logits, g = refill(cache, slot, req)
+                    self._admit(req, slot, pf_logits, g, slots, pos_h, last)
+                continue
+
+            logits, cache = decode(self.params, cache,
+                                   torch.from_numpy(last.copy()).to(dev),
+                                   torch.from_numpy(active))
+            extra = [refill(cache, slot, req)[1:] for slot, req in refills]
+            stats.steps += 1
+            stats.decode_steps += 1
+            stats.slot_steps += n_active
+            if refills:
+                stats.mixed_steps += 1
+
+            greedy = logits.argmax(dim=-1).tolist()
+            for b in range(B):
+                req = slots[b]
+                if req is None:
+                    continue
+                pos_h[b] += 1
+                tok = self._sample(logits[b], greedy[b], req)
+                req.out_tokens.append(tok)
+                stats.tokens += 1
+                last[b] = tok
+                reason = self._retire_reason(req, tok, len(req.out_tokens),
+                                             pos_h[b])
+                if reason:
+                    req.done = True
+                    slots[b] = None
+                    stats.retirements.append((stats.steps - 1, req.rid,
+                                              reason))
+            for (slot, req), (pf_logits, g) in zip(refills, extra):
+                self._admit(req, slot, pf_logits, g, slots, pos_h, last)
+        return requests
+
+    # ------------------------------------------------------------------
+    def _run_wavefront(self, requests: list[Request]) -> list[Request]:
+        """Lock-step waves: requests grouped by prompt length (up to
+        ``batch`` a wave), each wave prefilled and decoded to its longest
+        budget before the next starts.  Executed: the first decode step of
+        a wave carries the next wave's prompt (``_mixed_step``), whose
+        cache and logits then seed that wave."""
+        by_len: dict[int, list[Request]] = {}
+        for r in requests:
+            by_len.setdefault(len(r.prompt), []).append(r)
+        pending: list[list[Request]] = []
+        for _, group in sorted(by_len.items()):
+            for i in range(0, len(group), self.batch):
+                pending.append(group[i: i + self.batch])
+        carried = None          # (cache, logits) co-prefilled for pending[0]
+        while pending:
+            wave = pending.pop(0)
+            if carried is not None:
+                cache, logits = carried
+                carried = None
+            else:
+                cache, logits = self._prefill_wave(wave)
+            greedy = logits.argmax(dim=-1).tolist()
+            for i, r in enumerate(wave):
+                r.out_tokens.append(self._sample(logits[i], greedy[i], r))
+            budget = max(r.max_new_tokens for r in wave)
+            for step_i in range(budget - 1):
+                if all(r.done or len(r.out_tokens) >= r.max_new_tokens
+                       for r in wave):
+                    break
+                toks = np.zeros((self.batch,), np.int32)
+                for i, r in enumerate(wave):
+                    toks[i] = r.out_tokens[-1]
+                toks = torch.from_numpy(toks).to(self.device)
+                if (self.executed and step_i == 0 and pending
+                        and carried is None):
+                    # the next wave's prompt FFN rides this step's launch
+                    nxt = pending[0]
+                    logits, cache, pf_cache, pf_logits = self._mixed_step(
+                        len(nxt[0].prompt))(self.params, cache, toks,
+                                            self._wave_tokens(nxt))
+                    carried = (pf_cache, pf_logits)
+                else:
+                    logits, cache = self._decode(self.params, cache, toks)
+                greedy = logits.argmax(dim=-1).tolist()
+                for i, r in enumerate(wave):
+                    if r.done or len(r.out_tokens) >= r.max_new_tokens:
+                        continue
+                    tok = self._sample(logits[i], greedy[i], r)
+                    r.out_tokens.append(tok)
+                    if r.eos_token is not None and tok == r.eos_token:
+                        r.done = True
+            for r in wave:
+                r.done = True
         return requests

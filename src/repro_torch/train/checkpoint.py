@@ -14,7 +14,7 @@ package's ``train/checkpoint.py``, without JAX).
 Each leaf is stored as its raw bytes with its dtype named in the manifest; a
 bf16 leaf is stored as its 16-bit patterns (numpy has no bfloat16 here).
 Re-laying a checkpoint out onto a mesh waits for the distributed slice
-(ROADMAP item 9).
+(ROADMAP item 5).
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
 """Fault tolerance for the single-card trainer: straggler detection and a
 restarting loop (the port's copy of the JAX package's
 ``train/fault_tolerance.py``; its multi-host heartbeat monitor waits for
-the distributed slice, ROADMAP item 9).
+the distributed slice, ROADMAP item 5).
 
   * StepWatchdog      — EWMA + k·σ step-time anomaly detector; flags
                         stragglers (the data pipeline exposes skip_ahead()).

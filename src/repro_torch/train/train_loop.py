@@ -15,7 +15,7 @@ AdamW update, given bindings for dW's operands.
 
 Not ported: ``compression=`` (int8 pod-axis gradients) and ``zero=``
 (ZeRO-1 moment sharding) raise; they wait for tensor parallelism (ROADMAP
-item 9).
+item 5).
 """
 from __future__ import annotations
 
@@ -37,17 +37,17 @@ class TrainConfig:
     optimizer: AdamWConfig = AdamWConfig()
     grad_accum: int = 1
     remat: bool = True
-    compression: Optional[str] = None       # not ported (ROADMAP item 9)
-    zero: bool = False                      # not ported (ROADMAP item 9)
+    compression: Optional[str] = None       # not ported (ROADMAP item 5)
+    zero: bool = False                      # not ported (ROADMAP item 5)
     max_grad_norm: float = 1.0
 
     def __post_init__(self):
         if self.compression is not None:
             raise NotImplementedError("gradient compression (compression=) "
-                                      "is not ported yet (ROADMAP item 9)")
+                                      "is not ported yet (ROADMAP item 5)")
         if self.zero:
             raise NotImplementedError("ZeRO-1 moment sharding (zero=) is not "
-                                      "ported yet (ROADMAP item 9)")
+                                      "ported yet (ROADMAP item 5)")
 
 
 def leaf_update_name(path) -> str:

@@ -1612,3 +1612,72 @@ def test_ops_hfused_adamw_ten_leaves(cuda_dev):
                          (plain[0], plain[2], plain[3])):
         for k in got:
             assert torch.equal(got[k], want[k]), k
+
+
+# ---------------------------------------------------------------------------
+# maxpool's signed zero; decode attention's static forms; the wavefront
+# co-prefill partner (prefill_ffn) beside decode attention
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype,bits", [(F32, torch.int32), (BF, torch.int16)])
+@pytest.mark.parametrize("R,C,bm", MAXPOOL_SHAPES, ids=str)
+def test_maxpool_signed_zero_bits(cuda_dev, R, C, bm, dtype, bits):
+    """Zeros of both signs in both orders of a pair, beside NaN and +-inf:
+    the kernel's bit patterns are the plain version's (which is the
+    reference's: +0 wins over -0, NaN propagates)."""
+    from repro_torch.kernels import paper_suite as ps
+    op, _mk, plain = ps.make_maxpool(R=R, C=C, bm=bm, dtype=dtype)
+    x = torch.zeros((R, C), dtype=dtype, device="cuda")
+    half = C // 2
+    x[1::2, :half] = -0.0            # (+0, -0) in the left half
+    x[0::2, half:] = -0.0            # (-0, +0) in the right half
+    x[2, 0], x[3, 1], x[4, 2], x[5, 2] = -0.0, -0.0, float("nan"), -0.0
+    x[6, 3], x[7, 3] = float("inf"), -float("inf")
+    (got,) = hfuse.run_single(op)(x)
+    torch.cuda.synchronize()
+    want = plain(x)
+    assert not bool(want[0, :half].signbit().any())
+    assert torch.equal(got.view(bits), want.view(bits))
+
+
+@pytest.mark.parametrize("length", [1, 555, 2048, None])
+@pytest.mark.parametrize("D", [64, 128])
+def test_decode_attention_static_forms(cuda_dev, D, length):
+    """decode_attention_op(length=...) and (dynamic_length=False, the whole
+    cache) at B 8, S 2048: the member reads the length from its launch
+    descriptor (no "len" operand), matches its plain version, gives the
+    bits of the dynamic form at that length, and the same bits launch to
+    launch."""
+    B, H, Hkv, S = 8, 32, 8, 2048
+    g = _gen(26)
+    q = _randn((B, H, D), g)
+    k, v = _randn((B, S, Hkv, D), g), _randn((B, S, Hkv, D), g)
+    op = decode_attention_op(B, S, H, Hkv, D, ck=1024, length=length)
+    assert op.in_names == ("q", "k", "v")
+    got, want = _kernel_vs_plain(op, q, k, v)
+    for a, b in zip(got, want):
+        _close_f32(a, b)
+    dyn = decode_attention_op(B, S, H, Hkv, D, ck=1024, dynamic_length=True)
+    lens = torch.full((B, 1), length or S, dtype=torch.int32, device="cuda")
+    assert _same(got, hfuse.run_single(dyn)(lens, q, k, v))
+    assert _same(got, hfuse.run_single(op)(q, k, v))
+
+
+@pytest.mark.parametrize("rows", [256, 4096])
+def test_prefill_ffn_beside_decode_attention_bitwise(cuda_dev, rows):
+    """The executed wavefront step's partner, prefill_ffn (rows x 2048 @
+    2048 x 16384, granite-3-2b's gate+up), in one launch with decode
+    attention at B 8, S 2048: bit for bit the two launched alone, and the
+    GEMM within the bf16 tolerance of its plain version."""
+    B, d, H, Hkv, D, f, S = WIDTHS["full"]
+    g = _gen(27)
+    pf = matmul_1d_op(M=rows, K=d, N=2 * f, dtype=BF, bm=min(128, rows))
+    dec = decode_attention_op(B, S, H, Hkv, D, ck=1024, dynamic_length=True)
+    pf_in = (_randn((rows, d), g), _randn((d, 2 * f), g, scale=d ** -0.5))
+    dec_in = (_decode_lens("spread", B, S).reshape(B, 1).cuda(),
+              _randn((B, H, D), g), _randn((B, S, Hkv, D), g),
+              _randn((B, S, Hkv, D), g))
+    for ops, ins in (((pf, dec), pf_in + dec_in), ((dec, pf), dec_in + pf_in)):
+        fused = hfuse.generate(ops, Schedule((1, 1)))(*ins)
+        assert _same(fused, hfuse.run_native(ops)(*ins))
+    (out,) = hfuse.run_single(pf)(*pf_in)
+    _close_bf16(out, hfuse.run_single(pf, plain=True)(*pf_in)[0])

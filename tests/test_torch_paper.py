@@ -454,7 +454,8 @@ def test_plain_hist_counts_nan_as_the_reference(dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_maxpool_select_propagates_nan_as_the_reference(dtype):
     """The maxpool kernel's select (``csrc/paper_member.cuh`` ps_max: a when
-    a is NaN or a > b, else b), done in PyTorch, and the plain maxpool are
+    a is NaN, a > b, or a == b with b's sign bit set, else b), done in
+    PyTorch, and the plain maxpool are
     bitwise equal to ``repro.kernels.ref.maxpool`` with NaN and +-inf in
     either row of a pair."""
     from repro.kernels import ref as jref
@@ -466,7 +467,8 @@ def test_maxpool_select_propagates_nan_as_the_reference(dtype):
                               dtype=getattr(torch, dtype))[0]
     want = torch.from_numpy(np.array(jref.maxpool(jx).astype(jnp.float32)))
     a, b = tx[0::2], tx[1::2]
-    select = torch.where(a.isnan() | (a > b), a, b)
+    select = torch.where(a.isnan() | (a > b) | ((a == b) & b.signbit()),
+                         a, b)
     for got in (select, ps.maxpool(tx)):
         assert torch.equal(got.float().isnan(), want.isnan())
         assert torch.equal(got.float().nan_to_num(), want.nan_to_num())

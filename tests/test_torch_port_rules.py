@@ -9,6 +9,13 @@
     covers every member's CTAs exactly once and, with ctas == grid, is the
     reference's ``_bundle_phase_fns`` step formula.
   * The core's planning functions give the reference's numbers.
+  * Every public name of a reference module that the port has ported
+    (``src/repro/<path>`` beside ``src/repro_torch/<path>``) exists in the
+    port's module: the names the reference defines at top level and the
+    public methods and fields of its classes (the port may import a name
+    where the reference defines it).  The exceptions are written out
+    below, each with the ROADMAP queue 1 item that brings it, or the design
+    that replaces it.
 """
 from __future__ import annotations
 
@@ -76,14 +83,111 @@ def test_entry_points_need_a_device_without_cuda(monkeypatch):
                               device="cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object()),
-                                dict(scheduling="wavefront"),
-                                dict(plan_fusion=False)])
-def test_unported_paths_raise(kw):
+@pytest.mark.parametrize("kw,exc,match", [
+    (dict(mesh=object()), NotImplementedError, "not ported"),
+    (dict(scheduling="wavefront", paged_kv=True), ValueError,
+     "paged_kv requires scheduling='continuous' and plan_fusion=True"),
+    (dict(plan_fusion=False, paged_kv=True), ValueError,
+     "the paged kernels run only on the executed chunked path")])
+def test_unported_paths_raise(kw, exc, match):
+    """Tensor parallelism is not ported; the paged arena refuses the
+    wavefront and hand-wired paths with the reference's text."""
     cfg = get_config("granite-3-2b").reduced()
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(exc, match=match):
         engine.ServeEngine(cfg, None, batch=2, max_len=48, device="cpu",
                            **kw)
+
+
+# Public names of ported reference modules that the port does not have yet:
+# (module, name) -> the ROADMAP queue 1 item that brings it.
+NAMES_TO_PORT = {
+    **{("configs/base.py", n): "item 4 (the shape table)" for n in (
+        "ModelConfig.supports_long_context", "SEQ_MIX_KINDS", "SHAPES",
+        "SUBQUADRATIC_KINDS", "ShapeConfig", "ShapeConfig.global_batch",
+        "ShapeConfig.kind", "ShapeConfig.name", "ShapeConfig.seq_len",
+        "shape_applicable")},
+    **{("models/layers.py", n): "item 4 (the other families)" for n in (
+        "layernorm", "layernorm_spec", "local_attention",
+        "sinusoidal_embed")},
+    **{("models/layers.py", n): "item 5 (param specs for the dry run)"
+       for n in ("attn_spec", "embed_spec", "mlp_spec", "norm_spec",
+                 "rmsnorm_spec")},
+    **{("models/lm.py", n): "item 5 (param specs for the dry run)"
+       for n in ("block_spec", "cache_logical_axes", "param_specs")},
+    ("launch/train.py", "build"): "item 5 (build(mesh=))",
+    ("train/optimizer.py", "abstract_init"): "item 5 (the dry run)",
+    **{("train/fault_tolerance.py", n): "item 5 (HeartbeatMonitor)"
+       for n in ("HeartbeatMonitor", "HeartbeatMonitor.beat",
+                 "HeartbeatMonitor.dead_hosts",
+                 "HeartbeatMonitor.mark_suspect",
+                 "HeartbeatMonitor.plan_rescale", "HostState",
+                 "HostState.last_seen", "HostState.suspect_count")},
+    ("core/schedule_cache.py", "ScheduleCache.stats"):
+        "item 6 (cache-inspect)",
+}
+# Names the port's design replaces, with what replaces them.
+NAMES_REPLACED = {
+    ("core/op_spec.py", "OpSpec.body"):
+        "the Pallas body: OpSpec.member (the CUDA member) and OpSpec.plain",
+    ("kernels/ops.py", "force"):
+        "interpret mode has no counterpart: the operands' device decides",
+}
+
+
+def _public_names(path: Path, imports: bool = True) -> set[str]:
+    """Top-level public names of a module (defs, classes, assignments and,
+    with ``imports``, imported names) and its classes' public methods and
+    annotated fields."""
+    out = set()
+    for node in ast.parse(path.read_text(), str(path)).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            out.add(node.name)
+            if isinstance(node, ast.ClassDef):
+                for sub in node.body:
+                    if isinstance(sub, ast.FunctionDef):
+                        out.add(f"{node.name}.{sub.name}")
+                    elif (isinstance(sub, ast.AnnAssign)
+                          and isinstance(sub.target, ast.Name)):
+                        out.add(f"{node.name}.{sub.target.id}")
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = (node.targets if isinstance(node, ast.Assign)
+                       else [node.target])
+            out |= {n.id for t in targets for n in ast.walk(t)
+                    if isinstance(n, ast.Name)}
+        elif imports and isinstance(node, (ast.Import, ast.ImportFrom)):
+            out |= {(a.asname or a.name).split(".")[0] for a in node.names}
+    return {n for n in out if not any(p.startswith("_")
+                                      for p in n.split("."))}
+
+
+def _ported_modules():
+    port = ROOT / "src" / "repro_torch"
+    return [p.relative_to(port).as_posix() for p in sorted(port.rglob("*.py"))
+            if (ROOT / "src" / "repro" / p.relative_to(port)).exists()]
+
+
+@pytest.mark.parametrize("mod", _ported_modules())
+def test_ported_module_has_the_reference_names(mod):
+    want = _public_names(ROOT / "src" / "repro" / mod, imports=False)
+    have = _public_names(ROOT / "src" / "repro_torch" / mod)
+    excused = {n for (m, n) in (*NAMES_TO_PORT, *NAMES_REPLACED) if m == mod}
+    missing = sorted(want - have - excused)
+    assert not missing, f"{mod}: the port lacks {missing}"
+    stale = sorted(excused & have)
+    assert not stale, f"{mod}: {stale} are ported: drop their exceptions"
+
+
+def test_name_check_sees_a_missing_name(tmp_path):
+    """The check itself: a missing method and a missing function show; a
+    private name, and a name the reference only imports, do not, and the
+    port may import a name the reference defines."""
+    ref, port = tmp_path / "ref.py", tmp_path / "port.py"
+    ref.write_text("import os\nclass A:\n    x: int = 0\n    def f(self):"
+                   "\n        pass\n    def _g(self):\n        pass\n"
+                   "def h():\n    pass\n_p = 1\nK = 2\n")
+    port.write_text("from m import K\nclass A:\n    x: int = 0\n")
+    assert (_public_names(ref, imports=False) - _public_names(port)
+            == {"A.f", "h"})
 
 
 @pytest.mark.parametrize("ctas,ratios", [

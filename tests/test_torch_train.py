@@ -362,10 +362,10 @@ def test_grad_accumulation_matches_reference():
 
 def test_unported_train_options_raise():
     for kw in (dict(compression="int8_pod"), dict(zero=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+        with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
             tl.TrainConfig(**kw)
     from repro_torch.launch import train
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
         train.main(["--arch", "granite-3-2b", "--device", "cpu", "--zero"])
 
 
