@@ -206,12 +206,36 @@ non-zero exit code and no result line.
              decode (``lm.decode_step`` a slot) on a copy of its cache, over
              the decoding slots; the share of tokens agreeing with the
              executed engine is printed.
+  8g. layernorm  the LayerNorm configs, one at a time, random weights from
+             a seeded torch.Generator: stablelm-3b, starcoder2-7b and
+             minitron-8b at full depth and the faithful phi3.5-moe cut to 8
+             of 32 layers.  For 4 prompts of 256 tokens, ``lm.prefill``'s
+             logits against ``lm.forward`` of 257 at position 255, and one
+             ``lm.decode_step`` against position 256, within LOGITS_REL_L2;
+             a planned engine must refuse and name ``--hand-wired``; the
+             hand-wired fallback serves 4 requests (64..512 tokens, 4 new)
+             with the counters reset: no kernel of the port may launch,
+             each first token is ``lm.prefill``'s greedy token on its prompt
+             alone, tokens/s on the host clock.  ``layers.layernorm`` on
+             8192 x 4608 bf16 against the formula in fp64, within 2**-7 of
+             the largest value.  stablelm-3b trained at full width and
+             depth (batch 4 x seq 2048, remat, fp32 moments, the update
+             program of ``build_update_program``), 3 steps with the
+             counters reset: finite loss, grad norm > 0, every LayerNorm
+             bias moved from zero in every layer, the AdamW member and the
+             bundle launcher launched; ms per step (median of steps 1-2),
+             peak memory, one more step under torch.profiler for the busy
+             share.  Then its ``plan_update_fusion`` plan (the head's bf16
+             and two norm leaves' fp32 dW->AdamW chains) run once with the
+             counters reset on seeded state, each chain's p, m, v bitwise
+             against its two members launched apart, and the head's chain
+             (2560x8192 @ 8192x50304) timed.
   9. report  one JSON line of kernels, then the result line.
 
 Each main path (paper, update_dw, train, serve, paged, moe, ops, wavefront,
-fallback) runs with every launch counter reset just before it and read
-just after; each of its kernels must have launched (the fallback's: none
-may).  Serve, moe and ops also count the activation members their
+fallback, and 8g's serve, train and update+dW) runs with every launch
+counter reset just before it and read just after; each of its kernels must
+have launched (the fallback's and 8g's serve: none may).  Serve, moe and ops also count the activation members their
 launches carried, alone and as a chain's consumer (the row family shares
 one counter).
 
@@ -285,6 +309,18 @@ PHI_GMM = (16, 8, 4096, 6400)
 WAVE_LAYERS, WAVE_PROMPTS, WAVE_NEW = 1, (256, 512), 8
 # Phase 8f: the hand-wired continuous fallback at full depth.
 FALLBACK_PROMPTS, FALLBACK_NEW = (64, 200, 350, 512), 4
+
+# Phase 8g: the LayerNorm configs.  Served at full width, full depth, but
+# the faithful phi3.5-moe cut from 32 to 8 layers (32 need about 84 GB);
+# the reference's invariant on 4 prompts of 256 tokens; the fallback
+# serves 4 requests; LayerNorm at starcoder2's width; stablelm-3b trained
+# at full width and depth.
+LN_SERVE = (("stablelm-3b", 0), ("starcoder2-7b", 0), ("minitron-8b", 0),
+            ("phi3.5-moe-42b-a6.6b", 8))
+LN_PROMPTS, LN_PROMPT = 4, 256
+LN_SERVE_PROMPTS, LN_NEW, LN_MAX_LEN = (64, 200, 350, 512), 4, 1024
+LN_NORM_SHAPE = (4 * 2048, 4608)
+LN_TRAIN_ARCH, LN_TRAIN_STEPS = "stablelm-3b", 3
 
 # Full-width granite-3-2b train shapes.
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 4
@@ -584,9 +620,10 @@ class ActTally:
               flush=True)
 
 
-def device_profile(torch, run, what: str) -> None:
+def device_profile(torch, run, what: str):
     """``run()`` under torch.profiler: the device's busy share of the wall
-    time and device time by kernel name.  Only the device's own events
+    time (returned; None when the trace holds no device time) and device
+    time by kernel name.  Only the device's own events
     (kernels, copies, fills) are summed: a CPU op's device time is the
     same kernels counted again."""
     from torch.autograd import DeviceType
@@ -607,8 +644,9 @@ def device_profile(torch, run, what: str) -> None:
         for k, us in dev_us[:12]:
             print(f"[profile]   {us / 1e3:10.2f} ms {us / 1e6 / busy:6.1%} "
                   f"{k[:90]}")
-    else:
-        print(f"[profile] {what}: no device time in the trace: not measured")
+        return busy / wall_p
+    print(f"[profile] {what}: no device time in the trace: not measured")
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -2973,6 +3011,294 @@ def phase_fallback(torch, dev, cfg) -> dict:
             "decode_rel_l2": dec, "agreement": agree}
 
 
+# ---------------------------------------------------------------------------
+# Phase 8g: the LayerNorm configs, served hand-wired, and stablelm-3b trained
+# ---------------------------------------------------------------------------
+def ln_serve(torch, dev, arch: str, layers: int) -> dict:
+    """One LayerNorm config at full width: the reference's invariant
+    (prefill of S tokens, then one decode step, against the full-sequence
+    forward of S + 1), the planned engine's refusal, and the hand-wired
+    fallback serving 4 requests with the counters reset."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import tree as tree_mod
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda, registry
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers, block_pattern=None)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = lm.init(cfg, gen, device=dev)
+    n_params = sum(t.numel() for t in tree_mod.leaves(params))
+    toks = torch.randint(1, cfg.vocab_size, (LN_PROMPTS, LN_PROMPT + 1),
+                         generator=gen, device=dev, dtype=torch.int32)
+    with torch.no_grad():
+        full = lm.forward(cfg, params, {"tokens": toks})[0]
+        cache, pf = lm.prefill(cfg, params, {"tokens": toks[:, :-1]},
+                               max_len=LN_PROMPT + 1)
+        dec, _ = lm.decode_step(cfg, params, cache, toks[:, -1])
+    check(bool(torch.isfinite(full).all()), f"{arch}: non-finite logits")
+    inv = {"prefill": rel_l2(pf, full[:, -2]),
+           "decode": rel_l2(dec, full[:, -1])}
+    del full, cache, pf, dec
+    print(f"[layernorm] {arch} ({cfg.num_layers} layers, {n_params:,} "
+          f"params, set up in {time.perf_counter() - t0:.1f}s): "
+          f"lm.prefill({LN_PROMPT}) and one lm.decode_step against "
+          f"lm.forward({LN_PROMPT + 1}), {LN_PROMPTS} prompts, rel L2 "
+          + ", ".join(f"{k} {v:.3e}" for k, v in inv.items())
+          + f" (limit {LOGITS_REL_L2})", flush=True)
+    check(max(inv.values()) <= LOGITS_REL_L2,
+          f"{arch}: prefill/decode off the forward: {inv}")
+
+    try:
+        ServeEngine(cfg, params, batch=LN_PROMPTS, max_len=LN_MAX_LEN,
+                    device=dev)
+        refusal = None
+    except ValueError as e:
+        refusal = str(e)
+    check(refusal is not None and "--hand-wired" in refusal,
+          f"{arch}: a planned engine on the card did not refuse: {refusal}")
+    print(f"[layernorm] {arch} planned engine refuses: {refusal}")
+
+    rng = np.random.default_rng(5)
+    reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab_size,
+                                               L).astype(np.int32),
+                    max_new_tokens=LN_NEW)
+            for i, L in enumerate(LN_SERVE_PROMPTS)]
+    eng = ServeEngine(cfg, params, batch=LN_PROMPTS, max_len=LN_MAX_LEN,
+                      plan_fusion=False, device=dev)
+    check(not eng.executed, f"{arch}: the fallback executes a program")
+    kernels = registry()
+    torch.cuda.synchronize()
+    cuda.reset_counts(kernels)
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k.name: k.launches for k in kernels}
+    tokens = sum(len(r.out_tokens) for r in reqs)
+    check(all(r.done and len(r.out_tokens) == LN_NEW for r in reqs),
+          f"{arch}: a request did not complete")
+    check(not any(counts.values()),
+          f"{arch}: the hand-wired path launched a kernel: {counts}")
+    firsts = []
+    with torch.no_grad():
+        for r in reqs:
+            _c, lg = lm.prefill(cfg, params, {"tokens": torch.from_numpy(
+                r.prompt[None]).to(dev)}, max_len=eng.cache_len)
+            firsts.append(int(lm.greedy_sample(cfg, lg)[0]))
+    check(firsts == [r.out_tokens[0] for r in reqs],
+          f"{arch}: first tokens {[r.out_tokens[0] for r in reqs]} are not "
+          f"lm.prefill's greedy tokens {firsts}")
+    print(f"[layernorm] {arch} fallback: {len(reqs)} requests, {tokens} "
+          f"tokens in {wall:.3f}s ({tokens / wall:.2f} tok/s, host clock); "
+          f"first tokens equal lm.prefill's greedy tokens; no kernel "
+          f"launched", flush=True)
+    del params, eng
+    free_card(torch)
+    return {"invariant": inv, "tokens_per_s": tokens / wall,
+            "counts": counts, "layers": cfg.num_layers}
+
+
+def ln_norm(torch, dev) -> float:
+    """``layers.layernorm`` at full width (bf16) against the same formula
+    in fp64: within one bf16 step (2**-7) of the largest value."""
+    from repro_torch.core.timing import flush_buffer, median_ms
+    from repro_torch.models import layers
+
+    rows, d = LN_NORM_SHAPE
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    x = (torch.randn((rows, d), generator=g, device=dev) * 2 + 0.5).to(
+        torch.bfloat16)
+    p = {"scale": 1 + 0.3 * torch.randn(d, generator=g, device=dev),
+         "bias": 0.1 * torch.randn(d, generator=g, device=dev)}
+    got = layers.layernorm(p, x)
+    xd = x.double()
+    mu = xd.mean(-1, keepdim=True)
+    var = (xd - mu).square().mean(-1, keepdim=True)
+    want = (xd - mu) * torch.rsqrt(var + 1e-5) * p["scale"].double() \
+        + p["bias"].double()
+    err = (got.double() - want).abs().max().item()
+    lim = BF16_REL * want.abs().max().item()
+    flush = flush_buffer(dev)
+    ms = median_ms(lambda: layers.layernorm(p, x), flush)
+    print(f"[layernorm] layers.layernorm {rows}x{d} bf16 against fp64: "
+          f"max|err| {err:.3g} (limit {lim:.3g}); {ms:.4f} ms (glue, plain "
+          f"PyTorch as in the reference)", flush=True)
+    check(err <= lim, f"layernorm off the fp64 formula by {err} > {lim}")
+    return err
+
+
+def ln_train(torch, dev) -> tuple:
+    """stablelm-3b at full width and depth: 3 steps with the update program
+    (``build_update_program``, as ``launch/train.py --plan-fusion``) and
+    the counters reset; every LayerNorm bias, zero at the start, must have
+    moved in every layer."""
+    from repro_torch import tree as tree_mod
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.kernels import cuda, registry
+    from repro_torch.models import lm
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train import train_loop as tl
+
+    cfg = get_config(LN_TRAIN_ARCH)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    abstract = lm.abstract_params(cfg)
+    ocfg = opt_mod.AdamWConfig(lr=3e-4, warmup_steps=1,
+                               total_steps=LN_TRAIN_STEPS)
+    fplan = tl.plan_update_fusion(abstract, tokens=tokens)
+    program = tl.build_update_program(abstract, ocfg)
+    print(f"[layernorm] {cfg.name} update program: {program.describe()}",
+          flush=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = lm.init(cfg, gen, device=dev)
+    opt_state = opt_mod.init(params)
+    step_fn = tl.make_train_step(cfg, tl.TrainConfig(optimizer=ocfg,
+                                                     remat=True),
+                                 update_program=program)
+    data = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH))
+    kernels = registry()
+    torch.cuda.synchronize()
+    cuda.reset_counts(kernels)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms = []
+    for step in range(LN_TRAIN_STEPS):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in data.batch_at(step).items()}
+        t0 = time.perf_counter()
+        params, opt_state, met = step_fn(params, opt_state, batch, step)
+        loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        print(f"[layernorm] train step {step}: loss {loss:.4f} gnorm "
+              f"{gnorm:.3f}, {ms[-1]:.1f} ms", flush=True)
+        check(math.isfinite(loss) and gnorm > 0,
+              f"train step {step}: loss {loss}, grad norm {gnorm}")
+    counts = {k.name: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    biases = [(path, leaf) for path, leaf in
+              tree_mod.flatten_with_paths(params) if path[-1] == "bias"]
+    check(len(biases) == 3, f"{len(biases)} bias leaves, expected 3")
+    for path, leaf in biases:
+        moved = (leaf.reshape(-1, cfg.d_model) != 0).any(dim=-1)
+        check(bool(moved.all()), f"{'/'.join(path)} did not move from zero "
+              f"in {int((~moved).sum())} of {moved.numel()} layers")
+    for name in ("bundle_launcher", "adamw_member"):
+        check(counts[name] > 0, f"{name} never launched in training")
+
+    def one_more_step():
+        nonlocal params, opt_state
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in data.batch_at(LN_TRAIN_STEPS).items()}
+        params, opt_state, met = step_fn(params, opt_state, batch,
+                                         LN_TRAIN_STEPS)
+        check(math.isfinite(float(met["loss"])), "non-finite profiled loss")
+
+    busy = device_profile(torch, one_more_step, f"{cfg.name} train step")
+    step_ms = statistics.median(ms[1:])
+    print(f"[layernorm] {cfg.name} train: {step_ms:.1f} ms/step (median of "
+          f"steps 1-{LN_TRAIN_STEPS - 1}), peak {peak:.2f} GiB, device busy "
+          f"{'not measured' if busy is None else f'{busy:.1%}'}; every bias "
+          f"moved in every layer; launches {counts}", flush=True)
+    check(peak < 80, f"peak memory {peak:.1f} GiB")
+    del params, opt_state, step_fn
+    free_card(torch)
+    return fplan, {"step_ms": step_ms, "steps_ms": ms, "peak_gib": peak,
+                   "busy": busy, "counts": counts}
+
+
+def ln_update_dw(torch, dev, fplan) -> tuple[list[dict], dict]:
+    """stablelm-3b's ``plan_update_fusion`` plan (the head's bf16 and two
+    norm leaves' fp32 dW->AdamW chains) compiled and run once with the
+    counters reset on seeded state, each chain's p, m, v bitwise against
+    its two members launched apart; the head's chain timed."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import executor, hfuse
+    from repro_torch.core.timing import flush_buffer, median_ms
+    from repro_torch.kernels import cuda, registry, row
+    from repro_torch.models import lm
+    from repro_torch.train import train_loop as tl
+
+    cfg = get_config(LN_TRAIN_ARCH)
+    graph, layout = tl.update_graph(lm.abstract_params(cfg),
+                                    tokens=TRAIN_BATCH * TRAIN_SEQ,
+                                    max_tensors=8, include_dW=True)
+    ops = {gop.op.name: gop.op for gop in graph}
+    chains = [gop.op for gop in fplan.graph if gop.op.chain]
+    check(len(chains) == 3 and sum(
+        not ops[c.chain[0]].member.fp32 for c in chains) == 1,
+        f"expected the head's bf16 and two fp32 dW->adamw chains, got "
+        f"{[c.name for c in chains]}")
+    program = executor.compile_plan(fplan)
+    st = _update_dw_state(torch, dev, fplan, graph, layout, 28)
+    before = {c.name: [st[f"{c.name}.{n}"].clone() for n in c.in_names]
+              for c in chains}
+    kernels = registry()
+    torch.cuda.synchronize()
+    cuda.reset_counts(kernels)
+    program(st)
+    torch.cuda.synchronize()
+    counts = {k.name: k.launches for k in kernels}
+    check(counts["row_member"] == len(chains) and counts["adamw_member"] > 0
+          and counts["bundle_launcher"] > 0,
+          f"update+dW launches {counts}")
+    for c in chains:
+        ins = before[c.name]
+        _separate(hfuse, ops[c.chain[0]], ops[c.chain[1]], "g")(*ins)
+        for i, n in enumerate(c.out_names):
+            check(torch.equal(st[f"{c.name}.{n}"], ins[3 + i]),
+                  f"{c.name}.{n} differs from its separate members")
+    print(f"[layernorm] {cfg.name} update+dW program ({program.describe()}): "
+          f"{len(chains)} dW->adamw chains bitwise equal to their separate "
+          f"members; launches {counts}", flush=True)
+    head = next(c for c in chains if not ops[c.chain[0]].member.fp32)
+    dw, upd = ops[head.chain[0]], ops[head.chain[1]]
+    ins = [st[f"{head.name}.{n}"] for n in head.in_names]
+    run, plain = hfuse.run_single(head), hfuse.run_single(head, plain=True)
+    err = compare_chain(torch, run(*[t.clone() for t in ins]),
+                        plain(*[t.clone() for t in ins]), True)
+    flush = flush_buffer(dev)
+    g = dw.member
+    rows = [kernel_row(
+        "layernorm_update_dw", f"row_member:{dw.name}->adamw bfloat16 "
+        f"{g.M}x{g.K}@{g.K}x{g.N} ({cfg.name})", row.ROW, "row_member.cuh",
+        "src/repro/core/stitch.py:177 (dW matmul->adamw)", err,
+        median_ms(lambda: run(*ins), flush),
+        median_ms(lambda: plain(*ins), flush),
+        (_io_bytes(ins, ins[3:]), dw.flops + upd.flops), BF16_FLOPS, None,
+        separate_ms=median_ms(lambda: _separate(hfuse, dw, upd, "g")(*ins),
+                              flush))]
+    del st, before, ins
+    free_card(torch)
+    return rows, {"counts": counts}
+
+
+def phase_layernorm(torch, dev) -> tuple[list[dict], dict]:
+    serve = {arch: ln_serve(torch, dev, arch, layers)
+             for arch, layers in LN_SERVE}
+    norm_err = ln_norm(torch, dev)
+    fplan, train = ln_train(torch, dev)
+    rows, update_dw = ln_update_dw(torch, dev, fplan)
+    serve_counts = {}
+    for r in serve.values():
+        for k, n in r["counts"].items():
+            serve_counts[k] = serve_counts.get(k, 0) + n
+    return rows, {"serve": serve, "norm_err": norm_err, "train": train,
+                  "update_dw": update_dw, "serve_counts": serve_counts}
+
+
 def main() -> int:
     import torch
 
@@ -3010,7 +3336,7 @@ def main() -> int:
     check(cfg.num_layers == 40 and cfg.d_model == 2048, "not full width")
     # 2b. paper suite, 3. serve kernels, 4. adamw, 5. measured plan,
     # 6. update bundles, 6b. update+dW, 7. train, 8. serve, 8b. paged,
-    # 8c. moe, 8d. ops;
+    # 8c. moe, 8d. ops, 8e. wavefront, 8f. fallback, 8g. layernorm;
     # each phase's wall time is printed before the report
     walls = {}
 
@@ -3038,7 +3364,9 @@ def main() -> int:
     wave_rows, wave = timed("wavefront", phase_wavefront, torch, dev, cfg)
     free_card(torch)
     fallback = timed("fallback", phase_fallback, torch, dev, cfg)
-    rows += paged_rows + moe_rows + ops_rows + wave_rows
+    free_card(torch)
+    ln_rows, ln = timed("layernorm", phase_layernorm, torch, dev)
+    rows += paged_rows + moe_rows + ops_rows + wave_rows + ln_rows
     print("[phases] wall s: " + ", ".join(f"{k} {v:.1f}"
                                          for k, v in walls.items()))
 
@@ -3048,7 +3376,10 @@ def main() -> int:
             "update_dw": update_dw["counts"],
             "paper": paper_run["counts"], "paged": paged["counts"],
             "moe": moe_run["counts"], "ops": ops_run["counts"],
-            "wavefront": wave["counts"], "fallback": fallback["counts"]}
+            "wavefront": wave["counts"], "fallback": fallback["counts"],
+            "layernorm_serve": ln["serve_counts"],
+            "layernorm_train": ln["train"]["counts"],
+            "layernorm_update_dw": ln["update_dw"]["counts"]}
     for r in rows:
         r["launches"] = runs[r.pop("path")][r.pop("kernel").name]
     check(all(set(c) == set(names) for c in runs.values()),
@@ -3078,6 +3409,19 @@ def main() -> int:
           f"the hand-wired engine {wave['agreement']:.3f} ({smi})")
     print(f"[fallback] tokens/s {fallback['tokens_per_s']:.3f}, agreement "
           f"with the executed engine {fallback['agreement']:.3f} ({smi})")
+    for arch, r in ln["serve"].items():
+        print(f"[layernorm] {arch} ({r['layers']} layers): tokens/s "
+              f"{r['tokens_per_s']:.3f} (hand-wired), prefill/decode "
+              f"against forward rel L2 {r['invariant']['prefill']:.3e} / "
+              f"{r['invariant']['decode']:.3e} ({smi})")
+    lt = ln["train"]
+    busy = "not measured" if lt["busy"] is None else f"{lt['busy']:.1%}"
+    print(f"[layernorm] {LN_TRAIN_ARCH} train {lt['step_ms']:.1f} ms/step, "
+          f"peak {lt['peak_gib']:.2f} GiB, busy {busy}"
+          f", adamw_member {lt['counts']['adamw_member']} and bundle "
+          f"launches {lt['counts']['bundle_launcher']}; update+dW row_member "
+          f"(dW->adamw chains) {ln['update_dw']['counts']['row_member']}; "
+          f"layernorm max|err| {ln['norm_err']:.3g} ({smi})")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

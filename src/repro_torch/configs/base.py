@@ -20,6 +20,10 @@ RGLRU = "rglru"        # RecurrentGemma RG-LRU recurrent block
 MLSTM = "mlstm"        # xLSTM matrix-memory LSTM block
 SLSTM = "slstm"        # xLSTM scalar-memory LSTM block
 
+SEQ_MIX_KINDS = (ATTN, LOCAL_ATTN, MLA, RGLRU, MLSTM, SLSTM)
+# Kinds with O(1)-per-token decode state (no KV cache growth): allow 500k ctx.
+SUBQUADRATIC_KINDS = (RGLRU, MLSTM, SLSTM, LOCAL_ATTN)
+
 
 @dataclass(frozen=True)
 class MoEConfig:
@@ -102,6 +106,12 @@ class ModelConfig:
     def is_moe(self) -> bool:
         return self.moe is not None
 
+    @property
+    def supports_long_context(self) -> bool:
+        """True iff every sequence-mixing block is sub-quadratic (O(1)/O(w)
+        state)."""
+        return all(k in SUBQUADRATIC_KINDS for k in self.pattern)
+
     def moe_layer(self, idx: int) -> bool:
         if self.moe is None:
             return False
@@ -164,6 +174,36 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
+# Input shapes (the same set for every LM arch)
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                     # train | prefill | decode
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig,
+                     shape: ShapeConfig) -> tuple[bool, str]:
+    """(applicable, reason-if-not). long_500k needs sub-quadratic seq
+    mixing.  The reason is the reference's text, word for word."""
+    if shape.name == "long_500k" and not cfg.supports_long_context:
+        return False, ("full-attention arch: 500k dense KV decode is out of "
+                       "scope per assignment (needs sub-quadratic "
+                       "attention); see DESIGN.md §6")
+    return True, ""
+
+
+# ---------------------------------------------------------------------------
 # Registry
 # ---------------------------------------------------------------------------
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}
@@ -191,4 +231,5 @@ def list_archs() -> list[str]:
 
 def _load_all():
     # the port registers the architectures it serves so far
-    from repro_torch.configs import granite_3_2b, phi35_moe  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        granite_3_2b, minitron_8b, phi35_moe, stablelm_3b, starcoder2_7b)

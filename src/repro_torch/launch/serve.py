@@ -16,9 +16,13 @@ lock-step wavefront scheduler (executed on a single-layer dense config; on
 a stacked or MoE config it stays hand-wired with a notice on the CPU and
 refuses on the card); ``--hand-wired`` serves through ``lm.prefill`` and
 ``lm.decode_step`` instead of the planned program (the fallback, no kernel
-of the port launched).  The flags keep the reference launcher's names and
-checks; the port plans by default, and ``--plan-fusion`` names that
-default.
+of the port launched).  The LayerNorm configs (``--arch stablelm-3b``,
+``starcoder2-7b``, ``minitron-8b``, ``phi3.5-moe-42b-a6.6b``) are served
+only that way, as in the reference: planned, they print its notice and stay
+hand-wired on the CPU, and on the card they need ``--hand-wired`` (without
+it the launcher prints the refusal and exits 1).  The flags keep the
+reference launcher's names and checks; the port plans by default, and
+``--plan-fusion`` names that default.
 """
 from __future__ import annotations
 
@@ -166,18 +170,23 @@ def main(argv=None):
     budget = PrefillBudget(chunk_rows=args.chunk_rows,
                            max_coresident_chunks=args.coresident_chunks,
                            policy=args.prefill_policy)
-    engine = ServeEngine(cfg, params, batch=args.batch,
-                         max_len=args.prompt_len + args.shared_prefix
-                         + args.stagger + args.max_new + 8,
-                         prefill_budget=budget, device=dev,
-                         plan_fusion=args.plan_fusion, measure=measure,
-                         schedule_cache=schedule_cache,
-                         scheduling=args.scheduling,
-                         reject_overlong=args.reject_overlong,
-                         paged_kv=args.kv_block_size > 0,
-                         kv_block_size=args.kv_block_size or 16,
-                         kv_blocks=args.kv_blocks,
-                         kv_slot_blocks=args.kv_slot_blocks)
+    try:
+        engine = ServeEngine(cfg, params, batch=args.batch,
+                             max_len=args.prompt_len + args.shared_prefix
+                             + args.stagger + args.max_new + 8,
+                             prefill_budget=budget, device=dev,
+                             plan_fusion=args.plan_fusion, measure=measure,
+                             schedule_cache=schedule_cache,
+                             scheduling=args.scheduling,
+                             reject_overlong=args.reject_overlong,
+                             paged_kv=args.kv_block_size > 0,
+                             kv_block_size=args.kv_block_size or 16,
+                             kv_blocks=args.kv_blocks,
+                             kv_slot_blocks=args.kv_slot_blocks)
+    except ValueError as e:
+        # a refused engine (e.g. a planned LayerNorm engine on the card):
+        # its reason, which names the opt-in, and exit status 1
+        raise SystemExit(f"[serve] {cfg.name}: {e}") from None
     if engine.fusion_plan is not None:
         print("[plan-fusion] decode-step bundles:")
         for row in engine.fusion_plan.summary():

@@ -1,9 +1,10 @@
 """Transformer layers the served and trained steps need, in PyTorch.
 
 Mirrors the JAX package's ``models/layers.py`` op for op (same rounding
-points, same layouts): RMSNorm with ``(1 + scale)``, RoPE in fp32 with a
-cast back, the embedding row lookup times sqrt(d) (the scale rounded to the
-table's dtype first, as JAX's weakly typed scalar is), the tied
+points, same layouts): RMSNorm with ``(1 + scale)``, LayerNorm with
+``scale`` and ``bias``, RoPE in fp32 with a cast back, the embedding row
+lookup times sqrt(d) (the scale rounded to the table's dtype first, as
+JAX's weakly typed scalar is), the tied
 unembedding with fp32 accumulation, the fused-QKV projection, the gated
 MLP, flash-style blockwise attention (the reference computes it in plain
 ``jnp``, not in a kernel) and the fp32 cross entropy with z-loss.  A JAX
@@ -26,11 +27,20 @@ def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (xf * torch.rsqrt(var + eps) * (1.0 + p["scale"])).to(x.dtype)
 
 
+def layernorm(p, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """The reference's LayerNorm, glue as there (plain ``jnp``): mean and
+    the centred values' variance in fp32, ``x scale + bias`` in fp32, one
+    cast back.  Written as that formula rather than ``F.layer_norm`` so
+    the bf16 rounding is the reference's."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+    return y.to(x.dtype)
+
+
 def apply_norm(cfg, p, x: torch.Tensor) -> torch.Tensor:
-    if cfg.norm != "rmsnorm":
-        raise NotImplementedError(f"norm {cfg.norm!r}: the port serves "
-                                  "RMSNorm configs so far (ROADMAP)")
-    return rmsnorm(p, x)
+    return rmsnorm(p, x) if cfg.norm == "rmsnorm" else layernorm(p, x)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,

@@ -1,5 +1,6 @@
 """LM assembly for the global-attention subset the port serves and trains:
-one run of layers, each with a dense FFN or an MoE FFN (``models/moe.py``):
+one run of layers, each with RMSNorm or LayerNorm and a dense FFN or an
+MoE FFN (``models/moe.py``):
 the train forward and loss, and the hand-wired serve entry points
 ``prefill`` and ``decode_step`` (the reference's oracle for the executed
 decode program).
@@ -55,14 +56,17 @@ def layer_runs(cfg: ModelConfig) -> list[Run]:
 
 
 def supported(cfg: ModelConfig) -> Optional[str]:
-    """None when the port can build this config; else why not."""
+    """None when the port's model code can build, train and serve this
+    config through the hand-wired ``prefill`` / ``decode_step``; else why
+    not.  Whether the planned decode program serves it too is another
+    question: ``serve.engine.executable_decode_supported``."""
     runs = layer_runs(cfg)
     if cfg.frontend != "none":
         return f"frontend {cfg.frontend!r} (token frontend only)"
     if len(runs) != 1 or runs[0].kind != ATTN:
         return "needs a single global-attention layer run"
-    if cfg.norm != "rmsnorm":
-        return f"norm {cfg.norm!r} (rmsnorm only)"
+    if cfg.norm not in ("rmsnorm", "layernorm"):
+        return f"norm {cfg.norm!r}"
     if not cfg.is_moe and cfg.d_ff <= 0:
         return "no FFN"
     if cfg.activation not in ("silu", "gelu", "gelu_mlp", "relu2_mlp"):
@@ -82,12 +86,20 @@ def param_layout(cfg: ModelConfig) -> dict:
     gated = cfg.activation in ("silu", "gelu")
     run = layer_runs(cfg)[0]
     lead = (run.count,) if run.count > 1 else ()
-    f32 = "float32"
+
+    def norm(lead_):
+        # RMSNorm: a zero scale (applied as 1 + scale); LayerNorm: a unit
+        # scale and a zero bias; both fp32
+        if cfg.norm == "rmsnorm":
+            return {"scale": (lead_ + (d,), "zeros", "float32")}
+        return {"scale": (lead_ + (d,), "ones", "float32"),
+                "bias": (lead_ + (d,), "zeros", "float32")}
+
     block = {
-        "norm1": {"scale": (lead + (d,), "zeros", f32)},
+        "norm1": norm(lead),
         "attn": {"w_qkv": (lead + (d, (H + 2 * Hkv) * D), "normal", None),
                  "w_o": (lead + (H * D, d), "out_proj", None)},
-        "norm2": {"scale": (lead + (d,), "zeros", f32)},
+        "norm2": norm(lead),
     }
     if run.is_moe:
         block["moe"] = {k: (lead + shape, kind, dt)
@@ -98,7 +110,7 @@ def param_layout(cfg: ModelConfig) -> dict:
             "w_out": (lead + (f, d), "out_proj", None)}
     layout = {"embed": {"embedding": ((V, d), "embed", None)},
               run.name: block,
-              "final_norm": {"scale": ((d,), "zeros", f32)}}
+              "final_norm": norm(())}
     if not cfg.tie_embeddings:
         layout["head"] = {"w": ((d, V), "normal", None)}
     return layout
@@ -123,15 +135,17 @@ def init(cfg: ModelConfig, generator: torch.Generator,
          device=None) -> dict:
     """Random parameters on ``device`` (the card unless ``device="cpu"``)
     from ``generator``: normal(0, 1/sqrt(fan_in)) weights,
-    1/sqrt(2 fan_in) output projections, unit-scale embeddings, zero norm
-    scales — the reference's scheme, other random numbers."""
+    1/sqrt(2 fan_in) output projections, unit-scale embeddings, zero
+    RMSNorm scales, unit LayerNorm scales and zero biases — the
+    reference's scheme, other random numbers."""
     dev = resolve_device(device)
     dt = torch_dtype(cfg.dtype)
     params: dict = {}
     for path, (shape, kind, dt_override) in _leaves(param_layout(cfg)):
         ldt = torch_dtype(dt_override) if dt_override else dt
-        if kind == "zeros":
-            leaf = torch.zeros(shape, dtype=ldt, device=dev)
+        if kind in ("zeros", "ones"):
+            leaf = (torch.zeros if kind == "zeros" else torch.ones)(
+                shape, dtype=ldt, device=dev)
         else:
             fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
             scale = {"embed": 1.0,

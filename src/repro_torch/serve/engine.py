@@ -44,6 +44,9 @@ Two oracles beside it, as in the reference:
     its own position (the reference vmaps it over the slots), with whole
     prompts prefilled by ``lm.prefill`` beside the decode.  It launches no
     kernel of the port, so on the card it is the executor-free oracle.
+    It is also how the LayerNorm configs are served: the program's norm
+    member is RMSNorm only, so, as in the reference, a planned engine over
+    one keeps the hand-wired step (on the card it refuses instead).
 
 Differences from the reference, by design:
   * the KV cache (contiguous or arena) is updated IN PLACE (the reference
@@ -69,7 +72,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ATTN, ModelConfig
 from repro_torch.core import executor, planner, stitch
 from repro_torch.core.binding import BindingRegistry, Slot
 from repro_torch.device import resolve_device
@@ -258,10 +261,23 @@ class ServeStats:
 
 
 def executable_decode_supported(cfg: ModelConfig) -> Optional[str]:
-    """None when the planned decode program serves this config; otherwise
-    the reason it cannot.  The port builds only the configs the program
-    serves (``lm.supported``), so it raises with the reason."""
-    return lm.supported(cfg)
+    """None when the planned decode program can replace ``lm.decode_step``
+    for this config; otherwise the reason for the hand-wired fallback (the
+    reference's rule and texts).  Whether the port can build the config at
+    all is ``lm.supported``'s question: a LayerNorm config is built and
+    served hand-wired, never through the program."""
+    runs = lm.layer_runs(cfg)
+    if cfg.frontend != "none":
+        return f"frontend {cfg.frontend!r} (token frontend only)"
+    if len(runs) != 1 or runs[0].kind != ATTN:
+        return "needs a single global-attention layer run"
+    if cfg.norm != "rmsnorm":
+        return f"norm {cfg.norm!r} (rmsnorm only)"
+    if not cfg.is_moe and cfg.d_ff <= 0:
+        return "no FFN"
+    if cfg.activation not in ("silu", "gelu", "gelu_mlp", "relu2_mlp"):
+        return f"activation {cfg.activation!r}"
+    return None
 
 
 def _ffn_in_width(cfg: ModelConfig) -> int:
@@ -296,9 +312,12 @@ def _mlp_from_h(cfg: ModelConfig, h: torch.Tensor,
 
 
 def _hand_wired_reason(cfg: ModelConfig, scheduling: str) -> Optional[str]:
-    """Why a planned engine keeps the hand-wired decode step, or None."""
-    if scheduling != "wavefront":
-        return None
+    """Why a planned engine keeps the hand-wired decode step, or None: a
+    config the program does not serve (either scheduling), or a stacked
+    or MoE wavefront engine."""
+    reason = executable_decode_supported(cfg)
+    if reason is not None or scheduling != "wavefront":
+        return reason
     if lm.layer_runs(cfg)[0].count > 1:
         return ("stacked layer runs execute on the continuous path only "
                 "(wavefront keeps the hand-wired step)")
@@ -318,8 +337,10 @@ class ServeEngine:
     the wavefront scheduler (``scheduling="wavefront"``), or the
     hand-wired fallback (``plan_fusion=False``).  ``executed`` says
     whether the decode step runs through the planned program.  A planned
-    wavefront engine over a stacked or MoE config keeps the hand-wired step
-    with the reference's notice on the CPU, and refuses on the card.
+    engine over a config the program does not serve (LayerNorm), and a
+    planned wavefront engine over a stacked or MoE config, keep the
+    hand-wired step with the reference's notice on the CPU (the fallback
+    graph still planned), and refuse on the card.
 
     ``device``: where the engine runs — the card unless ``"cpu"`` is
     passed; with no device and no CUDA present the constructor raises.
@@ -395,10 +416,10 @@ class ServeEngine:
                                   block_size=kv_block_size, slots=batch,
                                   max_blocks_per_slot=kv_slot_blocks)
         self._arena = None          # paged k/v, kept as long as the pool
-        reason = executable_decode_supported(cfg)
+        reason = lm.supported(cfg)
         if reason is not None:
-            raise NotImplementedError(f"{cfg.name}: the executed decode step "
-                                      f"does not serve it: {reason}")
+            raise NotImplementedError(f"{cfg.name}: the port does not serve "
+                                      f"it yet: {reason} (ROADMAP)")
         self.device = resolve_device(device)
         hand_reason = (_hand_wired_reason(cfg, scheduling) if plan_fusion
                        else None)
@@ -482,7 +503,10 @@ class ServeEngine:
         prefill-attention ops.  Dense FFN side: ffn_proj -> decode_act
         (stitched likewise).  MoE: moe_router (fp32, B x d @ d x E) ->
         moe_gmm at capacity(cfg, B).  Paged: both attention ops take the
-        block table and the arena, and a chunk is whole pages.
+        block table and the arena, and a chunk is whole pages.  A config
+        the program does not serve (``executable_decode_supported``) plans
+        the reference's four-op fallback graph instead: decode_norm1 ->
+        attention -> decode_norm2 (after both) -> the FFN in-projection.
 
         ``ffn_rows > 0`` adds the wavefront co-prefill partner
         ``prefill_ffn``: the riding prompt's FFN in-projection, ``ffn_rows``
@@ -514,45 +538,61 @@ class ServeEngine:
         att = decode_attention_op(B=B, S=S, H=H, Hkv=Hkv, D=D, dtype=dt,
                                   ck=ck, dynamic_length=dynamic_length,
                                   block_table=bt)
-        qkv = dataclasses.replace(
-            matmul_1d_op(M=B, K=d, N=(H + 2 * Hkv) * D, dtype=dt, bm=B),
-            name="qkv_proj")
-        if self.stitch_epilogues:
-            norm1 = dataclasses.replace(norm1, epilogue=(qkv.name, "x"))
-        if cfg.moe is not None:
-            # the router's logits stay fp32 (its own matmul op) so softmax
-            # and top-k see what the reference computes; capacity is static
-            # per program
-            m = cfg.moe
+        if executable_decode_supported(cfg) is not None:
+            # the reference's fallback graph for a config the program does
+            # not serve: QKV and the activation stay glue, norm2 reads
+            # norm1's output beside attention's, and the projection is the
+            # dense-width product (named moe_router when the model routes)
             proj = dataclasses.replace(
-                matmul_1d_op(M=B, K=d, N=m.num_experts, dtype=torch.float32,
-                             bm=B),
-                name="moe_router")
-            gated = cfg.activation in ("silu", "gelu")
-            tail = moe_gmm_op(E=m.num_experts, C=moe_mod.capacity(cfg, B),
-                              d=d, f=m.d_ff_expert, dtype=dt,
-                              act=cfg.activation if gated else "gelu",
-                              gated=gated)
+                matmul_1d_op(M=B, K=d, N=_ffn_in_width(cfg), dtype=dt, bm=B),
+                name="moe_router" if cfg.moe is not None else "ffn_proj")
+            graph = [planner.GraphOp(norm1),
+                     planner.GraphOp(att, deps=frozenset({norm1.name})),
+                     planner.GraphOp(norm2, deps=frozenset({norm1.name,
+                                                            att.name})),
+                     planner.GraphOp(proj, deps=frozenset({norm2.name}))]
         else:
-            ffn_in, ffn_out = _ffn_in_width(cfg), cfg.d_ff
-            proj = dataclasses.replace(
-                matmul_1d_op(M=B, K=d, N=ffn_in, dtype=dt, bm=B),
-                name="ffn_proj")
-            act_fn = {"silu": elementwise.silu_gate,
-                      "gelu": elementwise.gelu_gate,
-                      "gelu_mlp": elementwise.gelu_plain,
-                      "relu2_mlp": elementwise.relu2}[cfg.activation]
-            tail = elementwise.activation_op(R=B, F_in=ffn_in, F_out=ffn_out,
-                                             fn=act_fn, dtype=dt, bm=B,
-                                             name="decode_act")
+            qkv = dataclasses.replace(
+                matmul_1d_op(M=B, K=d, N=(H + 2 * Hkv) * D, dtype=dt, bm=B),
+                name="qkv_proj")
             if self.stitch_epilogues:
-                proj = dataclasses.replace(proj, epilogue=(tail.name, "h"))
-        graph = [planner.GraphOp(norm1),
-                 planner.GraphOp(qkv, deps=frozenset({norm1.name})),
-                 planner.GraphOp(att, deps=frozenset({qkv.name})),
-                 planner.GraphOp(norm2, deps=frozenset({att.name})),
-                 planner.GraphOp(proj, deps=frozenset({norm2.name})),
-                 planner.GraphOp(tail, deps=frozenset({proj.name}))]
+                norm1 = dataclasses.replace(norm1, epilogue=(qkv.name, "x"))
+            if cfg.moe is not None:
+                # the router's logits stay fp32 (its own matmul op) so
+                # softmax and top-k see what the reference computes;
+                # capacity is static per program
+                m = cfg.moe
+                proj = dataclasses.replace(
+                    matmul_1d_op(M=B, K=d, N=m.num_experts,
+                                 dtype=torch.float32, bm=B),
+                    name="moe_router")
+                gated = cfg.activation in ("silu", "gelu")
+                tail = moe_gmm_op(E=m.num_experts,
+                                  C=moe_mod.capacity(cfg, B), d=d,
+                                  f=m.d_ff_expert, dtype=dt,
+                                  act=cfg.activation if gated else "gelu",
+                                  gated=gated)
+            else:
+                ffn_in, ffn_out = _ffn_in_width(cfg), cfg.d_ff
+                proj = dataclasses.replace(
+                    matmul_1d_op(M=B, K=d, N=ffn_in, dtype=dt, bm=B),
+                    name="ffn_proj")
+                act_fn = {"silu": elementwise.silu_gate,
+                          "gelu": elementwise.gelu_gate,
+                          "gelu_mlp": elementwise.gelu_plain,
+                          "relu2_mlp": elementwise.relu2}[cfg.activation]
+                tail = elementwise.activation_op(
+                    R=B, F_in=ffn_in, F_out=ffn_out, fn=act_fn, dtype=dt,
+                    bm=B, name="decode_act")
+                if self.stitch_epilogues:
+                    proj = dataclasses.replace(proj,
+                                               epilogue=(tail.name, "h"))
+            graph = [planner.GraphOp(norm1),
+                     planner.GraphOp(qkv, deps=frozenset({norm1.name})),
+                     planner.GraphOp(att, deps=frozenset({qkv.name})),
+                     planner.GraphOp(norm2, deps=frozenset({att.name})),
+                     planner.GraphOp(proj, deps=frozenset({norm2.name})),
+                     planner.GraphOp(tail, deps=frozenset({proj.name}))]
         if ffn_rows:
             # the co-prefill partner is a full-FFN-width product (MoE: the
             # expert FFN's in-projection, gate and up fused when gated)
@@ -733,12 +773,16 @@ class ServeEngine:
             reg.bind(gmm_name, xe="moe_xe", w_in="w_in", w_out="w_out",
                      outputs={"ye": Slot(put=gmm_put)})
         else:
-            chain2 = stitch.chain_label("ffn_proj", "decode_act")
+            # the fallback graph names its projection moe_router when the
+            # model routes (a launch table only: the program serves no
+            # such config)
+            proj_name = "moe_router" if cfg.moe is not None else "ffn_proj"
+            chain2 = stitch.chain_label(proj_name, "decode_act")
             if chain2 in plan_names:
                 reg.bind(chain2, x="h2", w="w_in",
                          outputs={"out": Slot(put=act_put)})
             else:
-                reg.bind("ffn_proj", x="h2", w="w_in",
+                reg.bind(proj_name, x="h2", w="w_in",
                          outputs={"out": "h_ffn"})
                 reg.bind("decode_act", h="h_ffn",
                          outputs={"out": Slot(put=act_put)})

@@ -1681,3 +1681,83 @@ def test_prefill_ffn_beside_decode_attention_bitwise(cuda_dev, rows):
         assert _same(fused, hfuse.run_native(ops)(*ins))
     (out,) = hfuse.run_single(pf)(*pf_in)
     _close_bf16(out, hfuse.run_single(pf, plain=True)(*pf_in)[0])
+
+
+# ---------------------------------------------------------------------------
+# The LayerNorm configs: the norm is glue (plain PyTorch, as the
+# reference's plain jnp); the model runs on the card and trains through the
+# update program's AdamW member
+# ---------------------------------------------------------------------------
+def test_layernorm_bf16_against_fp64(cuda_dev):
+    from repro_torch.models import layers
+    g = torch.Generator(device=cuda_dev).manual_seed(3)
+    d = 4608
+    x = (torch.randn((512, d), generator=g, device=cuda_dev) * 2 + 0.5).to(BF)
+    p = {"scale": 1 + 0.3 * torch.randn(d, generator=g, device=cuda_dev),
+         "bias": 0.1 * torch.randn(d, generator=g, device=cuda_dev)}
+    got = layers.layernorm(p, x)
+    xd = x.double()
+    mu = xd.mean(-1, keepdim=True)
+    var = (xd - mu).square().mean(-1, keepdim=True)
+    want = (xd - mu) * torch.rsqrt(var + 1e-5) * p["scale"].double() \
+        + p["bias"].double()
+    assert got.dtype == BF
+    assert (got.double() - want).abs().max() <= 2 ** -7 * want.abs().max()
+
+
+def _stablelm(layers_: int):
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("stablelm-3b"), num_layers=layers_,
+                               block_pattern=None)
+
+
+def test_stablelm_prefill_decode_equal_forward(cuda_dev):
+    """stablelm-3b at full width (MHA 32 x 80, partial RoPE), 2 layers:
+    prefill of 256 tokens and one decode step against forward(257), within
+    the serve phases' 5e-2 relative L2."""
+    from repro_torch.models import lm
+    cfg = _stablelm(2)
+    g = torch.Generator(device=cuda_dev).manual_seed(0)
+    params = lm.init(cfg, g, device=cuda_dev)
+    toks = torch.randint(1, cfg.vocab_size, (2, 257), generator=g,
+                         device=cuda_dev, dtype=torch.int32)
+    with torch.no_grad():
+        full = lm.forward(cfg, params, {"tokens": toks})[0]
+        cache, pf = lm.prefill(cfg, params, {"tokens": toks[:, :-1]},
+                               max_len=300)
+        dec, cache = lm.decode_step(cfg, params, cache, toks[:, -1])
+    for got, want in ((pf, full[:, -2]), (dec, full[:, -1])):
+        assert torch.isfinite(got).all()
+        assert (got - want).norm() <= 5e-2 * want.norm()
+    assert int(cache["pos"]) == 257
+
+
+def test_stablelm_train_step_moves_the_biases(cuda_dev):
+    """One full-width train step of a 2-layer stablelm-3b through the
+    update program: finite loss, and every LayerNorm bias (zero at the
+    start) moved, in every layer, by the AdamW member."""
+    from repro_torch import tree as tree_mod
+    from repro_torch.kernels import adam, registry
+    from repro_torch.models import lm
+    from repro_torch.train import optimizer as opt_mod
+    from repro_torch.train import train_loop as tl
+    cfg = _stablelm(2)
+    g = torch.Generator(device=cuda_dev).manual_seed(0)
+    params = lm.init(cfg, g, device=cuda_dev)
+    ocfg = opt_mod.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    prog = tl.build_update_program(lm.abstract_params(cfg), ocfg)
+    step = tl.make_train_step(cfg, tl.TrainConfig(optimizer=ocfg,
+                                                  remat=True),
+                              update_program=prog)
+    toks = torch.randint(1, cfg.vocab_size, (2, 512), generator=g,
+                         device=cuda_dev, dtype=torch.int32)
+    cuda.reset_counts(registry())
+    params, _state, met = step(params, opt_mod.init(params),
+                               {"tokens": toks, "labels": toks}, 0)
+    assert math.isfinite(float(met["loss"])) and float(met["grad_norm"]) > 0
+    assert adam.ADAMW.launches > 0
+    biases = [leaf for path, leaf in tree_mod.flatten_with_paths(params)
+              if path[-1] == "bias"]
+    assert len(biases) == 3
+    for leaf in biases:
+        assert (leaf.reshape(-1, cfg.d_model) != 0).any(dim=-1).all()

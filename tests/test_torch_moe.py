@@ -289,14 +289,28 @@ def test_eload_budget_validation():
             mod.PrefillBudget(policy="nope")
 
 
-def test_moe_support_matches_reference():
+def test_moe_support_matches_reference(capsys, monkeypatch):
+    """The faithful (LayerNorm) phi3.5 is refused by the executed program
+    only: on the CPU a planned engine prints the reference's notice and
+    stays hand-wired; on the card it refuses and names the opt-in."""
     assert engine.executable_decode_supported(_cfgs()[1]) is None
     for get, mod in ((jget_config, jengine), (get_config, engine)):
         ln = get("phi3.5-moe-42b-a6.6b").reduced()
         assert "rmsnorm" in mod.executable_decode_supported(ln)
-    with pytest.raises(NotImplementedError, match="rmsnorm"):
-        engine.ServeEngine(get_config("phi3.5-moe-42b-a6.6b").reduced(), None,
-                           batch=2, max_len=48, device="cpu")
+    jengine.ServeEngine(jget_config("phi3.5-moe-42b-a6.6b").reduced(), None,
+                        batch=2, max_len=48, plan_fusion=True)
+    want = capsys.readouterr().out
+    te = engine.ServeEngine(get_config("phi3.5-moe-42b-a6.6b").reduced(),
+                            None, batch=2, max_len=48, device="cpu")
+    assert capsys.readouterr().out == want
+    assert "stays hand-wired: norm 'layernorm' (rmsnorm only)" in want
+    assert not te.executed and te.cache_len == 48
+    monkeypatch.setattr(engine, "resolve_device",
+                        lambda device: torch.device("cuda", 0))
+    with pytest.raises(ValueError, match=r"rmsnorm only\) — pass "
+                       r"plan_fusion=False \(serve CLI: --hand-wired\)"):
+        engine.ServeEngine(get_config("phi3.5-moe-42b-a6.6b").reduced(),
+                           None, batch=2, max_len=48, device="cuda")
 
 
 # ---------------------------------------------------------------------------

@@ -101,17 +101,11 @@ def test_unported_paths_raise(kw, exc, match):
 # Public names of ported reference modules that the port does not have yet:
 # (module, name) -> the ROADMAP queue 1 item that brings it.
 NAMES_TO_PORT = {
-    **{("configs/base.py", n): "item 4 (the shape table)" for n in (
-        "ModelConfig.supports_long_context", "SEQ_MIX_KINDS", "SHAPES",
-        "SUBQUADRATIC_KINDS", "ShapeConfig", "ShapeConfig.global_batch",
-        "ShapeConfig.kind", "ShapeConfig.name", "ShapeConfig.seq_len",
-        "shape_applicable")},
-    **{("models/layers.py", n): "item 4 (the other families)" for n in (
-        "layernorm", "layernorm_spec", "local_attention",
-        "sinusoidal_embed")},
+    ("models/layers.py", "local_attention"): "item 4b (recurrentgemma-2b)",
+    ("models/layers.py", "sinusoidal_embed"): "item 4e (the frontends)",
     **{("models/layers.py", n): "item 5 (param specs for the dry run)"
-       for n in ("attn_spec", "embed_spec", "mlp_spec", "norm_spec",
-                 "rmsnorm_spec")},
+       for n in ("attn_spec", "embed_spec", "layernorm_spec", "mlp_spec",
+                 "norm_spec", "rmsnorm_spec")},
     **{("models/lm.py", n): "item 5 (param specs for the dry run)"
        for n in ("block_spec", "cache_logical_axes", "param_specs")},
     ("launch/train.py", "build"): "item 5 (build(mesh=))",

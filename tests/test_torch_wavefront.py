@@ -309,27 +309,39 @@ def test_executed_continuous_matches_wavefront(dense, engines, lens,
 # ---------------------------------------------------------------------------
 # Refusals, notices and deprecated keywords
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("arch,layers", [("granite-3-2b", 2),
-                                         ("phi3.5-moe-rms", 1)],
-                         ids=["stacked", "moe"])
+# (arch, layers, scheduling): the stacked and MoE configs stay hand-wired
+# on wavefront only; a LayerNorm config on either scheduling
+HAND_WIRED = [("granite-3-2b", 2, "wavefront"),
+              ("phi3.5-moe-rms", 1, "wavefront"),
+              ("stablelm-3b", 1, "wavefront"),
+              ("stablelm-3b", 1, "continuous"),
+              ("phi3.5-moe-42b-a6.6b", 1, "wavefront"),
+              ("phi3.5-moe-42b-a6.6b", 1, "continuous")]
+HAND_WIRED_IDS = ["stacked", "moe", "layernorm-wavefront",
+                  "layernorm-continuous", "layernorm-moe-wavefront",
+                  "layernorm-moe-continuous"]
+
+
+@pytest.mark.parametrize("arch,layers,scheduling", HAND_WIRED,
+                         ids=HAND_WIRED_IDS)
 def test_wavefront_stays_hand_wired_with_the_reference_notice(
-        arch, layers, capsys):
+        arch, layers, scheduling, capsys):
     jcfg, tcfg = _cfgs(arch, layers)
     je = jengine.ServeEngine(jcfg, None, batch=2, max_len=MAX_LEN,
-                             plan_fusion=True, scheduling="wavefront")
+                             plan_fusion=True, scheduling=scheduling)
     want = capsys.readouterr().out
     te = engine.ServeEngine(tcfg, None, batch=2, max_len=MAX_LEN,
-                            device="cpu", scheduling="wavefront")
+                            device="cpu", scheduling=scheduling)
     got = capsys.readouterr().out
     assert not (je.executed or te.executed)
     assert got == want and "decode step stays hand-wired" in got
     assert te.fusion_plan is not None and te.cache_len == MAX_LEN
 
 
-@pytest.mark.parametrize("arch,layers", [("granite-3-2b", 2),
-                                         ("phi3.5-moe-rms", 1)],
-                         ids=["stacked", "moe"])
-def test_planned_wavefront_refuses_on_the_card(arch, layers, monkeypatch):
+@pytest.mark.parametrize("arch,layers,scheduling", HAND_WIRED,
+                         ids=HAND_WIRED_IDS)
+def test_planned_wavefront_refuses_on_the_card(arch, layers, scheduling,
+                                               monkeypatch):
     """On the card a planned engine does not give way to the hand-wired
     step: it refuses and names the explicit opt-in."""
     _, tcfg = _cfgs(arch, layers)
@@ -338,7 +350,7 @@ def test_planned_wavefront_refuses_on_the_card(arch, layers, monkeypatch):
     with pytest.raises(ValueError, match=r"plan_fusion=False \(serve CLI: "
                                          r"--hand-wired\)"):
         engine.ServeEngine(tcfg, None, batch=2, max_len=MAX_LEN,
-                           device="cuda", scheduling="wavefront")
+                           device="cuda", scheduling=scheduling)
 
 
 @pytest.mark.parametrize("kw", [dict(scheduling="wavefront"),
