@@ -230,12 +230,43 @@ non-zero exit code and no result line.
              counters reset on seeded state, each chain's p, m, v bitwise
              against its two members launched apart, and the head's chain
              (2560x8192 @ 8192x50304) timed.
+  8h. recurrent  recurrentgemma-2b at full width and depth (26 layers:
+             RG-LRU blocks and local attention of window 2048 in 17 runs,
+             MQA heads of 256, vocabulary 256000), random weights from a
+             seeded torch.Generator.  For 2 prompts of 2048 tokens (the
+             first decode step wraps the local-attention ring) and 2 of
+             2100 (a misaligned ring), ``lm.prefill`` and 4
+             ``lm.decode_step``s against ``lm.forward`` of S + 4 at the
+             same positions, within LOGITS_REL_L2; every local-attention
+             ring after the prefill holds position p's k and v rows at
+             slot p % W (bitwise against the rows the prefill's layer
+             computed), each decode step writes slot pos % W alone (the
+             rest bitwise unchanged) with rows within RING_ROW_REL of the
+             forward's at pos; ``lm.forward`` at 1 x 4096 (two
+             local-attention chunks) finite.  A planned engine
+             must refuse and name ``--hand-wired``; the hand-wired
+             continuous engine (batch 4, max_len 2304) serves 4 requests
+             (64, 512, 2048, 2100 tokens, 4 new) with the counters reset:
+             no kernel of the port may launch, each first token is
+             ``lm.prefill``'s greedy token on its prompt alone, tokens/s on
+             the host clock.  Trained at batch 4 x seq 2048 (RG_GRAD_ACCUM
+             micro-batches, remat, fp32 moments, the update program), 3
+             steps with the counters reset: finite loss, grad norm > 0,
+             every ``lam``, ``gate_a``, ``conv_w`` and ``conv_b`` moved in
+             every RG-LRU layer, the AdamW member and the bundle launcher
+             launched; ms per step, peak memory, the busy share of one
+             profiled step.  Then its ``plan_update_fusion`` plan at 4096
+             tokens (the embedding's bf16 dW->AdamW, 256000x4096 @
+             4096x2560) run once with the counters reset on seeded state,
+             p, m, v bitwise against the two members launched apart, and
+             timed beside them, its plain version and its bound.
   9. report  one JSON line of kernels, then the result line.
 
 Each main path (paper, update_dw, train, serve, paged, moe, ops, wavefront,
-fallback, and 8g's serve, train and update+dW) runs with every launch
-counter reset just before it and read just after; each of its kernels must
-have launched (the fallback's and 8g's serve: none may).  Serve, moe and ops also count the activation members their
+fallback, and 8g's and 8h's serve, train and update+dW) runs with every
+launch counter reset just before it and read just after; each of its
+kernels must have launched (the fallback's, 8g's and 8h's serve: none
+may).  Serve, moe and ops also count the activation members their
 launches carried, alone and as a chain's consumer (the row family shares
 one counter).
 
@@ -321,6 +352,25 @@ LN_PROMPTS, LN_PROMPT = 4, 256
 LN_SERVE_PROMPTS, LN_NEW, LN_MAX_LEN = (64, 200, 350, 512), 4, 1024
 LN_NORM_SHAPE = (4 * 2048, 4608)
 LN_TRAIN_ARCH, LN_TRAIN_STEPS = "stablelm-3b", 3
+
+# Phase 8h: recurrentgemma-2b at full width and depth (26 layers, RG-LRU
+# and local attention of window 2048).  The invariant on 2 prompts of 2048
+# tokens (aligned: the first decode step wraps the local-attention ring)
+# and 2 of 2100 (misaligned), 4 decode steps each; one forward at 1 x 4096
+# (two local-attention chunks); the fallback serves 4 requests; trained at
+# batch 4 x seq 2048 in RG_GRAD_ACCUM micro-batches (in one, the tied
+# head's fp32 logits, 7.8 GiB a copy, took the card past 80 GB); the
+# embedding's dW->AdamW planned at 4096 tokens.
+RG_ARCH = "recurrentgemma-2b"
+RG_PROMPTS, RG_DECODE, RG_LONG = (2048, 2100), 4, 4096
+RG_SERVE_PROMPTS, RG_NEW, RG_MAX_LEN = (64, 512, 2048, 2100), 4, 2304
+RG_TRAIN_STEPS, RG_GRAD_ACCUM, RG_DW_TOKENS = 3, 2, 4096
+# A decode step's k or v row in a local-attention ring against the same
+# position's row of the full forward (bf16, 2 x 256 values a row): the two
+# differ by the residual stream's drift over up to 24 layers, a few bf16
+# steps; a row of another position (independent random tokens) lies about
+# sqrt(2) away.
+RING_ROW_REL = 5e-2
 
 # Full-width granite-3-2b train shapes.
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 4
@@ -622,10 +672,12 @@ class ActTally:
 
 def device_profile(torch, run, what: str):
     """``run()`` under torch.profiler: the device's busy share of the wall
-    time (returned; None when the trace holds no device time) and device
-    time by kernel name.  Only the device's own events
-    (kernels, copies, fills) are summed: a CPU op's device time is the
-    same kernels counted again."""
+    time and its busy seconds (returned; None, None when the trace holds
+    no device time), device time by kernel name, and the host's CUDA
+    runtime calls (count and host time: the launches, and the copies and
+    synchronizations that make the host wait for the device).  Only the
+    device's own events (kernels, copies, fills) are summed: a CPU op's
+    device time is the same kernels counted again."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -644,9 +696,17 @@ def device_profile(torch, run, what: str):
         for k, us in dev_us[:12]:
             print(f"[profile]   {us / 1e3:10.2f} ms {us / 1e6 / busy:6.1%} "
                   f"{k[:90]}")
-        return busy / wall_p
+        api = sorted(((e.key, e.count, e.cpu_time_total)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CPU
+                      and e.key.startswith(("cuda", "cu"))),
+                     key=lambda r: -r[2])
+        print(f"[profile]   host runtime calls: "
+              + ", ".join(f"{k} x{n} {us / 1e3:.1f} ms"
+                          for k, n, us in api[:5]))
+        return busy / wall_p, busy
     print(f"[profile] {what}: no device time in the trace: not measured")
-    return None
+    return None, None
 
 
 # ---------------------------------------------------------------------------
@@ -3137,35 +3197,39 @@ def ln_norm(torch, dev) -> float:
     return err
 
 
-def ln_train(torch, dev) -> tuple:
-    """stablelm-3b at full width and depth: 3 steps with the update program
-    (``build_update_program``, as ``launch/train.py --plan-fusion``) and
-    the counters reset; every LayerNorm bias, zero at the start, must have
-    moved in every layer."""
+def train_full(torch, dev, cfg, *, steps: int, tag: str, watch,
+               grad_accum: int = 1) -> tuple:
+    """``cfg`` at full width and depth, batch TRAIN_BATCH x seq TRAIN_SEQ
+    (``grad_accum`` micro-batches a step): ``steps`` steps with remat,
+    fp32 moments and the update program (``build_update_program``, as
+    ``launch/train.py --plan-fusion``), the counters reset; finite losses,
+    a grad norm > 0, and every leaf ``watch(path)`` picks moved from its
+    start in every layer; the AdamW member and the bundle launcher
+    launched.  One more step under torch.profiler for the busy share.
+    Returns the run's numbers."""
     from repro_torch import tree as tree_mod
-    from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
     from repro_torch.kernels import cuda, registry
     from repro_torch.models import lm
     from repro_torch.train import optimizer as opt_mod
     from repro_torch.train import train_loop as tl
 
-    cfg = get_config(LN_TRAIN_ARCH)
-    tokens = TRAIN_BATCH * TRAIN_SEQ
     abstract = lm.abstract_params(cfg)
-    ocfg = opt_mod.AdamWConfig(lr=3e-4, warmup_steps=1,
-                               total_steps=LN_TRAIN_STEPS)
-    fplan = tl.plan_update_fusion(abstract, tokens=tokens)
+    ocfg = opt_mod.AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=steps)
+    t0 = time.perf_counter()
     program = tl.build_update_program(abstract, ocfg)
-    print(f"[layernorm] {cfg.name} update program: {program.describe()}",
+    print(f"[{tag}] {cfg.name} update program (planned in "
+          f"{time.perf_counter() - t0:.1f}s): {program.describe()}",
           flush=True)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     params = lm.init(cfg, gen, device=dev)
+    start = {path: leaf.clone() for path, leaf
+             in tree_mod.flatten_with_paths(params) if watch(path)}
     opt_state = opt_mod.init(params)
-    step_fn = tl.make_train_step(cfg, tl.TrainConfig(optimizer=ocfg,
-                                                     remat=True),
-                                 update_program=program)
+    step_fn = tl.make_train_step(cfg, tl.TrainConfig(
+        optimizer=ocfg, remat=True, grad_accum=grad_accum),
+        update_program=program)
     data = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
                                     seq_len=TRAIN_SEQ,
                                     global_batch=TRAIN_BATCH))
@@ -3174,7 +3238,7 @@ def ln_train(torch, dev) -> tuple:
     cuda.reset_counts(kernels)
     torch.cuda.reset_peak_memory_stats(dev)
     ms = []
-    for step in range(LN_TRAIN_STEPS):
+    for step in range(steps):
         batch = {k: torch.from_numpy(v).to(dev)
                  for k, v in data.batch_at(step).items()}
         t0 = time.perf_counter()
@@ -3182,67 +3246,97 @@ def ln_train(torch, dev) -> tuple:
         loss, gnorm = float(met["loss"]), float(met["grad_norm"])
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
-        print(f"[layernorm] train step {step}: loss {loss:.4f} gnorm "
+        print(f"[{tag}] train step {step}: loss {loss:.4f} gnorm "
               f"{gnorm:.3f}, {ms[-1]:.1f} ms", flush=True)
         check(math.isfinite(loss) and gnorm > 0,
               f"train step {step}: loss {loss}, grad norm {gnorm}")
     counts = {k.name: k.launches for k in kernels}
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-    biases = [(path, leaf) for path, leaf in
-              tree_mod.flatten_with_paths(params) if path[-1] == "bias"]
-    check(len(biases) == 3, f"{len(biases)} bias leaves, expected 3")
-    for path, leaf in biases:
-        moved = (leaf.reshape(-1, cfg.d_model) != 0).any(dim=-1)
-        check(bool(moved.all()), f"{'/'.join(path)} did not move from zero "
-              f"in {int((~moved).sum())} of {moved.numel()} layers")
+    layers = {r.name: r.count for r in lm.layer_runs(cfg)}
+    for path, leaf in tree_mod.flatten_with_paths(params):
+        if path in start:
+            moved = (leaf != start[path]).reshape(
+                layers.get(path[0], 1), -1).any(dim=-1)
+            check(bool(moved.all()), f"{'/'.join(path)} did not move in "
+                  f"{int((~moved).sum())} of {moved.numel()} layers")
     for name in ("bundle_launcher", "adamw_member"):
         check(counts[name] > 0, f"{name} never launched in training")
+    del start
 
     def one_more_step():
         nonlocal params, opt_state
         batch = {k: torch.from_numpy(v).to(dev)
-                 for k, v in data.batch_at(LN_TRAIN_STEPS).items()}
-        params, opt_state, met = step_fn(params, opt_state, batch,
-                                         LN_TRAIN_STEPS)
+                 for k, v in data.batch_at(steps).items()}
+        params, opt_state, met = step_fn(params, opt_state, batch, steps)
         check(math.isfinite(float(met["loss"])), "non-finite profiled loss")
 
-    busy = device_profile(torch, one_more_step, f"{cfg.name} train step")
+    # the profiler adds host time to every launch: a step of many small
+    # kernels reads less busy under it than it runs, so its device time is
+    # also set against the unprofiled steps' median
+    busy, dev_s = device_profile(torch, one_more_step,
+                                 f"{cfg.name} train step")
     step_ms = statistics.median(ms[1:])
-    print(f"[layernorm] {cfg.name} train: {step_ms:.1f} ms/step (median of "
-          f"steps 1-{LN_TRAIN_STEPS - 1}), peak {peak:.2f} GiB, device busy "
-          f"{'not measured' if busy is None else f'{busy:.1%}'}; every bias "
-          f"moved in every layer; launches {counts}", flush=True)
+    dev_ms = None if dev_s is None else dev_s * 1e3
+    device = "not measured" if busy is None else (
+        f"{busy:.1%} under the profiler, device time {dev_ms:.1f} ms, "
+        f"{dev_ms / step_ms:.1%} of the median step")
+    print(f"[{tag}] {cfg.name} train: {step_ms:.1f} ms/step (median of "
+          f"steps 1-{steps - 1}), batch {TRAIN_BATCH} x seq {TRAIN_SEQ} in "
+          f"{grad_accum} micro-batch(es), peak {peak:.2f} GiB, device busy "
+          f"{device}; every watched leaf moved in every layer; launches "
+          f"{counts}", flush=True)
     check(peak < 80, f"peak memory {peak:.1f} GiB")
     del params, opt_state, step_fn
     free_card(torch)
-    return fplan, {"step_ms": step_ms, "steps_ms": ms, "peak_gib": peak,
-                   "busy": busy, "counts": counts}
+    return {"step_ms": step_ms, "steps_ms": ms, "peak_gib": peak,
+            "busy": busy, "device_ms": dev_ms, "counts": counts,
+            "grad_accum": grad_accum}
 
 
-def ln_update_dw(torch, dev, fplan) -> tuple[list[dict], dict]:
-    """stablelm-3b's ``plan_update_fusion`` plan (the head's bf16 and two
-    norm leaves' fp32 dW->AdamW chains) compiled and run once with the
-    counters reset on seeded state, each chain's p, m, v bitwise against
-    its two members launched apart; the head's chain timed."""
+def ln_train(torch, dev) -> tuple:
+    """stablelm-3b at full width and depth, 3 steps: every LayerNorm bias,
+    zero at the start, must have moved in every layer.  Returns
+    (``plan_update_fusion``'s plan at the run's tokens, the run's
+    numbers)."""
+    from repro_torch import tree as tree_mod
     from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.train import train_loop as tl
+    cfg = get_config(LN_TRAIN_ARCH)
+    biases = [path for path, _ in tree_mod.flatten_with_paths(
+        lm.abstract_params(cfg)) if path[-1] == "bias"]
+    check(len(biases) == 3, f"{len(biases)} bias leaves, expected 3")
+    fplan = tl.plan_update_fusion(lm.abstract_params(cfg),
+                                  tokens=TRAIN_BATCH * TRAIN_SEQ)
+    return fplan, train_full(torch, dev, cfg, steps=LN_TRAIN_STEPS,
+                             tag="layernorm",
+                             watch=lambda path: path[-1] == "bias")
+
+
+def update_dw_chains(torch, dev, cfg, fplan, tokens: int, path: str,
+                     want: tuple[int, int], seed: int, tag: str
+                     ) -> tuple[list[dict], dict]:
+    """``cfg``'s ``plan_update_fusion`` plan (``want``: its bf16 and fp32
+    dW->AdamW chains) compiled and run once with the counters reset on
+    seeded state, each chain's p, m, v bitwise against its two members
+    launched apart; the bf16 chain timed beside its plain version, its
+    members apart and its bound (row i of ``path``)."""
     from repro_torch.core import executor, hfuse
     from repro_torch.core.timing import flush_buffer, median_ms
     from repro_torch.kernels import cuda, registry, row
     from repro_torch.models import lm
     from repro_torch.train import train_loop as tl
 
-    cfg = get_config(LN_TRAIN_ARCH)
-    graph, layout = tl.update_graph(lm.abstract_params(cfg),
-                                    tokens=TRAIN_BATCH * TRAIN_SEQ,
+    graph, layout = tl.update_graph(lm.abstract_params(cfg), tokens=tokens,
                                     max_tensors=8, include_dW=True)
     ops = {gop.op.name: gop.op for gop in graph}
     chains = [gop.op for gop in fplan.graph if gop.op.chain]
-    check(len(chains) == 3 and sum(
-        not ops[c.chain[0]].member.fp32 for c in chains) == 1,
-        f"expected the head's bf16 and two fp32 dW->adamw chains, got "
-        f"{[c.name for c in chains]}")
+    n_bf16 = sum(not ops[c.chain[0]].member.fp32 for c in chains)
+    check((n_bf16, len(chains) - n_bf16) == want,
+          f"expected {want[0]} bf16 and {want[1]} fp32 dW->adamw chains, got "
+          f"{[c.name for c in chains]}")
     program = executor.compile_plan(fplan)
-    st = _update_dw_state(torch, dev, fplan, graph, layout, 28)
+    st = _update_dw_state(torch, dev, fplan, graph, layout, seed)
     before = {c.name: [st[f"{c.name}.{n}"].clone() for n in c.in_names]
               for c in chains}
     kernels = registry()
@@ -3260,7 +3354,8 @@ def ln_update_dw(torch, dev, fplan) -> tuple[list[dict], dict]:
         for i, n in enumerate(c.out_names):
             check(torch.equal(st[f"{c.name}.{n}"], ins[3 + i]),
                   f"{c.name}.{n} differs from its separate members")
-    print(f"[layernorm] {cfg.name} update+dW program ({program.describe()}): "
+    del before
+    print(f"[{tag}] {cfg.name} update+dW program ({program.describe()}): "
           f"{len(chains)} dW->adamw chains bitwise equal to their separate "
           f"members; launches {counts}", flush=True)
     head = next(c for c in chains if not ops[c.chain[0]].member.fp32)
@@ -3272,7 +3367,7 @@ def ln_update_dw(torch, dev, fplan) -> tuple[list[dict], dict]:
     flush = flush_buffer(dev)
     g = dw.member
     rows = [kernel_row(
-        "layernorm_update_dw", f"row_member:{dw.name}->adamw bfloat16 "
+        path, f"row_member:{dw.name}->adamw bfloat16 "
         f"{g.M}x{g.K}@{g.K}x{g.N} ({cfg.name})", row.ROW, "row_member.cuh",
         "src/repro/core/stitch.py:177 (dW matmul->adamw)", err,
         median_ms(lambda: run(*ins), flush),
@@ -3280,9 +3375,18 @@ def ln_update_dw(torch, dev, fplan) -> tuple[list[dict], dict]:
         (_io_bytes(ins, ins[3:]), dw.flops + upd.flops), BF16_FLOPS, None,
         separate_ms=median_ms(lambda: _separate(hfuse, dw, upd, "g")(*ins),
                               flush))]
-    del st, before, ins
+    del st, ins
     free_card(torch)
     return rows, {"counts": counts}
+
+
+def ln_update_dw(torch, dev, fplan) -> tuple[list[dict], dict]:
+    """stablelm-3b's plan: the head's bf16 and two norm leaves' fp32
+    dW->AdamW chains; the head's chain timed."""
+    from repro_torch.configs import get_config
+    return update_dw_chains(torch, dev, get_config(LN_TRAIN_ARCH), fplan,
+                            TRAIN_BATCH * TRAIN_SEQ, "layernorm_update_dw",
+                            (1, 2), 28, "layernorm")
 
 
 def phase_layernorm(torch, dev) -> tuple[list[dict], dict]:
@@ -3297,6 +3401,221 @@ def phase_layernorm(torch, dev) -> tuple[list[dict], dict]:
             serve_counts[k] = serve_counts.get(k, 0) + n
     return rows, {"serve": serve, "norm_err": norm_err, "train": train,
                   "update_dw": update_dw, "serve_counts": serve_counts}
+
+
+# ---------------------------------------------------------------------------
+# Phase 8h: recurrentgemma-2b, served hand-wired and trained
+# ---------------------------------------------------------------------------
+class local_kv_capture:
+    """Within the block, each ``layers.local_attention`` call's k and v
+    (B, S, Hkv, D), in call order: the rows a forward's local-attention
+    layers compute at each position."""
+
+    def __enter__(self) -> list:
+        from repro_torch.models import layers
+        self.layers, self.orig, seen = layers, layers.local_attention, []
+
+        def capture(q, k, v, window, **kw):
+            seen.append((k, v))
+            return self.orig(q, k, v, window, **kw)
+
+        layers.local_attention = capture
+        return seen
+
+    def __exit__(self, *exc) -> None:
+        self.layers.local_attention = self.orig
+
+
+def rg_prompt(torch, cfg, params, toks, S: int) -> tuple[list, list]:
+    """``lm.prefill`` of ``toks[:, :S]`` and one ``lm.decode_step`` for each
+    later token, against ``lm.forward`` of all of ``toks``: the logits' rel
+    L2 at each step.  And every local-attention ring: after the prefill,
+    each slot p % W holds the k and v rows the prefill's own layer computed
+    at position p, for p the last W positions (bitwise: a handoff that puts
+    them elsewhere fails); each decode step writes slot pos % W alone (every
+    other slot bitwise unchanged), rows within RING_ROW_REL of the
+    forward's at pos.  Returns (logits rel L2 by step, the written rows'
+    worst rel L2 by decode step)."""
+    from repro_torch.configs import LOCAL_ATTN
+    from repro_torch.models import lm
+
+    def rings(cache):
+        return [lc for run, lc in lm.layer_params(cfg, cache)
+                if run.kind == LOCAL_ATTN]
+
+    with torch.no_grad():
+        with local_kv_capture() as fwd:
+            full = lm.forward(cfg, params, {"tokens": toks})[0]
+        want = full[:, S - 1:].clone()
+        del full
+        check(bool(torch.isfinite(want).all()), f"S {S}: non-finite logits")
+        with local_kv_capture() as pre:
+            cache, got = lm.prefill(cfg, params, {"tokens": toks[:, :S]},
+                                    max_len=toks.shape[1])
+        rel, rows = [rel_l2(got, want[:, 0])], []
+        check(len(rings(cache)) == len(pre) == len(fwd),
+              f"S {S}: {len(rings(cache))} rings, {len(pre)} and "
+              f"{len(fwd)} local-attention calls")
+        for li, (lc, kv) in enumerate(zip(rings(cache), pre)):
+            W = lc["k"].shape[1]
+            p = torch.arange(max(0, S - W), S, device=toks.device)
+            for name, t in zip(("k", "v"), kv):
+                ring = torch.zeros_like(lc[name])
+                ring[:, p % W] = t[:, p].to(ring.dtype)
+                check(torch.equal(lc[name], ring),
+                      f"S {S}: local layer {li}'s ring {name} after the "
+                      f"prefill does not hold position p at slot p % {W}")
+        for pos in range(S, toks.shape[1]):
+            old = [{n: lc[n].clone() for n in ("k", "v")}
+                   for lc in rings(cache)]
+            got, cache = lm.decode_step(cfg, params, cache, toks[:, pos])
+            rel.append(rel_l2(got, want[:, pos - S + 1]))
+            worst = 0.0
+            for li, (lc, before, kv) in enumerate(zip(rings(cache), old,
+                                                      fwd)):
+                W = lc["k"].shape[1]
+                keep = torch.arange(W, device=toks.device) != pos % W
+                for name, t in zip(("k", "v"), kv):
+                    check(torch.equal(lc[name][:, keep],
+                                      before[name][:, keep]),
+                          f"S {S}: decode at {pos} wrote local layer {li}'s "
+                          f"ring {name} outside slot {pos % W}")
+                    worst = max(worst, rel_l2(lc[name][:, pos % W],
+                                              t[:, pos]))
+            rows.append(worst)
+        check(max(rows) <= RING_ROW_REL,
+              f"S {S}: decode's ring rows off the forward's: {rows}")
+    return rel, rows
+
+
+def rg_invariant(torch, dev, cfg, params, gen) -> dict:
+    """``rg_prompt`` on two prompts of S + RG_DECODE tokens for each S of
+    RG_PROMPTS, the logits within LOGITS_REL_L2; and the forward at 1 x
+    RG_LONG, finite."""
+    from repro_torch.models import lm
+
+    rel, rows = {}, {}
+    for S in RG_PROMPTS:
+        toks = torch.randint(1, cfg.vocab_size, (2, S + RG_DECODE),
+                             generator=gen, device=dev, dtype=torch.int32)
+        rel[S], rows[S] = rg_prompt(torch, cfg, params, toks, S)
+    with torch.no_grad():
+        toks = torch.randint(1, cfg.vocab_size, (1, RG_LONG), generator=gen,
+                             device=dev, dtype=torch.int32)
+        long_ok = bool(torch.isfinite(
+            lm.forward(cfg, params, {"tokens": toks})[0]).all())
+    ring = {S: "aligned" if S % cfg.local_window == 0 else "misaligned"
+            for S in rel}
+    print(f"[recurrent] lm.prefill(S) and {RG_DECODE} lm.decode_steps "
+          f"against lm.forward(S + {RG_DECODE}) at positions S - 1 .. S + "
+          f"{RG_DECODE - 1}, 2 prompts, rel L2 by step: "
+          + "; ".join(f"S {S} (ring {ring[S]}): "
+                      + ", ".join(f"{x:.3e}" for x in v)
+                      for S, v in rel.items())
+          + f" (limit {LOGITS_REL_L2}); every local ring after the prefill "
+          f"holds position p at slot p % W bitwise, each decode step wrote "
+          f"slot pos % W alone, its rows off the forward's by (worst layer, "
+          f"by step) "
+          + "; ".join(f"S {S}: " + ", ".join(f"{x:.3e}" for x in v)
+                      for S, v in rows.items())
+          + f" (limit {RING_ROW_REL}); forward at 1 x {RG_LONG} "
+          f"({RG_LONG // cfg.local_window} local chunks) finite: {long_ok}",
+          flush=True)
+    check(max(max(v) for v in rel.values()) <= LOGITS_REL_L2,
+          f"prefill/decode off the forward: {rel}")
+    check(long_ok, f"non-finite logits at 1 x {RG_LONG}")
+    return {"logits": rel, "ring_rows": rows}
+
+
+def rg_serve(torch, dev, cfg, params) -> dict:
+    """The planned engine refuses on the card and names --hand-wired; the
+    hand-wired continuous engine serves RG_SERVE_PROMPTS with the counters
+    reset: no kernel of the port launched, each first token
+    ``lm.prefill``'s greedy token on its prompt alone."""
+    import numpy as np
+
+    from repro_torch.kernels import cuda, registry
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    B = len(RG_SERVE_PROMPTS)
+    try:
+        ServeEngine(cfg, params, batch=B, max_len=RG_MAX_LEN, device=dev)
+        refusal = None
+    except ValueError as e:
+        refusal = str(e)
+    check(refusal is not None and "--hand-wired" in refusal,
+          f"a planned engine on the card did not refuse: {refusal}")
+    print(f"[recurrent] planned engine refuses: {refusal}")
+    rng = np.random.default_rng(5)
+    reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab_size,
+                                               L).astype(np.int32),
+                    max_new_tokens=RG_NEW)
+            for i, L in enumerate(RG_SERVE_PROMPTS)]
+    eng = ServeEngine(cfg, params, batch=B, max_len=RG_MAX_LEN,
+                      plan_fusion=False, device=dev)
+    check(not eng.executed, "the fallback executes a program")
+    kernels = registry()
+    torch.cuda.synchronize()
+    cuda.reset_counts(kernels)
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k.name: k.launches for k in kernels}
+    tokens = sum(len(r.out_tokens) for r in reqs)
+    check(all(r.done and len(r.out_tokens) == RG_NEW for r in reqs),
+          "a request did not complete")
+    check(not any(counts.values()),
+          f"the hand-wired path launched a kernel: {counts}")
+    firsts = []
+    with torch.no_grad():
+        for r in reqs:
+            _c, lg = lm.prefill(cfg, params, {"tokens": torch.from_numpy(
+                r.prompt[None]).to(dev)}, max_len=eng.cache_len)
+            firsts.append(int(lm.greedy_sample(cfg, lg)[0]))
+    check(firsts == [r.out_tokens[0] for r in reqs],
+          f"first tokens {[r.out_tokens[0] for r in reqs]} are not "
+          f"lm.prefill's greedy tokens {firsts}")
+    print(f"[recurrent] fallback: {len(reqs)} requests (prompts "
+          f"{RG_SERVE_PROMPTS}), {tokens} tokens in {wall:.3f}s "
+          f"({tokens / wall:.2f} tok/s, host clock); first tokens equal "
+          f"lm.prefill's greedy tokens; no kernel launched", flush=True)
+    return {"tokens_per_s": tokens / wall, "seconds": wall,
+            "counts": counts}
+
+
+def phase_recurrent(torch, dev) -> tuple[list[dict], dict]:
+    from repro_torch import tree as tree_mod
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.train import train_loop as tl
+
+    cfg = get_config(RG_ARCH)
+    check(cfg.num_layers == 26 and cfg.d_model == 2560, "not full width")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = lm.init(cfg, gen, device=dev)
+    n_params = sum(t.numel() for t in tree_mod.leaves(params))
+    print(f"[recurrent] {cfg.name}: {cfg.num_layers} layers in "
+          f"{len(lm.layer_runs(cfg))} runs, {n_params:,} params, set up in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    inv = rg_invariant(torch, dev, cfg, params, gen)
+    serve = rg_serve(torch, dev, cfg, params)
+    del params
+    free_card(torch)
+    train = train_full(
+        torch, dev, cfg, steps=RG_TRAIN_STEPS, tag="recurrent",
+        grad_accum=RG_GRAD_ACCUM,
+        watch=lambda path: path[-1] in ("lam", "gate_a", "conv_w", "conv_b"))
+    fplan = tl.plan_update_fusion(lm.abstract_params(cfg),
+                                  tokens=RG_DW_TOKENS)
+    rows, update_dw = update_dw_chains(torch, dev, cfg, fplan, RG_DW_TOKENS,
+                                       "recurrent_update_dw", (1, 0), 29,
+                                       "recurrent")
+    return rows, {"invariant": inv, "serve": serve, "train": train,
+                  "update_dw": update_dw}
 
 
 def main() -> int:
@@ -3336,7 +3655,8 @@ def main() -> int:
     check(cfg.num_layers == 40 and cfg.d_model == 2048, "not full width")
     # 2b. paper suite, 3. serve kernels, 4. adamw, 5. measured plan,
     # 6. update bundles, 6b. update+dW, 7. train, 8. serve, 8b. paged,
-    # 8c. moe, 8d. ops, 8e. wavefront, 8f. fallback, 8g. layernorm;
+    # 8c. moe, 8d. ops, 8e. wavefront, 8f. fallback, 8g. layernorm,
+    # 8h. recurrent;
     # each phase's wall time is printed before the report
     walls = {}
 
@@ -3366,7 +3686,9 @@ def main() -> int:
     fallback = timed("fallback", phase_fallback, torch, dev, cfg)
     free_card(torch)
     ln_rows, ln = timed("layernorm", phase_layernorm, torch, dev)
-    rows += paged_rows + moe_rows + ops_rows + wave_rows + ln_rows
+    free_card(torch)
+    rg_rows, rg = timed("recurrent", phase_recurrent, torch, dev)
+    rows += paged_rows + moe_rows + ops_rows + wave_rows + ln_rows + rg_rows
     print("[phases] wall s: " + ", ".join(f"{k} {v:.1f}"
                                          for k, v in walls.items()))
 
@@ -3379,7 +3701,10 @@ def main() -> int:
             "wavefront": wave["counts"], "fallback": fallback["counts"],
             "layernorm_serve": ln["serve_counts"],
             "layernorm_train": ln["train"]["counts"],
-            "layernorm_update_dw": ln["update_dw"]["counts"]}
+            "layernorm_update_dw": ln["update_dw"]["counts"],
+            "recurrent_serve": rg["serve"]["counts"],
+            "recurrent_train": rg["train"]["counts"],
+            "recurrent_update_dw": rg["update_dw"]["counts"]}
     for r in rows:
         r["launches"] = runs[r.pop("path")][r.pop("kernel").name]
     check(all(set(c) == set(names) for c in runs.values()),
@@ -3422,6 +3747,21 @@ def main() -> int:
           f"launches {lt['counts']['bundle_launcher']}; update+dW row_member "
           f"(dW->adamw chains) {ln['update_dw']['counts']['row_member']}; "
           f"layernorm max|err| {ln['norm_err']:.3g} ({smi})")
+    rt = rg["train"]
+    busy = "not measured" if rt["busy"] is None else \
+        f"{rt['busy']:.1%} (device {rt['device_ms']:.1f} ms a step)"
+    inv = rg["invariant"]
+    print(f"[recurrent] {RG_ARCH}: prefill/decode against forward worst rel "
+          f"L2 {max(max(v) for v in inv['logits'].values()):.3e}, rings "
+          f"exact, decode's ring rows worst "
+          f"{max(max(v) for v in inv['ring_rows'].values()):.3e}; "
+          f"hand-wired serve {rg['serve']['tokens_per_s']:.3f} tokens/s; "
+          f"train {rt['step_ms']:.1f} ms/step (batch {TRAIN_BATCH} x seq "
+          f"{TRAIN_SEQ}, {rt['grad_accum']} micro-batch(es)), peak "
+          f"{rt['peak_gib']:.2f} GiB, busy {busy}, adamw_member "
+          f"{rt['counts']['adamw_member']} and bundle launches "
+          f"{rt['counts']['bundle_launcher']}; update+dW row_member "
+          f"{rg['update_dw']['counts']['row_member']} ({smi})")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

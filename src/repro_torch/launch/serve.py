@@ -20,7 +20,10 @@ of the port launched).  The LayerNorm configs (``--arch stablelm-3b``,
 ``starcoder2-7b``, ``minitron-8b``, ``phi3.5-moe-42b-a6.6b``) are served
 only that way, as in the reference: planned, they print its notice and stay
 hand-wired on the CPU, and on the card they need ``--hand-wired`` (without
-it the launcher prints the refusal and exits 1).  The flags keep the
+it the launcher prints the refusal and exits 1).  So is the hybrid
+``--arch recurrentgemma-2b`` (RG-LRU blocks and local attention; the
+program serves a single global-attention run only); ``--layers N`` keeps
+its first N block kinds.  The flags keep the
 reference launcher's names and checks; the port plans by default, and
 ``--plan-fusion`` names that default.
 """
@@ -156,8 +159,11 @@ def main(argv=None):
     if args.scale == "smoke":
         cfg = cfg.reduced()
     if args.layers:
-        cfg = dataclasses.replace(cfg, num_layers=args.layers,
-                                  block_pattern=None)
+        # a hybrid config keeps its first N block kinds
+        cfg = dataclasses.replace(
+            cfg, num_layers=args.layers,
+            block_pattern=(cfg.pattern[:args.layers]
+                           if cfg.block_pattern is not None else None))
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     params = lm.init(cfg, gen, device=dev)

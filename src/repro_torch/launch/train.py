@@ -7,8 +7,9 @@
       --scale smoke --device cpu --steps 4 --batch 2 --seq 32 --plan-fusion
 
 ``--arch`` takes every config the port registers: granite-3-2b, the
-LayerNorm configs stablelm-3b, starcoder2-7b and minitron-8b, and the MoE
-configs (whose full depth does not fit one card).
+LayerNorm configs stablelm-3b, starcoder2-7b and minitron-8b, the hybrid
+recurrentgemma-2b (RG-LRU blocks and local attention), and the MoE configs
+(whose full depth does not fit one card).
 ``--scale smoke`` trains the reduced config; ``--scale full`` trains the
 full-width, full-depth model on one card with remat (the port has no
 production mesh: tensor parallelism is ROADMAP item 5).  Weights are random,

@@ -6,10 +6,11 @@ points, same layouts): RMSNorm with ``(1 + scale)``, LayerNorm with
 lookup times sqrt(d) (the scale rounded to the table's dtype first, as
 JAX's weakly typed scalar is), the tied
 unembedding with fp32 accumulation, the fused-QKV projection, the gated
-MLP, flash-style blockwise attention (the reference computes it in plain
-``jnp``, not in a kernel) and the fp32 cross entropy with z-loss.  A JAX
-product with ``preferred_element_type=float32`` becomes a product of the
-operands upcast to fp32: the same bf16 values, summed in fp32.
+MLP, flash-style blockwise attention and banded local attention (the
+reference computes both in plain ``jnp``, not in a kernel) and the fp32
+cross entropy with z-loss.  A JAX product with ``preferred_element_type=float32`` becomes a
+product of the operands upcast to fp32: the same bf16 values, summed in
+fp32.
 """
 from __future__ import annotations
 
@@ -155,6 +156,49 @@ def blockwise_attention(q, k, v, *, causal: bool = True, q_offset: int = 0,
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     out = out.permute(0, 3, 4, 1, 2, 5).reshape(B, Sq, H, Dv)
     return out.to(q.dtype)
+
+
+def local_attention(q, k, v, window: int, *, q_offset=0):
+    """Sliding-window causal attention, banded blockwise: S padded with
+    zeros to a multiple of the chunk ``W = min(window, S)``, query chunk i
+    attends key chunks {i - 1, i} (chunk 0 has no previous chunk), each
+    query the W keys up to itself.  Scores in fp32, the softmax weights
+    cast to v's dtype for the value product.  q (B,S,H,D); k, v
+    (B,S,Hkv,D) -> (B,S,H,D) in q's dtype.  ``q_offset`` is accepted and
+    unused, as in the reference."""
+    B, S, H, D = q.shape
+    Hkv = k.shape[2]
+    rep = H // Hkv
+    W = min(window, S)
+    pad = (-S) % W
+    if pad:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad))
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    Sp = q.shape[1]
+    n = Sp // W
+    dev = q.device
+    qc = q.reshape(B, n, W, Hkv, rep, D)
+    kc = k.reshape(B, n, W, Hkv, D)
+    vc = v.reshape(B, n, W, Hkv, D)
+    kk = torch.cat([torch.cat([torch.zeros_like(kc[:, :1]), kc[:, :-1]], 1),
+                    kc], 2)                                # (B,n,2W,Hkv,D)
+    vv = torch.cat([torch.cat([torch.zeros_like(vc[:, :1]), vc[:, :-1]], 1),
+                    vc], 2)
+    s = torch.einsum("bnqhrd,bnkhd->bnhrqk", qc.float(),
+                     kk.float()) / math.sqrt(D)
+    # key j (relative to the chunk start) is seen by query i iff
+    # i - W < j <= i; chunk 0's previous-chunk keys are padding
+    qi = torch.arange(W, device=dev)[:, None]
+    kj = torch.arange(2 * W, device=dev)[None, :] - W
+    mask = (kj <= qi) & (kj > qi - W)
+    first = (torch.arange(n, device=dev) == 0)[:, None, None]
+    full = torch.where(first, mask & (kj >= 0), mask)       # (n, W, 2W)
+    s = torch.where(full[None, :, None, None], s,
+                    torch.full((), NEG_INF, device=dev))
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bnhrqk,bnkhd->bnqhrd", w.to(vv.dtype), vv)
+    return o.reshape(B, Sp, H, D)[:, :S].to(q.dtype)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -1,16 +1,23 @@
-"""LM assembly for the global-attention subset the port serves and trains:
-one run of layers, each with RMSNorm or LayerNorm and a dense FFN or an
-MoE FFN (``models/moe.py``):
-the train forward and loss, and the hand-wired serve entry points
-``prefill`` and ``decode_step`` (the reference's oracle for the executed
-decode program).
+"""LM assembly for the block kinds the port serves and trains: global
+attention, local (sliding-window) attention and the RG-LRU recurrent block
+(``models/rglru.py``), in any number of runs, each block with RMSNorm or
+LayerNorm and a dense FFN or an MoE FFN (``models/moe.py``): the train
+forward and loss, and the hand-wired serve entry points ``prefill`` and
+``decode_step`` (the reference's oracle for the executed decode program).
 
 Parameters are plain nested dicts of tensors with the JAX package's tree
 and layouts: weights stay ``(K, N)``, a run of ``count > 1`` identical
-layers stacks its leaves on a leading ``(L, ...)`` axis, and the KV cache
-is ``(B, S, Hkv, D)`` per layer.  ``params_from_numpy`` takes the JAX
-package's params as numpy arrays, so both packages compute with the same
-weights in the tests.
+layers stacks its leaves on a leading ``(L, ...)`` axis, and the cache is
+per kind: ``(B, S, Hkv, D)`` k/v for global attention, a ring of
+``min(local_window, max_len)`` rows for local attention, ``h`` (B, W) fp32
+and ``conv`` (B, K - 1, W) for RG-LRU.  ``params_from_numpy`` takes the
+JAX package's params as numpy arrays, so both packages compute with the
+same weights in the tests.
+
+Local attention's prefill handoff writes each of the last ``Wb`` positions
+p to ring slot ``p % Wb``, the slot decode reads it from.  The reference
+stores the last ``Wb`` rows at slots 0..Wb-1, which is the same wherever
+S < Wb or S % Wb == 0 and breaks decode elsewhere (ROADMAP §3).
 """
 from __future__ import annotations
 
@@ -21,9 +28,10 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ATTN, ModelConfig
+from repro_torch.configs.base import ATTN, LOCAL_ATTN, RGLRU, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import layers, moe as moe_mod
+from repro_torch.models import rglru as rglru_mod
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -55,16 +63,20 @@ def layer_runs(cfg: ModelConfig) -> list[Run]:
     return runs
 
 
+SERVED_KINDS = (ATTN, LOCAL_ATTN, RGLRU)
+
+
 def supported(cfg: ModelConfig) -> Optional[str]:
     """None when the port's model code can build, train and serve this
     config through the hand-wired ``prefill`` / ``decode_step``; else why
     not.  Whether the planned decode program serves it too is another
     question: ``serve.engine.executable_decode_supported``."""
-    runs = layer_runs(cfg)
     if cfg.frontend != "none":
         return f"frontend {cfg.frontend!r} (token frontend only)"
-    if len(runs) != 1 or runs[0].kind != ATTN:
-        return "needs a single global-attention layer run"
+    for run in layer_runs(cfg):
+        if run.kind not in SERVED_KINDS:
+            return (f"block kind {run.kind!r} (global attention, local "
+                    "attention and RG-LRU only)")
     if cfg.norm not in ("rmsnorm", "layernorm"):
         return f"norm {cfg.norm!r}"
     if not cfg.is_moe and cfg.d_ff <= 0:
@@ -77,30 +89,32 @@ def supported(cfg: ModelConfig) -> Optional[str]:
 # ---------------------------------------------------------------------------
 # Parameter layout: path -> (shape, init, dtype override)
 # ---------------------------------------------------------------------------
-def param_layout(cfg: ModelConfig) -> dict:
-    reason = supported(cfg)
-    if reason is not None:
-        raise NotImplementedError(f"{cfg.name}: {reason} (ROADMAP)")
+def _norm_layout(cfg: ModelConfig, lead: tuple) -> dict:
+    # RMSNorm: a zero scale (applied as 1 + scale); LayerNorm: a unit scale
+    # and a zero bias; both fp32
+    shape = lead + (cfg.d_model,)
+    if cfg.norm == "rmsnorm":
+        return {"scale": (shape, "zeros", "float32")}
+    return {"scale": (shape, "ones", "float32"),
+            "bias": (shape, "zeros", "float32")}
+
+
+def _block_layout(cfg: ModelConfig, run: Run) -> dict:
+    """One run's block (leaves stacked ``(count, ...)`` when count > 1):
+    norm1, the sequence mixer (``attn`` or ``rec``), norm2 and the FFN."""
     d, H, Hkv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
-    D, f, V = cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size
+    D, f = cfg.resolved_head_dim, cfg.d_ff
     gated = cfg.activation in ("silu", "gelu")
-    run = layer_runs(cfg)[0]
     lead = (run.count,) if run.count > 1 else ()
-
-    def norm(lead_):
-        # RMSNorm: a zero scale (applied as 1 + scale); LayerNorm: a unit
-        # scale and a zero bias; both fp32
-        if cfg.norm == "rmsnorm":
-            return {"scale": (lead_ + (d,), "zeros", "float32")}
-        return {"scale": (lead_ + (d,), "ones", "float32"),
-                "bias": (lead_ + (d,), "zeros", "float32")}
-
-    block = {
-        "norm1": norm(lead),
-        "attn": {"w_qkv": (lead + (d, (H + 2 * Hkv) * D), "normal", None),
-                 "w_o": (lead + (H * D, d), "out_proj", None)},
-        "norm2": norm(lead),
-    }
+    block = {"norm1": _norm_layout(cfg, lead)}
+    if run.kind == RGLRU:
+        block["rec"] = {k: (lead + shape, kind, dt) for k, (shape, kind, dt)
+                        in rglru_mod.spec(cfg).items()}
+    else:
+        block["attn"] = {
+            "w_qkv": (lead + (d, (H + 2 * Hkv) * D), "normal", None),
+            "w_o": (lead + (H * D, d), "out_proj", None)}
+    block["norm2"] = _norm_layout(cfg, lead)
     if run.is_moe:
         block["moe"] = {k: (lead + shape, kind, dt)
                         for k, (shape, kind, dt) in moe_mod.spec(cfg).items()}
@@ -108,9 +122,18 @@ def param_layout(cfg: ModelConfig) -> dict:
         block["mlp"] = {
             "w_in": (lead + (d, 2 * f if gated else f), "normal", None),
             "w_out": (lead + (f, d), "out_proj", None)}
-    layout = {"embed": {"embedding": ((V, d), "embed", None)},
-              run.name: block,
-              "final_norm": norm(())}
+    return block
+
+
+def param_layout(cfg: ModelConfig) -> dict:
+    reason = supported(cfg)
+    if reason is not None:
+        raise NotImplementedError(f"{cfg.name}: {reason} (ROADMAP)")
+    d, V = cfg.d_model, cfg.vocab_size
+    layout = {"embed": {"embedding": ((V, d), "embed", None)}}
+    for run in layer_runs(cfg):
+        layout[run.name] = _block_layout(cfg, run)
+    layout["final_norm"] = _norm_layout(cfg, ())
     if not cfg.tie_embeddings:
         layout["head"] = {"w": ((d, V), "normal", None)}
     return layout
@@ -193,30 +216,53 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device=None) -> dict:
     return params
 
 
-def layer_params(cfg: ModelConfig, params: dict) -> list[dict]:
-    """Per-layer views of the (possibly stacked) block params."""
-    run = layer_runs(cfg)[0]
-    blk = params[run.name]
-    if run.count == 1:
-        return [blk]
-
+def layer_params(cfg: ModelConfig, tree: dict) -> list[tuple[Run, dict]]:
+    """(run, the layer's part of ``tree``) for every layer in order, from
+    a tree keyed by run name (the params, or a cache): a stacked run's
+    leaves are indexed by layer (views), a list of per-layer leaves
+    likewise."""
     def index(t, l):
         return {k: index(v, l) for k, v in t.items()} \
             if isinstance(t, dict) else t[l]
-    return [index(blk, l) for l in range(run.count)]
+    out = []
+    for run in layer_runs(cfg):
+        blk = tree[run.name]
+        if run.count == 1:
+            out.append((run, blk))
+        else:
+            out.extend((run, index(blk, l)) for l in range(run.count))
+    return out
+
+
+def _cache_leaf_shapes(cfg: ModelConfig, run: Run, B: int,
+                       max_len: int) -> dict:
+    """One layer's cache leaves: name -> (shape, dtype)."""
+    Hkv, D = cfg.num_kv_heads, cfg.resolved_head_dim
+    dt = torch_dtype(cfg.dtype)
+    if run.kind == ATTN:
+        return {k: ((B, max_len, Hkv, D), dt) for k in ("k", "v")}
+    if run.kind == LOCAL_ATTN:
+        W = min(cfg.local_window, max_len)
+        return {k: ((B, W, Hkv, D), dt) for k in ("k", "v")}
+    if run.kind == RGLRU:
+        W = cfg.lru_width or cfg.d_model
+        return {"h": ((B, W), torch.float32),
+                "conv": ((B, cfg.conv1d_width - 1, W), dt)}
+    raise ValueError(run.kind)
 
 
 def init_cache(cfg: ModelConfig, B: int, max_len: int, device=None) -> dict:
-    """Zero KV cache: ``{"pos": () i32, run: {"k", "v": (L?, B, S, Hkv,
-    D)}}``."""
+    """Zero cache: ``{"pos": () i32, run: leaves}``, a run's leaves
+    ``_cache_leaf_shapes``'s, led by ``count`` when the run stacks."""
     dev = resolve_device(device)
-    run = layer_runs(cfg)[0]
-    lead = (run.count,) if run.count > 1 else ()
-    shape = lead + (B, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
-    dt = torch_dtype(cfg.dtype)
-    return {"pos": torch.zeros((), dtype=torch.int32, device=dev),
-            run.name: {"k": torch.zeros(shape, dtype=dt, device=dev),
-                       "v": torch.zeros(shape, dtype=dt, device=dev)}}
+    cache: dict = {"pos": torch.zeros((), dtype=torch.int32, device=dev)}
+    for run in layer_runs(cfg):
+        lead = (run.count,) if run.count > 1 else ()
+        cache[run.name] = {
+            k: torch.zeros(lead + shape, dtype=dt, device=dev)
+            for k, (shape, dt) in _cache_leaf_shapes(cfg, run, B,
+                                                      max_len).items()}
+    return cache
 
 
 def _embed_inputs(cfg: ModelConfig, params: dict,
@@ -270,31 +316,63 @@ def cache_rows(t: torch.Tensor, max_len: int) -> torch.Tensor:
     return c
 
 
-def block_attention_seq(cfg: ModelConfig, p: dict, x: torch.Tensor):
-    """The attention half of a global-attention block over a whole
-    sequence: x (B, S, d) -> (x after attention and its residual, that
-    x's norm2 (the FFN's input), k, v (B, S, Hkv, D) after rope)."""
+def ring_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
+    """A sequence's k or v (B, S, Hkv, D) as a local-attention ring of
+    ``rows`` slots: each of the last ``rows`` positions p at slot
+    ``p % rows`` (a roll of the tail), zeros where no position reached."""
+    S = t.shape[1]
+    if S < rows:
+        return cache_rows(t, rows)
+    return torch.roll(t[:, S - rows:], shifts=S % rows, dims=1)
+
+
+def block_attention_seq(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
+                        local: bool = False):
+    """The attention half of an attention block over a whole sequence
+    (``local``: the sliding window of ``cfg.local_window``): x (B, S, d)
+    -> (x after attention and its residual, that x's norm2 (the FFN's
+    input), k, v (B, S, Hkv, D) after rope)."""
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :]
     h = layers.apply_norm(cfg, p["norm1"], x)
     q, k, v = layers.qkv_project(cfg, p["attn"], h)
     q = layers.rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
     k = layers.rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
-    o = layers.blockwise_attention(q, k, v, causal=True)
+    if local:
+        o = layers.local_attention(q, k, v, cfg.local_window)
+    else:
+        o = layers.blockwise_attention(q, k, v, causal=True)
     x = x + o.reshape(B, S, -1) @ p["attn"]["w_o"]
     return x, layers.apply_norm(cfg, p["norm2"], x), k, v
 
 
-def block_apply_seq(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
-                    want_cache: bool = False, max_len: int = 0):
-    """One global-attention block over a whole sequence: (B, S, d) ->
+def block_apply_seq(cfg: ModelConfig, run: Run, p: dict, x: torch.Tensor,
+                    *, want_cache: bool = False, max_len: int = 0):
+    """One block of ``run``'s kind over a whole sequence: (B, S, d) ->
     (B, S, d), its auxiliary loss (0 for a dense FFN) and, with
-    ``want_cache``, its KV cache leaves ``{"k", "v"}`` (B, max_len or S,
-    Hkv, D), the sequence's rows first and zeros after (else None)."""
-    x, h2, k, v = block_attention_seq(cfg, p, x)
-    Smax = max_len or x.shape[1]
-    cache = ({"k": cache_rows(k, Smax), "v": cache_rows(v, Smax)}
-             if want_cache else None)
+    ``want_cache``, its cache leaves (else None): global attention's
+    ``{"k", "v"}`` (B, max_len or S, Hkv, D), the sequence's rows first;
+    local attention's ring of ``min(local_window, max_len or S)`` rows;
+    RG-LRU's ``{"h", "conv"}``."""
+    S = x.shape[1]
+    cache = None
+    if run.kind == RGLRU:
+        y, (h_last, conv_tail) = rglru_mod.apply_train(
+            cfg, p["rec"], layers.apply_norm(cfg, p["norm1"], x))
+        x = x + y
+        h2 = layers.apply_norm(cfg, p["norm2"], x)
+        if want_cache:
+            cache = {"h": h_last.clone(), "conv": conv_tail.clone()}
+    else:
+        local = run.kind == LOCAL_ATTN
+        x, h2, k, v = block_attention_seq(cfg, p, x, local=local)
+        if want_cache:
+            if local:
+                rows = min(cfg.local_window, max_len or S)
+                cache = {"k": ring_rows(k, rows), "v": ring_rows(v, rows)}
+            else:
+                cache = {"k": cache_rows(k, max_len or S),
+                         "v": cache_rows(v, max_len or S)}
     ff, aux = _apply_ffn(cfg, p, h2)
     return x + ff, aux, cache
 
@@ -308,12 +386,12 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
     carry."""
     x = _embed_inputs(cfg, params, batch["tokens"])
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for lp in layer_params(cfg, params):
+    for run, lp in layer_params(cfg, params):
         if remat:
-            x, a, _ = checkpoint(block_apply_seq, cfg, lp, x,
+            x, a, _ = checkpoint(block_apply_seq, cfg, run, lp, x,
                                  use_reentrant=False)
         else:
-            x, a, _ = block_apply_seq(cfg, lp, x)
+            x, a, _ = block_apply_seq(cfg, run, lp, x)
         aux = aux + a
     x = layers.apply_norm(cfg, params["final_norm"], x)
     return _head(cfg, params, x), aux, None
@@ -331,26 +409,39 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *,
 # ---------------------------------------------------------------------------
 # Hand-wired serve path: prefill and single-token decode
 # ---------------------------------------------------------------------------
-def block_apply_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
+def block_apply_decode(cfg: ModelConfig, run: Run, p: dict, x: torch.Tensor,
                        cache: dict, pos):
-    """One block for one new token a row: x (B, 1, d); ``cache`` the
-    layer's ``{"k", "v"}`` (B, S, Hkv, D), written in place at row ``pos``
-    (an int or a 0-d tensor: the index of the token; past the cache end
-    it lands on the last row, as the reference's clamped update does).
-    Returns (x_out, cache)."""
+    """One block for one new token a row: x (B, 1, d); ``pos`` the index
+    of the token (an int or a 0-d tensor).  The layer's ``cache`` leaves
+    are written in place: global attention's row ``pos`` (past the cache
+    end the last row, as the reference's clamped update does), local
+    attention's ring slot ``pos % W`` (it attends ``min(pos + 1, W)``
+    rows), RG-LRU's state and conv window.  Returns (x_out, cache)."""
     B = x.shape[0]
-    positions = torch.as_tensor(pos, device=x.device).reshape(1, 1) \
-        .expand(B, 1)
     h = layers.apply_norm(cfg, p["norm1"], x)
-    q, k, v = layers.qkv_project(cfg, p["attn"], h)
-    q = layers.rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
-    k = layers.rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
-    kc, vc = cache["k"], cache["v"]
-    row = positions[:1, 0].long().clamp(max=kc.shape[1] - 1)
-    kc.index_copy_(1, row, k.to(kc.dtype))
-    vc.index_copy_(1, row, v.to(vc.dtype))
-    o = layers.decode_attention(q, kc, vc, positions[0, 0] + 1)
-    x = x + o.reshape(B, 1, -1) @ p["attn"]["w_o"]
+    if run.kind == RGLRU:
+        out, h_new, conv = rglru_mod.apply_decode(cfg, p["rec"], h,
+                                                  cache["h"], cache["conv"])
+        cache["h"].copy_(h_new)
+        cache["conv"].copy_(conv)
+        x = x + out
+    else:
+        positions = torch.as_tensor(pos, device=x.device).reshape(1, 1) \
+            .expand(B, 1)
+        q, k, v = layers.qkv_project(cfg, p["attn"], h)
+        q = layers.rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
+        k = layers.rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
+        kc, vc = cache["k"], cache["v"]
+        at = positions[:1, 0].long()
+        if run.kind == LOCAL_ATTN:
+            W = kc.shape[1]
+            row, cur = at % W, torch.clamp(positions[0, 0] + 1, max=W)
+        else:
+            row, cur = at.clamp(max=kc.shape[1] - 1), positions[0, 0] + 1
+        kc.index_copy_(1, row, k.to(kc.dtype))
+        vc.index_copy_(1, row, v.to(vc.dtype))
+        o = layers.decode_attention(q, kc, vc, cur)
+        x = x + o.reshape(B, 1, -1) @ p["attn"]["w_o"]
     ff, _aux = _apply_ffn(cfg, p, layers.apply_norm(cfg, p["norm2"], x))
     return x + ff, cache
 
@@ -358,19 +449,21 @@ def block_apply_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
 def prefill(cfg: ModelConfig, params: dict, batch: dict, max_len: int):
     """Whole prompts ``batch["tokens"]`` (B, S) -> (cache, the last
     position's fp32 logits (B, V)); the cache is ``init_cache``'s layout at
-    ``max_len`` rows with the prompts' k/v first and ``pos`` = S."""
+    ``max_len`` rows with ``pos`` = S: global attention's k/v first, local
+    attention's ring, RG-LRU's last state and conv window."""
     x = _embed_inputs(cfg, params, batch["tokens"])
     S = x.shape[1]
-    run = layer_runs(cfg)[0]
-    caches = []
-    for lp in layer_params(cfg, params):
-        x, _a, c = block_apply_seq(cfg, lp, x, want_cache=True,
+    per_run: dict = {}
+    for run, lp in layer_params(cfg, params):
+        x, _a, c = block_apply_seq(cfg, run, lp, x, want_cache=True,
                                    max_len=max_len)
-        caches.append(c)
-    kv = caches[0] if run.count == 1 else \
-        {k: torch.stack([c[k] for c in caches]) for k in ("k", "v")}
-    cache = {"pos": torch.tensor(S, dtype=torch.int32, device=x.device),
-             run.name: kv}
+        per_run.setdefault(run.name, []).append(c)
+    cache: dict = {"pos": torch.tensor(S, dtype=torch.int32,
+                                       device=x.device)}
+    for run in layer_runs(cfg):
+        cs = per_run[run.name]
+        cache[run.name] = cs[0] if run.count == 1 else \
+            {k: torch.stack([c[k] for c in cs]) for k in cs[0]}
     x = layers.apply_norm(cfg, params["final_norm"], x[:, -1:])
     return cache, _head(cfg, params, x)[:, 0]
 
@@ -391,14 +484,14 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
                 tokens_t: torch.Tensor):
     """One decode step of every row at the cache's position ``pos`` (a 0-d
     int tensor): tokens_t (B,) -> (fp32 logits (B, V), cache with pos + 1).
-    The k/v leaves are written in place (the returned cache shares
+    Every cache leaf is written in place (the returned cache shares
     them)."""
     x = layers.embed_onehot(params["embed"], tokens_t[:, None], cfg.d_model)
     pos = cache["pos"]
-    run = layer_runs(cfg)[0]
-    kv = cache[run.name]
-    for li, lp in enumerate(layer_params(cfg, params)):
-        kv_l = kv if run.count == 1 else {k: t[li] for k, t in kv.items()}
-        x, _ = block_apply_decode(cfg, lp, x, kv_l, pos)
+    for (run, lp), (_run, lc) in zip(layer_params(cfg, params),
+                                     layer_params(cfg, cache)):
+        x, _ = block_apply_decode(cfg, run, lp, x, lc, pos)
     x = layers.apply_norm(cfg, params["final_norm"], x)
-    return _head(cfg, params, x)[:, 0], {"pos": pos + 1, run.name: kv}
+    new_cache = {"pos": pos + 1}
+    new_cache.update({run.name: cache[run.name] for run in layer_runs(cfg)})
+    return _head(cfg, params, x)[:, 0], new_cache

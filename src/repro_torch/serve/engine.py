@@ -264,8 +264,9 @@ def executable_decode_supported(cfg: ModelConfig) -> Optional[str]:
     """None when the planned decode program can replace ``lm.decode_step``
     for this config; otherwise the reason for the hand-wired fallback (the
     reference's rule and texts).  Whether the port can build the config at
-    all is ``lm.supported``'s question: a LayerNorm config is built and
-    served hand-wired, never through the program."""
+    all is ``lm.supported``'s question: a LayerNorm config, or one of
+    several runs, is built and served hand-wired, never through the
+    program."""
     runs = lm.layer_runs(cfg)
     if cfg.frontend != "none":
         return f"frontend {cfg.frontend!r} (token frontend only)"
@@ -337,7 +338,8 @@ class ServeEngine:
     the wavefront scheduler (``scheduling="wavefront"``), or the
     hand-wired fallback (``plan_fusion=False``).  ``executed`` says
     whether the decode step runs through the planned program.  A planned
-    engine over a config the program does not serve (LayerNorm), and a
+    engine over a config the program does not serve (LayerNorm, or a
+    hybrid of RG-LRU and local-attention runs), and a
     planned wavefront engine over a stacked or MoE config, keep the
     hand-wired step with the reference's notice on the CPU (the fallback
     graph still planned), and refuse on the card.
@@ -1050,7 +1052,7 @@ class ServeEngine:
             pos = cache["pos"]
             kv = cache[run.name]
             counts = None
-            for li, p_l in enumerate(lm.layer_params(cfg, params)):
+            for li, (_run, p_l) in enumerate(lm.layer_params(cfg, params)):
                 kv_l = ({"k": kv["k"][li], "v": kv["v"][li]}
                         if run.count > 1 else kv)
                 x, chs, c_l = layer_step(p_l, kv_l, x, pos, active, bt, chs,
@@ -1084,12 +1086,14 @@ class ServeEngine:
 
     def _slot_view(self, cache: dict, b: int) -> dict:
         """Slot b's rows of the slot cache as a one-row cache (views: a
-        write lands in the slot cache) at its own position."""
-        run = lm.layer_runs(self.cfg)[0]
-        ax = 1 if run.count > 1 else 0
-        return {"pos": cache["pos"][b],
-                run.name: {k: t.narrow(ax, b, 1)
-                           for k, t in cache[run.name].items()}}
+        write lands in the slot cache) at its own position; every run's
+        leaves, the slot axis 1 for a stacked run and 0 otherwise."""
+        view = {"pos": cache["pos"][b]}
+        for run in lm.layer_runs(self.cfg):
+            ax = 1 if run.count > 1 else 0
+            view[run.name] = {k: t.narrow(ax, b, 1)
+                              for k, t in cache[run.name].items()}
+        return view
 
     def _cb_plain_decode(self):
         """The fallback continuous decode: ``lm.decode_step`` for each
@@ -1124,10 +1128,10 @@ class ServeEngine:
         toks = torch.from_numpy(np.asarray(prompt, np.int32)[None]) \
             .to(self.device)
         c1, logits = self._prefill(self.params, {"tokens": toks})
-        run = lm.layer_runs(self.cfg)[0]
         view = self._slot_view(cache, slot)
-        for k, t in view[run.name].items():
-            t.copy_(c1[run.name][k])
+        for run in lm.layer_runs(self.cfg):
+            for k, t in view[run.name].items():
+                t.copy_(c1[run.name][k])
         cache["pos"][slot] = c1["pos"]
         return cache, logits[0]
 

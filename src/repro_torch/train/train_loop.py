@@ -232,19 +232,19 @@ def clip_by_global_norm(tree, max_norm: float):
 def _grad_tree(cfg: ModelConfig, params: dict, grads: dict) -> dict:
     """Params as autograd leaves whose ``.grad`` is a view of ``grads``.
 
-    A stacked (L, ...) run leaf becomes a list of L per-layer slices, each
+    Every stacked (L, ...) run leaf becomes a list of L per-layer slices, each
     its own autograd leaf (``lm.layer_params`` indexes a list as it
     indexes the stacked tensor): the backward of an index into the stacked
     tensor would build a full-size zero gradient per layer.  Each leaf's
     ``.grad`` is preset to its slice of ``grads``, so the backward pass
     accumulates in place into ``grads`` (no grad mode during backward)."""
-    run = lm.layer_runs(cfg)[0]
-    stacked = run.count > 1
+    stacked = {run.name: run.count for run in lm.layer_runs(cfg)
+               if run.count > 1}
 
     def leaf(path, p, g):
-        if stacked and path[0] == run.name:
+        if path[0] in stacked:
             out = []
-            for i in range(run.count):
+            for i in range(stacked[path[0]]):
                 t = p[i].detach().requires_grad_(True)
                 t.grad = g[i]
                 out.append(t)

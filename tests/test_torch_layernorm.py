@@ -538,7 +538,10 @@ def test_exact_dims_and_shape_table(arch):
 
 
 def test_list_archs_holds_the_six():
-    assert list_archs() == sorted(EXACT_DIMS)
+    """The six configs above and recurrentgemma-2b, seven in all (its
+    dims: tests/test_torch_recurrent.py)."""
+    assert list_archs() == sorted(set(EXACT_DIMS) | {"recurrentgemma-2b"})
+    assert len(list_archs()) == 7
 
 
 # ---------------------------------------------------------------------------
