@@ -260,13 +260,55 @@ non-zero exit code and no result line.
              4096x2560) run once with the counters reset on seeded state,
              p, m, v bitwise against the two members launched apart, and
              timed beside them, its plain version and its bound.
-  9. report  one JSON line of kernels, then the result line.
+  8i. deepseek  deepseek-v2-236b at full width (d_model 5120, 128 heads of
+             multi-head latent attention, a dense first layer of d_ff
+             12288, then MoE layers of 160 experts top-6 with 2 shared
+             experts, vocabulary 102400), its depth cut, random weights
+             from a seeded torch.Generator.  Served at 8 of 60 layers
+             (29.19 B parameters): for 2 prompts of 1020 tokens,
+             ``lm.prefill`` and 4 ``lm.decode_step``s against
+             ``lm.forward`` of 1024 at the same positions, within
+             LOGITS_REL_L2; the (token, choice) pairs the capacity drops
+             are counted in the forward and the prefill, and at the
+             compared positions, and printed at capacity factor 1.25; where
+             any drop, the invariant runs again with the factor raised
+             (weights unchanged) until none does, and says so.  After the
+             prefill every MLA layer's latent and rope rows below S equal
+             the rows the prefill's own layer computed, bitwise, and the
+             rest are zero; each decode step writes row pos alone (every
+             other row bitwise unchanged), its rows within MLA_ROW_REL of
+             the forward's at pos.  ``lm.forward`` at 1 x 2048 (two query
+             chunks) finite.  A planned engine must refuse and name
+             ``--hand-wired``; the hand-wired continuous engine (batch 4,
+             max_len 1024) serves 4 requests (64, 256, 512, 1000 tokens, 4
+             new) with the counters reset: no kernel of the port may
+             launch, each first token is ``lm.prefill``'s greedy token on
+             its prompt alone, tokens/s on the host clock.  Trained at 2
+             layers (the dense layer and one MoE layer, 5.36 B
+             parameters) at batch 1 x seq 2048, remat, fp32 moments, the
+             update program, 3 steps with the counters reset: finite loss,
+             grad norm > 0, every ``w_q_a``, ``q_norm``, ``w_kv_a``,
+             ``kv_norm``, ``w_k_b``, ``w_v_b``, ``shared_w_in`` and
+             ``shared_w_out`` moved, the AdamW member and the bundle
+             launcher launched; ms per step, peak memory, the busy share of
+             one profiled step.  Then its ``plan_update_fusion`` plan at
+             2048 tokens (six bf16 dW->AdamW chains beside the expert
+             leaves' AdamW updates, the first 2.5 B elements) run once with
+             the counters reset on seeded state, each chain's p, m, v
+             bitwise against its two members launched apart, the expert
+             w_in leaf's AdamW (2,516,582,400 elements) bitwise against
+             its plain version on its last TAIL_ROWS rows, past element
+             2**31, and the embedding's chain (102400x2048 @ 2048x5120)
+             timed beside them, its plain version and its bound.
+  9. report  one JSON line of kernels (each row also with its kernel's
+             launches on every path, ``path_launches``), then the result
+             line.
 
 Each main path (paper, update_dw, train, serve, paged, moe, ops, wavefront,
-fallback, and 8g's and 8h's serve, train and update+dW) runs with every
-launch counter reset just before it and read just after; each of its
-kernels must have launched (the fallback's, 8g's and 8h's serve: none
-may).  Serve, moe and ops also count the activation members their
+fallback, and 8g's, 8h's and 8i's serve, train and update+dW) runs with
+every launch counter reset just before it and read just after; each of its
+kernels must have launched (the fallback's, 8g's, 8h's and 8i's serve:
+none may).  Serve, moe and ops also count the activation members their
 launches carried, alone and as a chain's consumer (the row family shares
 one counter).
 
@@ -371,6 +413,28 @@ RG_TRAIN_STEPS, RG_GRAD_ACCUM, RG_DW_TOKENS = 3, 2, 4096
 # steps; a row of another position (independent random tokens) lies about
 # sqrt(2) away.
 RING_ROW_REL = 5e-2
+
+# Phase 8i: deepseek-v2-236b at full width, its depth cut: 8 of 60 layers
+# served (58.4 GB of bf16 weights; all 60 need 471 GB), 2 trained (the
+# dense layer and one MoE layer: params, grads and fp32 moments 64.3 GB).
+# Prompts stay at most 1024 tokens or a multiple of 1024: the blockwise
+# attention's chunks (the reference asserts the same).
+DS_ARCH = "deepseek-v2-236b"
+DS_SERVE_LAYERS, DS_TRAIN_LAYERS = 8, 2
+DS_PROMPT, DS_DECODE, DS_LONG = 1020, 4, 2048
+DS_CAPACITY_FACTORS = (1.5, 2.0, 3.0)     # then E / top_k: none can drop
+DS_SERVE_PROMPTS, DS_NEW, DS_MAX_LEN = (64, 256, 512, 1000), 4, 1024
+DS_TRAIN_STEPS, DS_TRAIN_SEQ, DS_DW_TOKENS = 3, 2048, 2048
+DS_WATCH = ("w_q_a", "w_kv_a", "w_k_b", "w_v_b", "shared_w_in",
+            "shared_w_out")
+# A decode step's latent (512) or rope (64) row against the same position's
+# row of the full forward (bf16): the residual stream's drift over up to 7
+# layers, a few bf16 steps (the absorbed path also rounds its query to
+# bf16); a row of another position lies about sqrt(2) away.
+MLA_ROW_REL = 5e-2
+# Rows (of 128) at the end of an AdamW leaf past BIG_LEAF elements held
+# against the plain AdamW after the update+dW program.
+BIG_LEAF, TAIL_ROWS = 2 ** 31, 1 << 16
 
 # Full-width granite-3-2b train shapes.
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 4
@@ -3198,10 +3262,11 @@ def ln_norm(torch, dev) -> float:
 
 
 def train_full(torch, dev, cfg, *, steps: int, tag: str, watch,
-               grad_accum: int = 1) -> tuple:
-    """``cfg`` at full width and depth, batch TRAIN_BATCH x seq TRAIN_SEQ
-    (``grad_accum`` micro-batches a step): ``steps`` steps with remat,
-    fp32 moments and the update program (``build_update_program``, as
+               grad_accum: int = 1, batch_size: int = TRAIN_BATCH,
+               seq: int = TRAIN_SEQ) -> tuple:
+    """``cfg`` at full width, batch_size x seq (TRAIN_BATCH x TRAIN_SEQ
+    unless given; ``grad_accum`` micro-batches a step): ``steps`` steps with
+    remat, fp32 moments and the update program (``build_update_program``, as
     ``launch/train.py --plan-fusion``), the counters reset; finite losses,
     a grad norm > 0, and every leaf ``watch(path)`` picks moved from its
     start in every layer; the AdamW member and the bundle launcher
@@ -3231,8 +3296,7 @@ def train_full(torch, dev, cfg, *, steps: int, tag: str, watch,
         optimizer=ocfg, remat=True, grad_accum=grad_accum),
         update_program=program)
     data = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
-                                    seq_len=TRAIN_SEQ,
-                                    global_batch=TRAIN_BATCH))
+                                    seq_len=seq, global_batch=batch_size))
     kernels = registry()
     torch.cuda.synchronize()
     cuda.reset_counts(kernels)
@@ -3281,7 +3345,7 @@ def train_full(torch, dev, cfg, *, steps: int, tag: str, watch,
         f"{busy:.1%} under the profiler, device time {dev_ms:.1f} ms, "
         f"{dev_ms / step_ms:.1%} of the median step")
     print(f"[{tag}] {cfg.name} train: {step_ms:.1f} ms/step (median of "
-          f"steps 1-{steps - 1}), batch {TRAIN_BATCH} x seq {TRAIN_SEQ} in "
+          f"steps 1-{steps - 1}), batch {batch_size} x seq {seq} in "
           f"{grad_accum} micro-batch(es), peak {peak:.2f} GiB, device busy "
           f"{device}; every watched leaf moved in every layer; launches "
           f"{counts}", flush=True)
@@ -3290,7 +3354,7 @@ def train_full(torch, dev, cfg, *, steps: int, tag: str, watch,
     free_card(torch)
     return {"step_ms": step_ms, "steps_ms": ms, "peak_gib": peak,
             "busy": busy, "device_ms": dev_ms, "counts": counts,
-            "grad_accum": grad_accum}
+            "grad_accum": grad_accum, "batch": batch_size, "seq": seq}
 
 
 def ln_train(torch, dev) -> tuple:
@@ -3319,11 +3383,13 @@ def update_dw_chains(torch, dev, cfg, fplan, tokens: int, path: str,
     """``cfg``'s ``plan_update_fusion`` plan (``want``: its bf16 and fp32
     dW->AdamW chains) compiled and run once with the counters reset on
     seeded state, each chain's p, m, v bitwise against its two members
-    launched apart; the bf16 chain timed beside its plain version, its
-    members apart and its bound (row i of ``path``)."""
+    launched apart, and each AdamW update of a leaf past 2**31 elements
+    bitwise against its plain version on its last TAIL_ROWS rows (the
+    elements a 32-bit offset would miss); the bf16 chain timed beside its
+    plain version, its members apart and its bound (row i of ``path``)."""
     from repro_torch.core import executor, hfuse
     from repro_torch.core.timing import flush_buffer, median_ms
-    from repro_torch.kernels import cuda, registry, row
+    from repro_torch.kernels import adam, cuda, registry, row
     from repro_torch.models import lm
     from repro_torch.train import train_loop as tl
 
@@ -3339,6 +3405,11 @@ def update_dw_chains(torch, dev, cfg, fplan, tokens: int, path: str,
     st = _update_dw_state(torch, dev, fplan, graph, layout, seed)
     before = {c.name: [st[f"{c.name}.{n}"].clone() for n in c.in_names]
               for c in chains}
+    big = [gop.op for gop in fplan.graph if not gop.op.chain
+           and gop.op.member.R * 128 > BIG_LEAF]
+    tails = {op.name: [st[f"{op.name}.{n}"][-TAIL_ROWS:].clone()
+                       for n in ("scalars", "p", "g", "m", "v")]
+             for op in big}
     kernels = registry()
     torch.cuda.synchronize()
     cuda.reset_counts(kernels)
@@ -3355,12 +3426,29 @@ def update_dw_chains(torch, dev, cfg, fplan, tokens: int, path: str,
             check(torch.equal(st[f"{c.name}.{n}"], ins[3 + i]),
                   f"{c.name}.{n} differs from its separate members")
     del before
+    for op in big:
+        sc, *rest = tails[op.name]
+        mb = op.member
+        want = adam.plain_adamw(sc[:1], *rest, b1=mb.b1, b2=mb.b2, eps=mb.eps,
+                                wd=mb.wd)
+        for n, w in zip(("p", "m", "v"), want):
+            check(torch.equal(st[f"{op.name}.{n}"][-TAIL_ROWS:], w),
+                  f"{op.name}.{n}: rows past element 2**31 differ from the "
+                  f"plain AdamW")
+    del tails
     print(f"[{tag}] {cfg.name} update+dW program ({program.describe()}): "
           f"{len(chains)} dW->adamw chains bitwise equal to their separate "
-          f"members; launches {counts}", flush=True)
+          f"members; "
+          + (f"{len(big)} AdamW updates past 2**31 elements ("
+             + ", ".join(f"{op.member.R * 128:,}" for op in big)
+             + f") bitwise equal to the plain AdamW on their last "
+             f"{TAIL_ROWS} rows; " if big else "")
+          + f"launches {counts}", flush=True)
     head = next(c for c in chains if not ops[c.chain[0]].member.fp32)
     dw, upd = ops[head.chain[0]], ops[head.chain[1]]
     ins = [st[f"{head.name}.{n}"] for n in head.in_names]
+    del st                  # the timed chain's inputs alone stay on the card
+    free_card(torch)
     run, plain = hfuse.run_single(head), hfuse.run_single(head, plain=True)
     err = compare_chain(torch, run(*[t.clone() for t in ins]),
                         plain(*[t.clone() for t in ins]), True)
@@ -3375,7 +3463,7 @@ def update_dw_chains(torch, dev, cfg, fplan, tokens: int, path: str,
         (_io_bytes(ins, ins[3:]), dw.flops + upd.flops), BF16_FLOPS, None,
         separate_ms=median_ms(lambda: _separate(hfuse, dw, upd, "g")(*ins),
                               flush))]
-    del st, ins
+    del ins
     free_card(torch)
     return rows, {"counts": counts}
 
@@ -3528,31 +3616,39 @@ def rg_invariant(torch, dev, cfg, params, gen) -> dict:
 
 
 def rg_serve(torch, dev, cfg, params) -> dict:
+    """recurrentgemma-2b's hand-wired serve (``hand_wired_serve``)."""
+    return hand_wired_serve(torch, dev, cfg, params, RG_SERVE_PROMPTS, RG_NEW,
+                            RG_MAX_LEN, "recurrent")
+
+
+def hand_wired_serve(torch, dev, cfg, params, prompts, new: int,
+                     max_len: int, tag: str) -> dict:
     """The planned engine refuses on the card and names --hand-wired; the
-    hand-wired continuous engine serves RG_SERVE_PROMPTS with the counters
-    reset: no kernel of the port launched, each first token
-    ``lm.prefill``'s greedy token on its prompt alone."""
+    hand-wired continuous engine (a slot a prompt) serves ``prompts``,
+    ``new`` tokens each, with the counters reset: no kernel of the port
+    launched, each first token ``lm.prefill``'s greedy token on its prompt
+    alone."""
     import numpy as np
 
     from repro_torch.kernels import cuda, registry
     from repro_torch.models import lm
     from repro_torch.serve.engine import Request, ServeEngine
 
-    B = len(RG_SERVE_PROMPTS)
+    B = len(prompts)
     try:
-        ServeEngine(cfg, params, batch=B, max_len=RG_MAX_LEN, device=dev)
+        ServeEngine(cfg, params, batch=B, max_len=max_len, device=dev)
         refusal = None
     except ValueError as e:
         refusal = str(e)
     check(refusal is not None and "--hand-wired" in refusal,
           f"a planned engine on the card did not refuse: {refusal}")
-    print(f"[recurrent] planned engine refuses: {refusal}")
+    print(f"[{tag}] planned engine refuses: {refusal}")
     rng = np.random.default_rng(5)
     reqs = [Request(rid=i, prompt=rng.integers(1, cfg.vocab_size,
                                                L).astype(np.int32),
-                    max_new_tokens=RG_NEW)
-            for i, L in enumerate(RG_SERVE_PROMPTS)]
-    eng = ServeEngine(cfg, params, batch=B, max_len=RG_MAX_LEN,
+                    max_new_tokens=new)
+            for i, L in enumerate(prompts)]
+    eng = ServeEngine(cfg, params, batch=B, max_len=max_len,
                       plan_fusion=False, device=dev)
     check(not eng.executed, "the fallback executes a program")
     kernels = registry()
@@ -3564,7 +3660,7 @@ def rg_serve(torch, dev, cfg, params) -> dict:
     wall = time.perf_counter() - t0
     counts = {k.name: k.launches for k in kernels}
     tokens = sum(len(r.out_tokens) for r in reqs)
-    check(all(r.done and len(r.out_tokens) == RG_NEW for r in reqs),
+    check(all(r.done and len(r.out_tokens) == new for r in reqs),
           "a request did not complete")
     check(not any(counts.values()),
           f"the hand-wired path launched a kernel: {counts}")
@@ -3577,8 +3673,8 @@ def rg_serve(torch, dev, cfg, params) -> dict:
     check(firsts == [r.out_tokens[0] for r in reqs],
           f"first tokens {[r.out_tokens[0] for r in reqs]} are not "
           f"lm.prefill's greedy tokens {firsts}")
-    print(f"[recurrent] fallback: {len(reqs)} requests (prompts "
-          f"{RG_SERVE_PROMPTS}), {tokens} tokens in {wall:.3f}s "
+    print(f"[{tag}] fallback: {len(reqs)} requests (prompts "
+          f"{tuple(prompts)}), {tokens} tokens in {wall:.3f}s "
           f"({tokens / wall:.2f} tok/s, host clock); first tokens equal "
           f"lm.prefill's greedy tokens; no kernel launched", flush=True)
     return {"tokens_per_s": tokens / wall, "seconds": wall,
@@ -3614,6 +3710,216 @@ def phase_recurrent(torch, dev) -> tuple[list[dict], dict]:
     rows, update_dw = update_dw_chains(torch, dev, cfg, fplan, RG_DW_TOKENS,
                                        "recurrent_update_dw", (1, 0), 29,
                                        "recurrent")
+    return rows, {"invariant": inv, "serve": serve, "train": train,
+                  "update_dw": update_dw}
+
+
+# ---------------------------------------------------------------------------
+# Phase 8i: deepseek-v2-236b at full width, served hand-wired and trained
+# ---------------------------------------------------------------------------
+class mla_rows_capture:
+    """Within the block, each ``mla.attend_full`` call's latent (B, S,
+    kv_lora) and rope key (B, S, rope), in call order: the rows a full
+    sequence's MLA layers compute at each position."""
+
+    def __enter__(self) -> list:
+        from repro_torch.models import mla
+        self.mla, self.orig, seen = mla, mla.attend_full, []
+
+        def capture(cfg, p, x, positions):
+            out, rows = self.orig(cfg, p, x, positions)
+            seen.append(rows)
+            return out, rows
+
+        mla.attend_full = capture
+        return seen
+
+    def __exit__(self, *exc) -> None:
+        self.mla.attend_full = self.orig
+
+
+class drops_capture:
+    """Within the block, each MoE routing's dropped (token, choice) pairs:
+    a (T,) count a token, in call order (``route_from_logits``'s slot is
+    the capacity C where a pair was dropped)."""
+
+    def __enter__(self) -> list:
+        from repro_torch.models import moe
+        self.moe, self.orig, seen = moe, moe.route_from_logits, []
+
+        def capture(cfg, logits):
+            r = self.orig(cfg, logits)
+            seen.append((r.slot == r.dispatch_idx.shape[1]).sum(dim=1))
+            return r
+
+        moe.route_from_logits = capture
+        return seen
+
+    def __exit__(self, *exc) -> None:
+        self.moe.route_from_logits = self.orig
+
+
+def ds_prompt(torch, cfg, params, toks, S: int) -> dict:
+    """``lm.prefill`` of ``toks[:, :S]`` and one ``lm.decode_step`` for each
+    later token, against ``lm.forward`` of all of ``toks``: the logits' rel
+    L2 at each step.  Every MLA layer's cache: after the prefill rows < S
+    hold the rows the prefill's own layer computed (bitwise) and the rest
+    zeros; each decode step writes row pos alone (every other row bitwise
+    unchanged), its rows within MLA_ROW_REL of the forward's at pos.  And
+    the (token, choice) pairs the capacity dropped: in the forward, at
+    the compared positions of the forward, and in the prefill and decode.
+    Returns {"logits", "rows", "drops"}."""
+    from repro_torch.models import lm
+
+    B, total = toks.shape
+
+    def mla_caches(cache):
+        return [lc for _run, lc in lm.layer_params(cfg, cache)]
+
+    with torch.no_grad():
+        with mla_rows_capture() as fwd, drops_capture() as fwd_lost:
+            full = lm.forward(cfg, params, {"tokens": toks})[0]
+        want = full[:, S - 1:].clone()
+        del full
+        check(bool(torch.isfinite(want).all()), f"S {S}: non-finite logits")
+        with mla_rows_capture() as pre, drops_capture() as run_lost:
+            cache, got = lm.prefill(cfg, params, {"tokens": toks[:, :S]},
+                                    max_len=total)
+            rel, worst = [rel_l2(got, want[:, 0])], []
+            check(len(mla_caches(cache)) == len(pre) == len(fwd)
+                  == cfg.num_layers, f"S {S}: {len(pre)} and {len(fwd)} "
+                  f"MLA calls for {cfg.num_layers} layers")
+            for li, (lc, rows) in enumerate(zip(mla_caches(cache), pre)):
+                for name, t in zip(("latent", "rope"), rows):
+                    check(torch.equal(lc[name][:, :S], t)
+                          and not lc[name][:, S:].any(),
+                          f"S {S}: MLA layer {li}'s {name} rows after the "
+                          f"prefill are not the prefill layer's rows")
+            for pos in range(S, total):
+                old = [{n: lc[n].clone() for n in ("latent", "rope")}
+                       for lc in mla_caches(cache)]
+                got, cache = lm.decode_step(cfg, params, cache, toks[:, pos])
+                rel.append(rel_l2(got, want[:, pos - S + 1]))
+                w = 0.0
+                for li, (lc, before, rows) in enumerate(zip(
+                        mla_caches(cache), old, fwd)):
+                    keep = torch.arange(total, device=toks.device) != pos
+                    for name, t in zip(("latent", "rope"), rows):
+                        check(torch.equal(lc[name][:, keep],
+                                          before[name][:, keep]),
+                              f"S {S}: decode at {pos} wrote MLA layer "
+                              f"{li}'s {name} outside row {pos}")
+                        w = max(w, rel_l2(lc[name][:, pos], t[:, pos]))
+                worst.append(w)
+    # the forward's tokens are (b, s) flattened: the compared positions
+    # are S - 1 .. total - 1 of each row
+    at = torch.zeros(total, dtype=torch.bool, device=toks.device)
+    at[S - 1:] = True
+    at = at.repeat(B)
+    drops = {"forward": int(sum(int(x.sum()) for x in fwd_lost)),
+             "compared": int(sum(int(x[at].sum()) for x in fwd_lost)),
+             "prefill_decode": int(sum(int(x.sum()) for x in run_lost))}
+    return {"logits": rel, "rows": worst, "drops": drops}
+
+
+def ds_invariant(torch, dev, cfg, params, gen) -> dict:
+    """``ds_prompt`` on 2 prompts of DS_PROMPT + DS_DECODE tokens at the
+    config's capacity factor; where a pair dropped, again at each factor
+    of DS_CAPACITY_FACTORS and then E / top_k (no pair can drop: each
+    expert's capacity is the batch's tokens) until none did, the weights
+    unchanged.  The run without drops holds the logits within
+    LOGITS_REL_L2 and the written rows within MLA_ROW_REL; the forward
+    at 1 x DS_LONG is finite."""
+    import dataclasses
+
+    from repro_torch.models import lm
+
+    toks = torch.randint(1, cfg.vocab_size, (2, DS_PROMPT + DS_DECODE),
+                         generator=gen, device=dev, dtype=torch.int32)
+    m = cfg.moe
+    runs = {}
+    for cf in (m.capacity_factor, *DS_CAPACITY_FACTORS,
+               m.num_experts / m.top_k):
+        c = dataclasses.replace(cfg, moe=dataclasses.replace(
+            m, capacity_factor=cf))
+        r = runs[cf] = ds_prompt(torch, c, params, toks, DS_PROMPT)
+        print(f"[deepseek] capacity factor {cf:g}: dropped (token, choice) "
+              f"pairs: forward {r['drops']['forward']} (at the compared "
+              f"positions {r['drops']['compared']}), prefill + decode "
+              f"{r['drops']['prefill_decode']}; rel L2 by step "
+              + ", ".join(f"{x:.3e}" for x in r["logits"])
+              + "; decode's rows off the forward's by step "
+              + ", ".join(f"{x:.3e}" for x in r["rows"]), flush=True)
+        if not r["drops"]["forward"] and not r["drops"]["prefill_decode"]:
+            break
+    check(not r["drops"]["forward"] and not r["drops"]["prefill_decode"],
+          f"pairs dropped at capacity factor {cf}")
+    print(f"[deepseek] lm.prefill({DS_PROMPT}) and {DS_DECODE} "
+          f"lm.decode_steps against lm.forward({DS_PROMPT + DS_DECODE}), "
+          f"2 prompts, held at capacity factor {cf:g}"
+          + ("" if cf == m.capacity_factor else
+             f" (raised from {m.capacity_factor:g}: pairs dropped there; "
+             "weights unchanged)")
+          + f": rel L2 by step " + ", ".join(f"{x:.3e}" for x in r["logits"])
+          + f" (limit {LOGITS_REL_L2}); after the prefill every MLA layer's "
+          f"rows below S are the prefill layer's, bitwise; each decode step "
+          f"wrote row pos alone, its rows off the forward's by "
+          + ", ".join(f"{x:.3e}" for x in r["rows"])
+          + f" (limit {MLA_ROW_REL})", flush=True)
+    check(max(r["logits"]) <= LOGITS_REL_L2,
+          f"prefill/decode off the forward: {r['logits']}")
+    check(max(r["rows"]) <= MLA_ROW_REL,
+          f"decode's latent/rope rows off the forward's: {r['rows']}")
+    with torch.no_grad():
+        toks = torch.randint(1, cfg.vocab_size, (1, DS_LONG), generator=gen,
+                             device=dev, dtype=torch.int32)
+        long_ok = bool(torch.isfinite(
+            lm.forward(cfg, params, {"tokens": toks})[0]).all())
+    print(f"[deepseek] forward at 1 x {DS_LONG} ({DS_LONG // 1024} query "
+          f"chunks) finite: {long_ok}", flush=True)
+    check(long_ok, f"non-finite logits at 1 x {DS_LONG}")
+    return {"runs": runs, "capacity_factor": cf}
+
+
+def phase_deepseek(torch, dev) -> tuple[list[dict], dict]:
+    from repro_torch import tree as tree_mod
+    from repro_torch.configs import MLA, get_config
+    from repro_torch.launch.serve import cut_depth
+    from repro_torch.models import lm
+    from repro_torch.train import train_loop as tl
+
+    full = get_config(DS_ARCH)
+    check(full.d_model == 5120 and full.num_heads == 128
+          and full.moe.num_experts == 160 and full.vocab_size == 102400,
+          "not full width")
+    cfg = cut_depth(full, DS_SERVE_LAYERS)
+    check(cfg.pattern == (MLA,) * DS_SERVE_LAYERS, "the cut lost MLA")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = lm.init(cfg, gen, device=dev)
+    n_params = sum(t.numel() for t in tree_mod.leaves(params))
+    print(f"[deepseek] {cfg.name}: {cfg.num_layers} of {full.num_layers} "
+          f"layers in runs {[(r.name, r.count) for r in lm.layer_runs(cfg)]}"
+          f", {n_params:,} params, {torch.cuda.memory_allocated(dev) / 2**30:.2f}"
+          f" GiB, set up in {time.perf_counter() - t0:.1f}s", flush=True)
+    inv = ds_invariant(torch, dev, cfg, params, gen)
+    free_card(torch)
+    serve = hand_wired_serve(torch, dev, cfg, params, DS_SERVE_PROMPTS,
+                             DS_NEW, DS_MAX_LEN, "deepseek")
+    serve["layers"] = cfg.num_layers
+    del params
+    free_card(torch)
+    tcfg = cut_depth(full, DS_TRAIN_LAYERS)
+    train = train_full(
+        torch, dev, tcfg, steps=DS_TRAIN_STEPS, tag="deepseek", batch_size=1,
+        seq=DS_TRAIN_SEQ, watch=lambda path: path[-1] in DS_WATCH
+        or path[-2] in ("q_norm", "kv_norm"))
+    fplan = tl.plan_update_fusion(lm.abstract_params(tcfg),
+                                  tokens=DS_DW_TOKENS)
+    rows, update_dw = update_dw_chains(torch, dev, tcfg, fplan, DS_DW_TOKENS,
+                                       "deepseek_update_dw", (6, 0), 30,
+                                       "deepseek")
     return rows, {"invariant": inv, "serve": serve, "train": train,
                   "update_dw": update_dw}
 
@@ -3656,7 +3962,7 @@ def main() -> int:
     # 2b. paper suite, 3. serve kernels, 4. adamw, 5. measured plan,
     # 6. update bundles, 6b. update+dW, 7. train, 8. serve, 8b. paged,
     # 8c. moe, 8d. ops, 8e. wavefront, 8f. fallback, 8g. layernorm,
-    # 8h. recurrent;
+    # 8h. recurrent, 8i. deepseek;
     # each phase's wall time is printed before the report
     walls = {}
 
@@ -3688,7 +3994,10 @@ def main() -> int:
     ln_rows, ln = timed("layernorm", phase_layernorm, torch, dev)
     free_card(torch)
     rg_rows, rg = timed("recurrent", phase_recurrent, torch, dev)
-    rows += paged_rows + moe_rows + ops_rows + wave_rows + ln_rows + rg_rows
+    free_card(torch)
+    ds_rows, ds = timed("deepseek", phase_deepseek, torch, dev)
+    rows += (paged_rows + moe_rows + ops_rows + wave_rows + ln_rows + rg_rows
+             + ds_rows)
     print("[phases] wall s: " + ", ".join(f"{k} {v:.1f}"
                                          for k, v in walls.items()))
 
@@ -3704,9 +4013,14 @@ def main() -> int:
             "layernorm_update_dw": ln["update_dw"]["counts"],
             "recurrent_serve": rg["serve"]["counts"],
             "recurrent_train": rg["train"]["counts"],
-            "recurrent_update_dw": rg["update_dw"]["counts"]}
+            "recurrent_update_dw": rg["update_dw"]["counts"],
+            "deepseek_serve": ds["serve"]["counts"],
+            "deepseek_train": ds["train"]["counts"],
+            "deepseek_update_dw": ds["update_dw"]["counts"]}
     for r in rows:
-        r["launches"] = runs[r.pop("path")][r.pop("kernel").name]
+        kernel = r.pop("kernel").name
+        r["launches"] = runs[r.pop("path")][kernel]
+        r["path_launches"] = {path: c[kernel] for path, c in runs.items()}
     check(all(set(c) == set(names) for c in runs.values()),
           "kernel registry changed")
     print(json.dumps({"kernels": rows}))
@@ -3762,6 +4076,25 @@ def main() -> int:
           f"{rt['counts']['adamw_member']} and bundle launches "
           f"{rt['counts']['bundle_launcher']}; update+dW row_member "
           f"{rg['update_dw']['counts']['row_member']} ({smi})")
+    dt, di = ds["train"], ds["invariant"]
+    busy = "not measured" if dt["busy"] is None else \
+        f"{dt['busy']:.1%} (device {dt['device_ms']:.1f} ms a step)"
+    first = di["runs"][next(iter(di["runs"]))]["drops"]
+    print(f"[deepseek] {DS_ARCH} at full width: {ds['serve']['layers']} "
+          f"layers served: prefill/decode against forward worst rel L2 "
+          f"{max(di['runs'][di['capacity_factor']]['logits']):.3e} at "
+          f"capacity factor {di['capacity_factor']:g} (drops at the first "
+          f"factor: forward {first['forward']}, compared positions "
+          f"{first['compared']}, prefill + decode "
+          f"{first['prefill_decode']}), decode's latent/rope rows worst "
+          f"{max(di['runs'][di['capacity_factor']]['rows']):.3e}; hand-wired "
+          f"serve {ds['serve']['tokens_per_s']:.3f} tokens/s; "
+          f"{DS_TRAIN_LAYERS} layers trained at batch {dt['batch']} x seq "
+          f"{dt['seq']}: {dt['step_ms']:.1f} ms/step, peak "
+          f"{dt['peak_gib']:.2f} GiB, busy {busy}, adamw_member "
+          f"{dt['counts']['adamw_member']} and bundle launches "
+          f"{dt['counts']['bundle_launcher']}; update+dW row_member "
+          f"{ds['update_dw']['counts']['row_member']} ({smi})")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -22,8 +22,10 @@ only that way, as in the reference: planned, they print its notice and stay
 hand-wired on the CPU, and on the card they need ``--hand-wired`` (without
 it the launcher prints the refusal and exits 1).  So is the hybrid
 ``--arch recurrentgemma-2b`` (RG-LRU blocks and local attention; the
-program serves a single global-attention run only); ``--layers N`` keeps
-its first N block kinds.  The flags keep the
+program serves a single global-attention run only), and so is
+``--arch deepseek-v2-236b`` (MLA blocks, a dense first layer, then MoE
+layers: ``--scale full --layers 8 --hand-wired`` fits one card); ``--layers
+N`` keeps the first N block kinds (``cut_depth``).  The flags keep the
 reference launcher's names and checks; the port plans by default, and
 ``--plan-fusion`` names that default.
 """
@@ -41,6 +43,17 @@ from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
 from repro_torch.serve.engine import PrefillBudget, Request, ServeEngine
+
+
+def cut_depth(cfg, layers: int):
+    """``cfg`` cut to its first ``layers`` layers.  A config with a block
+    pattern keeps its first N block kinds (hybrids, DeepSeek's MLA blocks)
+    and its layer overrides (DeepSeek's dense layer 0); one without stays
+    global attention."""
+    return dataclasses.replace(
+        cfg, num_layers=layers,
+        block_pattern=(cfg.pattern[:layers]
+                       if cfg.block_pattern is not None else None))
 
 
 def build_requests(cfg, args) -> list[Request]:
@@ -159,11 +172,7 @@ def main(argv=None):
     if args.scale == "smoke":
         cfg = cfg.reduced()
     if args.layers:
-        # a hybrid config keeps its first N block kinds
-        cfg = dataclasses.replace(
-            cfg, num_layers=args.layers,
-            block_pattern=(cfg.pattern[:args.layers]
-                           if cfg.block_pattern is not None else None))
+        cfg = cut_depth(cfg, args.layers)
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     params = lm.init(cfg, gen, device=dev)

@@ -1,16 +1,19 @@
 """LM assembly for the block kinds the port serves and trains: global
-attention, local (sliding-window) attention and the RG-LRU recurrent block
-(``models/rglru.py``), in any number of runs, each block with RMSNorm or
-LayerNorm and a dense FFN or an MoE FFN (``models/moe.py``): the train
-forward and loss, and the hand-wired serve entry points ``prefill`` and
-``decode_step`` (the reference's oracle for the executed decode program).
+attention, local (sliding-window) attention, multi-head latent attention
+(``models/mla.py``) and the RG-LRU recurrent block (``models/rglru.py``),
+in any number of runs, each block with RMSNorm or LayerNorm and a dense FFN
+(the run at layer 0 of ``dense_d_ff_first`` width where the config sets
+it) or an MoE FFN (``models/moe.py``): the train forward and loss, and the
+hand-wired serve entry points ``prefill`` and ``decode_step`` (the
+reference's oracle for the executed decode program).
 
 Parameters are plain nested dicts of tensors with the JAX package's tree
 and layouts: weights stay ``(K, N)``, a run of ``count > 1`` identical
 layers stacks its leaves on a leading ``(L, ...)`` axis, and the cache is
 per kind: ``(B, S, Hkv, D)`` k/v for global attention, a ring of
-``min(local_window, max_len)`` rows for local attention, ``h`` (B, W) fp32
-and ``conv`` (B, K - 1, W) for RG-LRU.  ``params_from_numpy`` takes the
+``min(local_window, max_len)`` rows for local attention, ``latent`` (B, S,
+kv_lora) and ``rope`` (B, S, rope) for MLA, ``h`` (B, W) fp32 and ``conv``
+(B, K - 1, W) for RG-LRU.  ``params_from_numpy`` takes the
 JAX package's params as numpy arrays, so both packages compute with the
 same weights in the tests.
 
@@ -28,9 +31,9 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ATTN, LOCAL_ATTN, RGLRU, ModelConfig
+from repro_torch.configs.base import ATTN, LOCAL_ATTN, MLA, RGLRU, ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import layers, moe as moe_mod
+from repro_torch.models import layers, mla as mla_mod, moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -63,7 +66,7 @@ def layer_runs(cfg: ModelConfig) -> list[Run]:
     return runs
 
 
-SERVED_KINDS = (ATTN, LOCAL_ATTN, RGLRU)
+SERVED_KINDS = (ATTN, LOCAL_ATTN, MLA, RGLRU)
 
 
 def supported(cfg: ModelConfig) -> Optional[str]:
@@ -76,7 +79,7 @@ def supported(cfg: ModelConfig) -> Optional[str]:
     for run in layer_runs(cfg):
         if run.kind not in SERVED_KINDS:
             return (f"block kind {run.kind!r} (global attention, local "
-                    "attention and RG-LRU only)")
+                    "attention, MLA and RG-LRU only)")
     if cfg.norm not in ("rmsnorm", "layernorm"):
         return f"norm {cfg.norm!r}"
     if not cfg.is_moe and cfg.d_ff <= 0:
@@ -99,25 +102,41 @@ def _norm_layout(cfg: ModelConfig, lead: tuple) -> dict:
             "bias": (shape, "zeros", "float32")}
 
 
+def _stacked(spec: dict, lead: tuple) -> dict:
+    """A module's layout (nested dicts of (shape, init, dtype) leaves) with
+    ``lead`` before every shape."""
+    return {k: _stacked(v, lead) if isinstance(v, dict)
+            else (lead + v[0],) + tuple(v[1:]) for k, v in spec.items()}
+
+
+def _dense_ff_width(cfg: ModelConfig, run: Run) -> int:
+    """The dense FFN's hidden width in ``run``: ``dense_d_ff_first`` for
+    the run that starts at layer 0 when the config sets it (DeepSeek's
+    dense first layer), else ``d_ff`` (the reference's ``_ffn_spec``)."""
+    if run.start == 0 and cfg.dense_d_ff_first:
+        return cfg.dense_d_ff_first
+    return cfg.d_ff
+
+
 def _block_layout(cfg: ModelConfig, run: Run) -> dict:
     """One run's block (leaves stacked ``(count, ...)`` when count > 1):
     norm1, the sequence mixer (``attn`` or ``rec``), norm2 and the FFN."""
     d, H, Hkv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
-    D, f = cfg.resolved_head_dim, cfg.d_ff
+    D, f = cfg.resolved_head_dim, _dense_ff_width(cfg, run)
     gated = cfg.activation in ("silu", "gelu")
     lead = (run.count,) if run.count > 1 else ()
     block = {"norm1": _norm_layout(cfg, lead)}
     if run.kind == RGLRU:
-        block["rec"] = {k: (lead + shape, kind, dt) for k, (shape, kind, dt)
-                        in rglru_mod.spec(cfg).items()}
+        block["rec"] = _stacked(rglru_mod.spec(cfg), lead)
+    elif run.kind == MLA:
+        block["attn"] = _stacked(mla_mod.spec(cfg), lead)
     else:
         block["attn"] = {
             "w_qkv": (lead + (d, (H + 2 * Hkv) * D), "normal", None),
             "w_o": (lead + (H * D, d), "out_proj", None)}
     block["norm2"] = _norm_layout(cfg, lead)
     if run.is_moe:
-        block["moe"] = {k: (lead + shape, kind, dt)
-                        for k, (shape, kind, dt) in moe_mod.spec(cfg).items()}
+        block["moe"] = _stacked(moe_mod.spec(cfg), lead)
     else:
         block["mlp"] = {
             "w_in": (lead + (d, 2 * f if gated else f), "normal", None),
@@ -154,13 +173,36 @@ def _set(tree: dict, path, value):
     tree[path[-1]] = value
 
 
+# A leaf of at most INIT_WHOLE_MAX elements is drawn in one fp32 draw, as
+# before (the largest other leaf drawn on one card, phi3.5-moe's experts
+# cut to 8 layers, is 6.7 B elements, so its seeded weights stay); a larger
+# one, DeepSeek's stacked expert leaves (7 x 160 x 5120 x 3072 at 8 layers:
+# 70 GB as one fp32 draw), is drawn INIT_CHUNK elements at a time into its
+# leaf, in order.
+INIT_WHOLE_MAX = 2 ** 33
+INIT_CHUNK = 2 ** 30
+
+
+def _random_leaf(shape, scale: float, dtype, generator, dev):
+    n = math.prod(shape)
+    if n <= INIT_WHOLE_MAX:
+        return (torch.randn(shape, generator=generator, device=dev,
+                            dtype=torch.float32) * scale).to(dtype)
+    leaf = torch.empty(shape, dtype=dtype, device=dev)
+    for chunk in leaf.view(-1).split(INIT_CHUNK):
+        chunk.copy_(torch.randn(chunk.shape, generator=generator, device=dev,
+                                dtype=torch.float32) * scale)
+    return leaf
+
+
 def init(cfg: ModelConfig, generator: torch.Generator,
          device=None) -> dict:
     """Random parameters on ``device`` (the card unless ``device="cpu"``)
     from ``generator``: normal(0, 1/sqrt(fan_in)) weights,
     1/sqrt(2 fan_in) output projections, unit-scale embeddings, zero
     RMSNorm scales, unit LayerNorm scales and zero biases — the
-    reference's scheme, other random numbers."""
+    reference's scheme, other random numbers.  A leaf past
+    ``INIT_WHOLE_MAX`` elements is drawn in chunks (``_random_leaf``)."""
     dev = resolve_device(device)
     dt = torch_dtype(cfg.dtype)
     params: dict = {}
@@ -174,8 +216,7 @@ def init(cfg: ModelConfig, generator: torch.Generator,
             scale = {"embed": 1.0,
                      "out_proj": 1.0 / math.sqrt(2.0 * max(1, fan_in)),
                      "normal": 1.0 / math.sqrt(max(1, fan_in))}[kind]
-            leaf = (torch.randn(shape, generator=generator, device=dev,
-                                dtype=torch.float32) * scale).to(ldt)
+            leaf = _random_leaf(shape, scale, ldt, generator, dev)
         _set(params, path, leaf)
     return params
 
@@ -244,6 +285,10 @@ def _cache_leaf_shapes(cfg: ModelConfig, run: Run, B: int,
     if run.kind == LOCAL_ATTN:
         W = min(cfg.local_window, max_len)
         return {k: ((B, W, Hkv, D), dt) for k in ("k", "v")}
+    if run.kind == MLA:
+        m = cfg.mla
+        return {"latent": ((B, max_len, m.kv_lora_rank), dt),
+                "rope": ((B, max_len, m.qk_rope_head_dim), dt)}
     if run.kind == RGLRU:
         W = cfg.lru_width or cfg.d_model
         return {"h": ((B, W), torch.float32),
@@ -353,10 +398,20 @@ def block_apply_seq(cfg: ModelConfig, run: Run, p: dict, x: torch.Tensor,
     ``want_cache``, its cache leaves (else None): global attention's
     ``{"k", "v"}`` (B, max_len or S, Hkv, D), the sequence's rows first;
     local attention's ring of ``min(local_window, max_len or S)`` rows;
+    MLA's ``{"latent", "rope"}`` (B, max_len or S, .), rows first;
     RG-LRU's ``{"h", "conv"}``."""
     S = x.shape[1]
     cache = None
-    if run.kind == RGLRU:
+    if run.kind == MLA:
+        positions = torch.arange(S, device=x.device)[None, :]
+        out, (latent, k_rope) = mla_mod.attend_full(
+            cfg, p["attn"], layers.apply_norm(cfg, p["norm1"], x), positions)
+        x = x + out
+        h2 = layers.apply_norm(cfg, p["norm2"], x)
+        if want_cache:
+            cache = {"latent": cache_rows(latent, max_len or S),
+                     "rope": cache_rows(k_rope, max_len or S)}
+    elif run.kind == RGLRU:
         y, (h_last, conv_tail) = rglru_mod.apply_train(
             cfg, p["rec"], layers.apply_norm(cfg, p["norm1"], x))
         x = x + y
@@ -416,10 +471,19 @@ def block_apply_decode(cfg: ModelConfig, run: Run, p: dict, x: torch.Tensor,
     are written in place: global attention's row ``pos`` (past the cache
     end the last row, as the reference's clamped update does), local
     attention's ring slot ``pos % W`` (it attends ``min(pos + 1, W)``
-    rows), RG-LRU's state and conv window.  Returns (x_out, cache)."""
+    rows), MLA's latent and rope rows ``pos`` (clamped likewise; the
+    absorbed path), RG-LRU's state and conv window.  Returns (x_out,
+    cache)."""
     B = x.shape[0]
     h = layers.apply_norm(cfg, p["norm1"], x)
-    if run.kind == RGLRU:
+    if run.kind == MLA:
+        positions = torch.as_tensor(pos, device=x.device).reshape(1, 1) \
+            .expand(B, 1)
+        out, _lc, _rc = mla_mod.attend_absorbed(
+            cfg, p["attn"], h, cache["latent"], cache["rope"], pos,
+            positions)
+        x = x + out
+    elif run.kind == RGLRU:
         out, h_new, conv = rglru_mod.apply_decode(cfg, p["rec"], h,
                                                   cache["h"], cache["conv"])
         cache["h"].copy_(h_new)

@@ -338,8 +338,8 @@ class ServeEngine:
     the wavefront scheduler (``scheduling="wavefront"``), or the
     hand-wired fallback (``plan_fusion=False``).  ``executed`` says
     whether the decode step runs through the planned program.  A planned
-    engine over a config the program does not serve (LayerNorm, or a
-    hybrid of RG-LRU and local-attention runs), and a
+    engine over a config the program does not serve (LayerNorm, a hybrid
+    of RG-LRU and local-attention runs, or MLA runs), and a
     planned wavefront engine over a stacked or MoE config, keep the
     hand-wired step with the reference's notice on the CPU (the fallback
     graph still planned), and refuse on the card.

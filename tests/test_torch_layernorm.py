@@ -538,10 +538,12 @@ def test_exact_dims_and_shape_table(arch):
 
 
 def test_list_archs_holds_the_six():
-    """The six configs above and recurrentgemma-2b, seven in all (its
-    dims: tests/test_torch_recurrent.py)."""
-    assert list_archs() == sorted(set(EXACT_DIMS) | {"recurrentgemma-2b"})
-    assert len(list_archs()) == 7
+    """The six configs above, recurrentgemma-2b and deepseek-v2-236b,
+    eight in all (their dims: tests/test_torch_recurrent.py and
+    tests/test_torch_mla.py)."""
+    assert list_archs() == sorted(set(EXACT_DIMS) | {"recurrentgemma-2b",
+                                                     "deepseek-v2-236b"})
+    assert len(list_archs()) == 8
 
 
 # ---------------------------------------------------------------------------
