@@ -300,15 +300,46 @@ non-zero exit code and no result line.
              its plain version on its last TAIL_ROWS rows, past element
              2**31, and the embedding's chain (102400x2048 @ 2048x5120)
              timed beside them, its plain version and its bound.
+  8j. xlstm  xlstm-1.3b at full width and depth (48 layers, mLSTM:sLSTM
+             7:1 in 12 runs, d_model 2048, 4 heads, no FFN, LayerNorm,
+             vocabulary 50304; 2.90 B parameters), random weights from a
+             seeded torch.Generator.  For 2 prompts of 2048 tokens (the
+             prefill's mLSTM in chunks of 256, the forward's of 2052 in one
+             chunk) and 2 of 2100 (one chunk each) and 2 of 2 (under the
+             conv's K - 1 rows), ``lm.prefill`` and 4 ``lm.decode_step``s
+             against ``lm.forward`` of S + 4 at the same positions, within
+             LOGITS_REL_L2, and every layer's state and conv window after
+             them (C, n, m, conv; c, n, m, h, conv) within XL_STATE_REL of
+             what ``lm.prefill`` of S + 4 hands off.  ``lm.forward`` at 1 x
+             8192 (32 chunks) finite.  A planned engine must refuse and
+             name ``--hand-wired``; the hand-wired continuous engine (batch
+             8, max_len 1024) serves 8 requests (64..1000 tokens, 16 new)
+             with the counters reset: no kernel of the port may launch,
+             each first token is ``lm.prefill``'s greedy token on its
+             prompt alone, tokens/s on the host clock.  Trained at batch 4
+             x seq 2048, remat, fp32 moments, the update program, 3 steps
+             with the counters reset: finite loss, grad norm > 0, every
+             ``gate_b``, ``b_zifo``, ``r_zifo``, ``out_norm``, ``conv_w``
+             and ``conv_b`` moved in every layer, the AdamW member and the
+             bundle launcher launched; ms per step, peak memory, one
+             profiled step's busy share and kernel launches (a trace of
+             the device's events only: a step launches about a million
+             kernels), and one sLSTM layer's forward, recompute and
+             backward at the step's shape timed and counted alone, times
+             6: the sLSTM loop's share of the step.  Then its
+             ``plan_update_fusion`` plan at 8192 tokens (eight AdamW
+             singles, the w_up and w_v leaves of runs 00, 08, 16 and 24,
+             no dW chain) run once with the counters reset on seeded state,
+             each single's p, m, v bitwise against its plain version.
   9. report  one JSON line of kernels (each row also with its kernel's
              launches on every path, ``path_launches``), then the result
              line.
 
 Each main path (paper, update_dw, train, serve, paged, moe, ops, wavefront,
-fallback, and 8g's, 8h's and 8i's serve, train and update+dW) runs with
-every launch counter reset just before it and read just after; each of its
-kernels must have launched (the fallback's, 8g's, 8h's and 8i's serve:
-none may).  Serve, moe and ops also count the activation members their
+fallback, and 8g's, 8h's, 8i's and 8j's serve, train and update+dW) runs
+with every launch counter reset just before it and read just after; each
+of its kernels must have launched (the fallback's, 8g's, 8h's, 8i's and
+8j's serve: none may).  Serve, moe and ops also count the activation members their
 launches carried, alone and as a chain's consumer (the row family shares
 one counter).
 
@@ -432,6 +463,25 @@ DS_WATCH = ("w_q_a", "w_kv_a", "w_k_b", "w_v_b", "shared_w_in",
 # layers, a few bf16 steps (the absorbed path also rounds its query to
 # bf16); a row of another position lies about sqrt(2) away.
 MLA_ROW_REL = 5e-2
+# Phase 8j: xlstm-1.3b at full width and depth (48 layers, 5.8 GB of bf16
+# weights: no cut).  The invariant on 2 prompts of 2048 tokens (the
+# prefill's mLSTM in chunks of 256, the forward of 2052 in one chunk), 2 of
+# 2100 (one chunk each) and 2 of XL_SHORT (under the conv's K - 1 rows), 4
+# decode steps each; one forward at 1 x 8192; the fallback serves 8
+# requests; trained at batch 4 x seq 2048; the update plan at 8192 tokens.
+XL_ARCH = "xlstm-1.3b"
+XL_PROMPTS, XL_SHORT, XL_DECODE, XL_LONG = (2048, 2100), 2, 4, 8192
+XL_SERVE_PROMPTS = (64, 128, 200, 333, 512, 640, 800, 1000)
+XL_NEW, XL_MAX_LEN = 16, 1024
+XL_TRAIN_STEPS, XL_DW_TOKENS = 3, 4 * 2048     # the train step's tokens
+XL_WATCH = ("gate_b", "b_zifo", "r_zifo", "out_norm", "conv_w", "conv_b")
+# Each leaf of a layer's recurrent state and conv window after prefill(S)
+# and 4 decode steps against prefill(S + 4)'s, rel L2 (bf16 activations,
+# fp32 states): the residual stream's drift over up to 47 layers moves the
+# gates and the stabilizers by a few bf16 steps; a stale or misplaced
+# handoff (a state a step behind, a conv row out of place) is O(1) off.
+XL_STATE_REL = 5e-2
+
 # Rows (of 128) at the end of an AdamW leaf past BIG_LEAF elements held
 # against the plain AdamW after the update+dW program.
 BIG_LEAF, TAIL_ROWS = 2 ** 31, 1 << 16
@@ -736,12 +786,12 @@ class ActTally:
 
 def device_profile(torch, run, what: str):
     """``run()`` under torch.profiler: the device's busy share of the wall
-    time and its busy seconds (returned; None, None when the trace holds
-    no device time), device time by kernel name, and the host's CUDA
-    runtime calls (count and host time: the launches, and the copies and
-    synchronizations that make the host wait for the device).  Only the
-    device's own events (kernels, copies, fills) are summed: a CPU op's
-    device time is the same kernels counted again."""
+    time, its busy seconds and the kernels launched (returned; None, None,
+    None when the trace holds no device time), device time by kernel name,
+    and the host's CUDA runtime calls (count and host time: the launches,
+    and the copies and synchronizations that make the host wait for the
+    device).  Only the device's own events (kernels, copies, fills) are
+    summed: a CPU op's device time is the same kernels counted again."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -752,6 +802,9 @@ def device_profile(torch, run, what: str):
         wall_p = time.perf_counter() - t0
     dev_us = [(e.key, e.self_device_time_total) for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA]
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and not e.key.startswith(("Memcpy", "Memset")))
     dev_us = sorted((kv for kv in dev_us if kv[1] > 0), key=lambda kv: -kv[1])
     busy = sum(us for _k, us in dev_us) / 1e6
     if busy:
@@ -768,9 +821,44 @@ def device_profile(torch, run, what: str):
         print(f"[profile]   host runtime calls: "
               + ", ".join(f"{k} x{n} {us / 1e3:.1f} ms"
                           for k, n, us in api[:5]))
-        return busy / wall_p, busy
+        return busy / wall_p, busy, launches
     print(f"[profile] {what}: no device time in the trace: not measured")
-    return None, None
+    return None, None, None
+
+
+def device_events(torch, run, what: str):
+    """``run()`` under torch.profiler tracing the device's events only
+    (no CPU ops), read from the raw trace without building the profiler's
+    event tree, which takes minutes at a million kernels: the busy share
+    of the wall time, the busy seconds and the kernels launched (None,
+    None, None when the trace holds no device time or this torch keeps
+    its raw trace elsewhere)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_p = time.perf_counter() - t0
+    try:
+        events = prof.profiler.kineto_results.events()
+    except AttributeError as e:
+        print(f"[profile] {what}: raw trace not readable ({e}): not "
+              "measured")
+        return None, None, None
+    busy_ns, launches = 0, 0
+    for e in events:
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        busy_ns += e.end_ns() - e.start_ns()
+        launches += not e.name().startswith(("Memcpy", "Memset"))
+    if not busy_ns:
+        print(f"[profile] {what}: no device time in the trace: not measured")
+        return None, None, None
+    busy = busy_ns / 1e9
+    print(f"[profile] {what}: device busy {busy:.3f}s of {wall_p:.3f}s wall "
+          f"({busy / wall_p:.1%}), {launches} kernels", flush=True)
+    return busy / wall_p, busy, launches
 
 
 # ---------------------------------------------------------------------------
@@ -3263,15 +3351,16 @@ def ln_norm(torch, dev) -> float:
 
 def train_full(torch, dev, cfg, *, steps: int, tag: str, watch,
                grad_accum: int = 1, batch_size: int = TRAIN_BATCH,
-               seq: int = TRAIN_SEQ) -> tuple:
+               seq: int = TRAIN_SEQ, profiler=device_profile) -> tuple:
     """``cfg`` at full width, batch_size x seq (TRAIN_BATCH x TRAIN_SEQ
     unless given; ``grad_accum`` micro-batches a step): ``steps`` steps with
     remat, fp32 moments and the update program (``build_update_program``, as
     ``launch/train.py --plan-fusion``), the counters reset; finite losses,
     a grad norm > 0, and every leaf ``watch(path)`` picks moved from its
     start in every layer; the AdamW member and the bundle launcher
-    launched.  One more step under torch.profiler for the busy share.
-    Returns the run's numbers."""
+    launched.  One more step under ``profiler`` (``device_profile``, or
+    ``device_events`` for a step of a million kernels) for the busy share
+    and the kernels a step launches.  Returns the run's numbers."""
     from repro_torch import tree as tree_mod
     from repro_torch.data.pipeline import DataConfig, TokenPipeline
     from repro_torch.kernels import cuda, registry
@@ -3337,13 +3426,13 @@ def train_full(torch, dev, cfg, *, steps: int, tag: str, watch,
     # the profiler adds host time to every launch: a step of many small
     # kernels reads less busy under it than it runs, so its device time is
     # also set against the unprofiled steps' median
-    busy, dev_s = device_profile(torch, one_more_step,
-                                 f"{cfg.name} train step")
+    busy, dev_s, launches = profiler(torch, one_more_step,
+                                     f"{cfg.name} train step")
     step_ms = statistics.median(ms[1:])
     dev_ms = None if dev_s is None else dev_s * 1e3
     device = "not measured" if busy is None else (
         f"{busy:.1%} under the profiler, device time {dev_ms:.1f} ms, "
-        f"{dev_ms / step_ms:.1%} of the median step")
+        f"{dev_ms / step_ms:.1%} of the median step, {launches} kernels")
     print(f"[{tag}] {cfg.name} train: {step_ms:.1f} ms/step (median of "
           f"steps 1-{steps - 1}), batch {batch_size} x seq {seq} in "
           f"{grad_accum} micro-batch(es), peak {peak:.2f} GiB, device busy "
@@ -3353,8 +3442,9 @@ def train_full(torch, dev, cfg, *, steps: int, tag: str, watch,
     del params, opt_state, step_fn
     free_card(torch)
     return {"step_ms": step_ms, "steps_ms": ms, "peak_gib": peak,
-            "busy": busy, "device_ms": dev_ms, "counts": counts,
-            "grad_accum": grad_accum, "batch": batch_size, "seq": seq}
+            "busy": busy, "device_ms": dev_ms, "launches": launches,
+            "counts": counts, "grad_accum": grad_accum, "batch": batch_size,
+            "seq": seq}
 
 
 def ln_train(torch, dev) -> tuple:
@@ -3923,6 +4013,253 @@ def phase_deepseek(torch, dev) -> tuple[list[dict], dict]:
     return rows, {"invariant": inv, "serve": serve, "train": train,
                   "update_dw": update_dw}
 
+# ---------------------------------------------------------------------------
+# Phase 8j: xlstm-1.3b at full width and depth, served hand-wired and trained
+# ---------------------------------------------------------------------------
+def xl_prompt(torch, cfg, params, toks, S: int) -> dict:
+    """``lm.prefill`` of ``toks[:, :S]`` and one ``lm.decode_step`` for each
+    later token, against ``lm.forward`` of all of ``toks``: the logits' rel
+    L2 at each step.  Then every layer's cache leaves (the recurrent state
+    and the conv window) after the last decode step against the leaves
+    ``lm.prefill`` of all of ``toks`` hands off: the worst layer's rel L2
+    by kind and leaf.  Returns {"logits", "state"}."""
+    from repro_torch.models import lm
+
+    total = toks.shape[1]
+    with torch.no_grad():
+        full = lm.forward(cfg, params, {"tokens": toks})[0]
+        want = full[:, S - 1:].clone()
+        del full
+        check(bool(torch.isfinite(want).all()), f"S {S}: non-finite logits")
+        cache, got = lm.prefill(cfg, params, {"tokens": toks[:, :S]},
+                                max_len=total)
+        rel = [rel_l2(got, want[:, 0])]
+        for pos in range(S, total):
+            got, cache = lm.decode_step(cfg, params, cache, toks[:, pos])
+            rel.append(rel_l2(got, want[:, pos - S + 1]))
+        ref, _ = lm.prefill(cfg, params, {"tokens": toks}, max_len=total)
+        check(int(cache["pos"]) == int(ref["pos"]) == total,
+              f"S {S}: cache positions {int(cache['pos'])}, "
+              f"{int(ref['pos'])}")
+        state: dict = {}
+        for (run, a), (_run, b) in zip(lm.layer_params(cfg, cache),
+                                       lm.layer_params(cfg, ref)):
+            for name in a:
+                key = f"{run.kind}.{name}"
+                state[key] = max(state.get(key, 0.0), rel_l2(a[name],
+                                                             b[name]))
+    return {"logits": rel, "state": state}
+
+
+def xl_invariant(torch, dev, cfg, params, gen) -> dict:
+    """``xl_prompt`` on two prompts of S + XL_DECODE tokens for each S of
+    XL_PROMPTS and XL_SHORT, the logits within LOGITS_REL_L2 and the
+    handed-off state within XL_STATE_REL; and the forward at 1 x XL_LONG,
+    finite."""
+    from repro_torch.models import lm
+
+    def form(S):
+        return "chunks of 256" if S % 256 == 0 else "one chunk"
+    runs = {}
+    for S in (*XL_PROMPTS, XL_SHORT):
+        toks = torch.randint(1, cfg.vocab_size, (2, S + XL_DECODE),
+                             generator=gen, device=dev, dtype=torch.int32)
+        r = runs[S] = xl_prompt(torch, cfg, params, toks, S)
+        print(f"[xlstm] lm.prefill({S}) (mLSTM in {form(S)}) and "
+              f"{XL_DECODE} lm.decode_steps against lm.forward("
+              f"{S + XL_DECODE}) ({form(S + XL_DECODE)}), 2 prompts: rel "
+              f"L2 by step " + ", ".join(f"{x:.3e}" for x in r["logits"])
+              + f" (limit {LOGITS_REL_L2}); each layer's state after them "
+              f"against lm.prefill({S + XL_DECODE})'s, worst layer: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in r["state"].items())
+              + f" (limit {XL_STATE_REL})", flush=True)
+    check(max(max(r["logits"]) for r in runs.values()) <= LOGITS_REL_L2,
+          f"prefill/decode off the forward: "
+          f"{ {S: r['logits'] for S, r in runs.items()} }")
+    check(max(max(r["state"].values()) for r in runs.values())
+          <= XL_STATE_REL, f"decode's state off prefill(S + "
+          f"{XL_DECODE})'s: { {S: r['state'] for S, r in runs.items()} }")
+    with torch.no_grad():
+        toks = torch.randint(1, cfg.vocab_size, (1, XL_LONG), generator=gen,
+                             device=dev, dtype=torch.int32)
+        t0 = time.perf_counter()
+        long_ok = bool(torch.isfinite(
+            lm.forward(cfg, params, {"tokens": toks})[0]).all())
+        long_s = time.perf_counter() - t0
+    print(f"[xlstm] forward at 1 x {XL_LONG} ({XL_LONG // 256} mLSTM "
+          f"chunks) finite: {long_ok}, {long_s:.1f}s", flush=True)
+    check(long_ok, f"non-finite logits at 1 x {XL_LONG}")
+    return {"runs": runs, "long_s": long_s}
+
+
+def xl_slstm_cost(torch, dev, cfg, train: dict) -> dict:
+    """The sLSTM layers' share of a train step: one sLSTM block (norm1,
+    the sLSTM loop, its FFN, the residual) at the step's shape under
+    remat, as the step runs it (forward, then the backward's recompute
+    and backward), on seeded weights and input; its wall time (median of
+    2 after a warm-up) and, from a device-only trace, its device time and
+    kernels; each times the config's sLSTM layers, beside the step's."""
+    import dataclasses
+
+    from torch.utils.checkpoint import checkpoint
+
+    from repro_torch import tree as tree_mod
+    from repro_torch.configs import SLSTM
+    from repro_torch.models import lm
+
+    n_layers = sum(r.count for r in lm.layer_runs(cfg) if r.kind == SLSTM)
+    one = dataclasses.replace(cfg, num_layers=1, block_pattern=(SLSTM,))
+    run = lm.layer_runs(one)[0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    lp = tree_mod.map_tree(lambda t: t.detach().requires_grad_(
+        t.is_floating_point()), lm.init(one, gen, device=dev)[run.name])
+    shape = (train["batch"], train["seq"], cfg.d_model)
+    dt = lm.torch_dtype(cfg.dtype)
+    x = torch.randn(shape, generator=gen, device=dev).to(dt) \
+        .requires_grad_()
+    dy = torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    def layer():
+        y, _aux, _c = checkpoint(lm.block_apply_seq, one, run, lp, x,
+                                 use_reentrant=False)
+        y.backward(dy)
+        for t in (x, *tree_mod.leaves(lp)):
+            t.grad = None
+
+    ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        layer()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    layer_ms = statistics.median(ms[1:])
+    _busy, dev_s, launches = device_events(torch, layer,
+                                           "one sLSTM layer, fwd+bwd")
+    step_ms, step_launches = train["step_ms"], train["launches"]
+    out = {"layers": n_layers, "layer_ms": layer_ms,
+           "layer_device_ms": None if dev_s is None else dev_s * 1e3,
+           "layer_launches": launches,
+           "share": n_layers * layer_ms / step_ms,
+           "launches": None if launches is None else n_layers * launches}
+    rest = ("not measured" if step_launches is None or launches is None
+            else f"{step_launches - n_layers * launches} kernels for the "
+            f"rest of the step ({step_launches} in all)")
+    print(f"[xlstm] one sLSTM layer at {shape[0]} x {shape[1]} under remat "
+          f"(forward, recompute, backward): {layer_ms:.1f} ms (runs "
+          + ", ".join(f"{v:.1f}" for v in ms) + f"), device "
+          + ("not measured" if dev_s is None else f"{dev_s * 1e3:.1f} ms")
+          + f", {launches} kernels; x {n_layers} layers: "
+          f"{n_layers * layer_ms:.1f} ms of the {step_ms:.1f} ms step "
+          f"({out['share']:.1%}), {out['launches']} kernels; {rest}",
+          flush=True)
+    del lp, x, dy
+    free_card(torch)
+    return out
+
+
+def xl_update_singles(torch, dev, cfg, fplan, tokens: int, seed: int
+                      ) -> dict:
+    """``cfg``'s ``plan_update_fusion`` plan (AdamW singles and no dW
+    chain) compiled and run once with the counters reset on seeded state,
+    each single's p, m, v bitwise against its plain version on the same
+    inputs."""
+    from repro_torch.core import executor
+    from repro_torch.kernels import adam, cuda, registry
+    from repro_torch.models import lm
+    from repro_torch.train import train_loop as tl
+
+    graph, layout = tl.update_graph(lm.abstract_params(cfg), tokens=tokens,
+                                    max_tensors=8, include_dW=True)
+    ops = [gop.op for gop in fplan.graph]
+    want = {f"adamw_run{r:02d}_mlstm____rec____{w}"
+            for r in (0, 8, 16, 24) for w in ("w_up", "w_v")}
+    check(not any(op.chain for op in ops) and {op.name for op in ops}
+          == want, f"expected eight AdamW singles {sorted(want)}, got "
+          f"{[op.name for op in ops]}")
+    program = executor.compile_plan(fplan)
+    st = _update_dw_state(torch, dev, fplan, graph, layout, seed)
+    names = ("scalars", "p", "g", "m", "v")
+    before = {op.name: [st[f"{op.name}.{n}"].clone() for n in names]
+              for op in ops}
+    kernels = registry()
+    torch.cuda.synchronize()
+    cuda.reset_counts(kernels)
+    program(st)
+    torch.cuda.synchronize()
+    counts = {k.name: k.launches for k in kernels}
+    check(counts["adamw_member"] > 0 and counts["bundle_launcher"] > 0
+          and counts["row_member"] == 0, f"update launches {counts}")
+    for op in ops:
+        sc, *rest = before.pop(op.name)
+        mb = op.member
+        plain = adam.plain_adamw(sc[:1], *rest, b1=mb.b1, b2=mb.b2,
+                                 eps=mb.eps, wd=mb.wd)
+        for n, w in zip(("p", "m", "v"), plain):
+            check(torch.equal(st[f"{op.name}.{n}"], w),
+                  f"{op.name}.{n} differs from the plain AdamW")
+    print(f"[xlstm] {cfg.name} update plan ({program.describe()}): "
+          f"{len(ops)} AdamW singles of "
+          + ", ".join(f"{op.member.R * 128:,}" for op in ops)
+          + f" elements, each p, m, v bitwise equal to its plain version; "
+          f"launches {counts}", flush=True)
+    del st
+    free_card(torch)
+    return {"counts": counts}
+
+
+def phase_xlstm(torch, dev) -> tuple[list[dict], dict]:
+    from repro_torch import tree as tree_mod
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.train import train_loop as tl
+
+    cfg = get_config(XL_ARCH)
+    check(cfg.num_layers == 48 and cfg.d_model == 2048 and cfg.d_ff == 0
+          and cfg.vocab_size == 50304, "not full width and depth")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = lm.init(cfg, gen, device=dev)
+    n_params = sum(t.numel() for t in tree_mod.leaves(params))
+    check(n_params == lm.count_params(cfg) == 2_901_496_144,
+          f"{n_params:,} params")
+    print(f"[xlstm] {cfg.name}: {cfg.num_layers} layers in runs "
+          f"{[(r.name, r.count) for r in lm.layer_runs(cfg)][:3]}... "
+          f"({len(lm.layer_runs(cfg))} runs), {n_params:,} params, "
+          f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB, set up in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    walls = {}
+    t0 = time.perf_counter()
+    inv = xl_invariant(torch, dev, cfg, params, gen)
+    walls["invariant"] = time.perf_counter() - t0
+    free_card(torch)
+    t0 = time.perf_counter()
+    serve = hand_wired_serve(torch, dev, cfg, params, XL_SERVE_PROMPTS,
+                             XL_NEW, XL_MAX_LEN, "xlstm")
+    walls["serve"] = time.perf_counter() - t0
+    del params
+    free_card(torch)
+    t0 = time.perf_counter()
+    train = train_full(
+        torch, dev, cfg, steps=XL_TRAIN_STEPS, tag="xlstm",
+        watch=lambda path: path[-1] in XL_WATCH, profiler=device_events)
+    walls["train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    slstm = xl_slstm_cost(torch, dev, cfg, train)
+    walls["slstm"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fplan = tl.plan_update_fusion(lm.abstract_params(cfg),
+                                  tokens=XL_DW_TOKENS)
+    update = xl_update_singles(torch, dev, cfg, fplan, XL_DW_TOKENS, 31)
+    walls["update"] = time.perf_counter() - t0
+    print("[xlstm] wall s: " + ", ".join(f"{k} {v:.1f}"
+                                         for k, v in walls.items()),
+          flush=True)
+    return [], {"invariant": inv, "serve": serve, "train": train,
+                "slstm": slstm, "update_dw": update, "walls": walls}
+
 
 def main() -> int:
     import torch
@@ -3962,7 +4299,7 @@ def main() -> int:
     # 2b. paper suite, 3. serve kernels, 4. adamw, 5. measured plan,
     # 6. update bundles, 6b. update+dW, 7. train, 8. serve, 8b. paged,
     # 8c. moe, 8d. ops, 8e. wavefront, 8f. fallback, 8g. layernorm,
-    # 8h. recurrent, 8i. deepseek;
+    # 8h. recurrent, 8i. deepseek, 8j. xlstm;
     # each phase's wall time is printed before the report
     walls = {}
 
@@ -3996,8 +4333,10 @@ def main() -> int:
     rg_rows, rg = timed("recurrent", phase_recurrent, torch, dev)
     free_card(torch)
     ds_rows, ds = timed("deepseek", phase_deepseek, torch, dev)
+    free_card(torch)
+    xl_rows, xl = timed("xlstm", phase_xlstm, torch, dev)
     rows += (paged_rows + moe_rows + ops_rows + wave_rows + ln_rows + rg_rows
-             + ds_rows)
+             + ds_rows + xl_rows)
     print("[phases] wall s: " + ", ".join(f"{k} {v:.1f}"
                                          for k, v in walls.items()))
 
@@ -4016,7 +4355,10 @@ def main() -> int:
             "recurrent_update_dw": rg["update_dw"]["counts"],
             "deepseek_serve": ds["serve"]["counts"],
             "deepseek_train": ds["train"]["counts"],
-            "deepseek_update_dw": ds["update_dw"]["counts"]}
+            "deepseek_update_dw": ds["update_dw"]["counts"],
+            "xlstm_serve": xl["serve"]["counts"],
+            "xlstm_train": xl["train"]["counts"],
+            "xlstm_update_dw": xl["update_dw"]["counts"]}
     for r in rows:
         kernel = r.pop("kernel").name
         r["launches"] = runs[r.pop("path")][kernel]
@@ -4095,6 +4437,22 @@ def main() -> int:
           f"{dt['counts']['adamw_member']} and bundle launches "
           f"{dt['counts']['bundle_launcher']}; update+dW row_member "
           f"{ds['update_dw']['counts']['row_member']} ({smi})")
+    xt, xs, xi = xl["train"], xl["slstm"], xl["invariant"]["runs"]
+    busy = "not measured" if xt["busy"] is None else \
+        f"{xt['busy']:.1%} (device {xt['device_ms']:.1f} ms a step)"
+    print(f"[xlstm] {XL_ARCH} at full width and depth: prefill/decode "
+          f"against forward worst rel L2 "
+          f"{max(max(r['logits']) for r in xi.values()):.3e}, handed-off "
+          f"state worst {max(max(r['state'].values()) for r in xi.values()):.3e}"
+          f"; hand-wired serve {xl['serve']['tokens_per_s']:.3f} tokens/s; "
+          f"train {xt['step_ms']:.1f} ms/step (batch {xt['batch']} x seq "
+          f"{xt['seq']}), peak {xt['peak_gib']:.2f} GiB, busy {busy}, "
+          f"{xt['launches']} kernels a step, of them the {xs['layers']} "
+          f"sLSTM layers {xs['launches']} and {xs['share']:.1%} of the "
+          f"step; adamw_member {xt['counts']['adamw_member']} and bundle "
+          f"launches {xt['counts']['bundle_launcher']}; update plan "
+          f"adamw_member {xl['update_dw']['counts']['adamw_member']} "
+          f"({smi})")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

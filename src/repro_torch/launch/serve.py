@@ -24,8 +24,10 @@ it the launcher prints the refusal and exits 1).  So is the hybrid
 ``--arch recurrentgemma-2b`` (RG-LRU blocks and local attention; the
 program serves a single global-attention run only), and so is
 ``--arch deepseek-v2-236b`` (MLA blocks, a dense first layer, then MoE
-layers: ``--scale full --layers 8 --hand-wired`` fits one card); ``--layers
-N`` keeps the first N block kinds (``cut_depth``).  The flags keep the
+layers: ``--scale full --layers 8 --hand-wired`` fits one card), and so is
+``--arch xlstm-1.3b`` (mLSTM and sLSTM blocks without an FFN, 7:1; all 48
+layers fit one card: ``--scale full --hand-wired``); ``--layers N`` keeps
+the first N block kinds (``cut_depth``).  The flags keep the
 reference launcher's names and checks; the port plans by default, and
 ``--plan-fusion`` names that default.
 """

@@ -8,9 +8,11 @@
 
 ``--arch`` takes every config the port registers: granite-3-2b, the
 LayerNorm configs stablelm-3b, starcoder2-7b and minitron-8b, the hybrid
-recurrentgemma-2b (RG-LRU blocks and local attention), and the MoE configs
-phi3.5-moe and deepseek-v2-236b (MLA blocks, a dense first layer, 160
-experts top-6 with shared experts), whose full depth does not fit one card.
+recurrentgemma-2b (RG-LRU blocks and local attention), xlstm-1.3b (mLSTM
+and sLSTM blocks without an FFN; ``--scale smoke --device cpu`` on the
+CPU), and the MoE configs phi3.5-moe and deepseek-v2-236b (MLA blocks, a
+dense first layer, 160 experts top-6 with shared experts), whose full depth
+does not fit one card.
 ``--scale smoke`` trains the reduced config; ``--scale full`` trains the
 full-width, full-depth model on one card with remat (the port has no
 production mesh: tensor parallelism is ROADMAP item 5).  Weights are random,

@@ -1,11 +1,13 @@
 """LM assembly for the block kinds the port serves and trains: global
 attention, local (sliding-window) attention, multi-head latent attention
-(``models/mla.py``) and the RG-LRU recurrent block (``models/rglru.py``),
-in any number of runs, each block with RMSNorm or LayerNorm and a dense FFN
-(the run at layer 0 of ``dense_d_ff_first`` width where the config sets
-it) or an MoE FFN (``models/moe.py``): the train forward and loss, and the
-hand-wired serve entry points ``prefill`` and ``decode_step`` (the
-reference's oracle for the executed decode program).
+(``models/mla.py``), the RG-LRU recurrent block (``models/rglru.py``) and
+the xLSTM's mLSTM and sLSTM blocks (``models/xlstm.py``), in any number of
+runs, each block with RMSNorm or LayerNorm and a dense FFN (the run at
+layer 0 of ``dense_d_ff_first`` width where the config sets it), an MoE
+FFN (``models/moe.py``) or, where ``d_ff`` is 0, none (no ``norm2`` and no
+``mlp``: the xLSTM blocks carry their own projections): the train forward
+and loss, and the hand-wired serve entry points ``prefill`` and
+``decode_step`` (the reference's oracle for the executed decode program).
 
 Parameters are plain nested dicts of tensors with the JAX package's tree
 and layouts: weights stay ``(K, N)``, a run of ``count > 1`` identical
@@ -13,9 +15,12 @@ layers stacks its leaves on a leading ``(L, ...)`` axis, and the cache is
 per kind: ``(B, S, Hkv, D)`` k/v for global attention, a ring of
 ``min(local_window, max_len)`` rows for local attention, ``latent`` (B, S,
 kv_lora) and ``rope`` (B, S, rope) for MLA, ``h`` (B, W) fp32 and ``conv``
-(B, K - 1, W) for RG-LRU.  ``params_from_numpy`` takes the
-JAX package's params as numpy arrays, so both packages compute with the
-same weights in the tests.
+(B, K - 1, W) for RG-LRU, the fp32 state ``C`` (B, H, dk, dv), ``n`` (B, H,
+dk), ``m`` (B, H) and ``conv`` (B, K - 1, f) for the mLSTM, and ``c``,
+``n``, ``m``, ``h`` (B, d) fp32 and ``conv`` (B, K - 1, d) for the sLSTM;
+``init_cache`` fills every ``m`` leaf with ``xlstm.NEG``, the rest with
+zeros.  ``params_from_numpy`` takes the JAX package's params as numpy
+arrays, so both packages compute with the same weights in the tests.
 
 Local attention's prefill handoff writes each of the last ``Wb`` positions
 p to ring slot ``p % Wb``, the slot decode reads it from.  The reference
@@ -31,10 +36,11 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ATTN, LOCAL_ATTN, MLA, RGLRU, ModelConfig
+from repro_torch.configs.base import (ATTN, LOCAL_ATTN, MLA, MLSTM, RGLRU,
+                                      SLSTM, ModelConfig)
 from repro_torch.device import resolve_device
 from repro_torch.models import layers, mla as mla_mod, moe as moe_mod
-from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import rglru as rglru_mod, xlstm as xlstm_mod
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -66,7 +72,7 @@ def layer_runs(cfg: ModelConfig) -> list[Run]:
     return runs
 
 
-SERVED_KINDS = (ATTN, LOCAL_ATTN, MLA, RGLRU)
+SERVED_KINDS = (ATTN, LOCAL_ATTN, MLA, RGLRU, MLSTM, SLSTM)
 
 
 def supported(cfg: ModelConfig) -> Optional[str]:
@@ -79,11 +85,9 @@ def supported(cfg: ModelConfig) -> Optional[str]:
     for run in layer_runs(cfg):
         if run.kind not in SERVED_KINDS:
             return (f"block kind {run.kind!r} (global attention, local "
-                    "attention, MLA and RG-LRU only)")
+                    "attention, MLA, RG-LRU, mLSTM and sLSTM only)")
     if cfg.norm not in ("rmsnorm", "layernorm"):
         return f"norm {cfg.norm!r}"
-    if not cfg.is_moe and cfg.d_ff <= 0:
-        return "no FFN"
     if cfg.activation not in ("silu", "gelu", "gelu_mlp", "relu2_mlp"):
         return f"activation {cfg.activation!r}"
     return None
@@ -120,7 +124,8 @@ def _dense_ff_width(cfg: ModelConfig, run: Run) -> int:
 
 def _block_layout(cfg: ModelConfig, run: Run) -> dict:
     """One run's block (leaves stacked ``(count, ...)`` when count > 1):
-    norm1, the sequence mixer (``attn`` or ``rec``), norm2 and the FFN."""
+    norm1, the sequence mixer (``attn`` or ``rec``), then norm2 and the
+    FFN where the block has one."""
     d, H, Hkv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
     D, f = cfg.resolved_head_dim, _dense_ff_width(cfg, run)
     gated = cfg.activation in ("silu", "gelu")
@@ -128,12 +133,18 @@ def _block_layout(cfg: ModelConfig, run: Run) -> dict:
     block = {"norm1": _norm_layout(cfg, lead)}
     if run.kind == RGLRU:
         block["rec"] = _stacked(rglru_mod.spec(cfg), lead)
+    elif run.kind == MLSTM:
+        block["rec"] = _stacked(xlstm_mod.mlstm_spec(cfg), lead)
+    elif run.kind == SLSTM:
+        block["rec"] = _stacked(xlstm_mod.slstm_spec(cfg), lead)
     elif run.kind == MLA:
         block["attn"] = _stacked(mla_mod.spec(cfg), lead)
     else:
         block["attn"] = {
             "w_qkv": (lead + (d, (H + 2 * Hkv) * D), "normal", None),
             "w_o": (lead + (H * D, d), "out_proj", None)}
+    if not run.is_moe and cfg.d_ff == 0:
+        return block                # no FFN (the reference's ``_ffn_spec``)
     block["norm2"] = _norm_layout(cfg, lead)
     if run.is_moe:
         block["moe"] = _stacked(moe_mod.spec(cfg), lead)
@@ -289,22 +300,32 @@ def _cache_leaf_shapes(cfg: ModelConfig, run: Run, B: int,
         m = cfg.mla
         return {"latent": ((B, max_len, m.kv_lora_rank), dt),
                 "rope": ((B, max_len, m.qk_rope_head_dim), dt)}
+    f32, K = torch.float32, cfg.conv1d_width
     if run.kind == RGLRU:
         W = cfg.lru_width or cfg.d_model
-        return {"h": ((B, W), torch.float32),
-                "conv": ((B, cfg.conv1d_width - 1, W), dt)}
+        return {"h": ((B, W), f32), "conv": ((B, K - 1, W), dt)}
+    if run.kind == MLSTM:
+        f, _qk, H, dk, dv = xlstm_mod.mlstm_dims(cfg)
+        return {"C": ((B, H, dk, dv), f32), "n": ((B, H, dk), f32),
+                "m": ((B, H), f32), "conv": ((B, K - 1, f), dt)}
+    if run.kind == SLSTM:
+        d = cfg.d_model
+        return {"c": ((B, d), f32), "n": ((B, d), f32), "m": ((B, d), f32),
+                "h": ((B, d), f32), "conv": ((B, K - 1, d), dt)}
     raise ValueError(run.kind)
 
 
 def init_cache(cfg: ModelConfig, B: int, max_len: int, device=None) -> dict:
-    """Zero cache: ``{"pos": () i32, run: leaves}``, a run's leaves
-    ``_cache_leaf_shapes``'s, led by ``count`` when the run stacks."""
+    """Fresh cache: ``{"pos": () i32, run: leaves}``, a run's leaves
+    ``_cache_leaf_shapes``'s, led by ``count`` when the run stacks; every
+    leaf zeros but the xLSTM stabilizers ``m``, ``xlstm.NEG``."""
     dev = resolve_device(device)
     cache: dict = {"pos": torch.zeros((), dtype=torch.int32, device=dev)}
     for run in layer_runs(cfg):
         lead = (run.count,) if run.count > 1 else ()
         cache[run.name] = {
-            k: torch.zeros(lead + shape, dtype=dt, device=dev)
+            k: torch.full(lead + shape, xlstm_mod.NEG if k == "m" else 0,
+                          dtype=dt, device=dev)
             for k, (shape, dt) in _cache_leaf_shapes(cfg, run, B,
                                                       max_len).items()}
     return cache
@@ -376,7 +397,8 @@ def block_attention_seq(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     """The attention half of an attention block over a whole sequence
     (``local``: the sliding window of ``cfg.local_window``): x (B, S, d)
     -> (x after attention and its residual, that x's norm2 (the FFN's
-    input), k, v (B, S, Hkv, D) after rope)."""
+    input; None for a block without an FFN), k, v (B, S, Hkv, D) after
+    rope)."""
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)[None, :]
     h = layers.apply_norm(cfg, p["norm1"], x)
@@ -388,7 +410,20 @@ def block_attention_seq(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     else:
         o = layers.blockwise_attention(q, k, v, causal=True)
     x = x + o.reshape(B, S, -1) @ p["attn"]["w_o"]
-    return x, layers.apply_norm(cfg, p["norm2"], x), k, v
+    h2 = layers.apply_norm(cfg, p["norm2"], x) if "norm2" in p else None
+    return x, h2, k, v
+
+
+def _ffn_residual(cfg: ModelConfig, p: dict, x: torch.Tensor, h2=None):
+    """The block's second half: x + FFN(norm2(x)) and the FFN's auxiliary
+    loss (``h2``: norm2(x) when the caller has it); x itself and loss 0
+    for a block without an FFN."""
+    if "norm2" not in p:
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    if h2 is None:
+        h2 = layers.apply_norm(cfg, p["norm2"], x)
+    ff, aux = _apply_ffn(cfg, p, h2)
+    return x + ff, aux
 
 
 def block_apply_seq(cfg: ModelConfig, run: Run, p: dict, x: torch.Tensor,
@@ -399,15 +434,15 @@ def block_apply_seq(cfg: ModelConfig, run: Run, p: dict, x: torch.Tensor,
     ``{"k", "v"}`` (B, max_len or S, Hkv, D), the sequence's rows first;
     local attention's ring of ``min(local_window, max_len or S)`` rows;
     MLA's ``{"latent", "rope"}`` (B, max_len or S, .), rows first;
-    RG-LRU's ``{"h", "conv"}``."""
+    RG-LRU's ``{"h", "conv"}``; the mLSTM's ``{"C", "n", "m", "conv"}``
+    and the sLSTM's ``{"c", "n", "m", "h", "conv"}``."""
     S = x.shape[1]
-    cache = None
+    cache, h2 = None, None
     if run.kind == MLA:
         positions = torch.arange(S, device=x.device)[None, :]
         out, (latent, k_rope) = mla_mod.attend_full(
             cfg, p["attn"], layers.apply_norm(cfg, p["norm1"], x), positions)
         x = x + out
-        h2 = layers.apply_norm(cfg, p["norm2"], x)
         if want_cache:
             cache = {"latent": cache_rows(latent, max_len or S),
                      "rope": cache_rows(k_rope, max_len or S)}
@@ -415,9 +450,19 @@ def block_apply_seq(cfg: ModelConfig, run: Run, p: dict, x: torch.Tensor,
         y, (h_last, conv_tail) = rglru_mod.apply_train(
             cfg, p["rec"], layers.apply_norm(cfg, p["norm1"], x))
         x = x + y
-        h2 = layers.apply_norm(cfg, p["norm2"], x)
         if want_cache:
             cache = {"h": h_last.clone(), "conv": conv_tail.clone()}
+    elif run.kind in (MLSTM, SLSTM):
+        mlstm = run.kind == MLSTM
+        apply = (xlstm_mod.mlstm_apply_train if mlstm
+                 else xlstm_mod.slstm_apply_train)
+        y, (state, conv_tail) = apply(
+            cfg, p["rec"], layers.apply_norm(cfg, p["norm1"], x))
+        x = x + y
+        if want_cache:
+            names = ("C", "n", "m") if mlstm else ("c", "n", "m", "h")
+            cache = dict(zip(names, state))
+            cache["conv"] = conv_tail.clone()
     else:
         local = run.kind == LOCAL_ATTN
         x, h2, k, v = block_attention_seq(cfg, p, x, local=local)
@@ -428,8 +473,8 @@ def block_apply_seq(cfg: ModelConfig, run: Run, p: dict, x: torch.Tensor,
             else:
                 cache = {"k": cache_rows(k, max_len or S),
                          "v": cache_rows(v, max_len or S)}
-    ff, aux = _apply_ffn(cfg, p, h2)
-    return x + ff, aux, cache
+    x, aux = _ffn_residual(cfg, p, x, h2)
+    return x, aux, cache
 
 
 def forward(cfg: ModelConfig, params: dict, batch: dict, *,
@@ -472,8 +517,8 @@ def block_apply_decode(cfg: ModelConfig, run: Run, p: dict, x: torch.Tensor,
     end the last row, as the reference's clamped update does), local
     attention's ring slot ``pos % W`` (it attends ``min(pos + 1, W)``
     rows), MLA's latent and rope rows ``pos`` (clamped likewise; the
-    absorbed path), RG-LRU's state and conv window.  Returns (x_out,
-    cache)."""
+    absorbed path), RG-LRU's and the xLSTM blocks' state and conv window.
+    Returns (x_out, cache)."""
     B = x.shape[0]
     h = layers.apply_norm(cfg, p["norm1"], x)
     if run.kind == MLA:
@@ -487,6 +532,18 @@ def block_apply_decode(cfg: ModelConfig, run: Run, p: dict, x: torch.Tensor,
         out, h_new, conv = rglru_mod.apply_decode(cfg, p["rec"], h,
                                                   cache["h"], cache["conv"])
         cache["h"].copy_(h_new)
+        cache["conv"].copy_(conv)
+        x = x + out
+    elif run.kind in (MLSTM, SLSTM):
+        if run.kind == MLSTM:
+            names, apply = ("C", "n", "m"), xlstm_mod.mlstm_apply_decode
+        else:
+            names, apply = ("c", "n", "m", "h"), xlstm_mod.slstm_apply_decode
+        out, state, conv = apply(cfg, p["rec"], h,
+                                 tuple(cache[k] for k in names),
+                                 cache["conv"])
+        for k, t in zip(names, state):
+            cache[k].copy_(t)
         cache["conv"].copy_(conv)
         x = x + out
     else:
@@ -506,15 +563,14 @@ def block_apply_decode(cfg: ModelConfig, run: Run, p: dict, x: torch.Tensor,
         vc.index_copy_(1, row, v.to(vc.dtype))
         o = layers.decode_attention(q, kc, vc, cur)
         x = x + o.reshape(B, 1, -1) @ p["attn"]["w_o"]
-    ff, _aux = _apply_ffn(cfg, p, layers.apply_norm(cfg, p["norm2"], x))
-    return x + ff, cache
+    return _ffn_residual(cfg, p, x)[0], cache
 
 
 def prefill(cfg: ModelConfig, params: dict, batch: dict, max_len: int):
     """Whole prompts ``batch["tokens"]`` (B, S) -> (cache, the last
     position's fp32 logits (B, V)); the cache is ``init_cache``'s layout at
     ``max_len`` rows with ``pos`` = S: global attention's k/v first, local
-    attention's ring, RG-LRU's last state and conv window."""
+    attention's ring, the recurrent blocks' last state and conv window."""
     x = _embed_inputs(cfg, params, batch["tokens"])
     S = x.shape[1]
     per_run: dict = {}

@@ -46,7 +46,12 @@ Two oracles beside it, as in the reference:
     kernel of the port, so on the card it is the executor-free oracle.
     It is also how the LayerNorm configs are served: the program's norm
     member is RMSNorm only, so, as in the reference, a planned engine over
-    one keeps the hand-wired step (on the card it refuses instead).
+    one keeps the hand-wired step (on the card it refuses instead); and so
+    are recurrentgemma-2b, deepseek-v2-236b and xlstm-1.3b, whose layers
+    are not one global-attention run.  The slot cache carries any run's
+    leaves by name (k/v, latent/rope, the recurrent states and conv
+    windows), and ``lm.init_cache`` fills each xLSTM stabilizer ``m`` with
+    ``xlstm.NEG``.
 
 Differences from the reference, by design:
   * the KV cache (contiguous or arena) is updated IN PLACE (the reference
@@ -282,8 +287,14 @@ def executable_decode_supported(cfg: ModelConfig) -> Optional[str]:
 
 
 def _ffn_in_width(cfg: ModelConfig) -> int:
-    """Width of the decode step's FFN in-projection: gated activations fuse
-    gate and up into one (d, 2f) weight."""
+    """Width of the decode step's FFN in-projection, the reference's rule:
+    the router's ``num_experts`` when the model routes, ``d_model`` for a
+    block without an FFN (``d_ff <= 0``), else the real ``w_in`` (gated
+    activations fuse gate and up into one (d, 2f) weight)."""
+    if cfg.moe is not None:
+        return cfg.moe.num_experts
+    if cfg.d_ff <= 0:
+        return cfg.d_model
     return 2 * cfg.d_ff if cfg.activation in ("silu", "gelu") else cfg.d_ff
 
 
@@ -339,7 +350,8 @@ class ServeEngine:
     hand-wired fallback (``plan_fusion=False``).  ``executed`` says
     whether the decode step runs through the planned program.  A planned
     engine over a config the program does not serve (LayerNorm, a hybrid
-    of RG-LRU and local-attention runs, or MLA runs), and a
+    of RG-LRU and local-attention runs, MLA runs, or mLSTM and sLSTM runs),
+    and a
     planned wavefront engine over a stacked or MoE config, keep the
     hand-wired step with the reference's notice on the CPU (the fallback
     graph still planned), and refuse on the card.
@@ -528,6 +540,7 @@ class ServeEngine:
         S = self.cache_len if self.paged_kv else self._aligned_len()
         B = self.batch
         bt = (self.kv_blocks, self.kv_block_size) if self.paged_kv else None
+        ffn_in = _ffn_in_width(cfg)
 
         norm1 = dataclasses.replace(rmsnorm_op(R=B, d=d, dtype=dt, bm=B),
                                     name="decode_norm1")
@@ -543,10 +556,12 @@ class ServeEngine:
         if executable_decode_supported(cfg) is not None:
             # the reference's fallback graph for a config the program does
             # not serve: QKV and the activation stay glue, norm2 reads
-            # norm1's output beside attention's, and the projection is the
-            # dense-width product (named moe_router when the model routes)
+            # norm1's output beside attention's, and the projection is
+            # ``_ffn_in_width`` wide in the model dtype (named moe_router,
+            # num_experts wide, when the model routes; d_model wide for a
+            # block without an FFN)
             proj = dataclasses.replace(
-                matmul_1d_op(M=B, K=d, N=_ffn_in_width(cfg), dtype=dt, bm=B),
+                matmul_1d_op(M=B, K=d, N=ffn_in, dtype=dt, bm=B),
                 name="moe_router" if cfg.moe is not None else "ffn_proj")
             graph = [planner.GraphOp(norm1),
                      planner.GraphOp(att, deps=frozenset({norm1.name})),
@@ -575,7 +590,7 @@ class ServeEngine:
                                   act=cfg.activation if gated else "gelu",
                                   gated=gated)
             else:
-                ffn_in, ffn_out = _ffn_in_width(cfg), cfg.d_ff
+                ffn_out = cfg.d_ff
                 proj = dataclasses.replace(
                     matmul_1d_op(M=B, K=d, N=ffn_in, dtype=dt, bm=B),
                     name="ffn_proj")
@@ -600,7 +615,7 @@ class ServeEngine:
             # expert FFN's in-projection, gate and up fused when gated)
             gated = cfg.activation in ("silu", "gelu")
             pf_n = ((2 if gated else 1) * cfg.moe.d_ff_expert
-                    if cfg.moe is not None else _ffn_in_width(cfg))
+                    if cfg.moe is not None else ffn_in)
             graph.append(planner.GraphOp(dataclasses.replace(
                 matmul_1d_op(M=ffn_rows, K=d, N=pf_n, dtype=dt,
                              bm=min(128, ffn_rows)),

@@ -538,12 +538,13 @@ def test_exact_dims_and_shape_table(arch):
 
 
 def test_list_archs_holds_the_six():
-    """The six configs above, recurrentgemma-2b and deepseek-v2-236b,
-    eight in all (their dims: tests/test_torch_recurrent.py and
-    tests/test_torch_mla.py)."""
+    """The six configs above, recurrentgemma-2b, deepseek-v2-236b and
+    xlstm-1.3b, nine in all (their dims: tests/test_torch_recurrent.py,
+    tests/test_torch_mla.py and tests/test_torch_xlstm_lm.py)."""
     assert list_archs() == sorted(set(EXACT_DIMS) | {"recurrentgemma-2b",
-                                                     "deepseek-v2-236b"})
-    assert len(list_archs()) == 8
+                                                     "deepseek-v2-236b",
+                                                     "xlstm-1.3b"})
+    assert len(list_archs()) == 9
 
 
 # ---------------------------------------------------------------------------
