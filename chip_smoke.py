@@ -331,15 +331,44 @@ non-zero exit code and no result line.
              singles, the w_up and w_v leaves of runs 00, 08, 16 and 24,
              no dW chain) run once with the counters reset on seeded state,
              each single's p, m, v bitwise against its plain version.
+  8k. frontends  internvl2-1b (24 layers, d_model 896, 14/2 heads, tied
+             vocabulary 151655, 256 image rows from ``pixel_embeds``;
+             0.49 B parameters) and musicgen-medium (48 layers, d_model
+             1536, 24 heads, LayerNorm, four codebooks of 2048: codes (B,
+             4, S); 1.38 B) at full width and depth, random weights, image
+             rows and codes from a seeded torch.Generator.  For 2 prompts
+             of 1020 tokens and 2 of 2048, ``lm.prefill`` and 4
+             ``lm.decode_step``s against ``lm.forward`` at the same
+             positions (musicgen: the (B, 4, V) logits), within
+             LOGITS_REL_L2; ``lm.forward`` at 1 x 4096 finite.  A planned
+             engine must refuse and name ``--hand-wired``, and a
+             hand-wired engine's ``run`` raise NotImplementedError (token
+             prompts only); greedy serving of 4 prompts of 1000 tokens
+             through ``lm.prefill`` and ``lm.serve_step_greedy``, 16 new
+             tokens (16 steps of 4 codes), with the counters reset: no
+             kernel of the port may launch; tokens/s on the host clock.
+             Each trained at batch 4 x seq 2048 as phase 8g's (3 steps,
+             the counters reset): internvl2-1b's tied embedding and all
+             four of musicgen's codebook tables and its head moved, the
+             AdamW member and the bundle launcher launched; ms per step,
+             peak memory, one profiled step's busy share.  Each
+             ``plan_update_fusion`` plan at 8192 tokens run once with the
+             counters reset on seeded state: the dW->AdamW chains (the
+             musicgen head's bf16 1536x8192 @ 8192x8192, two fp32 norm
+             chains each) bitwise against their members launched apart,
+             every AdamW single (the (4, 2048, 1536) codebook tables, the
+             tied (151655, 896) embedding among them) bitwise against its
+             plain version; the head's chain timed beside its members, its
+             plain version and its bound.  The phase's wall printed.
   9. report  one JSON line of kernels (each row also with its kernel's
              launches on every path, ``path_launches``), then the result
              line.
 
 Each main path (paper, update_dw, train, serve, paged, moe, ops, wavefront,
-fallback, and 8g's, 8h's, 8i's and 8j's serve, train and update+dW) runs
-with every launch counter reset just before it and read just after; each
-of its kernels must have launched (the fallback's, 8g's, 8h's, 8i's and
-8j's serve: none may).  Serve, moe and ops also count the activation members their
+fallback, and 8g's, 8h's, 8i's, 8j's and 8k's serve, train and update+dW)
+runs with every launch counter reset just before it and read just after;
+each of its kernels must have launched (the fallback's and 8g-8k's serve:
+none may).  Serve, moe and ops also count the activation members their
 launches carried, alone and as a chain's consumer (the row family shares
 one counter).
 
@@ -481,6 +510,23 @@ XL_WATCH = ("gate_b", "b_zifo", "r_zifo", "out_norm", "conv_w", "conv_b")
 # gates and the stabilizers by a few bf16 steps; a stale or misplaced
 # handoff (a state a step behind, a conv row out of place) is O(1) off.
 XL_STATE_REL = 5e-2
+# Phase 8k: the frontend configs at full width and depth (internvl2-1b's
+# image stub, 0.49 B parameters; musicgen-medium's four codebooks, 1.38 B;
+# no cut).  The invariant on 2 prompts of 1020 tokens and 2 of 2048, each
+# past the 256 image rows, 4 decode steps each, against one forward over
+# the next multiple of 1024 positions at or past S + 4 (the blockwise
+# attention's chunks; causal, so the later positions reach none of those
+# held); one forward at 1 x 4096; greedy serving of 4 prompts of 1000
+# tokens, 16 new tokens (16 steps of 4 codes); trained at batch 4 x seq
+# 2048; the update plan at 8192 tokens (musicgen: the head's bf16
+# dW->AdamW and two fp32 norm chains; internvl2-1b: two fp32 norm chains),
+# every AdamW single bitwise its plain version.
+FE_ARCHS = ("internvl2-1b", "musicgen-medium")
+FE_PROMPTS, FE_DECODE, FE_LONG = (1020, 2048), 4, 4096
+FE_SERVE_BATCH, FE_SERVE_PROMPT, FE_NEW = 4, 1000, 16
+FE_TRAIN_STEPS, FE_DW_TOKENS = 3, 4 * 2048     # the train step's tokens
+FE_CHAINS = {"internvl2-1b": (0, 2), "musicgen-medium": (1, 2)}
+FE_PARAMS = {"internvl2-1b": 493_753_344, "musicgen-medium": 1_384_418_304}
 
 # Rows (of 128) at the end of an AdamW leaf past BIG_LEAF elements held
 # against the plain AdamW after the update+dW program.
@@ -3351,14 +3397,18 @@ def ln_norm(torch, dev) -> float:
 
 def train_full(torch, dev, cfg, *, steps: int, tag: str, watch,
                grad_accum: int = 1, batch_size: int = TRAIN_BATCH,
-               seq: int = TRAIN_SEQ, profiler=device_profile) -> tuple:
+               seq: int = TRAIN_SEQ, profiler=device_profile,
+               groups: dict | None = None) -> tuple:
     """``cfg`` at full width, batch_size x seq (TRAIN_BATCH x TRAIN_SEQ
     unless given; ``grad_accum`` micro-batches a step): ``steps`` steps with
     remat, fp32 moments and the update program (``build_update_program``, as
     ``launch/train.py --plan-fusion``), the counters reset; finite losses,
     a grad norm > 0, and every leaf ``watch(path)`` picks moved from its
-    start in every layer; the AdamW member and the bundle launcher
-    launched.  One more step under ``profiler`` (``device_profile``, or
+    start in every layer (``groups``: path -> the leading groups that must
+    each move, such as an audio embedding's codebook tables); the AdamW
+    member and the bundle launcher launched.  The data pipeline gives the
+    config's frontend batches (codebooks, image embeddings), as
+    ``launch/train.py`` builds it.  One more step under ``profiler`` (``device_profile``, or
     ``device_events`` for a step of a million kernels) for the busy share
     and the kernels a step launches.  Returns the run's numbers."""
     from repro_torch import tree as tree_mod
@@ -3384,8 +3434,11 @@ def train_full(torch, dev, cfg, *, steps: int, tag: str, watch,
     step_fn = tl.make_train_step(cfg, tl.TrainConfig(
         optimizer=ocfg, remat=True, grad_accum=grad_accum),
         update_program=program)
-    data = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
-                                    seq_len=seq, global_batch=batch_size))
+    data = TokenPipeline(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=seq, global_batch=batch_size,
+        num_codebooks=cfg.num_codebooks if cfg.frontend == "audio_stub" else 0,
+        num_image_tokens=cfg.num_image_tokens
+        if cfg.frontend == "vision_stub" else 0, d_model=cfg.d_model))
     kernels = registry()
     torch.cuda.synchronize()
     cuda.reset_counts(kernels)
@@ -3408,10 +3461,11 @@ def train_full(torch, dev, cfg, *, steps: int, tag: str, watch,
     layers = {r.name: r.count for r in lm.layer_runs(cfg)}
     for path, leaf in tree_mod.flatten_with_paths(params):
         if path in start:
-            moved = (leaf != start[path]).reshape(
-                layers.get(path[0], 1), -1).any(dim=-1)
+            n = (groups or {}).get(path) or layers.get(path[0], 1)
+            moved = (leaf != start[path]).reshape(n, -1).any(dim=-1)
             check(bool(moved.all()), f"{'/'.join(path)} did not move in "
-                  f"{int((~moved).sum())} of {moved.numel()} layers")
+                  f"{int((~moved).sum())} of {moved.numel()} layers or "
+                  f"groups")
     for name in ("bundle_launcher", "adamw_member"):
         check(counts[name] > 0, f"{name} never launched in training")
     del start
@@ -3468,15 +3522,17 @@ def ln_train(torch, dev) -> tuple:
 
 
 def update_dw_chains(torch, dev, cfg, fplan, tokens: int, path: str,
-                     want: tuple[int, int], seed: int, tag: str
-                     ) -> tuple[list[dict], dict]:
+                     want: tuple[int, int], seed: int, tag: str,
+                     singles: bool = False) -> tuple[list[dict], dict]:
     """``cfg``'s ``plan_update_fusion`` plan (``want``: its bf16 and fp32
     dW->AdamW chains) compiled and run once with the counters reset on
     seeded state, each chain's p, m, v bitwise against its two members
     launched apart, and each AdamW update of a leaf past 2**31 elements
     bitwise against its plain version on its last TAIL_ROWS rows (the
-    elements a 32-bit offset would miss); the bf16 chain timed beside its
-    plain version, its members apart and its bound (row i of ``path``)."""
+    elements a 32-bit offset would miss; with ``singles``, every AdamW
+    single whole); the first bf16 chain, where the plan has one, timed
+    beside its plain version, its members apart and its bound (row i of
+    ``path``)."""
     from repro_torch.core import executor, hfuse
     from repro_torch.core.timing import flush_buffer, median_ms
     from repro_torch.kernels import adam, cuda, registry, row
@@ -3495,9 +3551,11 @@ def update_dw_chains(torch, dev, cfg, fplan, tokens: int, path: str,
     st = _update_dw_state(torch, dev, fplan, graph, layout, seed)
     before = {c.name: [st[f"{c.name}.{n}"].clone() for n in c.in_names]
               for c in chains}
-    big = [gop.op for gop in fplan.graph if not gop.op.chain
-           and gop.op.member.R * 128 > BIG_LEAF]
-    tails = {op.name: [st[f"{op.name}.{n}"][-TAIL_ROWS:].clone()
+    alone = [gop.op for gop in fplan.graph if not gop.op.chain]
+    big = [op for op in alone if op.member.R * 128 > BIG_LEAF or singles]
+    rows_kept = None if singles else TAIL_ROWS
+    tails = {op.name: [st[f"{op.name}.{n}"][-rows_kept:].clone()
+                       if rows_kept else st[f"{op.name}.{n}"].clone()
                        for n in ("scalars", "p", "g", "m", "v")]
              for op in big}
     kernels = registry()
@@ -3517,24 +3575,33 @@ def update_dw_chains(torch, dev, cfg, fplan, tokens: int, path: str,
                   f"{c.name}.{n} differs from its separate members")
     del before
     for op in big:
-        sc, *rest = tails[op.name]
+        sc, *rest = tails.pop(op.name)
         mb = op.member
         want = adam.plain_adamw(sc[:1], *rest, b1=mb.b1, b2=mb.b2, eps=mb.eps,
                                 wd=mb.wd)
         for n, w in zip(("p", "m", "v"), want):
-            check(torch.equal(st[f"{op.name}.{n}"][-TAIL_ROWS:], w),
-                  f"{op.name}.{n}: rows past element 2**31 differ from the "
-                  f"plain AdamW")
-    del tails
+            got = st[f"{op.name}.{n}"]
+            check(torch.equal(got[-rows_kept:] if rows_kept else got, w),
+                  f"{op.name}.{n} differs from the plain AdamW"
+                  + (" past element 2**31" if rows_kept else ""))
+        del sc, rest, want
     print(f"[{tag}] {cfg.name} update+dW program ({program.describe()}): "
           f"{len(chains)} dW->adamw chains bitwise equal to their separate "
           f"members; "
-          + (f"{len(big)} AdamW updates past 2**31 elements ("
+          + (f"{len(big)} AdamW singles (" + ", ".join(
+              f"{op.member.R * 128:,}" for op in big) + " elements) each "
+             "bitwise equal to the plain AdamW; " if singles else
+             f"{len(big)} AdamW updates past 2**31 elements ("
              + ", ".join(f"{op.member.R * 128:,}" for op in big)
              + f") bitwise equal to the plain AdamW on their last "
              f"{TAIL_ROWS} rows; " if big else "")
           + f"launches {counts}", flush=True)
-    head = next(c for c in chains if not ops[c.chain[0]].member.fp32)
+    head = next((c for c in chains if not ops[c.chain[0]].member.fp32),
+                None)
+    if head is None:
+        del st
+        free_card(torch)
+        return [], {"counts": counts}
     dw, upd = ops[head.chain[0]], ops[head.chain[1]]
     ins = [st[f"{head.name}.{n}"] for n in head.in_names]
     del st                  # the timed chain's inputs alone stay on the card
@@ -4161,52 +4228,16 @@ def xl_slstm_cost(torch, dev, cfg, train: dict) -> dict:
 
 def xl_update_singles(torch, dev, cfg, fplan, tokens: int, seed: int
                       ) -> dict:
-    """``cfg``'s ``plan_update_fusion`` plan (AdamW singles and no dW
-    chain) compiled and run once with the counters reset on seeded state,
-    each single's p, m, v bitwise against its plain version on the same
-    inputs."""
-    from repro_torch.core import executor
-    from repro_torch.kernels import adam, cuda, registry
-    from repro_torch.models import lm
-    from repro_torch.train import train_loop as tl
-
-    graph, layout = tl.update_graph(lm.abstract_params(cfg), tokens=tokens,
-                                    max_tensors=8, include_dW=True)
-    ops = [gop.op for gop in fplan.graph]
+    """``cfg``'s ``plan_update_fusion`` plan, eight AdamW singles and no
+    dW chain, through ``update_dw_chains``: each single's p, m, v bitwise
+    against its plain version."""
     want = {f"adamw_run{r:02d}_mlstm____rec____{w}"
             for r in (0, 8, 16, 24) for w in ("w_up", "w_v")}
-    check(not any(op.chain for op in ops) and {op.name for op in ops}
-          == want, f"expected eight AdamW singles {sorted(want)}, got "
-          f"{[op.name for op in ops]}")
-    program = executor.compile_plan(fplan)
-    st = _update_dw_state(torch, dev, fplan, graph, layout, seed)
-    names = ("scalars", "p", "g", "m", "v")
-    before = {op.name: [st[f"{op.name}.{n}"].clone() for n in names]
-              for op in ops}
-    kernels = registry()
-    torch.cuda.synchronize()
-    cuda.reset_counts(kernels)
-    program(st)
-    torch.cuda.synchronize()
-    counts = {k.name: k.launches for k in kernels}
-    check(counts["adamw_member"] > 0 and counts["bundle_launcher"] > 0
-          and counts["row_member"] == 0, f"update launches {counts}")
-    for op in ops:
-        sc, *rest = before.pop(op.name)
-        mb = op.member
-        plain = adam.plain_adamw(sc[:1], *rest, b1=mb.b1, b2=mb.b2,
-                                 eps=mb.eps, wd=mb.wd)
-        for n, w in zip(("p", "m", "v"), plain):
-            check(torch.equal(st[f"{op.name}.{n}"], w),
-                  f"{op.name}.{n} differs from the plain AdamW")
-    print(f"[xlstm] {cfg.name} update plan ({program.describe()}): "
-          f"{len(ops)} AdamW singles of "
-          + ", ".join(f"{op.member.R * 128:,}" for op in ops)
-          + f" elements, each p, m, v bitwise equal to its plain version; "
-          f"launches {counts}", flush=True)
-    del st
-    free_card(torch)
-    return {"counts": counts}
+    got = {gop.op.name for gop in fplan.graph}
+    check(got == want, f"expected eight AdamW singles {sorted(want)}, got "
+          f"{sorted(got)}")
+    return update_dw_chains(torch, dev, cfg, fplan, tokens, "xlstm_update_dw",
+                            (0, 0), seed, "xlstm", singles=True)[1]
 
 
 def phase_xlstm(torch, dev) -> tuple[list[dict], dict]:
@@ -4261,6 +4292,219 @@ def phase_xlstm(torch, dev) -> tuple[list[dict], dict]:
                 "slstm": slstm, "update_dw": update, "walls": walls}
 
 
+# ---------------------------------------------------------------------------
+# Phase 8k: the frontend configs (image stub, four codebooks) at full width
+# ---------------------------------------------------------------------------
+def fe_batch(torch, cfg, gen, dev, B: int, S: int) -> dict:
+    """Seeded inputs of S positions: tokens (B, S) and fp32 pixel_embeds
+    (B, n, d) for the image stub, codes (B, K, S) for the audio stub."""
+    if cfg.frontend == "audio_stub":
+        return {"tokens": torch.randint(
+            0, cfg.vocab_size, (B, cfg.num_codebooks, S), generator=gen,
+            device=dev, dtype=torch.int32)}
+    return {"tokens": torch.randint(1, cfg.vocab_size, (B, S), generator=gen,
+                                    device=dev, dtype=torch.int32),
+            "pixel_embeds": torch.randn((B, cfg.num_image_tokens,
+                                         cfg.d_model), generator=gen,
+                                        device=dev)}
+
+
+def fe_upto(batch: dict, S: int) -> dict:
+    """The batch's first S positions (the image rows stay whole)."""
+    return {k: v[..., :S] if k == "tokens" else v for k, v in batch.items()}
+
+
+def fe_prompt(torch, cfg, params, batch, S: int, new: int) -> list:
+    """``lm.prefill`` of the batch's first S positions and one
+    ``lm.decode_step`` for each of the next ``new``, against ``lm.forward``
+    of the whole batch at the same positions (attention is causal: the
+    positions after S + new reach none of them): the logits' rel L2 at
+    each step (audio: the (B, K, V) logits)."""
+    from repro_torch.models import lm
+
+    with torch.no_grad():
+        full = lm.forward(cfg, params, batch)[0]
+        want = full[:, S - 1:S + new].clone()
+        del full
+        check(bool(torch.isfinite(want).all()), f"S {S}: non-finite logits")
+        cache, got = lm.prefill(cfg, params, fe_upto(batch, S),
+                                max_len=S + new)
+        rel = [rel_l2(got, want[:, 0])]
+        for i in range(new):
+            got, cache = lm.decode_step(cfg, params, cache,
+                                        batch["tokens"][..., S + i])
+            rel.append(rel_l2(got, want[:, i + 1]))
+        check(int(cache["pos"]) == S + new,
+              f"S {S}: cache position {int(cache['pos'])}")
+    return rel
+
+
+def fe_invariant(torch, dev, cfg, params, gen) -> dict:
+    """``fe_prompt`` on 2 prompts of each FE_PROMPTS length, FE_DECODE
+    decode steps, within LOGITS_REL_L2; the forward at 1 x FE_LONG
+    finite."""
+    from repro_torch.models import lm
+
+    runs = {}
+    for S in FE_PROMPTS:
+        total = S + FE_DECODE
+        if total > 1024:
+            total = -(-total // 1024) * 1024
+        rel = runs[S] = fe_prompt(torch, cfg, params,
+                                  fe_batch(torch, cfg, gen, dev, 2, total),
+                                  S, FE_DECODE)
+        print(f"[frontends] {cfg.name}: lm.prefill({S}) and {FE_DECODE} "
+              f"lm.decode_steps against lm.forward({total}) at the same "
+              f"positions, 2 prompts: rel L2 by step "
+              + ", ".join(f"{x:.3e}" for x in rel)
+              + f" (limit {LOGITS_REL_L2})", flush=True)
+    check(max(max(r) for r in runs.values()) <= LOGITS_REL_L2,
+          f"{cfg.name}: prefill/decode off the forward: {runs}")
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        long_ok = bool(torch.isfinite(lm.forward(
+            cfg, params, fe_batch(torch, cfg, gen, dev, 1, FE_LONG))[0])
+            .all())
+        long_s = time.perf_counter() - t0
+    print(f"[frontends] {cfg.name}: forward at 1 x {FE_LONG} finite: "
+          f"{long_ok}, {long_s:.1f}s", flush=True)
+    check(long_ok, f"{cfg.name}: non-finite logits at 1 x {FE_LONG}")
+    return {"runs": runs, "long_s": long_s}
+
+
+def fe_serve(torch, dev, cfg, params, gen) -> dict:
+    """The engines refuse: a planned one on the card names --hand-wired, a
+    hand-wired one's ``run`` raises NotImplementedError (token prompts
+    only, as the reference's engines fail on these configs).  Then greedy
+    serving through ``lm.prefill`` and ``lm.serve_step_greedy``:
+    FE_SERVE_BATCH prompts of FE_SERVE_PROMPT tokens, FE_NEW new tokens
+    (audio: FE_NEW steps of K codes), with the counters reset: no kernel
+    of the port launched; tokens/s on the host clock; the codes' agreement
+    with ``lm.forward``'s greedy codes over the served sequence."""
+    from repro_torch.kernels import cuda, registry
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    max_len = FE_SERVE_PROMPT + FE_NEW
+    try:
+        ServeEngine(cfg, params, batch=FE_SERVE_BATCH, max_len=max_len,
+                    device=dev)
+        refusal = None
+    except ValueError as e:
+        refusal = str(e)
+    check(refusal is not None and "--hand-wired" in refusal,
+          f"a planned engine on the card did not refuse: {refusal}")
+    eng = ServeEngine(cfg, params, batch=FE_SERVE_BATCH, max_len=max_len,
+                      plan_fusion=False, device=dev)
+    try:
+        eng.run([Request(rid=0, prompt=list(range(1, 9)),
+                         max_new_tokens=2)])
+        run_refusal = None
+    except NotImplementedError as e:
+        run_refusal = str(e)
+    check(run_refusal is not None
+          and "the engines take token prompts only" in run_refusal,
+          f"the hand-wired engine's run did not refuse: {run_refusal}")
+    print(f"[frontends] {cfg.name}: planned engine refuses: {refusal}; "
+          f"hand-wired run refuses: {run_refusal}", flush=True)
+    batch = fe_batch(torch, cfg, gen, dev, FE_SERVE_BATCH, FE_SERVE_PROMPT)
+    kernels = registry()
+    torch.cuda.synchronize()
+    cuda.reset_counts(kernels)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cache, logits = lm.prefill(cfg, params, batch, max_len=max_len)
+        tok = lm.greedy_sample(cfg, logits)
+        out = [tok]
+        for _ in range(FE_NEW - 1):
+            tok, cache = lm.serve_step_greedy(cfg, params, cache, tok)
+            out.append(tok)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k.name: k.launches for k in kernels}
+    check(not any(counts.values()),
+          f"greedy serving launched a kernel: {counts}")
+    codes = torch.stack(out, dim=-1)            # (B, new) or (B, K, new)
+    check(tuple(codes.shape[1:-1]) == ((cfg.num_codebooks,)
+                                       if cfg.frontend == "audio_stub"
+                                       else ())
+          and bool(((codes >= 0) & (codes < cfg.vocab_size)).all()),
+          f"served codes of shape {tuple(codes.shape)}")
+    with torch.no_grad():
+        seq = dict(batch, tokens=torch.cat([batch["tokens"],
+                                            codes[..., :-1]], dim=-1))
+        full = lm.forward(cfg, params, seq)[0][:, FE_SERVE_PROMPT - 1:]
+        agree = float((lm.greedy_sample(cfg, full).movedim(1, -1)
+                       == codes).float().mean())
+        del full
+    steps = FE_SERVE_BATCH * FE_NEW
+    print(f"[frontends] {cfg.name}: greedy serving of {FE_SERVE_BATCH} x "
+          f"{FE_SERVE_PROMPT} prompts, {FE_NEW} new "
+          + (f"steps of {cfg.num_codebooks} codes" if cfg.frontend
+             == "audio_stub" else "tokens")
+          + f" in {wall:.3f}s ({steps / wall:.2f} tok/s, host clock); no "
+          f"kernel launched; agreement with lm.forward's greedy codes over "
+          f"the served sequence {agree:.3f}", flush=True)
+    return {"tokens_per_s": steps / wall, "seconds": wall, "counts": counts,
+            "agreement": agree}
+
+
+def phase_frontends(torch, dev) -> tuple[list[dict], dict]:
+    from repro_torch import tree as tree_mod
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.train import train_loop as tl
+
+    out, rows, walls = {}, [], {}
+    for arch in FE_ARCHS:
+        cfg = get_config(arch)
+        tag = "vision" if cfg.frontend == "vision_stub" else "audio"
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        params = lm.init(cfg, gen, device=dev)
+        n_params = sum(t.numel() for t in tree_mod.leaves(params))
+        check(n_params == lm.count_params(cfg) == FE_PARAMS[arch],
+              f"{arch}: {n_params:,} params")
+        print(f"[frontends] {arch} ({cfg.frontend}): {cfg.num_layers} "
+              f"layers, d {cfg.d_model}, {n_params:,} params, "
+              f"{torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB",
+              flush=True)
+        inv = fe_invariant(torch, dev, cfg, params, gen)
+        free_card(torch)
+        serve = fe_serve(torch, dev, cfg, params, gen)
+        walls[f"{tag} serve"] = time.perf_counter() - t0
+        del params
+        free_card(torch)
+        t0 = time.perf_counter()
+        if cfg.frontend == "audio_stub":
+            watch = {("embed", "embedding"), ("head", "w")}
+            groups = {("embed", "embedding"): cfg.num_codebooks}
+        else:
+            watch, groups = {("embed", "embedding")}, None
+        train = train_full(torch, dev, cfg, steps=FE_TRAIN_STEPS,
+                           tag="frontends", watch=lambda path: path in watch,
+                           groups=groups)
+        walls[f"{tag} train"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fplan = tl.plan_update_fusion(lm.abstract_params(cfg),
+                                      tokens=FE_DW_TOKENS)
+        r, update = update_dw_chains(
+            torch, dev, cfg, fplan, FE_DW_TOKENS, f"{tag}_update_dw",
+            FE_CHAINS[arch], 32, "frontends", singles=True)
+        rows += r
+        walls[f"{tag} update"] = time.perf_counter() - t0
+        out[tag] = {"arch": arch, "invariant": inv, "serve": serve,
+                    "train": train, "update_dw": update}
+    print("[frontends] wall s: " + ", ".join(f"{k} {v:.1f}"
+                                            for k, v in walls.items())
+          + f"; phase {sum(walls.values()):.1f}", flush=True)
+    serve_counts = {k: out["vision"]["serve"]["counts"][k]
+                    + out["audio"]["serve"]["counts"][k]
+                    for k in out["vision"]["serve"]["counts"]}
+    return rows, dict(out, walls=walls, serve_counts=serve_counts)
+
+
 def main() -> int:
     import torch
 
@@ -4299,7 +4543,7 @@ def main() -> int:
     # 2b. paper suite, 3. serve kernels, 4. adamw, 5. measured plan,
     # 6. update bundles, 6b. update+dW, 7. train, 8. serve, 8b. paged,
     # 8c. moe, 8d. ops, 8e. wavefront, 8f. fallback, 8g. layernorm,
-    # 8h. recurrent, 8i. deepseek, 8j. xlstm;
+    # 8h. recurrent, 8i. deepseek, 8j. xlstm, 8k. frontends;
     # each phase's wall time is printed before the report
     walls = {}
 
@@ -4335,8 +4579,10 @@ def main() -> int:
     ds_rows, ds = timed("deepseek", phase_deepseek, torch, dev)
     free_card(torch)
     xl_rows, xl = timed("xlstm", phase_xlstm, torch, dev)
+    free_card(torch)
+    fe_rows, fe = timed("frontends", phase_frontends, torch, dev)
     rows += (paged_rows + moe_rows + ops_rows + wave_rows + ln_rows + rg_rows
-             + ds_rows + xl_rows)
+             + ds_rows + xl_rows + fe_rows)
     print("[phases] wall s: " + ", ".join(f"{k} {v:.1f}"
                                          for k, v in walls.items()))
 
@@ -4358,7 +4604,12 @@ def main() -> int:
             "deepseek_update_dw": ds["update_dw"]["counts"],
             "xlstm_serve": xl["serve"]["counts"],
             "xlstm_train": xl["train"]["counts"],
-            "xlstm_update_dw": xl["update_dw"]["counts"]}
+            "xlstm_update_dw": xl["update_dw"]["counts"],
+            "frontends_serve": fe["serve_counts"],
+            "vision_train": fe["vision"]["train"]["counts"],
+            "vision_update_dw": fe["vision"]["update_dw"]["counts"],
+            "audio_train": fe["audio"]["train"]["counts"],
+            "audio_update_dw": fe["audio"]["update_dw"]["counts"]}
     for r in rows:
         kernel = r.pop("kernel").name
         r["launches"] = runs[r.pop("path")][kernel]
@@ -4453,6 +4704,22 @@ def main() -> int:
           f"launches {xt['counts']['bundle_launcher']}; update plan "
           f"adamw_member {xl['update_dw']['counts']['adamw_member']} "
           f"({smi})")
+    for tag in ("vision", "audio"):
+        f = fe[tag]
+        ft = f["train"]
+        busy = "not measured" if ft["busy"] is None else \
+            f"{ft['busy']:.1%} (device {ft['device_ms']:.1f} ms a step)"
+        print(f"[frontends] {f['arch']} at full width and depth: "
+              f"prefill/decode against forward worst rel L2 "
+              f"{max(max(r) for r in f['invariant']['runs'].values()):.3e}; "
+              f"greedy serve {f['serve']['tokens_per_s']:.3f} tokens/s "
+              f"(no launch); train {ft['step_ms']:.1f} ms/step (batch "
+              f"{ft['batch']} x seq {ft['seq']}), peak {ft['peak_gib']:.2f} "
+              f"GiB, busy {busy}, adamw_member "
+              f"{ft['counts']['adamw_member']} and bundle launches "
+              f"{ft['counts']['bundle_launcher']}; update+dW row_member "
+              f"{f['update_dw']['counts']['row_member']}, adamw_member "
+              f"{f['update_dw']['counts']['adamw_member']} ({smi})")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -230,7 +230,7 @@ def list_archs() -> list[str]:
 
 
 def _load_all():
-    # the port registers the architectures it serves so far
     from repro_torch.configs import (  # noqa: F401
-        deepseek_v2_236b, granite_3_2b, minitron_8b, phi35_moe,
-        recurrentgemma_2b, stablelm_3b, starcoder2_7b, xlstm_1_3b)
+        deepseek_v2_236b, granite_3_2b, internvl2_1b, minitron_8b,
+        musicgen_medium, phi35_moe, recurrentgemma_2b, stablelm_3b,
+        starcoder2_7b, xlstm_1_3b)

@@ -27,7 +27,11 @@ program serves a single global-attention run only), and so is
 layers: ``--scale full --layers 8 --hand-wired`` fits one card), and so is
 ``--arch xlstm-1.3b`` (mLSTM and sLSTM blocks without an FFN, 7:1; all 48
 layers fit one card: ``--scale full --hand-wired``); ``--layers N`` keeps
-the first N block kinds (``cut_depth``).  The flags keep the
+the first N block kinds (``cut_depth``).  The two frontend configs
+(``internvl2-1b``, ``musicgen-medium``) are refused with the engines'
+reason (``prompt_refusal``: token prompts only, as the reference's engines
+fail on them); ``lm.prefill`` and ``lm.decode_step`` serve them.  The
+flags keep the
 reference launcher's names and checks; the port plans by default, and
 ``--plan-fusion`` names that default.
 """
@@ -44,7 +48,8 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.models import lm
-from repro_torch.serve.engine import PrefillBudget, Request, ServeEngine
+from repro_torch.serve.engine import (PrefillBudget, Request, ServeEngine,
+                                      prompt_refusal)
 
 
 def cut_depth(cfg, layers: int):
@@ -175,6 +180,9 @@ def main(argv=None):
         cfg = cfg.reduced()
     if args.layers:
         cfg = cut_depth(cfg, args.layers)
+    refusal = prompt_refusal(cfg)
+    if refusal is not None:
+        raise SystemExit(f"[serve] {refusal}")
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)
     params = lm.init(cfg, gen, device=dev)

@@ -123,9 +123,13 @@ def main(argv=None):
             cache=default_cache())
     step_fn = make_train_step(cfg, tcfg, update_program=update_program)
 
-    data = TokenPipeline(DataConfig(vocab_size=cfg.vocab_size,
-                                    seq_len=args.seq,
-                                    global_batch=args.batch))
+    data = TokenPipeline(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=args.seq,
+        global_batch=args.batch,
+        num_codebooks=cfg.num_codebooks if cfg.frontend == "audio_stub" else 0,
+        num_image_tokens=cfg.num_image_tokens
+        if cfg.frontend == "vision_stub" else 0,
+        d_model=cfg.d_model))
     ckpt = (checkpoint.AsyncCheckpointer(args.ckpt_dir)
             if args.ckpt_dir else None)
     watchdog = StepWatchdog()

@@ -6,7 +6,7 @@ points, same layouts): RMSNorm with ``(1 + scale)``, LayerNorm with
 lookup times sqrt(d) (the scale rounded to the table's dtype first, as
 JAX's weakly typed scalar is), the tied
 unembedding with fp32 accumulation, the fused-QKV projection, the gated
-MLP, flash-style blockwise attention and banded local attention (the
+MLP (its GELU op for op as ``jax.nn.gelu``), flash-style blockwise attention and banded local attention (the
 reference computes both in plain ``jnp``, not in a kernel) and the fp32
 cross entropy with z-loss.  A JAX product with ``preferred_element_type=float32`` becomes a
 product of the operands upcast to fp32: the same bf16 values, summed in
@@ -14,6 +14,7 @@ fp32.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -62,6 +63,16 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     return torch.cat([out.to(x.dtype), x_pass], dim=-1)
 
 
+def sinusoidal_embed(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """fp32 ``[sin, cos]`` of positions (int or float, any leading shape)
+    over ``d // 2`` frequencies 10000^(-i / half): (..., 2 * (d // 2))."""
+    half = d // 2
+    freqs = torch.pow(10_000.0, -torch.arange(
+        0, half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 def _sqrt_d(d_model: int, like: torch.Tensor) -> torch.Tensor:
     return torch.full((), math.sqrt(d_model), dtype=like.dtype,
                       device=like.device)
@@ -99,16 +110,33 @@ def qkv_project(cfg, p, x: torch.Tensor):
     return q, k, v
 
 
+@functools.lru_cache(maxsize=None)
+def _rounded(v: float, dtype: torch.dtype) -> float:
+    """v rounded to dtype, as a Python float (a host computation)."""
+    return torch.tensor(v, dtype=dtype).item()
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (tanh form) op for op in x's dtype: x^3, the
+    constants rounded to that dtype, each product and sum rounded, as the
+    reference's bf16 computes it (``F.gelu`` rounds once, from fp32, and
+    differs on about 40% of bf16 values).  The constants are Python
+    floats, so the card sees no host copy."""
+    c3 = _rounded(0.044715, x.dtype)
+    cs = _rounded(math.sqrt(2.0 / math.pi), x.dtype)
+    inner = cs * (x + c3 * (x * x * x))
+    return x * (0.5 * (1.0 + torch.tanh(inner)))
+
+
 def mlp(cfg, p, x: torch.Tensor) -> torch.Tensor:
     act = cfg.activation
     h = x @ p["w_in"]
     if act in ("silu", "gelu"):
         gate, up = torch.chunk(h, 2, dim=-1)
-        g = F.silu(gate) if act == "silu" else F.gelu(gate,
-                                                       approximate="tanh")
+        g = F.silu(gate) if act == "silu" else gelu_tanh(gate)
         h = g * up
     elif act == "gelu_mlp":
-        h = F.gelu(h, approximate="tanh")
+        h = gelu_tanh(h)
     elif act == "relu2_mlp":
         h = torch.square(torch.relu(h))
     else:

@@ -9,6 +9,16 @@ FFN (``models/moe.py``) or, where ``d_ff`` is 0, none (no ``norm2`` and no
 and loss, and the hand-wired serve entry points ``prefill`` and
 ``decode_step`` (the reference's oracle for the executed decode program).
 
+Two frontends, as the reference's stubs.  ``vision_stub``: the batch's
+fp32 ``pixel_embeds`` (B, n, d), cast to the model dtype, replace the
+first n = ``num_image_tokens`` rows of the token embedding (a prompt
+shorter than n grows to n rows) and the loss masks those positions.
+``audio_stub``: tokens (B, K, S) of K codebooks; the embedding is (K, V,
+d), the K lookups summed in the model dtype in codebook order plus the
+sinusoid of the position (no sqrt(d) scale), and the head one (d, K V)
+product rounded to the model dtype, logits (B, S, K, V); labels (B, K,
+S), decode takes (B, K) codes and greedy gives (B, K).
+
 Parameters are plain nested dicts of tensors with the JAX package's tree
 and layouts: weights stay ``(K, N)``, a run of ``count > 1`` identical
 layers stacks its leaves on a leading ``(L, ...)`` axis, and the cache is
@@ -73,6 +83,7 @@ def layer_runs(cfg: ModelConfig) -> list[Run]:
 
 
 SERVED_KINDS = (ATTN, LOCAL_ATTN, MLA, RGLRU, MLSTM, SLSTM)
+FRONTENDS = ("none", "vision_stub", "audio_stub")
 
 
 def supported(cfg: ModelConfig) -> Optional[str]:
@@ -80,8 +91,9 @@ def supported(cfg: ModelConfig) -> Optional[str]:
     config through the hand-wired ``prefill`` / ``decode_step``; else why
     not.  Whether the planned decode program serves it too is another
     question: ``serve.engine.executable_decode_supported``."""
-    if cfg.frontend != "none":
-        return f"frontend {cfg.frontend!r} (token frontend only)"
+    if cfg.frontend not in FRONTENDS:
+        return (f"frontend {cfg.frontend!r} (none, vision_stub and "
+                "audio_stub only)")
     for run in layer_runs(cfg):
         if run.kind not in SERVED_KINDS:
             return (f"block kind {run.kind!r} (global attention, local "
@@ -160,12 +172,18 @@ def param_layout(cfg: ModelConfig) -> dict:
     if reason is not None:
         raise NotImplementedError(f"{cfg.name}: {reason} (ROADMAP)")
     d, V = cfg.d_model, cfg.vocab_size
-    layout = {"embed": {"embedding": ((V, d), "embed", None)}}
+    if cfg.frontend == "audio_stub":
+        # K codebook tables and the K heads as one (d, K V) weight
+        K = cfg.num_codebooks
+        layout = {"embed": {"embedding": ((K, V, d), "embed", None)},
+                  "head": {"w": ((d, K * V), "normal", None)}}
+    else:
+        layout = {"embed": {"embedding": ((V, d), "embed", None)}}
+        if not cfg.tie_embeddings:
+            layout["head"] = {"w": ((d, V), "normal", None)}
     for run in layer_runs(cfg):
         layout[run.name] = _block_layout(cfg, run)
     layout["final_norm"] = _norm_layout(cfg, ())
-    if not cfg.tie_embeddings:
-        layout["head"] = {"w": ((d, V), "normal", None)}
     return layout
 
 
@@ -331,10 +349,35 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int, device=None) -> dict:
     return cache
 
 
-def _embed_inputs(cfg: ModelConfig, params: dict,
+def _codebook_sum(cfg: ModelConfig, emb: torch.Tensor,
                   tokens: torch.Tensor) -> torch.Tensor:
-    """tokens (B, S) -> x (B, S, d)."""
-    return layers.embed(params["embed"], tokens, cfg.d_model)
+    """The audio frontend's K codebook lookups, tokens (B, K, ...) ->
+    (B, ..., d), summed onto zeros in the table's dtype in codebook order
+    (each add rounded, as the reference's)."""
+    x = emb.new_zeros(tokens.shape[:1] + tokens.shape[2:] + (cfg.d_model,))
+    for kk in range(cfg.num_codebooks):
+        x = x + emb[kk][tokens[:, kk].long()]
+    return x
+
+
+def _embed_inputs(cfg: ModelConfig, params: dict, batch: dict):
+    """The batch's inputs -> (x (B, S, d), loss mask (1, S) bool or None).
+    Tokens (B, S) are looked up times sqrt(d); ``vision_stub`` replaces
+    the first ``num_image_tokens`` rows by ``batch["pixel_embeds"]`` and
+    masks them (S below n gives n rows); ``audio_stub`` sums tokens (B, K,
+    S)'s codebook rows and adds the sinusoid of positions 0..S-1."""
+    tokens = batch["tokens"]
+    if cfg.frontend == "audio_stub":
+        x = _codebook_sum(cfg, params["embed"]["embedding"], tokens)
+        pos = torch.arange(x.shape[1], device=x.device)
+        return x + layers.sinusoidal_embed(pos, cfg.d_model)[None].to(
+            x.dtype), None
+    x = layers.embed(params["embed"], tokens, cfg.d_model)
+    if cfg.frontend != "vision_stub":
+        return x, None
+    n = cfg.num_image_tokens
+    x = torch.cat([batch["pixel_embeds"].to(x.dtype), x[:, n:]], dim=1)
+    return x, (torch.arange(x.shape[1], device=x.device) >= n)[None, :]
 
 
 def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
@@ -353,7 +396,13 @@ def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
 
 
 def _head(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
-    """x (B, S, d) -> fp32 logits (B, S, V)."""
+    """x (B, S, d) -> fp32 logits (B, S, V); the audio frontend's (B, S,
+    K, V), its product rounded to the model dtype first (the reference
+    multiplies without an fp32 result type there)."""
+    if cfg.frontend == "audio_stub":
+        B, S, _ = x.shape
+        logits = torch.matmul(x, params["head"]["w"]).float()
+        return logits.reshape(B, S, cfg.num_codebooks, cfg.vocab_size)
     if cfg.tie_embeddings:
         return layers.unembed(params["embed"], x, cfg.logit_softcap)
     logits = torch.matmul(x.float(), params["head"]["w"].float())
@@ -479,12 +528,13 @@ def block_apply_seq(cfg: ModelConfig, run: Run, p: dict, x: torch.Tensor,
 
 def forward(cfg: ModelConfig, params: dict, batch: dict, *,
             remat: bool = False):
-    """Full-sequence forward -> (logits (B, S, V) fp32, aux loss, loss
-    mask or None).  ``remat`` recomputes each layer in the backward pass
+    """Full-sequence forward -> (logits (B, S, V) fp32 (audio: (B, S, K,
+    V)), aux loss, loss mask (vision: (1, S) bool) or None).  ``remat``
+    recomputes each layer in the backward pass
     (``torch.utils.checkpoint``): only the per-layer block inputs are kept,
     as the reference's ``jax.checkpoint`` over the layer scan keeps its
     carry."""
-    x = _embed_inputs(cfg, params, batch["tokens"])
+    x, mask = _embed_inputs(cfg, params, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for run, lp in layer_params(cfg, params):
         if remat:
@@ -494,15 +544,19 @@ def forward(cfg: ModelConfig, params: dict, batch: dict, *,
             x, a, _ = block_apply_seq(cfg, run, lp, x)
         aux = aux + a
     x = layers.apply_norm(cfg, params["final_norm"], x)
-    return _head(cfg, params, x), aux, None
+    return _head(cfg, params, x), aux, mask
 
 
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *,
             remat: bool = True):
     """Mean token cross entropy (z-loss 1e-4) plus 0.01 x the auxiliary
-    loss -> (total, {"ce", "aux"})."""
+    loss -> (total, {"ce", "aux"}); audio labels (B, K, S) are held
+    against the (B, S, K, V) logits, the mean over B S K."""
     logits, aux, mask = forward(cfg, params, batch, remat=remat)
-    loss = layers.cross_entropy(logits, batch["labels"], mask=mask)
+    labels = batch["labels"]
+    if cfg.frontend == "audio_stub":
+        labels = labels.transpose(1, 2)
+    loss = layers.cross_entropy(logits, labels, mask=mask)
     return loss + 0.01 * aux, {"ce": loss, "aux": aux}
 
 
@@ -567,11 +621,13 @@ def block_apply_decode(cfg: ModelConfig, run: Run, p: dict, x: torch.Tensor,
 
 
 def prefill(cfg: ModelConfig, params: dict, batch: dict, max_len: int):
-    """Whole prompts ``batch["tokens"]`` (B, S) -> (cache, the last
-    position's fp32 logits (B, V)); the cache is ``init_cache``'s layout at
-    ``max_len`` rows with ``pos`` = S: global attention's k/v first, local
-    attention's ring, the recurrent blocks' last state and conv window."""
-    x = _embed_inputs(cfg, params, batch["tokens"])
+    """Whole prompts ``batch`` (``tokens`` (B, S), with the frontend's
+    inputs) -> (cache, the last position's fp32 logits (B, V); audio (B,
+    K, V)); the cache is ``init_cache``'s layout at ``max_len`` rows with
+    ``pos`` = the embedded rows (S; n for an image prompt shorter than its
+    n image rows): global attention's k/v first, local attention's ring,
+    the recurrent blocks' last state and conv window."""
+    x, _mask = _embed_inputs(cfg, params, batch)
     S = x.shape[1]
     per_run: dict = {}
     for run, lp in layer_params(cfg, params):
@@ -589,13 +645,15 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, max_len: int):
 
 
 def greedy_sample(cfg: ModelConfig, logits: torch.Tensor) -> torch.Tensor:
-    """The greedy token of each row: (B, V) -> (B,) int32."""
+    """The greedy token of each row: (B, V) -> (B,) int32; audio (B, K,
+    V) -> (B, K)."""
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
 def serve_step_greedy(cfg: ModelConfig, params: dict, cache: dict,
                       tokens_t: torch.Tensor):
-    """``decode_step`` and the greedy token: ((B,) int32, cache)."""
+    """``decode_step`` and the greedy token: ((B,) int32 (audio (B, K)),
+    cache)."""
     logits, new_cache = decode_step(cfg, params, cache, tokens_t)
     return greedy_sample(cfg, logits), new_cache
 
@@ -603,11 +661,19 @@ def serve_step_greedy(cfg: ModelConfig, params: dict, cache: dict,
 def decode_step(cfg: ModelConfig, params: dict, cache: dict,
                 tokens_t: torch.Tensor):
     """One decode step of every row at the cache's position ``pos`` (a 0-d
-    int tensor): tokens_t (B,) -> (fp32 logits (B, V), cache with pos + 1).
-    Every cache leaf is written in place (the returned cache shares
-    them)."""
-    x = layers.embed_onehot(params["embed"], tokens_t[:, None], cfg.d_model)
+    int tensor): tokens_t (B,) -> (fp32 logits (B, V), cache with pos + 1);
+    audio: codes (B, K) -> logits (B, K, V), the codes' summed rows plus
+    the sinusoid of ``pos``.  Every cache leaf is written in place (the
+    returned cache shares them)."""
     pos = cache["pos"]
+    if cfg.frontend == "audio_stub":
+        x = _codebook_sum(cfg, params["embed"]["embedding"],
+                          tokens_t[:, :, None])
+        x = x + layers.sinusoidal_embed(pos[None].float(), cfg.d_model)[
+            None].to(x.dtype)
+    else:
+        x = layers.embed_onehot(params["embed"], tokens_t[:, None],
+                                cfg.d_model)
     for (run, lp), (_run, lc) in zip(layer_params(cfg, params),
                                      layer_params(cfg, cache)):
         x, _ = block_apply_decode(cfg, run, lp, x, lc, pos)

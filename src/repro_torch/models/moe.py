@@ -25,6 +25,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import layers
+
 
 class RouteResult(NamedTuple):
     dispatch_idx: torch.Tensor  # (E, C) int32 token ids (or T = drop marker)
@@ -147,9 +149,9 @@ def _act(cfg, h: torch.Tensor) -> torch.Tensor:
     if cfg.activation in ("silu", "gelu"):
         gate, up = torch.chunk(h, 2, dim=-1)
         g = F.silu(gate) if cfg.activation == "silu" \
-            else F.gelu(gate, approximate="tanh")
+            else layers.gelu_tanh(gate)
         return g * up
-    return F.gelu(h, approximate="tanh")
+    return layers.gelu_tanh(h)
 
 
 def expert_ffn(cfg, p: dict, xe: torch.Tensor) -> torch.Tensor:

@@ -10,8 +10,8 @@ sequence, fill in the even positions; log2(S) levels of elementwise ops on
 reference's order.  (A closed form through ``exp(cumsum(log a))``
 overflows: log a reaches about -2.5 a step.)  Decode is the single-step
 update.  Gates and h are fp32, y is cast back to the model dtype.  The
-gate branch's GELU rounds op for op as the reference's (``_gelu_tanh``);
-the MLP's stays the fused ``F.gelu``.
+gate branch's GELU rounds op for op as the reference's
+(``layers.gelu_tanh``), as the MLP's does.
 
 One rule differs from the reference, which fails there: a sequence shorter
 than ``conv1d_width - 1`` hands off a conv tail of ``K - 1`` rows, left-
@@ -20,11 +20,10 @@ two tokens can be decoded.
 """
 from __future__ import annotations
 
-import functools
-import math
-
 import torch
 import torch.nn.functional as F
+
+from repro_torch.models import layers
 
 C_EXP = 8.0  # RG-LRU exponent constant
 
@@ -47,23 +46,6 @@ def spec(cfg) -> dict:
         "lam": ((w,), "ones", "float32"),
         "w_out": ((w, d), "out_proj", None),
     }
-
-
-@functools.lru_cache(maxsize=None)
-def _rounded(v: float, dtype: torch.dtype) -> float:
-    """v rounded to dtype, as a Python float (a host computation)."""
-    return torch.tensor(v, dtype=dtype).item()
-
-
-def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
-    """The gate's ``jax.nn.gelu`` (tanh form) op for op in x's dtype: x^3,
-    the constants rounded to that dtype, each product and sum rounded, as
-    the reference's bf16 computes it (``F.gelu`` rounds once, from fp32).
-    The constants are Python floats, so the card sees no host copy."""
-    c3 = _rounded(0.044715, x.dtype)
-    cs = _rounded(math.sqrt(2.0 / math.pi), x.dtype)
-    inner = cs * (x + c3 * (x * x * x))
-    return x * (0.5 * (1.0 + torch.tanh(inner)))
 
 
 def _block_diag(x: torch.Tensor, w: torch.Tensor,
@@ -163,7 +145,7 @@ def apply_train(cfg, p: dict, x: torch.Tensor, h0=None, conv0=None):
     handoff; a sequence shorter than K - 1 has its tail left-padded with
     zeros."""
     gate_in, rec_in = torch.chunk(x @ p["w_in"], 2, dim=-1)
-    gate = _gelu_tanh(gate_in)
+    gate = layers.gelu_tanh(gate_in)
     if conv0 is not None:
         rec_cat = torch.cat([conv0.to(rec_in.dtype), rec_in], dim=1)
         rec = _causal_conv(rec_cat, p["conv_w"], p["conv_b"]
@@ -183,7 +165,7 @@ def apply_decode(cfg, p: dict, x_t: torch.Tensor, h_prev: torch.Tensor,
     """One step.  x_t: (B, 1, d); h_prev: (B, W) fp32; conv_buf: (B, K - 1,
     W) -> (out (B, 1, d), h_new (B, W) fp32, new conv_buf)."""
     gate_in, rec_in = torch.chunk(x_t @ p["w_in"], 2, dim=-1)
-    gate = _gelu_tanh(gate_in[:, 0])
+    gate = layers.gelu_tanh(gate_in[:, 0])
     window = torch.cat([conv_buf.to(rec_in.dtype), rec_in], dim=1)  # (B,K,W)
     rec_t = torch.einsum("bkw,kw->bw", window, p["conv_w"]).float() \
         + p["conv_b"].float()

@@ -311,11 +311,10 @@ def _mlp_from_h(cfg: ModelConfig, h: torch.Tensor,
     act = cfg.activation
     if act in ("silu", "gelu"):
         gate, up = torch.chunk(h, 2, dim=-1)
-        g = F.silu(gate) if act == "silu" else F.gelu(gate,
-                                                      approximate="tanh")
+        g = F.silu(gate) if act == "silu" else layers.gelu_tanh(gate)
         h = g * up
     elif act == "gelu_mlp":
-        h = F.gelu(h, approximate="tanh")
+        h = layers.gelu_tanh(h)
     elif act == "relu2_mlp":
         h = torch.square(torch.relu(h))
     else:
@@ -339,6 +338,21 @@ def _hand_wired_reason(cfg: ModelConfig, scheduling: str) -> Optional[str]:
     return None
 
 
+def prompt_refusal(cfg: ModelConfig) -> Optional[str]:
+    """Why the engines cannot serve ``cfg``'s prompts, or None: they take
+    token prompts only, as the reference's do (its ``run`` fails on an
+    image prompt, which lacks ``pixel_embeds``, and on codebook prompts;
+    ROADMAP §3).  ``lm.prefill`` and ``lm.decode_step`` serve such a
+    config."""
+    if cfg.frontend == "none":
+        return None
+    need = ("pixel_embeds beside the tokens" if cfg.frontend == "vision_stub"
+            else f"(B, {cfg.num_codebooks}, S) codebook tokens")
+    return (f"{cfg.name}: the engines take token prompts only; frontend "
+            f"{cfg.frontend!r} needs {need}: serve it through lm.prefill "
+            "and lm.decode_step (ROADMAP §3)")
+
+
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP)")
 
@@ -350,11 +364,12 @@ class ServeEngine:
     hand-wired fallback (``plan_fusion=False``).  ``executed`` says
     whether the decode step runs through the planned program.  A planned
     engine over a config the program does not serve (LayerNorm, a hybrid
-    of RG-LRU and local-attention runs, MLA runs, or mLSTM and sLSTM runs),
-    and a
+    of RG-LRU and local-attention runs, MLA runs, mLSTM and sLSTM runs, or
+    a frontend), and a
     planned wavefront engine over a stacked or MoE config, keep the
     hand-wired step with the reference's notice on the CPU (the fallback
-    graph still planned), and refuse on the card.
+    graph still planned), and refuse on the card.  ``run`` refuses a
+    frontend config's prompts (``prompt_refusal``: token prompts only).
 
     ``device``: where the engine runs — the card unless ``"cpu"`` is
     passed; with no device and no CUDA present the constructor raises.
@@ -875,7 +890,7 @@ class ServeEngine:
         kp, vp (Bp, P, Hkv, D))."""
         cfg = self.cfg
         p = params[lm.layer_runs(cfg)[0].name]
-        xp = lm._embed_inputs(cfg, params, pf_tokens)
+        xp, _ = lm._embed_inputs(cfg, params, {"tokens": pf_tokens})
         Bp = xp.shape[0]
         xm, h2p, kp, vp = lm.block_attention_seq(cfg, p, xp)
         pf_x = h2p.reshape(Bp * P, cfg.d_model)
@@ -1062,7 +1077,8 @@ class ServeEngine:
         def step(params, cache, tokens, active, bt=None, ch_slots=(),
                  ch_offs=(), ch_valid=(), ch_tokens=None):
             x = layers.embed_onehot(params["embed"], tokens, d)   # (B, d)
-            chs = [lm._embed_inputs(cfg, params, ch_tokens[i][None])[0]
+            chs = [lm._embed_inputs(cfg, params,
+                                    {"tokens": ch_tokens[i][None]})[0][0]
                    for i in range(n)]
             pos = cache["pos"]
             kv = cache[run.name]
@@ -1172,6 +1188,9 @@ class ServeEngine:
         return self._prefill(self.params, {"tokens": self._wave_tokens(wave)})
 
     def run(self, requests: list[Request]) -> list[Request]:
+        refusal = prompt_refusal(self.cfg)
+        if refusal is not None:
+            raise NotImplementedError(refusal)
         if self.scheduling == "continuous":
             return self._run_continuous(requests)
         return self._run_wavefront(requests)

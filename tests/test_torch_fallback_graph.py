@@ -29,7 +29,8 @@ from repro.serve import engine as jengine
 from repro_torch.configs import get_config, list_archs
 from repro_torch.serve import engine
 
-HAND_WIRED = ["deepseek-v2-236b", "minitron-8b", "phi3.5-moe-42b-a6.6b",
+HAND_WIRED = ["deepseek-v2-236b", "internvl2-1b", "minitron-8b",
+              "musicgen-medium", "phi3.5-moe-42b-a6.6b",
               "recurrentgemma-2b", "stablelm-3b", "starcoder2-7b",
               "xlstm-1.3b"]
 WIDTHS = {"reduced": (3, 48, dict(chunk_rows=8, max_coresident_chunks=2),

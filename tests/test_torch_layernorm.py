@@ -473,19 +473,33 @@ def test_paged_kv_refuses_with_the_reference_text(arch):
 
 def test_support_questions_differ_for_layernorm():
     """lm.supported builds LayerNorm; the executed program refuses it with
-    the reference's text; a family of a later slice is refused by both."""
+    the reference's text.  A frontend is built by lm.supported too, and the
+    engines refuse its prompts when they run (token prompts only); what no
+    config of the reference has, a frontend or block kind of a later
+    family, is refused by lm.supported and by the engine."""
     for arch in ARCHS:
         jcfg, tcfg = _cfgs(arch)
         assert lm.supported(tcfg) is None
         assert (engine.executable_decode_supported(tcfg)
                 == jengine.executable_decode_supported(jcfg)
                 == "norm 'layernorm' (rmsnorm only)")
-    later = dataclasses.replace(get_config("granite-3-2b").reduced(),
-                                frontend="vision_stub")
-    assert lm.supported(later) is not None
-    with pytest.raises(NotImplementedError, match="does not serve it yet"):
-        engine.ServeEngine(later, None, batch=2, max_len=MAX_LEN,
-                           device="cpu", plan_fusion=False)
+    for frontend in ("vision_stub", "audio_stub"):
+        framed = dataclasses.replace(get_config("granite-3-2b").reduced(),
+                                     frontend=frontend, num_codebooks=4)
+        assert lm.supported(framed) is None
+        eng = engine.ServeEngine(framed, None, batch=2, max_len=MAX_LEN,
+                                 device="cpu", plan_fusion=False)
+        with pytest.raises(NotImplementedError,
+                           match="the engines take token prompts only"):
+            eng.run([])
+    base = get_config("granite-3-2b").reduced()
+    for later in (dataclasses.replace(base, frontend="video_stub"),
+                  dataclasses.replace(base, block_pattern=("hyena",))):
+        assert lm.supported(later) is not None
+        with pytest.raises(NotImplementedError,
+                           match="does not serve it yet"):
+            engine.ServeEngine(later, None, batch=2, max_len=MAX_LEN,
+                               device="cpu", plan_fusion=False)
 
 
 # ---------------------------------------------------------------------------
@@ -538,13 +552,16 @@ def test_exact_dims_and_shape_table(arch):
 
 
 def test_list_archs_holds_the_six():
-    """The six configs above, recurrentgemma-2b, deepseek-v2-236b and
-    xlstm-1.3b, nine in all (their dims: tests/test_torch_recurrent.py,
-    tests/test_torch_mla.py and tests/test_torch_xlstm_lm.py)."""
-    assert list_archs() == sorted(set(EXACT_DIMS) | {"recurrentgemma-2b",
-                                                     "deepseek-v2-236b",
-                                                     "xlstm-1.3b"})
-    assert len(list_archs()) == 9
+    """The six configs above, recurrentgemma-2b, deepseek-v2-236b,
+    xlstm-1.3b, internvl2-1b and musicgen-medium: eleven in all, the
+    reference's (their dims: tests/test_torch_recurrent.py,
+    tests/test_torch_mla.py, tests/test_torch_xlstm_lm.py,
+    tests/test_torch_vision.py and tests/test_torch_audio.py)."""
+    assert list_archs() == sorted(set(EXACT_DIMS) | {
+        "recurrentgemma-2b", "deepseek-v2-236b", "xlstm-1.3b",
+        "internvl2-1b", "musicgen-medium"})
+    assert list_archs() == jlist_archs()
+    assert len(list_archs()) == 11
 
 
 # ---------------------------------------------------------------------------

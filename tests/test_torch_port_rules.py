@@ -101,7 +101,6 @@ def test_unported_paths_raise(kw, exc, match):
 # Public names of ported reference modules that the port does not have yet:
 # (module, name) -> the ROADMAP queue 1 item that brings it.
 NAMES_TO_PORT = {
-    ("models/layers.py", "sinusoidal_embed"): "item 4e (the frontends)",
     **{("models/layers.py", n): "item 5 (param specs for the dry run)"
        for n in ("attn_spec", "embed_spec", "layernorm_spec", "mlp_spec",
                  "norm_spec", "rmsnorm_spec")},
