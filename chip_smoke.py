@@ -127,6 +127,25 @@ non-zero exit code and no result line.
              logits are held against the same step built from the plain
              versions on the card.  The trace is then served once more under
              torch.profiler for device time by kernel name.
+  8l. tp     tensor-parallel serve of full-width granite-3-2b at TP 2 and
+             TP 4, the ranks (``launch/mesh.py`` ``run_ranks``, spawned
+             processes, gloo) sharing the one card.  For each shard count:
+             the serve members at the shard's shapes (``shard_config``: H/n,
+             Hkv/n, d_ff/n) against their plain versions, timed beside them,
+             a PyTorch call and their bounds, as phase 3's; then the ranks,
+             each drawing phase 8's weights from the same seed and keeping
+             its slab: phase 8's first mixed step again from its cache rows
+             of the rank's KV heads and its tokens, the logits and the
+             written k/v rows within LOGITS_REL_L2 of one device's, and
+             within LOGITS_REL_L2 of the rank's plain version; phase 8's
+             trace served with the launch counters reset: every rank's
+             tokens and stats rank 0's, every serve kernel launched on every
+             rank, a fused mixed step, and each request's first divergence
+             from phase 8's tokens (if any) at a top-2 gap of at most
+             TP_TIE_STEPS bf16 steps; printed: the backend, the agreement,
+             all-reduces and bytes a step a rank, each rank's peak memory,
+             the walls.  The ranks' launch counts, summed, are the kernels
+             line's ``tp2_serve`` and ``tp4_serve``.
   8b. paged  granite-3-2b at full width cut to 1 layer (the reference's
              paged arena is single-layer), paged KV with 16-row pages and
              the default arena (8 x 128 + 8 blocks): the paged decode and
@@ -364,8 +383,9 @@ non-zero exit code and no result line.
              launches on every path, ``path_launches``), then the result
              line.
 
-Each main path (paper, update_dw, train, serve, paged, moe, ops, wavefront,
-fallback, and 8g's, 8h's, 8i's, 8j's and 8k's serve, train and update+dW)
+Each main path (paper, update_dw, train, serve, tp2 and tp4 serve, paged,
+moe, ops, wavefront, fallback, and 8g's, 8h's, 8i's, 8j's and 8k's serve,
+train and update+dW)
 runs with every launch counter reset just before it and read just after;
 each of its kernels must have launched (the fallback's and 8g-8k's serve:
 none may).  Serve, moe and ops also count the activation members their
@@ -423,6 +443,17 @@ CHAIN_BF16_REL = 2.0 ** -5
 # 1.8e-3..2.3e-3; fp32: 2.6e-7..4.5e-7 and 8.7e-7); the bf16 row limit is
 # also twice one bf16 step (2**-7) on every element of the row.
 FLASH_REL_BF16, FLASH_REL_F32 = (5e-4, 2.0 ** -6), (5e-6, 1e-5)
+
+# Phase 8l: tensor-parallel serve at TP 2 and TP 4, the ranks sharing the
+# one card over gloo; a rank's first divergence from one device's tokens
+# must sit at a top-2 gap of at most TP_TIE_STEPS bf16 steps (its logits
+# move by the all-reduce's other summation order, ~1e-3..1e-2 rel L2).
+TP_ARCH = "granite-3-2b"
+TP_SHARDS = (2, 4)
+TP_TIE_STEPS = 2.0
+TP_TIMEOUT_S = 600
+SERVE_KERNELS = ("bundle_launcher", "row_member", "decode_attention",
+                 "prefill_attention")
 
 # Paged KV (phase 8b): granite-3-2b cut to 1 layer (the reference's paged
 # arena is single-layer), 16-row pages, a shared 1024-token prefix.
@@ -1155,7 +1186,13 @@ def phase_paper(torch, dev) -> tuple[list[dict], dict]:
 # ---------------------------------------------------------------------------
 # Phase 3: kernels at the main-path shapes
 # ---------------------------------------------------------------------------
-def phase_kernels(torch, dev, cfg) -> list[dict]:
+def phase_kernels(torch, dev, cfg, path: str = "serve",
+                  tag: str = "") -> list[dict]:
+    """The serve members at ``cfg``'s decode shapes; rows named with ``tag``
+    after the case, their launches read from ``path``'s run.  With a
+    shard's config (``shard_config``) these are one tensor-parallel
+    shard's shapes, and the static decode forms, which no path launches,
+    are left out."""
     import torch.nn.functional as F
 
     from repro_torch.core import hfuse
@@ -1244,7 +1281,7 @@ def phase_kernels(torch, dev, cfg) -> list[dict]:
     ]
     # decode attention's static forms: every slot's valid length a launch
     # constant (a fixed length, or the whole cache), no "len" operand
-    for length in (555, None):
+    for length in (() if tag else (555, None)):
         L = length or S
         st_op = decode_attention_op(B, S, H, Hkv, D, ck=1024, length=length)
         st_in = (q_dec, k_cache, v_cache)
@@ -1271,8 +1308,8 @@ def phase_kernels(torch, dev, cfg) -> list[dict]:
 
     rows = []
 
-    def record(*args, **extra):
-        rows.append(kernel_row("serve", *args, **extra))
+    def record(name, *args, **extra):
+        rows.append(kernel_row(path, name + tag, *args, **extra))
 
     for name, kernel, src, replaces, op, ins, cost, peak, lib in cases:
         run, run_plain = hfuse.run_single(op), hfuse.run_single(op, plain=True)
@@ -1286,13 +1323,13 @@ def phase_kernels(torch, dev, cfg) -> list[dict]:
     # workspace (split partials, zeroed tickets); beside it qkv_proj's,
     # whose split workspace persists (nothing allocated per launch)
     run = hfuse.run_single(att)
-    print(f"[kernels] decode_attention host: "
+    print(f"[kernels] decode_attention{tag} host: "
           f"{host_us(torch, lambda: run(*dec_in)):.1f} us to queue a launch, "
           f"of which the workspace "
           f"{host_us(torch, lambda: att.member.workspace(dev)):.1f} us",
           flush=True)
     run_qkv = hfuse.run_single(ops0["qkv_proj"])
-    print(f"[kernels] qkv_proj host: "
+    print(f"[kernels] qkv_proj{tag} host: "
           f"{host_us(torch, lambda: run_qkv(x, w_qkv)):.1f} us to queue a "
           f"launch ({ops0['qkv_proj'].ctas} CTAs, workspace kept)",
           flush=True)
@@ -1306,7 +1343,8 @@ def phase_kernels(torch, dev, cfg) -> list[dict]:
     (hk,) = hfuse.run_single(ops0["ffn_proj"])(x, w_in)
     check(torch.equal(c2, hfuse.run_single(ops0["decode_act"])(hk)[0]),
           "ffn_proj->decode_act differs from its separate members")
-    print("[kernels] both chains bitwise equal their separate members")
+    print(f"[kernels]{tag} both chains bitwise equal their separate "
+          "members")
 
     # the planner's fused bundles: bitwise equal to run_native
     operands = {att.name: dec_in, pfs[0].name: pf_in(PREFILL_OFFS[0]),
@@ -1345,9 +1383,9 @@ def phase_kernels(torch, dev, cfg) -> list[dict]:
             k, j = k + len(op.inputs), j + len(op.outputs)
         smem = cuda.launch_smem([op.member for op in st.ops], per_in,
                                 per_out)
-        print(f"[kernels] {label}: launch smem {smem} B, "
+        print(f"[kernels] {label}{tag}: launch smem {smem} B, "
               f"{cuda.occupancy(smem)} CTAs/SM", flush=True)
-    print("[kernels] fused bundles bitwise equal run_native")
+    print(f"[kernels]{tag} fused bundles bitwise equal run_native")
     return rows
 
 
@@ -2099,12 +2137,28 @@ def phase_train(torch, dev, cfg, program) -> dict:
 # ---------------------------------------------------------------------------
 # Phase 8: serve full-width granite-3-2b
 # ---------------------------------------------------------------------------
+def mixed_step_rows(torch, kv, pos, active, kw, C):
+    """The k or v rows of a stacked (L, B, S, Hkv, D) cache that a step
+    with positions ``pos`` wrote: each decoding slot's row at its position,
+    then each riding chunk's C rows, as (L, rows, Hkv, D)."""
+    parts = [kv[:, b, int(pos[b])][:, None]
+             for b in range(kv.shape[1]) if bool(active[b])]
+    parts += [kv[:, s, o:o + C] for s, o in zip(kw["ch_slots"],
+                                                kw["ch_offs"])]
+    return torch.cat(parts, 1)
+
+
 def capture_first_mixed(eng) -> dict:
     """Wrap ``eng``'s step factory so the first step that decodes and
     carries a chunk keeps a copy of its inputs and its logits (kernels
-    path): ``captured["inputs"]``, ``captured["out"]``."""
+    path): ``captured["inputs"]``, ``captured["out"]``, and the k and v
+    rows it wrote (``captured["written"]``, a stacked run's cache)."""
+    import torch
+
+    from repro_torch.models import lm
     captured = {}
     make_step = eng._cb_step
+    run = lm.layer_runs(eng.cfg)[0]
 
     def cb_step(n):
         step = make_step(n)
@@ -2120,6 +2174,12 @@ def capture_first_mixed(eng) -> dict:
             out = step(params_, cache, tokens, active, **kw)
             if first:
                 captured["out"] = (out[0].clone(), out[2].clone())
+                if run.count > 1:
+                    pos = captured["inputs"][1]["pos"]
+                    captured["written"] = {
+                        k: mixed_step_rows(torch, out[1][run.name][k], pos,
+                                        active, kw, eng.chunk_rows)
+                        for k in ("k", "v")}
             return out
         return wrapped
 
@@ -2153,8 +2213,6 @@ def first_mixed_vs_plain(torch, captured, ref, what: str) -> dict:
 
 
 def phase_serve(torch, dev, cfg) -> dict:
-    import numpy as np
-
     from repro_torch.kernels import cuda, registry
     from repro_torch.models import lm
     from repro_torch.serve.engine import PrefillBudget, Request, ServeEngine
@@ -2171,12 +2229,7 @@ def phase_serve(torch, dev, cfg) -> dict:
           f"{eng.fusion_plan.summary()}", flush=True)
 
     def requests():
-        rng = np.random.default_rng(0)
-        lens = np.linspace(64, 1500, 12).round().astype(int)
-        return [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
-                                                   L).astype(np.int32),
-                        max_new_tokens=8 + (3 * i) % 9, arrival=2 * i)
-                for i, L in enumerate(lens)]
+        return serve_requests(cfg, Request)
 
     reqs = requests()
     captured = capture_first_mixed(eng)
@@ -2195,9 +2248,7 @@ def phase_serve(torch, dev, cfg) -> dict:
     print(f"[serve] stats {st.describe()}")
     print(f"[serve] launches {counts}")
     print(f"[serve] programs {eng.cb_program_info.get(2, {}).get('steps')}")
-    serve_kernels = ("bundle_launcher", "row_member", "decode_attention",
-                     "prefill_attention")
-    check(all(counts[k] > 0 for k in serve_kernels),
+    check(all(counts[k] > 0 for k in SERVE_KERNELS),
           f"a kernel of the serve path never launched: {counts}")
     check(st.fused_prefill_chunks > 0 and st.fused_mixed_steps > 0,
           "no fused launch carried a prefill chunk")
@@ -2206,6 +2257,9 @@ def phase_serve(torch, dev, cfg) -> dict:
     check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.out_tokens),
           "token out of the vocabulary")
 
+    # phase 8l's copy of the first mixed step, taken before the plain step
+    # below writes its rows into the captured cache and advances its pos
+    snap = first_mixed_snapshot(eng, captured)
     # the first mixed step again, from the plain versions on the card
     ref = ServeEngine(cfg, params, batch=B, max_len=S, prefill_budget=budget,
                       device=dev, plain=True)
@@ -2215,7 +2269,40 @@ def phase_serve(torch, dev, cfg) -> dict:
     # and the device's busy share of the wall time (counts already read)
     device_profile(torch, lambda: eng.run(requests()), "serve trace")
     return {"counts": counts, "tokens": tokens, "seconds": wall,
-            "tokens_per_s": tokens / wall, "logits_rel_l2": rel}
+            "tokens_per_s": tokens / wall, "logits_rel_l2": rel,
+            "out_tokens": [r.out_tokens for r in reqs], "first_mixed": snap}
+
+
+def serve_requests(cfg, Request) -> list:
+    """Phase 8's trace: 12 requests, prompts of 64..1500 tokens arriving
+    every other step, 8..16 new tokens, from numpy seed 0."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    lens = np.linspace(64, 1500, 12).round().astype(int)
+    return [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
+                                               L).astype(np.int32),
+                    max_new_tokens=8 + (3 * i) % 9, arrival=2 * i)
+            for i, L in enumerate(lens)]
+
+
+def first_mixed_snapshot(eng, captured) -> dict:
+    """The captured first mixed step on the host, for phase 8l's ranks:
+    its inputs (the cache's rows up to the last one the step reads or
+    writes), its logits and the k/v rows it wrote."""
+    from repro_torch.models import lm
+    n, cache, tokens, active, kw = captured["inputs"]
+    run = lm.layer_runs(eng.cfg)[0].name
+    pos = cache["pos"]
+    rows = max([int(pos[b]) + 1 for b in range(len(pos)) if bool(active[b])]
+               + [o + eng.chunk_rows for o in kw["ch_offs"]])
+    return {"n": n, "pos": pos.cpu(), "tokens": tokens.cpu(),
+            "active": active.cpu(), "rows": rows,
+            "kw": {**kw, "ch_tokens": kw["ch_tokens"].cpu()},
+            "cache": {k: cache[run][k][:, :, :rows].cpu()
+                      for k in ("k", "v")},
+            "logits": captured["out"][0].cpu(),
+            "pf_logits": captured["out"][1].cpu(),
+            "written": {k: v.cpu() for k, v in captured["written"].items()}}
 
 
 def free_card(torch) -> None:
@@ -2223,6 +2310,210 @@ def free_card(torch) -> None:
     import gc
     gc.collect()
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Phase 8l: tensor-parallel serve, full-width granite-3-2b, ranks on one card
+# ---------------------------------------------------------------------------
+def shard_config(cfg, n: int):
+    """The config whose single-device decode graph is one shard's of n-way
+    tensor parallelism (H/n and Hkv/n heads, d_ff/n FFN columns, the head
+    dim kept): its members run at the shard's shapes."""
+    import dataclasses
+    return dataclasses.replace(cfg, num_heads=cfg.num_heads // n,
+                               num_kv_heads=cfg.num_kv_heads // n,
+                               d_ff=cfg.d_ff // n,
+                               head_dim=cfg.resolved_head_dim)
+
+
+def top2_steps(torch, logits) -> float:
+    """A logits row's top-2 gap in bf16 steps: units in the last place of
+    a bf16 number at the top logit's magnitude."""
+    top = logits.float().topk(2).values.tolist()
+    step = 2.0 ** (math.floor(math.log2(abs(top[0]) or 2.0 ** -126)) - 7)
+    return (top[0] - top[1]) / step
+
+
+def tp_rank(mesh, snap_path: str) -> dict:
+    """One rank of phase 8l, in a process of its own (``launch/mesh.py``
+    ``run_ranks``): phase 8's weights (the same seeded draw) sliced to the
+    rank's slab, the first mixed step of phase 8 again from its captured
+    cache rows of the rank's heads and its tokens (kernels, then plain
+    versions), then phase 8's trace served with the launch counters reset
+    just before and read just after, every token's top-2 gap recorded."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cuda, registry
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import PrefillBudget, Request, ServeEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    on_card = mesh.device_type == "cuda"
+    dev = (torch.device("cuda", torch.cuda.current_device()) if on_card
+           else torch.device("cpu"))
+    cfg = get_config(TP_ARCH)
+    budget = PrefillBudget(chunk_rows=C, max_coresident_chunks=2)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = lm.init(cfg, gen, device=dev)
+    eng = ServeEngine(cfg, params, batch=B, max_len=S, prefill_budget=budget,
+                      device=dev, mesh=mesh)
+    del params                          # the rank keeps its slab only
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    plain = ServeEngine(cfg, None, batch=B, max_len=S, prefill_budget=budget,
+                        device=dev, mesh=mesh, plain=True)
+    n, rank = eng.tp_shards, mesh.get_local_rank("model")
+    hk = cfg.num_kv_heads // n
+    heads = slice(rank * hk, (rank + 1) * hk)
+    run = lm.layer_runs(cfg)[0].name
+    snap = torch.load(snap_path, map_location=dev)
+    kw = snap["kw"]
+
+    def first_mixed(e):
+        cache = e._init_slot_cache()
+        for k in ("k", "v"):
+            cache[run][k][:, :, :snap["rows"]] = \
+                snap["cache"][k][..., heads, :]
+        cache["pos"] = snap["pos"].clone()
+        return e._cb_step(snap["n"])(eng._step_params, cache, snap["tokens"],
+                                     snap["active"], **kw)
+
+    out = first_mixed(eng)
+    teacher = {"decode": rel_l2(out[0], snap["logits"]),
+               "prefill": rel_l2(out[2], snap["pf_logits"])}
+    for k in ("k", "v"):
+        got = mixed_step_rows(torch, out[1][run][k], snap["pos"],
+                              snap["active"], kw, C)
+        teacher[f"{k} rows"] = rel_l2(got, snap["written"][k][..., heads, :])
+    pout = first_mixed(plain)
+    vs_plain = {"decode": rel_l2(out[0], pout[0]),
+                "prefill": rel_l2(out[2], pout[2])}
+    del snap, out, pout
+    gc.collect()
+
+    reqs = serve_requests(cfg, Request)
+    gaps: dict = {}
+    sample = eng._sample
+
+    def recorded(logits, greedy, req):
+        gaps.setdefault(req.rid, []).append(top2_steps(torch, logits))
+        return sample(logits, greedy, req)
+
+    eng._sample = recorded
+    kernels = registry()
+    if on_card:
+        torch.cuda.synchronize()
+    cuda.reset_counts(kernels)
+    t1 = time.perf_counter()
+    eng.run(reqs)
+    if on_card:
+        torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t1
+    st = eng.stats
+    return {"rank": rank, "backend": dist.get_backend(eng._tp_group),
+            "teacher": teacher, "vs_plain": vs_plain,
+            "tokens": [r.out_tokens for r in reqs], "gaps": gaps,
+            "stats": st.describe(),
+            "steps": st.decode_steps + st.prefill_only_steps,
+            "allreduces": (eng.allreduce_calls, eng.allreduce_bytes),
+            "peak_gib": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                         if on_card else 0.0),
+            "serve_s": serve_s, "rank_s": time.perf_counter() - t0,
+            "counts": {k.name: k.launches for k in kernels}}
+
+
+def tp_report(n: int, ranks: list, single_tokens: list) -> dict:
+    """Phase 8l's checks and printout for one shard count."""
+    r0 = ranks[0]
+    for r in ranks:
+        print(f"[tp{n}] rank {r['rank']}: backend {r['backend']}, first "
+              f"mixed step from phase 8's cache and tokens: rel L2 "
+              + ", ".join(f"{k} {v:.3e}" for k, v in r["teacher"].items())
+              + f" (limit {LOGITS_REL_L2}); against its plain version: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in r["vs_plain"].items())
+              + f"; peak {r['peak_gib']:.2f} GiB; served in "
+              f"{r['serve_s']:.3f}s, rank {r['rank_s']:.1f}s", flush=True)
+        check(all(v <= LOGITS_REL_L2 for v in r["teacher"].values()),
+              f"tp{n} rank {r['rank']}: first mixed step off one device's: "
+              f"{r['teacher']}")
+        check(all(v <= LOGITS_REL_L2 for v in r["vs_plain"].values()),
+              f"tp{n} rank {r['rank']}: first mixed step off its plain "
+              f"version: {r['vs_plain']}")
+        check(r["tokens"] == r0["tokens"] and r["stats"] == r0["stats"],
+              f"tp{n} rank {r['rank']} served other tokens or stats than "
+              "rank 0")
+        check(all(r["counts"][k] > 0 for k in SERVE_KERNELS),
+              f"tp{n} rank {r['rank']}: a kernel of the serve path never "
+              f"launched: {r['counts']}")
+    check(r0["stats"]["fused_mixed_steps"] > 0,
+          f"tp{n}: no fused launch carried a prefill chunk")
+    # agreement with one device: a request's first divergence must be a
+    # near-tie, its top-2 gap at most TP_TIE_STEPS bf16 steps
+    same = total = 0
+    firsts = []
+    for rid, (a, b) in enumerate(zip(r0["tokens"], single_tokens)):
+        total += len(b)
+        same += sum(x == y for x, y in zip(a, b))
+        i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if i is not None:
+            firsts.append((rid, i, r0["gaps"][rid][i]))
+    print(f"[tp{n}] tokens agreeing with one device: {same}/{total} "
+          f"({same / total:.3f}); first divergences (request, token, top-2 "
+          f"gap in bf16 steps): {firsts}", flush=True)
+    check(all(len(a) == len(b) for a, b in zip(r0["tokens"], single_tokens)),
+          f"tp{n}: a request served another number of tokens")
+    check(all(gap <= TP_TIE_STEPS for _r, _i, gap in firsts),
+          f"tp{n}: a first divergence from one device is no near-tie: "
+          f"{firsts}")
+    calls, nbytes = r0["allreduces"]
+    tokens = sum(len(t) for t in r0["tokens"])
+    print(f"[tp{n}] {r0['backend']}: {calls / r0['steps']:.1f} all-reduces "
+          f"and {nbytes / r0['steps'] / 2 ** 20:.2f} MiB a step a rank "
+          f"({r0['steps']} steps); {tokens} tokens in {r0['serve_s']:.3f}s "
+          f"({tokens / r0['serve_s']:.2f} tok/s; ranks share one card, so "
+          f"no measure of tensor-parallel speed); stats {r0['stats']}",
+          flush=True)
+    return {"counts": {k: sum(r["counts"][k] for r in ranks)
+                       for k in r0["counts"]},
+            "agreement": same / total, "firsts": firsts,
+            "teacher": [r["teacher"] for r in ranks],
+            "vs_plain": [r["vs_plain"] for r in ranks],
+            "allreduces_a_step": calls / r0["steps"],
+            "mib_a_step": nbytes / r0["steps"] / 2 ** 20,
+            "peak_gib": [r["peak_gib"] for r in ranks],
+            "tokens_per_s": tokens / r0["serve_s"], "backend": r0["backend"]}
+
+
+def phase_tp(torch, dev, cfg, serve) -> tuple[list[dict], dict]:
+    import tempfile
+
+    from repro_torch.launch.mesh import run_ranks
+
+    rows, runs = [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        snap_path = str(Path(tmp) / "first_mixed.pt")
+        torch.save(serve["first_mixed"], snap_path)
+        for n in TP_SHARDS:
+            # the members at the shard's shapes, in this process
+            rows += phase_kernels(torch, dev, shard_config(cfg, n),
+                                  path=f"tp{n}_serve", tag=f" tp{n}")
+            free_card(torch)
+            t0 = time.perf_counter()
+            ranks = run_ranks(tp_rank, n, (snap_path,), device_type="cuda",
+                              timeout=TP_TIMEOUT_S)
+            runs[n] = tp_report(n, ranks, serve["out_tokens"])
+            runs[n]["wall"] = time.perf_counter() - t0
+            print(f"[tp{n}] {n} ranks in {runs[n]['wall']:.1f}s", flush=True)
+    return rows, runs
 
 
 # ---------------------------------------------------------------------------
@@ -2604,12 +2895,7 @@ def phase_moe(torch, dev) -> tuple[list[dict], dict]:
           f"{time.perf_counter() - t0:.1f}s, "
           f"{torch.cuda.memory_allocated(dev) / 2 ** 30:.2f} GiB", flush=True)
     def requests():
-        rng = np.random.default_rng(0)
-        lens = np.linspace(64, 1500, 12).round().astype(int)
-        return [Request(rid=i, prompt=rng.integers(0, cfg.vocab_size,
-                                                   L).astype(np.int32),
-                        max_new_tokens=8 + (3 * i) % 9, arrival=2 * i)
-                for i, L in enumerate(lens)]
+        return serve_requests(cfg, Request)
 
     reqs = requests()
     captured = capture_first_mixed(eng)
@@ -4541,7 +4827,8 @@ def main() -> int:
     cfg = get_config("granite-3-2b")
     check(cfg.num_layers == 40 and cfg.d_model == 2048, "not full width")
     # 2b. paper suite, 3. serve kernels, 4. adamw, 5. measured plan,
-    # 6. update bundles, 6b. update+dW, 7. train, 8. serve, 8b. paged,
+    # 6. update bundles, 6b. update+dW, 7. train, 8. serve, 8l. tp,
+    # 8b. paged,
     # 8c. moe, 8d. ops, 8e. wavefront, 8f. fallback, 8g. layernorm,
     # 8h. recurrent, 8i. deepseek, 8j. xlstm, 8k. frontends;
     # each phase's wall time is printed before the report
@@ -4564,6 +4851,9 @@ def main() -> int:
     train = timed("train", phase_train, torch, dev, cfg, program)
     serve = timed("serve", phase_serve, torch, dev, cfg)
     free_card(torch)
+    tp_rows, tp = timed("tp", phase_tp, torch, dev, cfg, serve)
+    del serve["first_mixed"]
+    free_card(torch)
     paged_rows, paged = timed("paged", phase_paged, torch, dev, cfg)
     moe_rows, moe_run = timed("moe", phase_moe, torch, dev)
     ops_rows, ops_run = timed("ops", phase_ops, torch, dev, cfg)
@@ -4581,8 +4871,8 @@ def main() -> int:
     xl_rows, xl = timed("xlstm", phase_xlstm, torch, dev)
     free_card(torch)
     fe_rows, fe = timed("frontends", phase_frontends, torch, dev)
-    rows += (paged_rows + moe_rows + ops_rows + wave_rows + ln_rows + rg_rows
-             + ds_rows + xl_rows + fe_rows)
+    rows += (tp_rows + paged_rows + moe_rows + ops_rows + wave_rows + ln_rows
+             + rg_rows + ds_rows + xl_rows + fe_rows)
     print("[phases] wall s: " + ", ".join(f"{k} {v:.1f}"
                                          for k, v in walls.items()))
 
@@ -4590,6 +4880,7 @@ def main() -> int:
     names = {k.name: k for k in registry()}
     runs = {"serve": serve["counts"], "train": train["counts"],
             "update_dw": update_dw["counts"],
+            **{f"tp{n}_serve": r["counts"] for n, r in tp.items()},
             "paper": paper_run["counts"], "paged": paged["counts"],
             "moe": moe_run["counts"], "ops": ops_run["counts"],
             "wavefront": wave["counts"], "fallback": fallback["counts"],
@@ -4629,6 +4920,17 @@ def main() -> int:
           f"separated {update_dw['separated_ms']:.4f} ms, bound "
           f"{update_dw['bound_ms']:.4f} ms ({smi})")
     print(f"[serve] tokens/s {serve['tokens_per_s']:.3f} ({smi})")
+    for n, r in tp.items():
+        worst_plain = max(max(t.values()) for t in r["vs_plain"])
+        print(f"[tp{n}] first mixed step from one device's cache, worst "
+              f"rel L2 {max(max(t.values()) for t in r['teacher']):.3e}, "
+              f"against plain {worst_plain:.3e}; tokens agreeing with one "
+              f"device {r['agreement']:.3f}, first divergences "
+              f"{r['firsts']}; {r['allreduces_a_step']:.1f} "
+              f"all-reduces, {r['mib_a_step']:.2f} MiB a step a rank "
+              f"({r['backend']}); peak {max(r['peak_gib']):.2f} GiB a rank; "
+              f"{r['tokens_per_s']:.2f} tok/s with the ranks sharing the "
+              f"card; phase {r['wall']:.1f}s ({smi})")
     print(f"[paged] tokens/s {paged['tokens_per_s']:.3f}, prefix hit rate "
           f"{paged['prefix_hit_rate']:.3f}, prefill chunks paged/contiguous "
           f"{paged['prefill_chunks']} ({smi})")

@@ -210,7 +210,8 @@ def _cached(cache: sc.ScheduleCache, key: str, variants,
 def search(variants: Sequence, *, vmem_budget: int = VMEM_BUDGET,
            measure: Optional[Callable] = None, top_k: int = 3,
            cd_budget: Optional[int] = None, auto_shrink: bool = True,
-           cache: Optional[sc.ScheduleCache] = None) -> SearchResult:
+           cache: Optional[sc.ScheduleCache] = None,
+           mesh_tag: str = "") -> SearchResult:
     """Two-stage schedule search over schedules x bundle variants x
     working-set caps.  ``variants``: one bundle or a list of alternative
     bundles; a single over-budget bundle grows shrunk-block variants
@@ -220,7 +221,10 @@ def search(variants: Sequence, *, vmem_budget: int = VMEM_BUDGET,
     on at most ``top_k + cd_budget`` candidates; ``cd_budget`` defaults to
     4 measured / 24 cost-model evaluations.  ``cache``: a hit returns the
     recorded schedule without searching (``SEARCH_COUNT`` does not
-    move)."""
+    move).  ``mesh_tag`` (``"<axis>:<extent>"``) marks a search for one
+    shard of a tensor-parallel mesh: part of the cache signature, so a
+    sharded plan never resolves a single-device schedule, nor the other
+    way round."""
     global SEARCH_COUNT
     variants = _expand_variants(_as_variants(variants), vmem_budget,
                                 auto_shrink)
@@ -229,7 +233,7 @@ def search(variants: Sequence, *, vmem_budget: int = VMEM_BUDGET,
     key = None
     if cache is not None:
         key = sc.bundle_signature(variants[0], vmem_budget=vmem_budget,
-                                  mode=mode)
+                                  mode=mode, mesh_tag=mesh_tag)
         hit = _cached(cache, key, variants, vmem_budget)
         if hit is not None:
             return hit

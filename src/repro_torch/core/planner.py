@@ -187,18 +187,21 @@ def _contract_chains(graph: Sequence[GraphOp]) -> tuple[GraphOp, ...]:
 
 def _bundle_search(bundle: Sequence[OpSpec],
                    memo: dict[frozenset, autotuner.SearchResult],
-                   cache: Optional[ScheduleCache]) -> autotuner.SearchResult:
+                   cache: Optional[ScheduleCache],
+                   mesh_tag: str = "") -> autotuner.SearchResult:
     """Autotune a bundle, memoized per member-name set within one plan."""
     key = frozenset(op.name for op in bundle)
     if key not in memo:
-        memo[key] = autotuner.search(tuple(bundle), cache=cache)
+        memo[key] = autotuner.search(tuple(bundle), cache=cache,
+                                     mesh_tag=mesh_tag)
     return memo[key]
 
 
 def _bundle_cost(bundle: Sequence[OpSpec],
                  memo: dict[frozenset, autotuner.SearchResult],
-                 cache: Optional[ScheduleCache]) -> float:
-    return _bundle_search(bundle, memo, cache).best.est.t_hfused
+                 cache: Optional[ScheduleCache],
+                 mesh_tag: str = "") -> float:
+    return _bundle_search(bundle, memo, cache, mesh_tag).best.est.t_hfused
 
 
 def _measured_speedup(res: autotuner.SearchResult, bundle: Sequence[OpSpec],
@@ -246,22 +249,26 @@ def _starves_unseeded(graph, ops, clo, used: set[str],
 def plan(graph: Sequence[GraphOp], *, min_gain_pct: float = 2.0,
          allow_same_bound: bool = False, max_ways: int = 2,
          measure: Optional[Callable] = None,
-         cache: Optional[ScheduleCache] = None) -> FusionPlan:
+         cache: Optional[ScheduleCache] = None,
+         mesh_tag: str = "") -> FusionPlan:
     """Build <= ``max_ways``-way fusion bundles over the independent ops
     (epilogue chains contracted first).  ``measure``: profiling callable
     (``core/timing.make_measure``) for the accepted bundles' schedules and
-    measured gains; ``cache``: every search consults it first."""
+    measured gains; ``cache``: every search consults it first.
+    ``mesh_tag`` (``"<axis>:<extent>"``) marks a plan over one shard's op
+    shapes of a tensor-parallel mesh: it keys every cached schedule, so a
+    sharded replan resolves only sharded entries."""
     graph = _contract_chains(graph)
     ops = {g.op.name: g for g in graph}
     memo: dict[frozenset, autotuner.SearchResult] = {}
     batch = cache.batched() if cache is not None else contextlib.nullcontext()
     with batch:
         return _plan_inner(graph, ops, memo, min_gain_pct, allow_same_bound,
-                           max_ways, measure, cache)
+                           max_ways, measure, cache, mesh_tag)
 
 
 def _plan_inner(graph, ops, memo, min_gain_pct, allow_same_bound, max_ways,
-                measure, cache) -> FusionPlan:
+                measure, cache, mesh_tag="") -> FusionPlan:
     clo = _reachable(ops)
     mem = sorted((g.op for g in graph if g.op.bound == "memory"),
                  key=lambda o: -o.t_native)
@@ -291,7 +298,7 @@ def _plan_inner(graph, ops, memo, min_gain_pct, allow_same_bound, max_ways,
         c = min(partners, key=lambda o: abs(o.t_native - m.t_native))
         bundle = [m, c]
 
-        t_now = _bundle_cost(bundle, memo, cache)
+        t_now = _bundle_cost(bundle, memo, cache, mesh_tag)
         while len(bundle) < max_ways:
             names_now = tuple(b.name for b in bundle)
             pool = [g.op for g in graph
@@ -305,7 +312,8 @@ def _plan_inner(graph, ops, memo, min_gain_pct, allow_same_bound, max_ways,
             if not pool:
                 break
             scored = [(t_now + native_time(x)
-                       - _bundle_cost(bundle + [x], memo, cache), x)
+                       - _bundle_cost(bundle + [x], memo, cache, mesh_tag),
+                       x)
                       for x in pool]
             marginal, x = max(scored, key=lambda s: s[0])
             if marginal <= (min_gain_pct / 100.0) * native_time(x):
@@ -314,12 +322,12 @@ def _plan_inner(graph, ops, memo, min_gain_pct, allow_same_bound, max_ways,
             t_now = t_now + native_time(x) - marginal
 
         if measure is None:
-            res = _bundle_search(bundle, memo, cache)
+            res = _bundle_search(bundle, memo, cache, mesh_tag)
         else:
             # measured final tuning (its own cache mode: the measured
             # schedule may differ from the cost-model one)
             res = autotuner.search(tuple(bundle), measure=measure,
-                                   cache=cache)
+                                   cache=cache, mesh_tag=mesh_tag)
         gain = res.best.est.speedup_pct()
         names = tuple(b.name for b in bundle)
         measured_pct = (None if measure is None

@@ -2,9 +2,9 @@
 
 The port's own copy of the reference's ``src/repro/core/schedule_cache.py``:
 entries keyed by an exact *bundle signature* (op names, grids, operand
-shapes/dtypes/block shapes, FLOP/byte counts, the working-set budget and
-the scoring mode; the reference's mesh tag comes with tensor parallelism,
-ROADMAP item 5), an LRU side table (``meta``/``clock``)
+shapes/dtypes/block shapes, FLOP/byte counts, the working-set budget, the
+scoring mode and, for a plan of one tensor-parallel shard, the mesh tag),
+an LRU side table (``meta``/``clock``)
 bounded by ``max_entries``, ``batched()`` to defer disk writes over a whole
 plan, a merge of concurrent writers on save, and a corrupt or stale file
 read as an empty cache.
@@ -38,10 +38,17 @@ def _dtype_name(dtype) -> str:
 
 
 def bundle_signature(ops: Sequence[OpSpec], *, vmem_budget: int,
-                     mode: str = "costmodel") -> str:
+                     mode: str = "costmodel", mesh_tag: str = "") -> str:
     """Exact identity of a tuning problem: everything the search outcome
-    can depend on, nothing it cannot (the plain functions, the members)."""
+    can depend on, nothing it cannot (the plain functions, the members).
+
+    ``mesh_tag`` names the mesh a sharded plan tunes one shard for
+    (``"model:4"``: the axis and its extent).  Shard-local shapes alone
+    can equal an unsharded graph's (8 heads on 2 shards, 4 heads on one),
+    so the tag is part of the identity."""
     parts = [f"torch-v{CACHE_VERSION}", mode, str(int(vmem_budget))]
+    if mesh_tag:
+        parts.append(f"mesh[{mesh_tag}]")
     for op in ops:
         operands = ",".join(
             "{}:{}:{}".format("x".join(map(str, o.shape)),

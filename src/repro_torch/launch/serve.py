@@ -30,7 +30,11 @@ layers fit one card: ``--scale full --hand-wired``); ``--layers N`` keeps
 the first N block kinds (``cut_depth``).  The two frontend configs
 (``internvl2-1b``, ``musicgen-medium``) are refused with the engines'
 reason (``prompt_refusal``: token prompts only, as the reference's engines
-fail on them); ``lm.prefill`` and ``lm.decode_step`` serve them.  The
+fail on them); ``lm.prefill`` and ``lm.decode_step`` serve them.
+``--mesh-shape N`` serves tensor-parallel: the launcher starts N ranks
+(``launch/mesh.py``), each a process serving the trace with its share of
+the heads, and prints rank 0's report; ``--expect-sharded-parity`` then
+serves the trace on one device and fails unless every stream matches.  The
 flags keep the
 reference launcher's names and checks; the port plans by default, and
 ``--plan-fusion`` names that default.
@@ -47,6 +51,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import run_ranks
 from repro_torch.models import lm
 from repro_torch.serve.engine import (PrefillBudget, Request, ServeEngine,
                                       prompt_refusal)
@@ -146,6 +151,17 @@ def main(argv=None):
                     help="fail unless the prefix cache served >=1 request")
     ap.add_argument("--kv-snapshot", default=None, metavar="PATH",
                     help="write the final KVPool snapshot as JSON")
+    ap.add_argument("--mesh-shape", type=int, default=0, metavar="N",
+                    help="tensor-parallel serve: N ranks of a 1-D mesh, "
+                         "each a process serving the trace with its heads' "
+                         "share of the weights and KV cache (gloo ranks; "
+                         "on one card they share it)")
+    ap.add_argument("--shard-axis", default="model",
+                    help="mesh axis name the sharded leaves partition over "
+                         "(default: model)")
+    ap.add_argument("--expect-sharded-parity", action="store_true",
+                    help="also serve the same trace on a single device and "
+                         "fail unless every token stream matches")
     ap.add_argument("--seed", type=int, default=0)
     path = ap.add_mutually_exclusive_group()
     path.add_argument("--plan-fusion", dest="plan_fusion",
@@ -174,7 +190,54 @@ def main(argv=None):
         ap.error("--kv-blocks/--kv-slot-blocks/--expect-prefix-hits/"
                  "--kv-snapshot require --kv-block-size > 0")
 
+    if args.mesh_shape > 1 and not args.plan_fusion:
+        ap.error("--mesh-shape requires --plan-fusion (only the executed "
+                 "continuous step runs under shard_map)")
+    if args.expect_sharded_parity and args.mesh_shape <= 1:
+        ap.error("--expect-sharded-parity requires --mesh-shape > 1")
+
     dev = resolve_device(args.device)
+    if args.mesh_shape > 1:
+        # every rank serves the same trace; rank 0 reports
+        print(f"[sharded] {args.mesh_shape}-way tensor-parallel serve over "
+              f"mesh axis {args.shard_axis!r} ({dev.type} ranks)")
+        outs = run_ranks(_serve_rank, args.mesh_shape, (args,),
+                         axis=args.shard_axis, device_type=dev.type)
+        bad = [r for r, o in enumerate(outs)
+               if o["tokens"] != outs[0]["tokens"]]
+        if bad:
+            raise SystemExit(f"[sharded] FAIL: ranks {bad} served other "
+                             "tokens than rank 0")
+        report = outs[0]
+        print(f"[sharded] {report['allreduces'][0]} all-reduces, "
+              f"{report['allreduces'][1]} bytes a rank")
+    else:
+        report = serve_once(args, dev)
+    _print_report(args, report)
+    if args.expect_sharded_parity:
+        # the same trace on one device; every stream must match
+        ref = serve_once(args, dev, say=lambda *a: None)
+        bad = [rid for rid, (a, b) in enumerate(zip(ref["tokens"],
+                                                     report["tokens"]))
+               if a != b]
+        if bad:
+            raise SystemExit("[sharded] FAIL: sharded token streams "
+                             f"diverge from single-device for rids {bad}")
+        print(f"[sharded] token-for-token parity with single-device "
+              f"across {len(report['tokens'])} requests")
+
+
+def _serve_rank(mesh, args) -> dict:
+    rank = mesh.get_local_rank(args.shard_axis)
+    return serve_once(args, resolve_device(args.device or mesh.device_type),
+                      mesh=mesh, say=print if rank == 0 else
+                      (lambda *a: None))
+
+
+def serve_once(args, dev, mesh=None, say=print) -> dict:
+    """Build the config, weights and engine ``args`` ask for (one rank of
+    ``mesh`` when given), run the trace and return what the launcher
+    reports; ``say`` prints the plan and the checks made before the run."""
     cfg = get_config(args.arch)
     if args.scale == "smoke":
         cfg = cfg.reduced()
@@ -207,18 +270,20 @@ def main(argv=None):
                              paged_kv=args.kv_block_size > 0,
                              kv_block_size=args.kv_block_size or 16,
                              kv_blocks=args.kv_blocks,
-                             kv_slot_blocks=args.kv_slot_blocks)
+                             kv_slot_blocks=args.kv_slot_blocks,
+                             mesh=mesh, shard_axis=args.shard_axis)
     except ValueError as e:
         # a refused engine (e.g. a planned LayerNorm engine on the card):
         # its reason, which names the opt-in, and exit status 1
         raise SystemExit(f"[serve] {cfg.name}: {e}") from None
+    del params                 # a tensor-parallel rank keeps its slab only
     if engine.fusion_plan is not None:
-        print("[plan-fusion] decode-step bundles:")
+        say("[plan-fusion] decode-step bundles:")
         for row in engine.fusion_plan.summary():
-            print(f"  {row}")
-    print("[plan-fusion] decode step "
-          + ("EXECUTES through the plan->program executor (core/executor)"
-             if engine.executed else "is hand-wired (lm.decode_step)"))
+            say(f"  {row}")
+    say("[plan-fusion] decode step "
+        + ("EXECUTES through the plan->program executor (core/executor)"
+           if engine.executed else "is hand-wired (lm.decode_step)"))
     if args.expect_stitched:
         from repro_torch.core.stitch import CHAIN_SEP
         if not engine.executed:
@@ -231,7 +296,7 @@ def main(argv=None):
         if not chains:
             raise SystemExit("[stitch] FAIL: no epilogue chain in any "
                              "fused launch of the decode program")
-        print(f"[stitch] chains in fused launches: {', '.join(chains)}")
+        say(f"[stitch] chains in fused launches: {', '.join(chains)}")
     if args.expect_moe_fused:
         if cfg.moe is None:
             raise SystemExit("[moe] FAIL: --expect-moe-fused on a dense "
@@ -247,41 +312,54 @@ def main(argv=None):
             raise SystemExit("[moe] FAIL: the grouped expert GMM is not "
                              "co-resident in any fused launch of the "
                              "decode program")
-        print("[moe] expert GMM co-resident in fused launch: "
-              + "; ".join("+".join(ms) for ms in bundles))
+        say("[moe] expert GMM co-resident in fused launch: "
+            + "; ".join("+".join(ms) for ms in bundles))
     reqs = build_requests(cfg, args)
     t0 = time.perf_counter()
     engine.run(reqs)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    dt = time.perf_counter() - t0
-    total_new = sum(len(r.out_tokens) for r in reqs)
-    print(f"served {len(reqs)} requests, {total_new} tokens in {dt:.2f}s "
-          f"({total_new / dt:.1f} tok/s) on {dev}")
-    st = engine.stats
+    seconds = time.perf_counter() - t0
+    return {"arch": cfg.name, "moe": cfg.moe is not None, "device": str(dev),
+            "tokens": [r.out_tokens for r in reqs], "seconds": seconds,
+            "stats": engine.stats, "kv_block_size": (engine.kv_block_size
+                                                     if engine.paged_kv
+                                                     else 0),
+            "allreduces": (engine.allreduce_calls, engine.allreduce_bytes),
+            "kv_snapshot": (engine.kv_pool.snapshot() if args.kv_snapshot
+                            else None)}
+
+
+def _print_report(args, report: dict) -> None:
+    tokens = report["tokens"]
+    total_new = sum(len(t) for t in tokens)
+    dt = report["seconds"]
+    print(f"served {len(tokens)} requests, {total_new} tokens in {dt:.2f}s "
+          f"({total_new / dt:.1f} tok/s) on {report['device']}")
+    st = report["stats"]
     if args.scheduling == "continuous":
         print(f"[slots] {st.describe()}")
-    if cfg.moe is not None and st.expert_hits:
+    if report["moe"] and st.expert_hits:
         print(f"[moe] expert hits {st.expert_hits} "
               f"(skew {st.expert_skew:.2f}), "
               f"{st.load_shed_steps} load-shed steps")
-    if args.kv_block_size > 0:
-        print(f"[paged-kv] block_size {engine.kv_block_size}, peak "
+    if report["kv_block_size"]:
+        print(f"[paged-kv] block_size {report['kv_block_size']}, peak "
               f"{st.blocks_in_use} blocks in use, "
               f"prefix_hit_rate {st.prefix_hit_rate:.0%} "
               f"({st.prefix_hits} hits, {st.prefix_tokens_reused} "
               f"tokens reused), {st.evictions} evictions")
     if args.kv_snapshot:
         with open(args.kv_snapshot, "w") as fh:
-            json.dump(engine.kv_pool.snapshot(), fh, indent=2)
+            json.dump(report["kv_snapshot"], fh, indent=2)
         print(f"[paged-kv] pool snapshot -> {args.kv_snapshot}")
     if args.expect_prefix_hits:
         if st.prefix_hit_rate <= 0:
             raise SystemExit("[paged-kv] FAIL: no request was served from "
                              "shared prefix blocks (prefix_hit_rate == 0)")
         print(f"[paged-kv] prefix cache hit {st.prefix_hits} request(s)")
-    for r in reqs[:3]:
-        print(f"  req {r.rid}: {r.out_tokens}")
+    for rid, t in enumerate(tokens[:3]):
+        print(f"  req {rid}: {t}")
 
 
 if __name__ == "__main__":

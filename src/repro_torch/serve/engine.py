@@ -62,9 +62,12 @@ Differences from the reference, by design:
     seeded by ``rng_seed``, so only greedy decoding matches the reference
     token for token;
   * ``plan_fusion`` defaults to True: the port's engine plans and executes
-    unless the hand-wired path is asked for.
-
-Tensor parallelism is not ported yet: asking for it raises with the reason.
+    unless the hand-wired path is asked for;
+  * tensor-parallel serve (``mesh=``): each shard is one process of a
+    ``torch.distributed`` group holding its own slab of the weights and
+    the KV cache, and the row-split projections are summed with
+    ``dist.all_reduce`` where the reference traces one ``shard_map``
+    program and psums (``launch/mesh.py`` starts the ranks).
 """
 from __future__ import annotations
 
@@ -75,12 +78,14 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ATTN, ModelConfig
 from repro_torch.core import executor, planner, stitch
 from repro_torch.core.binding import BindingRegistry, Slot
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import mesh_shape, tp_shard_params
 from repro_torch.kernels import elementwise
 from repro_torch.kernels.decode_attention import decode_attention_op
 from repro_torch.kernels.matmul import matmul_1d_op
@@ -353,10 +358,6 @@ def prompt_refusal(cfg: ModelConfig) -> Optional[str]:
             "and lm.decode_step (ROADMAP §3)")
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP)")
-
-
 class ServeEngine:
     """Continuous-batching server over the executed, planned decode step
     (``scheduling="continuous"``, ``plan_fusion=True``: the default), or
@@ -384,7 +385,22 @@ class ServeEngine:
     ``kv_block_size`` rows (default: every slot's full capacity plus one
     sentinel block per slot), each slot mapping up to ``kv_slot_blocks``
     pages (default: ``max_len`` rounded up to 128); the pool and its prefix
-    cache persist across ``run()`` calls."""
+    cache persist across ``run()`` calls.
+
+    ``mesh``: a ``DeviceMesh`` (``launch/mesh.py`` ``make_debug_mesh``)
+    whose ``shard_axis`` has extent n > 1 makes this engine one rank of
+    n-way tensor-parallel serve, each rank a process of the mesh's group
+    running the same trace.  Only the executed continuous step runs
+    sharded: the rank keeps its slab of ``params``
+    (``distributed/sharding.tp_shard_params``: H/n query heads, Hkv/n KV
+    heads and d_ff/n FFN columns), plans and launches its own shard-local
+    program (the plan's cache signature carries ``"<axis>:<n>"``), holds
+    Hkv/n heads of the KV cache (contiguous or paged), and sums the
+    row-split W_o and W_out products over the axis with
+    ``torch.distributed.all_reduce`` in the activations' dtype.  The slot
+    manager, positions, stats and every sampled token are replicated on
+    every rank.  The engine runs where the mesh does (``device_type``);
+    ``device``, if given, must agree."""
 
     def __init__(self, cfg: ModelConfig, params, *, batch: int = 8,
                  max_len: int = 512, rng_seed: int = 0,
@@ -396,12 +412,48 @@ class ServeEngine:
                  kv_block_size: int = 16,
                  kv_slot_blocks: Optional[int] = None,
                  kv_blocks: Optional[int] = None,
-                 mesh=None, device=None, plain: bool = False):
+                 mesh=None, shard_axis: str = "model", device=None,
+                 plain: bool = False):
         if scheduling not in ("continuous", "wavefront"):
             raise ValueError(f"scheduling {scheduling!r} "
                              "(continuous or wavefront)")
-        if mesh is not None:
-            raise _not_ported("tensor-parallel serve (mesh=)")
+        # tensor-parallel serve: the reference's refusals, with its texts
+        self.mesh = mesh
+        self.shard_axis = shard_axis
+        self.tp_shards = 1
+        n_tp = mesh_shape(mesh).get(shard_axis, 1) if mesh is not None else 1
+        if n_tp > 1:
+            if scheduling != "continuous" or not plan_fusion:
+                raise ValueError(
+                    "tensor-parallel serve requires scheduling='continuous' "
+                    "and plan_fusion=True (only the executed continuous "
+                    "step runs under shard_map)")
+            reason = executable_decode_supported(cfg)
+            if reason is not None:
+                raise ValueError("tensor-parallel serve: config not "
+                                 f"executor-supported ({reason})")
+            if cfg.is_moe:
+                raise ValueError(
+                    "tensor-parallel serve: MoE expert weights are "
+                    "expert-major, not head/column-sharded — serve MoE "
+                    "single-device (expert parallelism is a ROADMAP item)")
+            for what, dim in (("num_heads", cfg.num_heads),
+                              ("num_kv_heads", cfg.num_kv_heads),
+                              ("d_ff", cfg.d_ff)):
+                if dim % n_tp:
+                    raise ValueError(
+                        f"tensor-parallel serve: {what}={dim} is not "
+                        f"divisible by mesh axis {shard_axis!r} extent "
+                        f"{n_tp}")
+            self.tp_shards = n_tp
+            if device is None:
+                device = mesh.device_type
+            elif torch.device(device).type != mesh.device_type:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"({mesh.device_type})")
+        self._mesh_tag = (f"{shard_axis}:{self.tp_shards}"
+                          if self.tp_shards > 1 else "")
+        self.allreduce_calls = self.allreduce_bytes = 0
         self.cfg = cfg
         self.batch = batch
         self.max_len = max_len
@@ -458,6 +510,18 @@ class ServeEngine:
             raise ValueError(f"plan_fusion: {hand_reason} — pass "
                              "plan_fusion=False (serve CLI: --hand-wired) to "
                              "serve through lm.decode_step")
+        # the executed continuous step decodes with _step_params: the params
+        # on one device, this rank's slab under tensor parallelism (the only
+        # params such an engine keeps)
+        self._tp_group = None
+        self._step_params = params
+        if self.tp_shards > 1:
+            self._tp_group = mesh.get_group(shard_axis)
+            if params is not None:
+                self._step_params = tp_shard_params(
+                    params, mesh.get_local_rank(shard_axis), self.tp_shards,
+                    cfg=cfg)
+            params = self._step_params
         self.params = params
         self.stitch_epilogues = stitch_epilogues
         self.prefill_budget = prefill_budget or PrefillBudget()
@@ -549,13 +613,16 @@ class ServeEngine:
             ffn_rows = prefill_rows
         budget = budget or self.prefill_budget
         cfg = self.cfg
-        d, H, Hkv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
-        D = cfg.resolved_head_dim
+        d, D = cfg.d_model, cfg.resolved_head_dim
+        # tensor parallel: the graph is ONE SHARD's (local head counts and
+        # FFN widths); d_model stays replicated, so no row count changes
+        tp = self.tp_shards
+        H, Hkv = cfg.num_heads // tp, cfg.num_kv_heads // tp
         dt = self.dtype
         S = self.cache_len if self.paged_kv else self._aligned_len()
         B = self.batch
         bt = (self.kv_blocks, self.kv_block_size) if self.paged_kv else None
-        ffn_in = _ffn_in_width(cfg)
+        ffn_in = _ffn_in_width(cfg) // tp
 
         norm1 = dataclasses.replace(rmsnorm_op(R=B, d=d, dtype=dt, bm=B),
                                     name="decode_norm1")
@@ -605,7 +672,7 @@ class ServeEngine:
                                   act=cfg.activation if gated else "gelu",
                                   gated=gated)
             else:
-                ffn_out = cfg.d_ff
+                ffn_out = cfg.d_ff // tp
                 proj = dataclasses.replace(
                     matmul_1d_op(M=B, K=d, N=ffn_in, dtype=dt, bm=B),
                     name="ffn_proj")
@@ -664,7 +731,8 @@ class ServeEngine:
         if max_ways is None:
             max_ways = 2 + n
         return planner.plan(self.decode_graph(budget=budget, prefill_chunks=n),
-                            max_ways=max_ways, measure=measure, cache=cache)
+                            max_ways=max_ways, measure=measure, cache=cache,
+                            mesh_tag=self._mesh_tag)
 
     # ------------------------------------------------------------------
     # Executed decode step: plan -> program -> live slot state
@@ -692,7 +760,10 @@ class ServeEngine:
                           DeprecationWarning, stacklevel=2)
             ffn_rows = prefill_rows
         cfg = self.cfg
-        H, Hkv = cfg.num_heads, cfg.num_kv_heads
+        # tensor parallel: shard-local heads; the two row-split output
+        # projections' partial products are summed over the shard axis
+        tp = self.tp_shards
+        H, Hkv = cfg.num_heads // tp, cfg.num_kv_heads // tp
         D = cfg.resolved_head_dim
         dt = self.dtype
         B = self.batch
@@ -703,7 +774,8 @@ class ServeEngine:
                                   ffn_rows=ffn_rows)
         plan = planner.plan(graph, max_ways=max(3, 2 + prefill_chunks),
                             allow_same_bound=True, measure=self._measure,
-                            cache=self._schedule_cache)
+                            cache=self._schedule_cache,
+                            mesh_tag=self._mesh_tag)
 
         def qkv_put(state, qkv):
             qkv = qkv.to(dt)[:, None, :]                        # (B, 1, N)
@@ -738,13 +810,14 @@ class ServeEngine:
             return state
 
         def att_put(state, o):
-            attn_out = o.to(dt).reshape(B, H * D) @ state["w_o"]
+            attn_out = self._tp_sum(o.to(dt).reshape(B, H * D)
+                                    @ state["w_o"])
             state = dict(state)
             state["h_mid"] = state["x"] + attn_out               # residual 1
             return state
 
         def act_put(state, h_act):
-            ff = h_act.to(dt) @ state["w_out"]
+            ff = self._tp_sum(h_act.to(dt) @ state["w_out"])
             state = dict(state)
             state["x_out"] = state["h_mid"] + ff                 # residual 2
             return state
@@ -842,6 +915,17 @@ class ServeEngine:
                      outputs={"o": f"pf{i}_o", "m": f"pf{i}_m",
                               "l": f"pf{i}_l"})
         return executor.compile_plan(plan, bindings=reg, plain=self.plain)
+
+    def _tp_sum(self, partial: torch.Tensor) -> torch.Tensor:
+        """A row-split projection's partial products summed over the shard
+        axis in their own dtype (the reference's psum), in place; the
+        identity on one device."""
+        if self.tp_shards == 1:
+            return partial
+        dist.all_reduce(partial, group=self._tp_group)
+        self.allreduce_calls += 1
+        self.allreduce_bytes += partial.numel() * partial.element_size()
+        return partial
 
     def _layer_state(self, p, kv, x, pos, act) -> dict:
         """State of ONE layer of the executed program: ``p`` the layer's
@@ -968,14 +1052,19 @@ class ServeEngine:
             if self._arena is None:
                 run = lm.layer_runs(self.cfg)[0]
                 shape = (self.kv_blocks, self.kv_block_size,
-                         self.cfg.num_kv_heads, self.cfg.resolved_head_dim)
+                         self.cfg.num_kv_heads // self.tp_shards,
+                         self.cfg.resolved_head_dim)
                 self._arena = {run.name: {
                     k: torch.zeros(shape, dtype=self.dtype,
                                    device=self.device)
                     for k in ("k", "v")}}
             cache = dict(self._arena)
         else:
-            cache = lm.init_cache(self.cfg, self.batch, self.cache_len,
+            # a tensor-parallel rank holds its Hkv/n heads
+            local = dataclasses.replace(
+                self.cfg, num_kv_heads=self.cfg.num_kv_heads // self.tp_shards,
+                head_dim=self.cfg.resolved_head_dim)
+            cache = lm.init_cache(local, self.batch, self.cache_len,
                                   device=self.device)
         cache["pos"] = torch.zeros(self.batch, dtype=torch.int32,
                                    device=self.device)
@@ -998,13 +1087,17 @@ class ServeEngine:
         (B, kv_slot_blocks) int32 table on the device (paged);
         ``ch_slots``/``ch_offs``/``ch_valid`` are host ints, ``ch_tokens``
         an (n, C) int tensor; MoE returns the layer-summed (E,) counts of
-        decoding slots' routed tokens last."""
+        decoding slots' routed tokens last.  Under tensor parallelism the
+        step runs on the rank's heads and ``params`` is its slab; each
+        chunk's W_o and FFN-out products are all-reduced like the decode
+        side's."""
         cfg = self.cfg
         d = cfg.d_model
         run = lm.layer_runs(cfg)[0]
         dt = self.dtype
         n = n_chunks
-        H, Hkv = cfg.num_heads, cfg.num_kv_heads
+        H, Hkv = cfg.num_heads // self.tp_shards, \
+            cfg.num_kv_heads // self.tp_shards
         D = cfg.resolved_head_dim
         C = self.chunk_rows
         paged = self.paged_kv
@@ -1062,15 +1155,16 @@ class ServeEngine:
             new_chs = []
             for i in range(n):
                 o = state[f"pf{i}_o"].to(dt)                 # (C, H, D)
-                xm = chs[i] + o.reshape(C, -1) @ p["attn"]["w_o"]
+                xm = chs[i] + self._tp_sum(o.reshape(C, -1)
+                                           @ p["attn"]["w_o"])
                 h2 = layers.apply_norm(cfg, p["norm2"], xm[None])
                 if is_moe:
                     # the chunk's rows route jointly (T = C), as the
                     # reference's lm._apply_ffn does
                     ff = lm._apply_ffn(cfg, p, h2)[0][0]
                 else:
-                    ff = _mlp_from_h(cfg, h2[0] @ p["mlp"]["w_in"],
-                                     p["mlp"]["w_out"])
+                    ff = self._tp_sum(_mlp_from_h(
+                        cfg, h2[0] @ p["mlp"]["w_in"], p["mlp"]["w_out"]))
                 new_chs.append(xm + ff)
             return state["x_out"], new_chs, state.get("expert_counts")
 
@@ -1216,6 +1310,7 @@ class ServeEngine:
                     "this engine was built with reject_overlong=True (drop "
                     "the flag to admit it in chunks)")
         self.stats = ServeStats(batch=self.batch)
+        self.allreduce_calls = self.allreduce_bytes = 0
         # FIFO by arrival step, submission order breaking ties
         waiting = sorted(requests, key=lambda r: r.arrival)
         if self.executed:
@@ -1388,13 +1483,13 @@ class ServeEngine:
                         pref[b]["req"].prompt[off:off + ch_valid[j]],
                         np.int32)
                 ret = self._cb_step(n)(
-                    self.params, cache, tokens, active_t, ch_slots=sel,
+                    self._step_params, cache, tokens, active_t, ch_slots=sel,
                     ch_offs=ch_offs, ch_valid=ch_valid,
                     ch_tokens=torch.from_numpy(ch_tok).to(dev), **kw)
                 logits, cache, pf_logits = ret[:3]
             else:
-                ret = self._cb_step(0)(self.params, cache, tokens, active_t,
-                                       **kw)
+                ret = self._cb_step(0)(self._step_params, cache, tokens,
+                                       active_t, **kw)
                 logits, cache = ret[:2]
             if is_moe:
                 stats.add_expert_hits(ret[-1].tolist())

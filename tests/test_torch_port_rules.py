@@ -84,14 +84,19 @@ def test_entry_points_need_a_device_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(mesh=object()), NotImplementedError, "not ported"),
+    (dict(mesh=SimpleNamespace(mesh_dim_names=("model",), shape=(2,),
+                               device_type="cpu"),
+          scheduling="wavefront"), ValueError,
+     "tensor-parallel serve requires scheduling='continuous' and "
+     "plan_fusion=True"),
     (dict(scheduling="wavefront", paged_kv=True), ValueError,
      "paged_kv requires scheduling='continuous' and plan_fusion=True"),
     (dict(plan_fusion=False, paged_kv=True), ValueError,
      "the paged kernels run only on the executed chunked path")])
 def test_unported_paths_raise(kw, exc, match):
-    """Tensor parallelism is not ported; the paged arena refuses the
-    wavefront and hand-wired paths with the reference's text."""
+    """Tensor-parallel serve and the paged arena refuse the wavefront and
+    hand-wired paths with the reference's texts (tensor parallelism runs
+    the executed continuous step only)."""
     cfg = get_config("granite-3-2b").reduced()
     with pytest.raises(exc, match=match):
         engine.ServeEngine(cfg, None, batch=2, max_len=48, device="cpu",
@@ -101,14 +106,19 @@ def test_unported_paths_raise(kw, exc, match):
 # Public names of ported reference modules that the port does not have yet:
 # (module, name) -> the ROADMAP queue 1 item that brings it.
 NAMES_TO_PORT = {
-    **{("models/layers.py", n): "item 5 (param specs for the dry run)"
+    **{("models/layers.py", n): "item 5c (param specs for the dry run)"
        for n in ("attn_spec", "embed_spec", "layernorm_spec", "mlp_spec",
                  "norm_spec", "rmsnorm_spec")},
-    **{("models/lm.py", n): "item 5 (param specs for the dry run)"
+    **{("models/lm.py", n): "item 5c (param specs for the dry run)"
        for n in ("block_spec", "cache_logical_axes", "param_specs")},
-    ("launch/train.py", "build"): "item 5 (build(mesh=))",
-    ("train/optimizer.py", "abstract_init"): "item 5 (the dry run)",
-    **{("train/fault_tolerance.py", n): "item 5 (HeartbeatMonitor)"
+    ("launch/train.py", "build"): "item 5c (build(mesh=))",
+    ("train/optimizer.py", "abstract_init"): "item 5c (the dry run)",
+    ("launch/mesh.py", "make_production_mesh"): "item 5c (the dry run)",
+    ("distributed/sharding.py", "shard"):
+        "item 5b (the distributed trainer's constraints)",
+    **{("distributed/sharding.py", n): "item 5c (the dry run's shardings)"
+       for n in ("sharding_tree", "param_shardings", "replicated")},
+    **{("train/fault_tolerance.py", n): "item 5b (HeartbeatMonitor)"
        for n in ("HeartbeatMonitor", "HeartbeatMonitor.beat",
                  "HeartbeatMonitor.dead_hosts",
                  "HeartbeatMonitor.mark_suspect",
